@@ -1,0 +1,102 @@
+#!/usr/bin/env python3
+"""Where the port's serving time goes on the card.
+
+    python3 scripts/profile_port_serving.py
+
+Serves the four phantom images of ``chip_smoke.py`` through the full-width
+``SegEngine`` (calibrated U-Net, ``from_weights(0.05)`` schedule, adaptive
+budget classes) once to warm up, then once under ``torch.profiler``, and
+prints: host wall time, device busy time (the union of kernel and copy
+intervals on the card) and idle share, device time by kernel name, and the
+MMA kernel's launches.  The last line is a JSON summary.  Needs a CUDA card.
+"""
+from __future__ import annotations
+
+import dataclasses
+import json
+import subprocess
+import sys
+import time
+from collections import defaultdict
+from pathlib import Path
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "src"))
+
+
+def _busy_us(intervals) -> float:
+    """Length of the union of (start, end) intervals."""
+    total, cur_s, cur_e = 0.0, None, None
+    for s, e in sorted(intervals):
+        if cur_e is None or s > cur_e:
+            if cur_e is not None:
+                total += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    if cur_e is not None:
+        total += cur_e - cur_s
+    return total
+
+
+def main() -> int:
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    if not torch.cuda.is_available():
+        print("profile_port_serving: no CUDA card", file=sys.stderr)
+        return 1
+    from repro_torch.kernels import mma_matmul as mk
+    from repro_torch.models import unet
+    from repro_torch.segserve import SegEngine
+    from repro_torch.segserve.synth import phantom_image
+
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+    cfg = unet.UNetConfig(quant_mode="mma_int8")
+    params = unet.init_params(0, cfg)
+    sched = unet.schedule_from_params(params, 0.05)
+    scfg = dataclasses.replace(cfg, plane_schedule=sched.planes)
+    images = [phantom_image(160, 128, cfg.in_ch, seed=0), phantom_image(160, 128, cfg.in_ch, seed=1),
+              phantom_image(80, 80, cfg.in_ch), phantom_image(200, 152, cfg.in_ch)]
+    SegEngine(scfg, params).run(images)  # warm-up: build, allocator, cuBLAS handles
+    torch.cuda.synchronize()
+
+    engine = SegEngine(scfg, params)
+    mk.launches = 0
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        engine.run(images)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    launches = mk.launches
+
+    by_name: dict[str, list[float]] = defaultdict(lambda: [0, 0.0])
+    intervals = []
+    for evt in prof.events():
+        if evt.device_type != DeviceType.CUDA:
+            continue
+        s, e = evt.time_range.start, evt.time_range.end
+        intervals.append((s, e))
+        by_name[evt.name][0] += 1
+        by_name[evt.name][1] += (e - s) / 1e3
+    if not intervals:
+        raise RuntimeError("the profiler recorded no device activity")
+    busy_ms = _busy_us(intervals) / 1e3
+    mma_ms = sum(ms for name, (_, ms) in by_name.items() if "mma_horner_kernel" in name)
+    print(f"{card}")
+    print(f"[profile] {card} | run() of 4 images: host wall {wall_ms:.2f} ms, device busy "
+          f"{busy_ms:.2f} ms, idle share {1 - busy_ms / wall_ms:.3f}, MMA kernel {mma_ms:.2f} ms "
+          f"over {launches} launches")
+    for name, (n, ms) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:15]:
+        print(f"[profile] {ms:9.3f} ms {n:6d}x  {name[:110]}")
+    print(json.dumps(dict(card=card, wall_ms=wall_ms, busy_ms=busy_ms,
+                          idle_share=1 - busy_ms / wall_ms, mma_kernel_ms=mma_ms,
+                          mma_launches=launches, device_events=len(intervals))))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,57 @@
+"""Int8 quantization (FBGEMM-style symmetric) used by the MMA datapath.
+
+Symmetric int8, per-output-channel scales for weights, a per-tensor (or
+per-row) dynamic scale for activations.  The order of operations matches the
+reference exactly — ``x / scale``, round half to even, clip, int8 — so the
+same float input gives the same int8 values and the same scale bits.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+INT8_MAX = 127.0
+
+
+class QTensor(NamedTuple):
+    """A quantized tensor: ``values * scale ~= original`` (scale broadcasts)."""
+
+    values: torch.Tensor  # int8
+    scale: torch.Tensor  # float32, broadcastable against values
+
+
+def _quantize(x: torch.Tensor, amax: torch.Tensor) -> QTensor:
+    scale = torch.clamp(amax, min=1e-8) / INT8_MAX
+    q = torch.clamp(torch.round(x / scale), -127, 127).to(torch.int8)
+    return QTensor(q, scale.to(torch.float32))
+
+
+def quantize_weights(w: torch.Tensor, *, channel_axis: int = -1) -> QTensor:
+    """Symmetric per-channel int8 quantization (channel = output features)."""
+    reduce_axes = tuple(a for a in range(w.ndim) if a != channel_axis % w.ndim)
+    return _quantize(w, torch.amax(torch.abs(w), dim=reduce_axes, keepdim=True))
+
+
+def quantize_acts(x: torch.Tensor, *, batch_axis: int | None = None) -> QTensor:
+    """Symmetric dynamic int8 quantization of activations.
+
+    Default is one per-tensor scale.  ``batch_axis`` switches to one scale
+    per index along that axis (every other axis reduced), so one batch row's
+    magnitudes never move another row's quantization grid.
+    """
+    if batch_axis is None:
+        amax = torch.amax(torch.abs(x))
+    else:
+        reduce_axes = tuple(a for a in range(x.ndim) if a != batch_axis % x.ndim)
+        amax = torch.amax(torch.abs(x), dim=reduce_axes, keepdim=True)
+    return _quantize(x, amax)
+
+
+def dequantize(q: QTensor) -> torch.Tensor:
+    return q.values.to(torch.float32) * q.scale
+
+
+def quantized_matmul_scale(x_scale: torch.Tensor, w_scale: torch.Tensor) -> torch.Tensor:
+    """Output scale of an int8 x int8 -> int32 matmul."""
+    return x_scale * torch.squeeze(w_scale)

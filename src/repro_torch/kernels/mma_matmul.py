@@ -1,0 +1,166 @@
+"""The merged multiply-add (MMA) kernel: a hand-written CUDA kernel for
+Hopper (``csrc/mma_matmul.cu``), its plain PyTorch version, and the variant
+table between them.
+
+The kernel replaces the TPU kernel ``repro/kernels/mma_matmul.py::
+_mma_kernel`` (unscaled form): (M, K) int8 @ (K, N) int8 -> (M, N) int32 as
+an MSB-first Horner over ``planes`` bit planes of the offset activation,
+with the residual held in registers — x and w are read from global memory
+once per output tile, plane partials never leave the SM.
+
+Build: at first use, ``nvcc`` compiles the checkout's source into a shared
+library with a plain C interface under ``csrc/build/`` (named by a hash of
+source and flags), which is loaded with ``ctypes``.
+
+Dispatch is by the tensor's device, nothing else: a CUDA tensor launches the
+kernel (or raises), a CPU tensor runs :func:`mma_matmul_plain`.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+import torch
+
+from repro_torch.core import bitplane
+
+N_BITS = 8
+
+SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "mma_matmul.cu"
+BUILD_DIR = SOURCE.parent / "build"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+#: Kernel launches since the last reset — incremented where the CUDA kernel
+#: is launched and nowhere else, so a run can show its main path went
+#: through the kernel.  Callers reset it by assigning 0.
+launches = 0
+
+
+def _nvcc() -> str:
+    cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found (looked in $CUDA_HOME/bin and PATH)")
+    return found
+
+
+@functools.lru_cache(maxsize=None)
+def build() -> tuple[Path, str]:
+    """Compile the kernel library (once per source and flags); returns its
+    path and the compiler's ``-Xptxas -v`` report (registers, shared memory,
+    spills of every instantiation)."""
+    tag = hashlib.sha256(SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    lib = BUILD_DIR / f"libmma_matmul-{tag}.so"
+    log = BUILD_DIR / f"libmma_matmul-{tag}.log"
+    if not lib.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = BUILD_DIR / f"{lib.name}.{os.getpid()}.tmp"
+        proc = subprocess.run(
+            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
+            capture_output=True, text=True,
+        )
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed with code {proc.returncode}:\n{proc.stdout}{proc.stderr}"
+            )
+        log.write_text(proc.stdout + proc.stderr)
+        os.replace(tmp, lib)  # atomic: a concurrent build never sees half a library
+    return lib, log.read_text()
+
+
+@functools.lru_cache(maxsize=None)
+def _library() -> ctypes.CDLL:
+    path, _ = build()
+    lib = ctypes.CDLL(str(path))
+    lib.mma_matmul_launch.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    lib.mma_matmul_launch.restype = ctypes.c_int
+    lib.mma_matmul_error_string.argtypes = [ctypes.c_int]
+    lib.mma_matmul_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def mma_matmul_plain(
+    x: torch.Tensor, w: torch.Tensor, *, planes: int = N_BITS, signed: bool = True
+) -> torch.Tensor:
+    """The kernel's plain PyTorch version, on any device: the same MSB-first
+    Horner recurrence on whole tensors (``bitplane.bitplane_matmul``, exact
+    through float64 products)."""
+    return bitplane.bitplane_matmul(x, w, planes=planes, signed=signed)
+
+
+def _check(x: torch.Tensor, w: torch.Tensor) -> None:
+    if x.dtype != torch.int8 or w.dtype != torch.int8:
+        raise TypeError(f"expected int8 operands, got {x.dtype} and {w.dtype}")
+    if x.ndim != 2 or w.ndim != 2 or x.shape[1] != w.shape[0]:
+        raise ValueError(f"expected (M, K) @ (K, N), got {tuple(x.shape)} @ {tuple(w.shape)}")
+    if x.device != w.device:
+        raise ValueError(f"operands on {x.device} and {w.device}")
+    if not (x.is_contiguous() and w.is_contiguous()):
+        raise ValueError("operands must be contiguous")
+    if max(x.shape[0], x.shape[1], w.shape[1]) >= 2**31:
+        raise ValueError(f"dimension past int32: {tuple(x.shape)} @ {tuple(w.shape)}")
+
+
+def _launch(x: torch.Tensor, w: torch.Tensor, planes: int, signed: bool) -> torch.Tensor:
+    global launches
+    _check(x, w)
+    if x.device.type == "cpu":
+        return mma_matmul_plain(x, w, planes=planes, signed=signed)
+    if x.device.type != "cuda":
+        raise ValueError(f"no MMA kernel for device {x.device}")
+    m, k = x.shape
+    n = w.shape[1]
+    out = torch.empty((m, n), dtype=torch.int32, device=x.device)
+    if m == 0 or n == 0:
+        return out
+    with torch.cuda.device(x.device):
+        err = _library().mma_matmul_launch(
+            x.data_ptr(), w.data_ptr(), out.data_ptr(), m, k, n, planes, int(signed),
+            torch.cuda.current_stream().cuda_stream,
+        )
+    if err != 0:
+        msg = _library().mma_matmul_error_string(err).decode()
+        raise RuntimeError(f"mma_matmul kernel launch failed: {msg} (cudaError {err})")
+    launches += 1
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def plane_variant(planes: int, signed: bool = True):
+    """The kernel specialization for one plane budget.
+
+    ``planes`` and ``signed`` are template parameters of the CUDA kernel:
+    a 4-plane variant issues half the multiply-adds of the 8-plane one, so
+    a schedule that gives a layer 4 planes runs a smaller kernel, not a
+    masked full-width one.  ``plane_variant.cache_info()`` exposes the
+    variant table for tests and benchmarks.
+    """
+    if not (1 <= planes <= N_BITS):
+        raise ValueError(f"planes {planes} outside 1..{N_BITS}")
+
+    def variant(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+        return _launch(x, w, planes, signed)
+
+    variant.__name__ = f"mma_matmul_p{planes}{'' if signed else 'u'}"
+    return variant
+
+
+def mma_matmul_kernel(
+    x: torch.Tensor, w: torch.Tensor, *, planes: int = N_BITS, signed: bool = True
+) -> torch.Tensor:
+    """(M, K) int8 @ (K, N) int8 -> (M, N) int32, fused bit-plane Horner.
+
+    Contiguous operands on one device.  Ragged shapes need no padding: the
+    kernel masks its edges.  Dispatches through the variant table.
+    """
+    return plane_variant(planes, signed)(x, w)

@@ -1,0 +1,177 @@
+"""The port's MMA kernel module and KPB conv against the JAX reference.
+
+On the CPU the kernel wrapper runs its plain version (the tensor lies on
+the CPU); it must agree bit for bit with the reference's Pallas kernel in
+interpret mode and with its masked-matmul oracle, on the reference's own
+sweep.  The CUDA kernel itself is held against the plain version on the card
+in ``test_torch_gpu.py``.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ops as jops
+from repro.kernels import ref as jref
+from repro_torch.kernels import mma_matmul as mk
+from repro_torch.kernels import ops, ref
+
+SWEEP = [
+    (4, 32, 8), (32, 128, 32), (128, 512, 128), (37, 100, 65),
+    (1, 7, 3), (256, 1024, 256), (64, 300, 90),
+]
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _torch_threads():
+    torch.set_num_threads(2)
+
+
+def _rand_i8(rng, shape):
+    return rng.integers(-128, 128, shape).astype(np.int8)
+
+
+@pytest.mark.parametrize("m,k,n", SWEEP)
+@pytest.mark.parametrize("planes", [8, 5, 2])
+def test_plain_matmul_vs_pallas_and_oracle(m, k, n, planes):
+    rng = np.random.default_rng(m * 7919 + k * 31 + n + planes)
+    x, w = _rand_i8(rng, (m, k)), _rand_i8(rng, (k, n))
+    got = ops.mma_matmul(x, w, planes=planes, device="cpu").numpy()
+    want_kernel = np.asarray(jops.mma_matmul(jnp.asarray(x), jnp.asarray(w), planes=planes,
+                                             interpret=True))
+    want_oracle = np.asarray(jref.mma_matmul_ref(jnp.asarray(x), jnp.asarray(w), planes=planes))
+    np.testing.assert_array_equal(got, want_kernel)
+    np.testing.assert_array_equal(got, want_oracle)
+
+
+@pytest.mark.parametrize("planes", range(1, 9))
+def test_plane_truncation_matches_oracles(planes):
+    rng = np.random.default_rng(planes)
+    x, w = _rand_i8(rng, (16, 64)), _rand_i8(rng, (64, 16))
+    got = mk.mma_matmul_kernel(torch.from_numpy(x), torch.from_numpy(w), planes=planes)
+    np.testing.assert_array_equal(
+        got.numpy(), np.asarray(jref.mma_matmul_ref(jnp.asarray(x), jnp.asarray(w), planes=planes))
+    )
+    np.testing.assert_array_equal(
+        ref.mma_matmul_ref(torch.from_numpy(x), torch.from_numpy(w), planes=planes).numpy(),
+        got.numpy(),
+    )
+
+
+def test_unsigned_mode_vs_pallas():
+    rng = np.random.default_rng(3)
+    u8 = rng.integers(0, 256, (16, 64)).astype(np.uint8)
+    xi = u8.view(np.int8)  # the kernel takes the byte, read as uint8
+    w = _rand_i8(rng, (64, 16))
+    got = ops.mma_matmul(xi, w, signed=False, device="cpu").numpy()
+    want = u8.astype(np.int64) @ w.astype(np.int64)
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(
+        got, np.asarray(jops.mma_matmul(jnp.asarray(xi), jnp.asarray(w), signed=False,
+                                        interpret=True))
+    )
+
+
+def test_batched_leading_dims():
+    rng = np.random.default_rng(4)
+    x, w = _rand_i8(rng, (2, 3, 40)), _rand_i8(rng, (40, 16))
+    got = ops.mma_matmul(x, w, device="cpu").numpy()
+    want = np.asarray(jref.mma_matmul_ref(jnp.asarray(x.reshape(6, 40)), jnp.asarray(w)))
+    np.testing.assert_array_equal(got, want.reshape(2, 3, 16))
+
+
+def test_tensor_planes_fold_into_data():
+    """A tensor budget (one entry of a budget array) runs the 8-plane
+    variant on the truncated operand: same values as the static budget."""
+    rng = np.random.default_rng(5)
+    x, w = _rand_i8(rng, (24, 96)), _rand_i8(rng, (96, 48))
+    for b in (3, 6):
+        got = ops.mma_matmul(x, w, planes=torch.tensor(b, dtype=torch.int32), device="cpu")
+        np.testing.assert_array_equal(
+            got.numpy(), ops.mma_matmul(x, w, planes=b, device="cpu").numpy()
+        )
+
+
+@pytest.mark.parametrize("stride", [1, 2])
+@pytest.mark.parametrize("planes", [8, 4])
+def test_conv2d_vs_reference_oracle(stride, planes):
+    rng = np.random.default_rng(10 * stride + planes)
+    x, w = _rand_i8(rng, (2, 12, 12, 16)), _rand_i8(rng, (3, 3, 16, 24))
+    got = ops.mma_conv2d(x, w, stride=stride, planes=planes, device="cpu").numpy()
+    want = np.asarray(jref.mma_conv2d_ref(jnp.asarray(x), jnp.asarray(w), stride=stride,
+                                          planes=planes))
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(
+        ref.mma_conv2d_ref(torch.from_numpy(x), torch.from_numpy(w), stride=stride,
+                           planes=planes).numpy(),
+        want,
+    )
+
+
+@pytest.mark.parametrize("pad_mode", ["zero", "edge", "reflect"])
+@pytest.mark.parametrize("impl", ["kernel", "horner", "cascade", "int8"])
+def test_conv2d_pad_modes_vs_reference(pad_mode, impl):
+    rng = np.random.default_rng(11)
+    x, w = _rand_i8(rng, (1, 7, 5, 8)), _rand_i8(rng, (3, 3, 8, 12))
+    got = ops.mma_conv2d(x, w, pad_mode=pad_mode, planes=6, impl=impl, device="cpu").numpy()
+    want = np.asarray(jops.mma_conv2d(jnp.asarray(x), jnp.asarray(w), pad_mode=pad_mode,
+                                      planes=6, impl="xla"))
+    np.testing.assert_array_equal(got, want)
+
+
+def test_pad_nhwc_matches_numpy_on_tiny_axes():
+    """Reflect padding of a 1- or 2-wide axis follows numpy (the reference
+    pads with ``jnp.pad``): the U-Net's deepest level can be that small."""
+    for h, w in [(1, 1), (2, 1), (3, 2)]:
+        x = np.arange(h * w * 2, dtype=np.float32).reshape(1, h, w, 2)
+        for mode in ("edge", "reflect"):
+            got = ops.pad_nhwc(torch.from_numpy(x), 1, mode).numpy()
+            np.testing.assert_array_equal(
+                got, np.pad(x, ((0, 0), (1, 1), (1, 1), (0, 0)), mode=mode)
+            )
+    with pytest.raises(ValueError):
+        ops.pad_nhwc(torch.zeros(1, 2, 2, 1), 1, "wrap")
+
+
+def test_plane_variants_are_cached():
+    rng = np.random.default_rng(6)
+    x, w = torch.from_numpy(_rand_i8(rng, (8, 32))), torch.from_numpy(_rand_i8(rng, (32, 8)))
+    mk.mma_matmul_kernel(x, w, planes=7)
+    before = mk.plane_variant.cache_info()
+    for _ in range(3):
+        mk.mma_matmul_kernel(x, w, planes=7)
+    after = mk.plane_variant.cache_info()
+    assert after.misses == before.misses
+    assert after.hits == before.hits + 3
+    assert mk.plane_variant(7, True).__name__ == "mma_matmul_p7"
+    with pytest.raises(ValueError):
+        mk.plane_variant(9)
+
+
+def test_kernel_wrapper_checks_operands():
+    x = torch.zeros((4, 8), dtype=torch.int8)
+    w = torch.zeros((8, 3), dtype=torch.int8)
+    with pytest.raises(TypeError):
+        mk.mma_matmul_kernel(x.to(torch.int32), w)
+    with pytest.raises(ValueError):
+        mk.mma_matmul_kernel(x, w[:7])
+    with pytest.raises(ValueError):
+        mk.mma_matmul_kernel(torch.zeros((8, 4), dtype=torch.int8).t(), w)
+
+
+def test_cpu_path_does_not_count_launches():
+    rng = np.random.default_rng(8)
+    before = mk.launches
+    ops.mma_matmul(_rand_i8(rng, (4, 8)), _rand_i8(rng, (8, 4)), device="cpu")
+    assert mk.launches == before
+
+
+def test_entry_points_without_device_raise_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device is valid")
+    x = np.zeros((4, 8), np.int8)
+    w = np.zeros((8, 4), np.int8)
+    with pytest.raises(RuntimeError, match="CUDA card"):
+        ops.mma_matmul(x, w)
+    with pytest.raises(RuntimeError, match="CUDA card"):
+        ops.mma_conv2d(np.zeros((1, 4, 4, 2), np.int8), np.zeros((3, 3, 2, 2), np.int8))
