@@ -7,25 +7,34 @@ Phases, in one process; any failure ends the run with a non-zero exit:
 
 1. Device: the card's name and power limit (``nvidia-smi``), then the build
    of every kernel from the checkout's sources, with ``-Xptxas -v``.
-2. Kernel vs plain version: the CUDA MMA kernel against its plain PyTorch
-   version on the card, bit for bit (``torch.equal``), on the reference's
-   kernel sweep, every (planes, signed) variant, and the main path's layer
-   shapes.
+2. Kernels vs plain versions: both CUDA MMA kernels (unscaled, int32 out;
+   scaled, with the fused dequant epilogue, float32 out) against their plain
+   PyTorch versions on the card, bit for bit (``torch.equal``), on the
+   reference's kernel sweep, every (planes, signed) variant, and the main
+   paths' shapes (the U-Net's conv layers, Yi-6B's decode linears).
 3. Forward: the full-width quantized U-Net (80x80x4, base 48, depth 3)
    under uniform 8 planes and a ``from_weights(0.05)`` schedule — the kernel
    path against the plain Horner path, every conv's int32 output equal; and
    the card against the CPU on a small input.
-4. Serving (the main path): ``SegEngine`` at full width with the
+4. Segmentation serving (main path 1): ``SegEngine`` at full width with the
    ``from_weights`` schedule and content-adaptive budget classes serves four
    phantom images through ``run()`` and once through ``serve_stream()``.
-   Kernel launches must equal 7 per micro-batch; logits must match the same
-   engine on the plain path.
-5. Times: the kernel at each layer shape of a 4-tile micro-batch (CUDA
-   events), its plain version, ``torch._int_mm`` as a library yardstick
+   Unscaled-kernel launches must equal 7 per micro-batch; logits must match
+   the same engine on the plain path.
+5. LM serving (main path 2): Yi-6B at full width (32 layers, random int8
+   weights drawn and quantized layer by layer on the card) under the
+   ``from_weights(0.05)`` schedule of its ``w_up`` weights serves four
+   requests through ``Engine.run``.  Scaled-kernel launches must equal 225
+   per decode call (32 x 7 linears + the head); every scaled linear of one
+   recorded decode call must equal the plain version bit for bit; that
+   call's logits are held against the same call on the plain Horner path.
+6. Times (CUDA events): each kernel at each main-path shape and per unit of
+   work (a 4-tile U-Net micro-batch; one LM decode call, replayed from the
+   recorded one), its plain version, a ``torch._int_mm`` library yardstick
    (timed only; the port never calls it), and the card's bound.
 
 The line before the last is a JSON object naming every kernel with its
-launches on the main path and its times; the last line is
+launches on its main path and its times; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 from __future__ import annotations
@@ -44,14 +53,27 @@ HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1979e12
 
 TILES_PER_BATCH = 4  # the engine's micro-batch
+LM_BATCH, LM_MAX_SEQ, LM_MAX_NEW = 4, 64, 4  # the LM engine's slots and budgets
 SWEEP = [(4, 32, 8), (32, 128, 32), (128, 512, 128), (37, 100, 65),
          (1, 7, 3), (256, 1024, 256), (64, 300, 90)]
+SCALED_SWEEP = [(16, 96, 40), (64, 256, 128), (3, 50, 7)]  # the reference's epilogue test
 
 # Logits of the kernel path and the plain path go through the same float
 # head on bitwise-equal conv outputs: equal up to the card's reduction order.
 LOGIT_ATOL = 1e-5
 # The card against the CPU: same integers, float head summed in another order.
 CPU_LOGIT_ATOL = 1e-4
+# Scaled kernel vs the Horner path's epilogue on the same int32 product:
+# (acc * xs) * ws against acc * (xs * ws), two roundings each — a few ulp.
+EPILOGUE_RTOL = 5e-7
+# LM logits, kernel path vs Horner path, relative to the largest logit.  The
+# kernel path quantizes activations with one scale per tensor, the Horner
+# path with one per batch row (as in the reference), so the two datapaths
+# run on different int8 grids and truncate different digits: on Yi-shaped
+# CPU models of 8 and 16 layers at 5 planes the gap was 0.31 and 0.36 of
+# the largest logit.  0.6 still fails a path that has lost its signal (two
+# unrelated logit vectors differ by more than 1).
+LM_LOGIT_REL = 0.6
 
 
 def check(cond: bool, msg: str) -> None:
@@ -87,6 +109,197 @@ def time_ms(torch, fn, reps: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
+def lm_decode_shapes(cfg):
+    """(name, K, N) of every distinct linear of one LM decode call."""
+    d, q, kv = cfg.d_model, cfg.n_heads * cfg.hd, cfg.n_kv_heads * cfg.hd
+    return [("wq/wo", d, q), ("wk/wv", d, kv), ("w_gate/w_up", d, cfg.d_ff),
+            ("w_down", cfg.d_ff, d), ("head", d, cfg.vocab)]
+
+
+def lm_serving(torch, np, dev, cfg):
+    """Main path 2: Yi-6B at full width served through ``Engine.run``.
+
+    Returns what the times need: the recorded decode call's scaled-kernel
+    calls and the path's launch counts."""
+    from repro_torch.configs.base import QuantConfig
+    from repro_torch.core import bitplane
+    from repro_torch.core.plane_schedule import PlaneSchedule
+    from repro_torch.kernels import mma_matmul as mk
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer
+    from repro_torch.obs.events import RecordingSink
+    from repro_torch.serve import Engine, Request
+
+    t0 = time.perf_counter()
+    params = transformer.init_params(0, cfg, device=dev, int8_min_dim=256)
+    torch.cuda.synchronize()
+    blocks = params["blocks"]
+    linears = [blocks["attn"][n] for n in ("wq", "wk", "wv", "wo")] + \
+        [blocks["mlp"][n] for n in ("w_gate", "w_up", "w_down")] + [params["head"]]
+    check(all("w_q" in p and "w" not in p for p in linears),
+          "a Yi-6B linear stayed in float after quantize_params_int8")
+    n_weights = sum(p["w_q"].numel() for p in linears)
+    print(f"[lm] Yi-6B params on the card in {time.perf_counter() - t0:.1f} s: "
+          f"{n_weights / 1e9:.3f} G int8 weights, "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    up = blocks["mlp"]["w_up"]["w_q"]
+    sched = PlaneSchedule.from_weights([up[l] for l in range(cfg.n_layers)], 0.05)
+    print(f"[lm] {sched.describe()}")
+    kcfg = cfg.replace(quant=QuantConfig(mode="mma_int8", impl="kernel",
+                                         plane_schedule=sched.planes))
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab, int(n)).astype(np.int32)
+               for n in rng.integers(4, 9, LM_BATCH)]
+    engine = Engine(kcfg, params, batch=LM_BATCH, max_seq=LM_MAX_SEQ, device=dev)
+    engine.obs = RecordingSink()
+
+    # Record the first decode step (every slot active, all prompts in the
+    # cache): its inputs, a copy of the cache before it, and every
+    # scaled-kernel call it makes.  Recording adds no launch.
+    record_at = sum(len(p) for p in prompts)
+    rec = {"calls": []}
+    decode, scaled = engine.decode_fn, ops.mma_matmul_scaled
+
+    def recording_scaled(x, w, xs, ws, **kw):
+        out = scaled(x, w, xs, ws, **kw)
+        rec["calls"].append((x, w, xs, ws, kw["planes"], out))
+        return out
+
+    def counted_decode(p, toks, cache, idx, extras):
+        n = rec.setdefault("n", 0)
+        rec["n"] = n + 1
+        if n != record_at:
+            return decode(p, toks, cache, idx, extras)
+        rec["args"] = (toks.copy(), {k: v.clone() for k, v in cache.items()}, idx.copy())
+        ops.mma_matmul_scaled = recording_scaled
+        try:
+            logits, cache = decode(p, toks, cache, idx, extras)
+        finally:
+            ops.mma_matmul_scaled = scaled
+        rec["logits"] = logits.clone()
+        return logits, cache
+
+    engine.decode_fn = counted_decode
+    mk.launches = 0
+    mk.scaled_launches = 0
+    t0 = time.perf_counter()
+    done = engine.run([Request(i, p, max_new=LM_MAX_NEW) for i, p in enumerate(prompts)])
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches, unscaled = mk.scaled_launches, mk.launches
+    calls = rec["n"]
+    per_call = 7 * cfg.n_layers + 1
+    check(per_call == 225, f"{per_call} linears per decode call, expected 225")
+    check(launches == per_call * calls,
+          f"{launches} scaled-kernel launches for {calls} decode calls, expected {per_call} each")
+    check(unscaled == 0, f"{unscaled} unscaled-kernel launches: a linear missed quantization")
+    check(len(done) == LM_BATCH and all(r.done and len(r.out) == LM_MAX_NEW for r in done),
+          "not every request finished with its token budget")
+    check(all(0 <= t < cfg.vocab for r in done for t in r.out), "a token outside the vocabulary")
+    steps = sum(1 for e in engine.obs.events if e.etype == "lm-step")
+    print(f"[lm] Engine.run: {len(done)} requests, prompts {[len(p) for p in prompts]}, "
+          f"{calls} decode calls ({record_at} prefill + {calls - record_at} step; "
+          f"{steps} lm-step events), {launches} scaled-kernel launches "
+          f"({launches // calls} per call), {wall_s:.2f} s host wall")
+    for r in sorted(done, key=lambda r: r.rid):
+        print(f"[lm] request {r.rid}: prompt {r.prompt.tolist()} -> tokens {r.out}")
+
+    # the recorded call: every scaled linear bit for bit against the plain
+    # version, and within a few ulp of the Horner path's epilogue
+    check(len(rec["calls"]) == per_call, f"{len(rec['calls'])} scaled calls recorded")
+    epi = 0.0
+    for x, w, xs, ws, planes, out in rec["calls"]:
+        k, n = w.shape
+        x2, o2 = x.reshape(-1, k), out.reshape(-1, n)
+        want = mk.mma_matmul_scaled_plain(x2, w, xs, ws, planes=planes)
+        check(torch.equal(o2, want), f"recorded call: scaled linear K={k} N={n} != plain")
+        horner = bitplane.bitplane_matmul(x2, w, planes=planes).to(torch.float32) \
+            * (xs.reshape(()) * ws.reshape(-1))
+        epi = max(epi, float(((o2 - horner).abs() / horner.abs().clamp(min=1e-30)).max()))
+    check(epi <= EPILOGUE_RTOL, f"recorded call: epilogue vs Horner order, rel {epi}")
+    toks, cache, idx = rec["args"]
+    hcfg = kcfg.replace(quant=dataclasses.replace(kcfg.quant, impl="horner"))
+    lh, _ = transformer.decode_step(params, toks, cache, idx, hcfg, device=dev)
+    lk = rec["logits"]
+    check(lk.shape == (LM_BATCH, 1, cfg.vocab) and bool(torch.isfinite(lk).all()),
+          f"recorded call: logits {tuple(lk.shape)} not finite or of the wrong shape")
+    lkf, lhf = lk.to(torch.float32), lh.to(torch.float32)
+    rel = float((lkf - lhf).abs().max() / lhf.abs().max())
+    agree = float((lkf.argmax(-1) == lhf.argmax(-1)).to(torch.float32).mean())
+    check(rel <= LM_LOGIT_REL, f"recorded call: logits kernel vs Horner differ by {rel} (rel)")
+    print(f"[lm] recorded decode call: {per_call} scaled linears bit-exact against the plain "
+          f"version, epilogue vs Horner order max rel {epi:.3g}; logits vs Horner path max rel "
+          f"{rel:.4f} (limit {LM_LOGIT_REL}), top-1 agreement {agree:.2f}, "
+          f"max |logit| {float(lhf.abs().max()):.3f}")
+    return dict(calls=rec["calls"], launches=launches, unscaled=unscaled, wall_s=wall_s,
+                decode_calls=calls)
+
+
+def lm_times(torch, dev, card, lm, decode_shapes):
+    """The scaled kernel's times: per decode shape at 8 planes, and per
+    decode call, replaying the recorded call's 225 kernel calls."""
+    from repro_torch.core import bitplane
+    from repro_torch.kernels import mma_matmul as mk
+
+    def library(x, w, xs, ws, planes):
+        """torch._int_mm on the truncated operand (M padded to 32 rows: it
+        wants M > 16), then the same epilogue."""
+        m, k = x.shape
+        xp = torch.zeros((max(32, -(-m // 8) * 8), k), dtype=torch.int8, device=dev)
+        xp[:m] = bitplane.truncate_to_planes(x, planes)
+        return lambda: torch._int_mm(xp, w)[:m].to(torch.float32) * xs.reshape(()) * ws.reshape(-1)
+
+    def bound(shapes):
+        nbytes = sum(m * k + k * n + 4 * n + 4 + 4 * m * n for m, k, n in shapes)
+        nops = sum(2 * m * k * n for m, k, n in shapes)
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, nops / INT8_OPS_PER_S * 1e3
+        return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations", nbytes, nops
+
+    g = torch.Generator().manual_seed(1)
+    per_shape = []
+    for name, k, n in decode_shapes:
+        m = LM_BATCH
+        x, w = rand_i8(torch, g, (m, k), dev), rand_i8(torch, g, (k, n), dev)
+        xs = torch.full((1,), 0.01, device=dev)
+        ws = (torch.rand(n, generator=g) * 0.01 + 1e-4).to(dev)
+        lib = library(x, w, xs, ws, 8)
+        check(torch.equal(lib(), mk.mma_matmul_scaled_kernel(x, w, xs, ws)),
+              f"{name}: library yardstick disagrees with the scaled kernel")
+        ms = time_ms(torch, lambda: mk.mma_matmul_scaled_kernel(x, w, xs, ws), reps=10)
+        plain_ms = time_ms(torch, lambda: mk.mma_matmul_scaled_plain(x, w, xs, ws), reps=3, warmup=1)
+        lib_ms = time_ms(torch, lib, reps=20)
+        b_ms, b_by, nbytes, nops = bound([(m, k, n)])
+        per_shape.append(dict(name=name, M=m, K=k, N=n, ms=ms, plain_ms=plain_ms,
+                              library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
+                              bytes=nbytes, ops=nops))
+        print(f"[time] {card} | mma_matmul_scaled {name} M={m} K={k} N={n} planes=8: kernel "
+              f"{ms:.4f} ms, plain {plain_ms:.4f} ms, torch._int_mm+scale {lib_ms:.4f} ms, "
+              f"bound {b_ms:.5f} ms ({b_by}), {nops / ms / 1e9:.1f} GOP/s")
+
+    calls = [(x.reshape(-1, w.shape[0]), w, xs, ws, planes) for x, w, xs, ws, planes, _ in lm["calls"]]
+    libs = [library(*c) for c in calls]
+    ms = time_ms(torch, lambda: [mk.mma_matmul_scaled_kernel(x, w, xs, ws, planes=p)
+                                 for x, w, xs, ws, p in calls], reps=3, warmup=1)
+    plain_ms = time_ms(torch, lambda: [mk.mma_matmul_scaled_plain(x, w, xs, ws, planes=p)
+                                       for x, w, xs, ws, p in calls], reps=1, warmup=1)
+    lib_ms = time_ms(torch, lambda: [f() for f in libs], reps=5)
+    b_ms, b_by, nbytes, nops = bound([(x.shape[0], w.shape[0], w.shape[1]) for x, w, *_ in calls])
+    print(f"[time] {card} | mma_matmul_scaled one decode call ({len(calls)} linears, the "
+          f"schedule's planes): kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+          f"torch._int_mm+scale {lib_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by}; "
+          f"{nbytes / 1e9:.3f} GB, {nops / 1e9:.1f} G int8 ops) | Engine.run host wall "
+          f"{lm['wall_s']:.2f} s for {lm['decode_calls']} decode calls")
+    return dict(
+        name="mma_matmul_scaled", route="cuda", source="src/repro_torch/csrc/mma_matmul.cu",
+        replaces="src/repro/kernels/mma_matmul.py:163", launches=lm["launches"],
+        max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+        library_ms=lib_ms,
+        work=f"one Yi-6B decode call at batch {LM_BATCH}: {len(calls)} linears at the "
+             f"schedule's planes, replayed from the served run",
+        lm_wall_s=lm["wall_s"], lm_decode_calls=lm["decode_calls"], per_shape=per_shape,
+    )
+
+
 def main() -> int:
     import torch
 
@@ -100,6 +313,7 @@ def main() -> int:
     sys.path.insert(0, str(SRC))
     import numpy as np
 
+    from repro_torch.configs import get_config
     from repro_torch.core import bitplane
     from repro_torch.kernels import mma_matmul as mk
     from repro_torch.kernels import ops
@@ -122,7 +336,7 @@ def main() -> int:
         if "Compiling entry" in line or "Used" in line or "spill" in line:
             print(f"[ptxas] {line.strip()}")
 
-    # ------------------------------------------- 2. kernel vs plain version
+    # ------------------------------------------ 2. kernels vs plain versions
     cfg = unet.UNetConfig(quant_mode="mma_int8")  # calibrated width, kernel datapath
     # the KPB matmul of each 3x3 conv at one 80x80 window: (name, M, K, N)
     names = ([f"enc{d}" for d in range(cfg.depth)] + ["bottleneck"]
@@ -132,6 +346,9 @@ def main() -> int:
     g = torch.Generator().manual_seed(0)
     max_err = 0
     n_cases = 0
+
+    scaled_err = 0.0
+    n_scaled = 0
 
     def compare(m, k, n, planes, signed=True):
         nonlocal max_err, n_cases
@@ -145,16 +362,42 @@ def main() -> int:
         check(torch.equal(got, want),
               f"kernel != plain at M={m} K={k} N={n} planes={planes} signed={signed}")
 
-    for m, k, n in SWEEP:
-        for planes in (8, 5, 2):
-            compare(m, k, n, planes)
-    for planes in range(1, 9):
-        for signed in (True, False):
-            compare(67, 129, 70, planes, signed)
+    def compare_scaled(m, k, n, planes, signed=True):
+        nonlocal scaled_err, n_scaled
+        x, w = rand_i8(torch, g, (m, k), dev), rand_i8(torch, g, (k, n), dev)
+        xs = (torch.rand(1, generator=g) * 0.1 + 1e-3).to(dev)
+        ws = (torch.rand(n, generator=g) * 0.01 + 1e-4).to(dev)
+        got = mk.mma_matmul_scaled_kernel(x, w, xs, ws, planes=planes, signed=signed)
+        want = mk.mma_matmul_scaled_plain(x, w, xs, ws, planes=planes, signed=signed)
+        torch.cuda.synchronize()
+        scaled_err = max(scaled_err, float((got - want).abs().max()) if got.numel() else 0.0)
+        n_scaled += 1
+        check(torch.equal(got, want),
+              f"scaled kernel != plain at M={m} K={k} N={n} planes={planes} signed={signed}")
+
+    for cmp in (compare, compare_scaled):
+        for m, k, n in SWEEP:
+            for planes in (8, 5, 2):
+                cmp(m, k, n, planes)
+        for planes in range(1, 9):
+            for signed in (True, False):
+                cmp(67, 129, 70, planes, signed)
+                cmp(3, 129, 70, planes, signed)  # the 16-row tile of small M
+    for m, k, n in SCALED_SWEEP:
+        for planes in (8, 5):
+            compare_scaled(m, k, n, planes)
     for _, m, k, n in layers:
         compare(m * TILES_PER_BATCH, k, n, 8)
         compare(m * TILES_PER_BATCH, k, n, 5)
-    print(f"[kernel] {n_cases} cases bit-exact against the plain version, max_abs_err {max_err}")
+    lm_cfg = get_config("yi_6b")
+    decode_shapes = lm_decode_shapes(lm_cfg)
+    for _, k, n in decode_shapes:
+        compare_scaled(LM_BATCH, k, n, 8)
+        compare_scaled(LM_BATCH, k, n, 5)
+    print(f"[kernel] mma_matmul: {n_cases} cases bit-exact against the plain version, "
+          f"max_abs_err {max_err}")
+    print(f"[kernel] mma_matmul_scaled: {n_scaled} cases bit-exact against the plain version, "
+          f"max_abs_err {scaled_err}")
 
     # ------------------------------------------------------- 3. forward
     params = unet.init_params(0, cfg)
@@ -201,7 +444,7 @@ def main() -> int:
     check(diff <= CPU_LOGIT_ATOL, f"card vs CPU logits differ by {diff}")
     print(f"[forward] 16x16 input, card vs CPU: 7 convs int32-equal, logits max diff {diff}")
 
-    # ---------------------------------------------- 4. serving (main path)
+    # ------------------------------- 4. segmentation serving (main path 1)
     scfg = dataclasses.replace(cfg, plane_schedule=sched.planes)
     images = [phantom_image(160, 128, cfg.in_ch, seed=0), phantom_image(160, 128, cfg.in_ch, seed=1),
               phantom_image(80, 80, cfg.in_ch), phantom_image(200, 152, cfg.in_ch)]
@@ -246,7 +489,10 @@ def main() -> int:
               f"{r.metered_gops_per_w:.2f} GOPS/W | host wall to done {done_ms[i]:.1f} ms "
               f"(serve_stream) | logits vs plain max diff {diff}")
 
-    # ---------------------------------------------------------- 5. times
+    # ---------------------------------------- 5. LM serving (main path 2)
+    lm = lm_serving(torch, np, dev, lm_cfg)
+
+    # ---------------------------------------------------------- 6. times
     per_shape = []
     for name, m1, k, n in layers:
         m = m1 * TILES_PER_BATCH
@@ -285,12 +531,14 @@ def main() -> int:
         bound_ms=max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops else "operations",
         library_ms=sum(r["library_ms"] for r in per_shape),
         work="one 4-tile micro-batch: the 7 conv shapes of an 80x80 window, planes 8",
-        per_shape=per_shape,
+        launches_lm=lm["unscaled"], per_shape=per_shape,
     )
     print(f"[time] {card} | mma_matmul one 4-tile forward: kernel {summary['ms']:.4f} ms, "
           f"plain {summary['plain_ms']:.4f} ms, torch._int_mm {summary['library_ms']:.4f} ms, "
           f"bound {summary['bound_ms']:.5f} ms ({summary['bound_by']})")
-    print(json.dumps({"kernels": [summary]}))
+    scaled_summary = lm_times(torch, dev, card, lm, decode_shapes)
+    scaled_summary["max_abs_err"] = scaled_err
+    print(json.dumps({"kernels": [summary, scaled_summary]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))
     return 0

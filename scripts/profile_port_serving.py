@@ -1,14 +1,19 @@
 #!/usr/bin/env python3
 """Where the port's serving time goes on the card.
 
-    python3 scripts/profile_port_serving.py
+    python3 scripts/profile_port_serving.py          # segmentation (U-Net)
+    python3 scripts/profile_port_serving.py --lm     # LM decode (Yi-6B)
 
-Serves the four phantom images of ``chip_smoke.py`` through the full-width
-``SegEngine`` (calibrated U-Net, ``from_weights(0.05)`` schedule, adaptive
-budget classes) once to warm up, then once under ``torch.profiler``, and
-prints: host wall time, device busy time (the union of kernel and copy
-intervals on the card) and idle share, device time by kernel name, and the
-MMA kernel's launches.  The last line is a JSON summary.  Needs a CUDA card.
+Default: serves the four phantom images of ``chip_smoke.py`` through the
+full-width ``SegEngine`` (calibrated U-Net, ``from_weights(0.05)``
+schedule, adaptive budget classes).  ``--lm``: serves ``chip_smoke.py``'s
+four requests through ``Engine.run`` on Yi-6B at full width (random int8
+weights from seed 0, ``from_weights(0.05)`` schedule of the ``w_up``
+weights, batch 4).  Either runs once to warm up, then once under
+``torch.profiler``, and prints: host wall time, device busy time (the union
+of kernel and copy intervals on the card) and idle share, device time by
+kernel name, and the MMA kernels' launches.  The last line is a JSON
+summary.  Needs a CUDA card.
 """
 from __future__ import annotations
 
@@ -38,6 +43,48 @@ def _busy_us(intervals) -> float:
     return total
 
 
+def _unet_run():
+    """The segmentation serving pass: a callable and its description."""
+    from repro_torch.models import unet
+    from repro_torch.segserve import SegEngine
+    from repro_torch.segserve.synth import phantom_image
+
+    cfg = unet.UNetConfig(quant_mode="mma_int8")
+    params = unet.init_params(0, cfg)
+    sched = unet.schedule_from_params(params, 0.05)
+    scfg = dataclasses.replace(cfg, plane_schedule=sched.planes)
+    images = [phantom_image(160, 128, cfg.in_ch, seed=0), phantom_image(160, 128, cfg.in_ch, seed=1),
+              phantom_image(80, 80, cfg.in_ch), phantom_image(200, 152, cfg.in_ch)]
+    return (lambda: SegEngine(scfg, params).run(images)), "SegEngine.run() of 4 images"
+
+
+def _lm_run():
+    """The LM serving pass (``chip_smoke.py``'s requests): a callable and
+    its description."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import QuantConfig
+    from repro_torch.core.plane_schedule import PlaneSchedule
+    from repro_torch.models import transformer
+    from repro_torch.serve import Engine, Request
+
+    cfg = get_config("yi_6b")
+    params = transformer.init_params(0, cfg, int8_min_dim=256)
+    up = params["blocks"]["mlp"]["w_up"]["w_q"]
+    sched = PlaneSchedule.from_weights([up[l] for l in range(cfg.n_layers)], 0.05)
+    kcfg = cfg.replace(quant=QuantConfig(mode="mma_int8", impl="kernel", plane_schedule=sched.planes))
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab, int(n)).astype(np.int32) for n in rng.integers(4, 9, 4)]
+
+    def serve():
+        reqs = [Request(i, p, max_new=4) for i, p in enumerate(prompts)]
+        return Engine(kcfg, params, batch=4, max_seq=64).run(reqs)
+
+    calls = sum(len(p) for p in prompts) + 4
+    return serve, f"Engine.run() of 4 Yi-6B requests ({calls} decode calls)"
+
+
 def main() -> int:
     import torch
     from torch.autograd import DeviceType
@@ -47,31 +94,23 @@ def main() -> int:
         print("profile_port_serving: no CUDA card", file=sys.stderr)
         return 1
     from repro_torch.kernels import mma_matmul as mk
-    from repro_torch.models import unet
-    from repro_torch.segserve import SegEngine
-    from repro_torch.segserve.synth import phantom_image
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
-    cfg = unet.UNetConfig(quant_mode="mma_int8")
-    params = unet.init_params(0, cfg)
-    sched = unet.schedule_from_params(params, 0.05)
-    scfg = dataclasses.replace(cfg, plane_schedule=sched.planes)
-    images = [phantom_image(160, 128, cfg.in_ch, seed=0), phantom_image(160, 128, cfg.in_ch, seed=1),
-              phantom_image(80, 80, cfg.in_ch), phantom_image(200, 152, cfg.in_ch)]
-    SegEngine(scfg, params).run(images)  # warm-up: build, allocator, cuBLAS handles
+    lm = "--lm" in sys.argv[1:]
+    serve, what = _lm_run() if lm else _unet_run()
+    serve()  # warm-up: build, allocator, cuBLAS handles
     torch.cuda.synchronize()
 
-    engine = SegEngine(scfg, params)
-    mk.launches = 0
+    mk.launches = mk.scaled_launches = 0
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        engine.run(images)
+        serve()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    launches = mk.launches
+    launches = {"mma_matmul": mk.launches, "mma_matmul_scaled": mk.scaled_launches}
 
     by_name: dict[str, list[float]] = defaultdict(lambda: [0, 0.0])
     intervals = []
@@ -87,12 +126,12 @@ def main() -> int:
     busy_ms = _busy_us(intervals) / 1e3
     mma_ms = sum(ms for name, (_, ms) in by_name.items() if "mma_horner_kernel" in name)
     print(f"{card}")
-    print(f"[profile] {card} | run() of 4 images: host wall {wall_ms:.2f} ms, device busy "
-          f"{busy_ms:.2f} ms, idle share {1 - busy_ms / wall_ms:.3f}, MMA kernel {mma_ms:.2f} ms "
+    print(f"[profile] {card} | {what}: host wall {wall_ms:.2f} ms, device busy "
+          f"{busy_ms:.2f} ms, idle share {1 - busy_ms / wall_ms:.3f}, MMA kernels {mma_ms:.2f} ms "
           f"over {launches} launches")
     for name, (n, ms) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:15]:
         print(f"[profile] {ms:9.3f} ms {n:6d}x  {name[:110]}")
-    print(json.dumps(dict(card=card, wall_ms=wall_ms, busy_ms=busy_ms,
+    print(json.dumps(dict(card=card, mode="lm" if lm else "unet", wall_ms=wall_ms, busy_ms=busy_ms,
                           idle_share=1 - busy_ms / wall_ms, mma_kernel_ms=mma_ms,
                           mma_launches=launches, device_events=len(intervals))))
     return 0

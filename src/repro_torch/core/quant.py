@@ -55,3 +55,28 @@ def dequantize(q: QTensor) -> torch.Tensor:
 def quantized_matmul_scale(x_scale: torch.Tensor, w_scale: torch.Tensor) -> torch.Tensor:
     """Output scale of an int8 x int8 -> int32 matmul."""
     return x_scale * torch.squeeze(w_scale)
+
+
+def quantize_params_int8(params, *, min_dim: int = 256):
+    """Serving transform: replace every linear ``{'w': (…, K, N)}`` whose last
+    two dims are >= ``min_dim`` with ``{'w_q': int8, 'w_scale': float32}``
+    (per-output-channel scales over the contraction dim, kept as a
+    ``(…, 1, N)`` axis).  Embeddings, norms, biases and small matrices stay
+    as they are.  Halves the weight bytes of bf16, the dominant term of
+    memory-bound decode."""
+
+    def walk(node):
+        if isinstance(node, dict):
+            w = node.get("w")
+            if isinstance(w, torch.Tensor) and w.ndim >= 2 \
+                    and w.shape[-1] >= min_dim and w.shape[-2] >= min_dim:
+                wf = w.to(torch.float32)
+                q = _quantize(wf, torch.amax(torch.abs(wf), dim=-2, keepdim=True))
+                out = {k: v for k, v in node.items() if k != "w"}
+                out["w_q"] = q.values
+                out["w_scale"] = q.scale
+                return out
+            return {k: walk(v) for k, v in node.items()}
+        return node
+
+    return walk(params)

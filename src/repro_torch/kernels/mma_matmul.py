@@ -1,12 +1,14 @@
 """The merged multiply-add (MMA) kernel: a hand-written CUDA kernel for
-Hopper (``csrc/mma_matmul.cu``), its plain PyTorch version, and the variant
-table between them.
+Hopper (``csrc/mma_matmul.cu``), its plain PyTorch versions, and the
+variant table between them.
 
 The kernel replaces the TPU kernel ``repro/kernels/mma_matmul.py::
-_mma_kernel`` (unscaled form): (M, K) int8 @ (K, N) int8 -> (M, N) int32 as
-an MSB-first Horner over ``planes`` bit planes of the offset activation,
-with the residual held in registers — x and w are read from global memory
-once per output tile, plane partials never leave the SM.
+_mma_kernel`` in both forms.  Unscaled: (M, K) int8 @ (K, N) int8 -> (M, N)
+int32 as an MSB-first Horner over ``planes`` bit planes of the offset
+activation, with the residual held in registers — x and w are read from
+global memory once per output tile, plane partials never leave the SM.
+Scaled: the same product with the dequant epilogue fused into the store,
+float32 ``(acc * x_scale) * w_scale[n]``.
 
 Build: at first use, ``nvcc`` compiles the checkout's source into a shared
 library with a plain C interface under ``csrc/build/`` (named by a hash of
@@ -38,10 +40,11 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-#: Kernel launches since the last reset — incremented where the CUDA kernel
-#: is launched and nowhere else, so a run can show its main path went
-#: through the kernel.  Callers reset it by assigning 0.
-launches = 0
+#: Kernel launches since the last reset, one count per kernel — incremented
+#: where the CUDA kernel is launched and nowhere else, so a run can show its
+#: main path went through the kernel.  Callers reset them by assigning 0.
+launches = 0  # the unscaled kernel (int32 out)
+scaled_launches = 0  # the scaled kernel (fused dequant epilogue, float32 out)
 
 
 def _nvcc() -> str:
@@ -84,6 +87,10 @@ def _library() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(path))
     lib.mma_matmul_launch.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     lib.mma_matmul_launch.restype = ctypes.c_int
+    lib.mma_matmul_scaled_launch.argtypes = (
+        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    )
+    lib.mma_matmul_scaled_launch.restype = ctypes.c_int
     lib.mma_matmul_error_string.argtypes = [ctypes.c_int]
     lib.mma_matmul_error_string.restype = ctypes.c_char_p
     return lib
@@ -98,6 +105,23 @@ def mma_matmul_plain(
     return bitplane.bitplane_matmul(x, w, planes=planes, signed=signed)
 
 
+def mma_matmul_scaled_plain(
+    x: torch.Tensor,
+    w: torch.Tensor,
+    x_scale: torch.Tensor,
+    w_scale: torch.Tensor,
+    *,
+    planes: int = N_BITS,
+    signed: bool = True,
+) -> torch.Tensor:
+    """The scaled kernel's plain PyTorch version, on any device: the exact
+    int32 product, then ``(float32(acc) * x_scale) * w_scale`` in that order,
+    each product rounded once — bit for bit what the kernel's epilogue
+    writes."""
+    acc = bitplane.bitplane_matmul(x, w, planes=planes, signed=signed)
+    return acc.to(torch.float32) * x_scale.reshape(()) * w_scale.reshape(-1)
+
+
 def _check(x: torch.Tensor, w: torch.Tensor) -> None:
     if x.dtype != torch.int8 or w.dtype != torch.int8:
         raise TypeError(f"expected int8 operands, got {x.dtype} and {w.dtype}")
@@ -109,6 +133,23 @@ def _check(x: torch.Tensor, w: torch.Tensor) -> None:
         raise ValueError("operands must be contiguous")
     if max(x.shape[0], x.shape[1], w.shape[1]) >= 2**31:
         raise ValueError(f"dimension past int32: {tuple(x.shape)} @ {tuple(w.shape)}")
+
+
+def _check_scales(x_scale: torch.Tensor, w_scale: torch.Tensor, w: torch.Tensor) -> None:
+    for name, s, n in (("x_scale", x_scale, 1), ("w_scale", w_scale, w.shape[1])):
+        if s.dtype != torch.float32:
+            raise TypeError(f"{name} must be float32, got {s.dtype}")
+        if s.numel() != n or s.device != w.device or not s.is_contiguous():
+            raise ValueError(
+                f"{name} must be {n} contiguous float32 on {w.device}, got "
+                f"{tuple(s.shape)} on {s.device}"
+            )
+
+
+def _raise_on(err: int) -> None:
+    if err != 0:
+        msg = _library().mma_matmul_error_string(err).decode()
+        raise RuntimeError(f"mma_matmul kernel launch failed: {msg} (cudaError {err})")
 
 
 def _launch(x: torch.Tensor, w: torch.Tensor, planes: int, signed: bool) -> torch.Tensor:
@@ -128,30 +169,60 @@ def _launch(x: torch.Tensor, w: torch.Tensor, planes: int, signed: bool) -> torc
             x.data_ptr(), w.data_ptr(), out.data_ptr(), m, k, n, planes, int(signed),
             torch.cuda.current_stream().cuda_stream,
         )
-    if err != 0:
-        msg = _library().mma_matmul_error_string(err).decode()
-        raise RuntimeError(f"mma_matmul kernel launch failed: {msg} (cudaError {err})")
+    _raise_on(err)
     launches += 1
     return out
 
 
+def _launch_scaled(
+    x: torch.Tensor, w: torch.Tensor, x_scale: torch.Tensor, w_scale: torch.Tensor,
+    planes: int, signed: bool,
+) -> torch.Tensor:
+    global scaled_launches
+    _check(x, w)
+    _check_scales(x_scale, w_scale, w)
+    if x.device.type == "cpu":
+        return mma_matmul_scaled_plain(x, w, x_scale, w_scale, planes=planes, signed=signed)
+    if x.device.type != "cuda":
+        raise ValueError(f"no MMA kernel for device {x.device}")
+    m, k = x.shape
+    n = w.shape[1]
+    out = torch.empty((m, n), dtype=torch.float32, device=x.device)
+    if m == 0 or n == 0:
+        return out
+    with torch.cuda.device(x.device):
+        err = _library().mma_matmul_scaled_launch(
+            x.data_ptr(), w.data_ptr(), x_scale.data_ptr(), w_scale.data_ptr(),
+            out.data_ptr(), m, k, n, planes, int(signed),
+            torch.cuda.current_stream().cuda_stream,
+        )
+    _raise_on(err)
+    scaled_launches += 1
+    return out
+
+
 @functools.lru_cache(maxsize=None)
-def plane_variant(planes: int, signed: bool = True):
+def plane_variant(planes: int, signed: bool = True, *, scaled: bool = False):
     """The kernel specialization for one plane budget.
 
     ``planes`` and ``signed`` are template parameters of the CUDA kernel:
     a 4-plane variant issues half the multiply-adds of the 8-plane one, so
     a schedule that gives a layer 4 planes runs a smaller kernel, not a
-    masked full-width one.  ``plane_variant.cache_info()`` exposes the
-    variant table for tests and benchmarks.
+    masked full-width one.  ``scaled`` selects the fused-dequant form, which
+    takes ``(x, w, x_scale, w_scale)``.  ``plane_variant.cache_info()``
+    exposes the variant table for tests and benchmarks.
     """
     if not (1 <= planes <= N_BITS):
         raise ValueError(f"planes {planes} outside 1..{N_BITS}")
 
-    def variant(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-        return _launch(x, w, planes, signed)
+    if scaled:
+        def variant(x, w, x_scale, w_scale):
+            return _launch_scaled(x, w, x_scale, w_scale, planes, signed)
+    else:
+        def variant(x, w):
+            return _launch(x, w, planes, signed)
 
-    variant.__name__ = f"mma_matmul_p{planes}{'' if signed else 'u'}"
+    variant.__name__ = f"mma_matmul{'_scaled' if scaled else ''}_p{planes}{'' if signed else 'u'}"
     return variant
 
 
@@ -164,3 +235,23 @@ def mma_matmul_kernel(
     kernel masks its edges.  Dispatches through the variant table.
     """
     return plane_variant(planes, signed)(x, w)
+
+
+def mma_matmul_scaled_kernel(
+    x: torch.Tensor,
+    w: torch.Tensor,
+    x_scale: torch.Tensor,
+    w_scale: torch.Tensor,
+    *,
+    planes: int = N_BITS,
+    signed: bool = True,
+) -> torch.Tensor:
+    """(M, K) int8 @ (K, N) int8 -> (M, N) float32 with the dequant epilogue
+    fused into the store: ``(acc * x_scale) * w_scale[n]``.
+
+    ``x_scale``: one float32 (a per-tensor activation scale) on the operands'
+    device — the kernel reads it there, so no host synchronization;
+    ``w_scale``: (N,) float32 per-channel scales.  Dispatches through the
+    variant table.
+    """
+    return plane_variant(planes, signed, scaled=True)(x, w, x_scale, w_scale)

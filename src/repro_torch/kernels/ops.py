@@ -14,7 +14,7 @@ import torch
 from repro_torch.core import bitplane
 from repro_torch.device import resolve_device
 
-from .mma_matmul import N_BITS, mma_matmul_kernel
+from .mma_matmul import N_BITS, mma_matmul_kernel, mma_matmul_scaled_kernel
 
 
 def _as_int8(a, device: torch.device) -> torch.Tensor:
@@ -44,6 +44,38 @@ def mma_matmul(
     lead, k, n = x.shape[:-1], x.shape[-1], w.shape[-1]
     out = mma_matmul_kernel(
         x.reshape(-1, k).contiguous(), w.contiguous(), planes=planes, signed=signed
+    )
+    return out.reshape(*lead, n)
+
+
+def mma_matmul_scaled(
+    x,
+    w,
+    x_scale,
+    w_scale,
+    *,
+    planes: int | torch.Tensor = N_BITS,
+    signed: bool = True,
+    device: str | torch.device | None = None,
+) -> torch.Tensor:
+    """Quantized-serving matmul with the dequant epilogue fused in-kernel:
+    (..., K) int8 @ (K, N) int8 -> (..., N) float32 scaled by
+    ``x_scale * w_scale``.
+
+    ``x_scale``: one float32 (per-tensor, dynamic); ``w_scale``: N float32
+    (per-channel, any shape of N elements).  Runs on the CUDA card unless
+    ``device='cpu'``; a tensor ``planes`` folds into the data and runs the
+    8-plane variant.  No padding: the kernel masks its ragged edges.
+    """
+    dev = resolve_device(device)
+    x, w = _as_int8(x, dev), _as_int8(w, dev)
+    x, planes = bitplane.normalize_planes(x, planes, signed=signed)
+    xs = torch.as_tensor(x_scale, dtype=torch.float32, device=dev).reshape(1)
+    ws = torch.as_tensor(w_scale, dtype=torch.float32, device=dev).reshape(-1)
+    lead, k, n = x.shape[:-1], x.shape[-1], w.shape[-1]
+    out = mma_matmul_scaled_kernel(
+        x.reshape(-1, k).contiguous(), w.contiguous(), xs.contiguous(), ws.contiguous(),
+        planes=planes, signed=signed,
     )
     return out.reshape(*lead, n)
 

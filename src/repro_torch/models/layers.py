@@ -1,0 +1,325 @@
+"""Shared building blocks of the LM families: linear (with the MMA quantized
+paths), RMSNorm, RoPE, flash attention (chunked online softmax, SWA-capable),
+attention with a KV cache, MLPs, embeddings.
+
+Parameters are plain dicts of tensors with the reference's tree; the
+``init_*`` functions draw them from a ``torch.Generator`` on the target
+device (the reference's ``jax.random`` draws cannot be reproduced — carry
+those over with ``transformer.params_from_jax``).  Activations run in the
+parameters' dtype (bf16), with every float32 excursion and cast where the
+reference makes it.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.core import mma
+from repro_torch.core import quant as quant_lib
+from repro_torch.kernels import ops
+
+# Static scale for the int8 KV cache (post-RMSNorm K/V magnitudes are
+# ~O(1); 0.05 gives +-6.35 of dynamic range).
+KV_CACHE_SCALE = 0.05
+
+# ---------------------------------------------------------------- init utils
+
+
+def _dense_init(g: torch.Generator, shape, *, device) -> torch.Tensor:
+    w = torch.empty(shape, dtype=torch.float32, device=device)
+    torch.nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=g)
+    return (w / math.sqrt(shape[0])).to(torch.bfloat16)
+
+
+def init_linear(g: torch.Generator, d_in: int, d_out: int, *, device, bias: bool = False) -> dict:
+    p = {"w": _dense_init(g, (d_in, d_out), device=device)}
+    if bias:
+        p["b"] = torch.zeros((d_out,), dtype=torch.bfloat16, device=device)
+    return p
+
+
+def init_norm(d: int, *, device) -> dict:
+    return {"scale": torch.ones((d,), dtype=torch.bfloat16, device=device)}
+
+
+# ------------------------------------------------------------------- kernels
+
+
+def linear(p: dict, x: torch.Tensor, quant=None) -> torch.Tensor:
+    """Dense layer, routed as the reference routes it:
+
+    - ``w_q`` leaves (pre-quantized int8, ``quant.quantize_params_int8``)
+      with ``impl='kernel'``: the scaled CUDA kernel, one activation scale
+      per tensor (the fused epilogue takes one scale);
+    - ``w_q`` with another impl: ``mma_dot`` then ``acc * (x_scale *
+      w_scale)``, one activation scale per batch row;
+    - float ``w`` under ``quant.mode == 'mma_int8'``: ``mma.mma_linear``,
+      per-row scales (the unscaled kernel for ``impl='kernel'``);
+    - otherwise a float product.
+    """
+    batch_axis = 0 if x.ndim >= 3 else None
+    if "w_q" in p:
+        planes = quant.planes if quant is not None else 8
+        impl = quant.impl if quant is not None else "horner"
+        xq = quant_lib.quantize_acts(
+            x.to(torch.float32), batch_axis=None if impl == "kernel" else batch_axis
+        )
+        w_scale = p["w_scale"].squeeze(-2)
+        if impl == "kernel":
+            out = ops.mma_matmul_scaled(
+                xq.values, p["w_q"], xq.scale, w_scale, planes=planes, device=x.device
+            ).to(x.dtype)
+        else:
+            out_i32 = mma.mma_dot(xq.values, p["w_q"], planes=planes, impl=impl)
+            out = (out_i32.to(torch.float32) * (xq.scale * w_scale)).to(x.dtype)
+    else:
+        w = p["w"]
+        if quant is not None and quant.mode == "mma_int8":
+            out = mma.mma_linear(
+                x.to(torch.float32), w.to(torch.float32), planes=quant.planes,
+                impl=quant.impl, batch_axis=batch_axis,
+            ).to(x.dtype)
+        else:
+            out = torch.matmul(x, w.to(x.dtype))
+    if "b" in p:
+        out = out + p["b"].to(out.dtype)
+    return out
+
+
+def rmsnorm(p: dict, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    xf = x.to(torch.float32)
+    var = torch.mean(torch.square(xf), dim=-1, keepdim=True)
+    y = xf * torch.rsqrt(var + eps)
+    return (y * p["scale"].to(torch.float32)).to(x.dtype)
+
+
+def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """x: (..., S, H, D); positions: (..., S)."""
+    half = x.shape[-1] // 2
+    freqs = torch.exp(
+        -torch.arange(0, half, dtype=torch.float32, device=x.device) * (math.log(theta) / half)
+    )
+    ang = positions[..., None].to(torch.float32) * freqs  # (..., S, half)
+    cos = torch.cos(ang)[..., None, :]
+    sin = torch.sin(ang)[..., None, :]
+    x1, x2 = x[..., :half], x[..., half:]
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# ----------------------------------------------------------- flash attention
+
+
+def _as_index(idx, device) -> torch.Tensor:
+    return torch.as_tensor(idx, dtype=torch.int64, device=device)
+
+
+def flash_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    causal: bool = True,
+    window: int = 0,
+    chunk: int = 1024,
+    q_offset=0,
+) -> torch.Tensor:
+    """Chunked online-softmax attention (plain PyTorch, O(S*chunk) memory).
+
+    q: (B, S, H, D); k, v: (B, T, KV, D) with H % KV == 0 (GQA).
+    ``window`` > 0 limits attention to the last ``window`` keys (SWA).
+    ``q_offset``: absolute position of q[0] (decode: T_cache) — an int, a
+    0-d tensor, or a (B,) vector of per-row offsets (slot-isolated decode).
+    A query row that sees no key gives NaN on the short-query path and 0 on
+    the chunked path, as in the reference.
+    """
+    b, s, h, d = q.shape
+    _, t, kv, _ = k.shape
+    groups = h // kv
+    scale = 1.0 / math.sqrt(d)
+    dev = q.device
+    off = _as_index(q_offset, dev)
+    ar_s = torch.arange(s, device=dev)
+    if off.ndim > 0:  # per-row offsets
+        q_pos = off.reshape(-1, 1) + ar_s[None, :]
+    else:
+        q_pos = (ar_s + off)[None, :]  # (1, S)
+    qg = q.reshape(b, s, kv, groups, d)
+
+    # Short-query (decode) path: one unchunked pass.
+    if s <= 8:
+        k_pos = torch.arange(t, device=dev)[None, :]
+        scores = torch.einsum("bskgd,btkd->bkgst", qg, k).to(torch.float32) * scale
+        if causal:
+            ok = k_pos[None, :, :] <= q_pos[..., None]
+        else:
+            ok = torch.ones((1, s, t), dtype=torch.bool, device=dev)
+        if window:
+            ok = ok & (k_pos[None, :, :] > q_pos[..., None] - window)
+        scores = torch.where(ok[:, None, None, :, :], scores, -torch.inf)
+        m = scores.amax(dim=-1, keepdim=True)
+        p = torch.exp(scores - m)
+        out = torch.einsum("bkgst,btkd->bskgd", p.to(q.dtype), v).to(torch.float32)
+        out = out / torch.clamp(p.sum(-1), min=1e-20).permute(0, 3, 1, 2)[..., None]
+        return out.reshape(b, s, h, d).to(q.dtype)
+
+    n_chunks = (t + chunk - 1) // chunk
+    tc = n_chunks * chunk
+    k = F.pad(k, (0, 0, 0, 0, 0, tc - t))
+    v = F.pad(v, (0, 0, 0, 0, 0, tc - t))
+
+    m_prev = torch.full((b, kv, groups, s), -torch.inf, dtype=torch.float32, device=dev)
+    l_prev = torch.zeros((b, kv, groups, s), dtype=torch.float32, device=dev)
+    acc = torch.zeros((b, s, kv, groups, d), dtype=torch.float32, device=dev)
+    for j in range(n_chunks):
+        kj = k[:, j * chunk : (j + 1) * chunk]
+        vj = v[:, j * chunk : (j + 1) * chunk]
+        k_pos = (j * chunk + torch.arange(chunk, device=dev))[:, None]  # (chunk, 1)
+        scores = torch.einsum("bskgd,bckd->bkgsc", qg, kj).to(torch.float32) * scale
+        if causal:
+            ok = k_pos.T <= q_pos[..., None]
+        else:
+            ok = torch.ones((1, s, chunk), dtype=torch.bool, device=dev)
+        if window:
+            ok = ok & (k_pos.T > q_pos[..., None] - window)
+        ok = ok & (k_pos[:, 0] < t)[None, None, :]
+        scores = torch.where(ok[:, None, None, :, :], scores, -torch.inf)
+        m_new = torch.maximum(m_prev, scores.amax(dim=-1))
+        m_safe = torch.where(torch.isfinite(m_new), m_new, 0.0)  # all-masked rows
+        p = torch.exp(scores - m_safe[..., None])
+        p = torch.where(torch.isfinite(scores), p, 0.0)
+        corr = torch.exp(torch.where(torch.isfinite(m_prev), m_prev - m_safe, -torch.inf))
+        corr = torch.where(torch.isfinite(corr), corr, 0.0)
+        l_prev = l_prev * corr + p.sum(dim=-1)
+        pv = torch.einsum("bkgsc,bckd->bskgd", p.to(q.dtype), vj).to(torch.float32)
+        acc = acc * corr.permute(0, 3, 1, 2)[..., None] + pv
+        m_prev = m_new
+    l = torch.clamp(l_prev, min=1e-20)
+    out = acc / l.permute(0, 3, 1, 2)[..., None]
+    return out.reshape(b, s, h, d).to(q.dtype)
+
+
+# -------------------------------------------------------------------- blocks
+
+
+def init_attention(g: torch.Generator, cfg, *, device) -> dict:
+    hd = cfg.hd
+    return {
+        "wq": init_linear(g, cfg.d_model, cfg.n_heads * hd, device=device),
+        "wk": init_linear(g, cfg.d_model, cfg.n_kv_heads * hd, device=device),
+        "wv": init_linear(g, cfg.d_model, cfg.n_kv_heads * hd, device=device),
+        "wo": init_linear(g, cfg.n_heads * hd, cfg.d_model, device=device),
+    }
+
+
+def cache_write(c: torch.Tensor, u: torch.Tensor, index) -> None:
+    """Write ``u`` (B, s, ...) into the cache ``c`` (B, S_max, ...) in place,
+    row ``b`` at position ``index[b]`` (or every row at one scalar index).
+
+    The start is clamped to ``[0, S_max - s]``, as ``dynamic_update_slice``
+    clamps it in the reference: a write past the end lands on the last
+    ``s`` positions.
+    """
+    b, s = u.shape[:2]
+    start = torch.clamp(_as_index(index, c.device), 0, c.shape[1] - s).expand(b)
+    pos = start[:, None] + torch.arange(s, device=c.device)[None, :]  # (B, s)
+    c[torch.arange(b, device=c.device)[:, None], pos] = u
+
+
+def attention(
+    p: dict,
+    x: torch.Tensor,
+    cfg,
+    *,
+    positions: torch.Tensor | None,
+    cache: tuple[torch.Tensor, torch.Tensor] | None = None,
+    cache_index=None,
+    causal: bool = True,
+):
+    """Multi-head attention with GQA/MQA, RoPE, SWA and an optional KV cache.
+
+    x: (B, S, D).  cache: (k, v) each (B, S_max, KV, hd), bf16 or int8 (at
+    ``KV_CACHE_SCALE``); cache_index: the write offset, a scalar (every row
+    appends at the same position) or a (B,) vector of per-row positions
+    (slot-isolated decode: each row writes at its own length).  The cache is
+    updated in place (the reference returns a new one; in place saves a copy
+    per layer and step).  Returns (out, cache).
+    """
+    b, s, _ = x.shape
+    hd = cfg.hd
+    q = linear(p["wq"], x, cfg.quant).reshape(b, s, cfg.n_heads, hd)
+    k = linear(p["wk"], x, cfg.quant).reshape(b, s, cfg.n_kv_heads, hd)
+    v = linear(p["wv"], x, cfg.quant).reshape(b, s, cfg.n_kv_heads, hd)
+    if positions is not None:
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(k, positions, cfg.rope_theta)
+
+    new_cache = None
+    if cache is not None:
+        ck, cv = cache
+        if ck.dtype == torch.int8:
+            # int8 KV cache with a calibrated static scale
+            kq = torch.clamp(torch.round(k.to(torch.float32) / KV_CACHE_SCALE),
+                             -127, 127).to(torch.int8)
+            vq = torch.clamp(torch.round(v.to(torch.float32) / KV_CACHE_SCALE),
+                             -127, 127).to(torch.int8)
+            cache_write(ck, kq, cache_index)
+            cache_write(cv, vq, cache_index)
+            k = (ck.to(torch.float32) * KV_CACHE_SCALE).to(q.dtype)
+            v = (cv.to(torch.float32) * KV_CACHE_SCALE).to(q.dtype)
+        else:
+            cache_write(ck, k.to(ck.dtype), cache_index)
+            cache_write(cv, v.to(cv.dtype), cache_index)
+            k, v = ck, cv
+        new_cache = (ck, cv)
+        q_offset = cache_index
+    else:
+        q_offset = 0
+
+    out = flash_attention(
+        q, k, v, causal=causal, window=cfg.swa_window, chunk=cfg.attn_chunk,
+        q_offset=q_offset,
+    )
+    out = linear(p["wo"], out.reshape(b, s, cfg.n_heads * hd), cfg.quant)
+    return out, new_cache
+
+
+def init_mlp(g: torch.Generator, cfg, *, device, d_ff: int | None = None) -> dict:
+    ff = d_ff or cfg.d_ff
+    if cfg.act == "swiglu":
+        return {
+            "w_gate": init_linear(g, cfg.d_model, ff, device=device),
+            "w_up": init_linear(g, cfg.d_model, ff, device=device),
+            "w_down": init_linear(g, ff, cfg.d_model, device=device),
+        }
+    return {
+        "w_up": init_linear(g, cfg.d_model, ff, device=device, bias=True),
+        "w_down": init_linear(g, ff, cfg.d_model, device=device, bias=True),
+    }
+
+
+def mlp(p: dict, x: torch.Tensor, cfg) -> torch.Tensor:
+    if "w_gate" in p:
+        gate = linear(p["w_gate"], x, cfg.quant)
+        up = linear(p["w_up"], x, cfg.quant)
+        h = F.silu(gate.to(torch.float32)).to(x.dtype) * up
+    else:
+        # the reference's jax.nn.gelu defaults to the tanh approximation
+        h = F.gelu(linear(p["w_up"], x, cfg.quant).to(torch.float32),
+                   approximate="tanh").to(x.dtype)
+    return linear(p["w_down"], h, cfg.quant)
+
+
+def init_embedding(g: torch.Generator, vocab: int, d: int, *, device) -> dict:
+    t = torch.randn((vocab, d), generator=g, dtype=torch.float32, device=device)
+    return {"table": (t * 0.02).to(torch.bfloat16)}
+
+
+def embed(p: dict, tokens: torch.Tensor) -> torch.Tensor:
+    return p["table"][tokens]
+
+
+def unembed(p: dict, x: torch.Tensor) -> torch.Tensor:
+    return torch.matmul(x, p["table"].to(x.dtype).T)

@@ -1,0 +1,238 @@
+"""Decoder-only transformer LM, the 'dense' family (so far the port's only
+LM family; 'moe' and 'vlm' raise until their slice is ported).
+
+The parameter tree is the reference's: every block leaf is stacked
+``(L, ...)`` under ``params["blocks"]``.  The reference scans over that
+stack; here a Python loop takes layer ``l``'s views ``leaf[l]``.  Under a
+per-layer plane schedule each layer runs with its static budget
+``PlaneSchedule.planes_for(l)``, so the MMA kernel runs its ``p{b}``
+variant; the reference folds a traced budget into the data instead, which
+the bit-mask identity makes bit-identical.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from repro_torch.core import quant
+from repro_torch.core.plane_schedule import PlaneSchedule
+from repro_torch.device import resolve_device
+
+from . import layers
+
+_LATER = {
+    "moe": "mixture-of-experts blocks (models/moe.py) are a later slice of the port",
+    "vlm": "the vlm patch-embedding prefix is a later slice of the port (the other families)",
+}
+
+
+def _check_family(cfg) -> None:
+    if cfg.family in _LATER or cfg.moe.n_experts:
+        raise NotImplementedError(_LATER.get(cfg.family, _LATER["moe"]))
+    if cfg.family != "dense":
+        raise ValueError(f"not a transformer LM family: {cfg.family!r}")
+
+
+# ------------------------------------------------------------------ params
+
+
+def _tree_map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def _stack(trees: list[dict]) -> dict:
+    if isinstance(trees[0], dict):
+        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
+    return torch.stack(trees)
+
+
+def layer_params(blocks: dict, l: int) -> dict:
+    """Layer ``l``'s parameters: views ``leaf[l]`` of the stacked tree."""
+    return _tree_map(lambda t: t[l], blocks)
+
+
+def params_to(params, device) -> dict:
+    """The same parameter tree with every tensor on ``device``."""
+    return _tree_map(lambda t: t.to(device), params)
+
+
+def init_block(g: torch.Generator, cfg, *, device) -> dict:
+    return {
+        "ln1": layers.init_norm(cfg.d_model, device=device),
+        "attn": layers.init_attention(g, cfg, device=device),
+        "ln2": layers.init_norm(cfg.d_model, device=device),
+        "mlp": layers.init_mlp(g, cfg, device=device),
+    }
+
+
+def init_params(seed: int, cfg, *, device=None, int8_min_dim: int | None = None) -> dict:
+    """Seeded random parameters, drawn on ``device`` from a
+    ``torch.Generator`` (the reference's ``jax.random`` draws cannot be
+    reproduced — carry those over with :func:`params_from_jax`).
+
+    ``int8_min_dim``: quantize each layer with
+    ``quant.quantize_params_int8(min_dim=int8_min_dim)`` as soon as it is
+    drawn, so no float copy of the whole model is ever held — the way to
+    build a full-width serving model on the card.
+    """
+    _check_family(cfg)
+    dev = resolve_device(device)
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def made(tree):
+        if int8_min_dim is None:
+            return tree
+        return quant.quantize_params_int8(tree, min_dim=int8_min_dim)
+
+    p = {"embed": layers.init_embedding(g, cfg.vocab, cfg.d_model, device=dev)}
+    p["blocks"] = _stack([made(init_block(g, cfg, device=dev)) for _ in range(cfg.n_layers)])
+    p["ln_f"] = layers.init_norm(cfg.d_model, device=dev)
+    if not cfg.tie_embeddings:
+        p["head"] = made(layers.init_linear(g, cfg.d_model, cfg.vocab, device=dev))
+    return p
+
+
+def params_from_jax(tree, *, device=None) -> dict:
+    """Carry the reference's parameter tree (leaves as numpy arrays) into the
+    port's: the same tree and shapes on ``device``.  Int8 leaves (``w_q``)
+    and ``w_scale`` keep their type; every other leaf is the reference's
+    bf16, handed over as float32 (exact) or as numpy bf16, and becomes
+    bf16 again here."""
+    dev = resolve_device(device)
+
+    def leaf(key, a):
+        a = np.asarray(a)
+        if a.dtype == np.int8:
+            return torch.tensor(a, device=dev)
+        t = torch.tensor(np.asarray(a, np.float32), device=dev)
+        return t if key == "w_scale" else t.to(torch.bfloat16)
+
+    def walk(node, key=None):
+        if isinstance(node, dict):
+            return {k: walk(v, k) for k, v in node.items()}
+        return leaf(key, node)
+
+    return walk(tree)
+
+
+# ----------------------------------------------------------------- forward
+
+
+def _block(p, x, cfg, *, positions, cache=None, cache_index=None):
+    h, new_cache = layers.attention(
+        p["attn"], layers.rmsnorm(p["ln1"], x, cfg.norm_eps), cfg,
+        positions=positions, cache=cache, cache_index=cache_index,
+    )
+    x = x + h
+    h2 = layers.mlp(p["mlp"], layers.rmsnorm(p["ln2"], x, cfg.norm_eps), cfg)
+    return x + h2, new_cache
+
+
+def _layer_cfgs(cfg) -> list:
+    """Each layer's config: under a plane schedule, layer ``l`` carries its
+    static budget as ``quant.planes`` (the head keeps the global one)."""
+    if cfg.quant.mode != "mma_int8" or cfg.quant.plane_schedule is None:
+        return [cfg] * cfg.n_layers
+    ps = PlaneSchedule.from_list(cfg.quant.plane_schedule)
+    return [
+        cfg.replace(quant=dataclasses.replace(
+            cfg.quant, planes=ps.planes_for(l), plane_schedule=None))
+        for l in range(cfg.n_layers)
+    ]
+
+
+def forward(
+    params: dict,
+    tokens,
+    cfg,
+    *,
+    prefix_embeds=None,
+    cache: dict | None = None,
+    cache_index=None,
+    return_aux: bool = False,
+    device=None,
+):
+    """tokens: (B, S) int -> logits (B, S, vocab), on ``device`` (the CUDA
+    card unless ``device='cpu'``).
+
+    With ``cache`` (decode / prefill into the cache): returns (logits,
+    cache), the cache ``{"k": (L, B, S_max, KV, hd), "v": ...}`` updated in
+    place.  ``cache_index`` is a scalar or a (B,) vector of per-row write
+    positions.
+    """
+    _check_family(cfg)
+    if prefix_embeds is not None:
+        raise NotImplementedError(_LATER["vlm"])
+    dev = resolve_device(device)
+    params = params_to(params, dev)
+    tokens = torch.as_tensor(tokens, dtype=torch.int64, device=dev)
+    x = layers.embed(params["embed"], tokens)
+    b, s, _ = x.shape
+    base = torch.as_tensor(0 if cache_index is None else cache_index, device=dev)
+    ar = torch.arange(s, device=dev)
+    if base.ndim > 0:  # per-row cache positions (slot-isolated decode)
+        positions = base.reshape(-1, 1) + ar[None, :]
+    else:
+        positions = base + ar[None, :]
+
+    for l, lcfg in enumerate(_layer_cfgs(cfg)):
+        blk = layer_params(params["blocks"], l)
+        if cache is None:
+            x, _ = _block(blk, x, lcfg, positions=positions)
+        else:
+            x, _ = _block(blk, x, lcfg, positions=positions,
+                          cache=(cache["k"][l], cache["v"][l]), cache_index=base)
+
+    x = layers.rmsnorm(params["ln_f"], x, cfg.norm_eps)
+    if cfg.tie_embeddings:
+        logits = layers.unembed(params["embed"], x)
+    else:
+        logits = layers.linear(params["head"], x, cfg.quant)
+    if cache is not None:
+        return logits, cache
+    if return_aux:
+        return logits, torch.zeros((), dtype=torch.float32, device=dev)
+    return logits
+
+
+# --------------------------------------------------------------------- loss
+
+
+def loss_fn(params, batch, cfg, *, device=None):
+    """Next-token cross-entropy (forward only); batch = {"tokens": (B, S+1)}.
+    Returns (loss, metrics)."""
+    if batch.get("patches") is not None:
+        raise NotImplementedError(_LATER["vlm"])
+    tok = torch.as_tensor(batch["tokens"], dtype=torch.int64)
+    logits, aux = forward(params, tok[:, :-1], cfg, return_aux=True, device=device)
+    targets = tok[:, 1:].to(logits.device)
+    logits = logits.to(torch.float32)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.take_along_dim(logits, targets[..., None], dim=-1)[..., 0]
+    nll = (logz - gold).mean()
+    loss = nll + 0.01 * aux
+    return loss, {"nll": nll, "aux": aux}
+
+
+# ------------------------------------------------------------------- decode
+
+
+def init_cache(cfg, batch: int, max_seq: int, *, dtype=torch.bfloat16, device=None) -> dict:
+    dev = resolve_device(device)
+    shape = (cfg.n_layers, batch, max_seq, cfg.n_kv_heads, cfg.hd)
+    return {"k": torch.zeros(shape, dtype=dtype, device=dev),
+            "v": torch.zeros(shape, dtype=dtype, device=dev)}
+
+
+def decode_step(params, tokens, cache, cache_index, cfg, *, prefix_embeds=None, device=None):
+    """One serving step: tokens (B, S_new) appended at ``cache_index``.
+
+    prefill: S_new = prompt length; decode: S_new = 1.
+    Returns (logits for the new positions, the updated cache).
+    """
+    return forward(params, tokens, cfg, prefix_embeds=prefix_embeds, cache=cache,
+                   cache_index=cache_index, device=device)

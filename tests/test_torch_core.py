@@ -272,7 +272,7 @@ def test_port_imports_neither_jax_nor_the_reference():
         "for n in names: importlib.import_module(n)\n"
         "bad = [m for m in sys.modules if m == 'repro' or m.startswith('repro.')]\n"
         "assert not bad, bad\n"
-        "assert len(names) >= 20, names\n"
+        "assert len(names) >= 31, names\n"
         "print(len(names))\n"
     )
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))

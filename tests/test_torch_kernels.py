@@ -166,6 +166,72 @@ def test_cpu_path_does_not_count_launches():
     assert mk.launches == before
 
 
+# --------------------------------------------------------- the scaled kernel
+
+
+@pytest.mark.parametrize("m,k,n", [(16, 96, 40), (64, 256, 128), (3, 50, 7)])
+@pytest.mark.parametrize("planes", [8, 5])
+def test_scaled_plain_vs_pallas(m, k, n, planes):
+    """The scaled kernel's plain version against the reference's fused
+    epilogue in interpret mode: both compute (f32(acc) * x_scale) * w_scale
+    with the same int32 acc, so bit for bit (the reference's own test allows
+    rtol 1e-6 against int32-then-scale)."""
+    rng = np.random.default_rng(m * 131 + k + n + planes)
+    x, w = _rand_i8(rng, (m, k)), _rand_i8(rng, (k, n))
+    xs = np.float32(0.0173)
+    ws = rng.uniform(1e-3, 1e-2, n).astype(np.float32)
+    got = ops.mma_matmul_scaled(x, w, xs, ws, planes=planes, device="cpu").numpy()
+    want = np.asarray(jops.mma_matmul_scaled(jnp.asarray(x), jnp.asarray(w), jnp.float32(xs),
+                                             jnp.asarray(ws), planes=planes, interpret=True))
+    assert got.dtype == np.float32
+    np.testing.assert_array_equal(got, want)
+    direct = mk.mma_matmul_scaled_kernel(torch.from_numpy(x), torch.from_numpy(w),
+                                         torch.tensor(xs), torch.from_numpy(ws), planes=planes)
+    np.testing.assert_array_equal(direct.numpy(), want)
+
+
+def test_scaled_leading_dims_and_tensor_planes():
+    rng = np.random.default_rng(12)
+    x, w = _rand_i8(rng, (2, 3, 40)), _rand_i8(rng, (40, 16))
+    ws = rng.uniform(1e-3, 1e-2, (1, 16)).astype(np.float32)  # a (1, N) scale row
+    xs = torch.tensor(0.02, dtype=torch.float32)
+    got = ops.mma_matmul_scaled(x, w, xs, ws, planes=5, device="cpu")
+    want = mk.mma_matmul_scaled_plain(torch.from_numpy(x.reshape(6, 40)), torch.from_numpy(w),
+                                      xs, torch.from_numpy(ws), planes=5)
+    assert torch.equal(got, want.reshape(2, 3, 16))
+    folded = ops.mma_matmul_scaled(x, w, xs, ws, planes=torch.tensor(5, dtype=torch.int32),
+                                   device="cpu")
+    assert torch.equal(folded, got)
+
+
+def test_scaled_variants_are_cached_and_checked():
+    rng = np.random.default_rng(13)
+    x, w = torch.from_numpy(_rand_i8(rng, (8, 32))), torch.from_numpy(_rand_i8(rng, (32, 8)))
+    xs, ws = torch.tensor([0.5]), torch.full((8,), 0.25)
+    mk.mma_matmul_scaled_kernel(x, w, xs, ws, planes=6)
+    before = mk.plane_variant.cache_info()
+    for _ in range(2):
+        mk.mma_matmul_scaled_kernel(x, w, xs, ws, planes=6)
+    after = mk.plane_variant.cache_info()
+    assert (after.misses, after.hits) == (before.misses, before.hits + 2)
+    assert mk.plane_variant(6, True, scaled=True).__name__ == "mma_matmul_scaled_p6"
+    assert mk.plane_variant(6, False, scaled=True).__name__ == "mma_matmul_scaled_p6u"
+    with pytest.raises(TypeError):
+        mk.mma_matmul_scaled_kernel(x, w, xs.double(), ws)
+    with pytest.raises(ValueError):
+        mk.mma_matmul_scaled_kernel(x, w, torch.tensor([0.5, 0.5]), ws)
+    with pytest.raises(ValueError):
+        mk.mma_matmul_scaled_kernel(x, w, xs, ws[:7])
+
+
+def test_cpu_scaled_path_does_not_count_launches():
+    rng = np.random.default_rng(14)
+    before = (mk.launches, mk.scaled_launches)
+    ops.mma_matmul_scaled(_rand_i8(rng, (4, 8)), _rand_i8(rng, (8, 4)), np.float32(0.1),
+                          np.ones(4, np.float32), device="cpu")
+    assert (mk.launches, mk.scaled_launches) == before
+
+
 def test_entry_points_without_device_raise_without_a_card():
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: the default device is valid")
@@ -175,3 +241,5 @@ def test_entry_points_without_device_raise_without_a_card():
         ops.mma_matmul(x, w)
     with pytest.raises(RuntimeError, match="CUDA card"):
         ops.mma_conv2d(np.zeros((1, 4, 4, 2), np.int8), np.zeros((3, 3, 2, 2), np.int8))
+    with pytest.raises(RuntimeError, match="CUDA card"):
+        ops.mma_matmul_scaled(x, w, np.float32(1.0), np.ones(4, np.float32))
