@@ -7,11 +7,15 @@ Phases, in one process; any failure ends the run with a non-zero exit:
 
 1. Device: the card's name and power limit (``nvidia-smi``), then the build
    of every kernel from the checkout's sources, with ``-Xptxas -v``.
-2. Kernels vs plain versions: both CUDA MMA kernels (unscaled, int32 out;
-   scaled, with the fused dequant epilogue, float32 out) against their plain
-   PyTorch versions on the card, bit for bit (``torch.equal``), on the
-   reference's kernel sweep, every (planes, signed) variant, and the main
-   paths' shapes (the U-Net's conv layers, Yi-6B's decode linears).
+2. Kernels vs plain versions: both CUDA MMA kernels (unscaled, on the
+   tensor cores, int32 out; scaled, with the fused dequant epilogue, float32
+   out) against their plain PyTorch versions on the card, bit for bit
+   (``torch.equal``), on the reference's kernel sweep, every (planes,
+   signed) variant, and the main paths' shapes (the U-Net's conv layers,
+   Yi-6B's decode linears); for the unscaled kernel also its three staging
+   paths (16-byte, 4-byte and byte copies, by K and N), operands whose
+   base pointer is 1 or 4 bytes off alignment, and ragged M on both block
+   heights with every (planes, signed).
 3. Forward: the full-width quantized U-Net (80x80x4, base 48, depth 3)
    under uniform 8 planes and a ``from_weights(0.05)`` schedule — the kernel
    path against the plain Horner path, every conv's int32 output equal; and
@@ -28,10 +32,16 @@ Phases, in one process; any failure ends the run with a non-zero exit:
    per decode call (32 x 7 linears + the head); every scaled linear of one
    recorded decode call must equal the plain version bit for bit; that
    call's logits are held against the same call on the plain Horner path.
-6. Times (CUDA events): each kernel at each main-path shape and per unit of
-   work (a 4-tile U-Net micro-batch; one LM decode call, replayed from the
-   recorded one), its plain version, a ``torch._int_mm`` library yardstick
-   (timed only; the port never calls it), and the card's bound.
+6. Times (CUDA events; the unscaled kernel and its library yardstick from
+   replays of a CUDA graph of 20 calls, so the host's launch rate is not
+   what is timed): each kernel at each main-path shape and per unit of
+   work (a 4-tile U-Net micro-batch, at 8 planes and at the served 5 and 1;
+   one LM decode call, replayed from the recorded one), its plain version, a
+   ``torch._int_mm`` library yardstick (timed only; the port never calls
+   it), the card's bound and, for the unscaled kernel, the plane-work floor
+   (planes x 2MKN int8 operations at the tensor-core peak).  Where the
+   toolkit has ``cuobjdump``, the count of ``IMMA`` (integer tensor-core)
+   instructions in the unscaled kernel's SASS, which must not be 0.
 
 The line before the last is a JSON object naming every kernel with its
 launches on its main path and its times; the last line is
@@ -41,6 +51,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import statistics
 import subprocess
 import sys
 import time
@@ -56,6 +67,12 @@ TILES_PER_BATCH = 4  # the engine's micro-batch
 LM_BATCH, LM_MAX_SEQ, LM_MAX_NEW = 4, 64, 4  # the LM engine's slots and budgets
 SWEEP = [(4, 32, 8), (32, 128, 32), (128, 512, 128), (37, 100, 65),
          (1, 7, 3), (256, 1024, 256), (64, 300, 90)]
+# the unscaled kernel's staging: K and N that give each operand 16-byte,
+# 4-byte or byte copies; ragged M on both block heights
+STAGING_K = (7, 36, 129, 300, 5184)
+STAGING_N = (3, 48, 70, 192)
+RAGGED_M = (1, 15, 16, 17, 33)
+SERVED_PLANES = (8, 5, 1)  # the U-Net path's budgets: uniform, class 0, class 6
 SCALED_SWEEP = [(16, 96, 40), (64, 256, 128), (3, 50, 7)]  # the reference's epilogue test
 
 # Logits of the kernel path and the plain path go through the same float
@@ -107,6 +124,53 @@ def time_ms(torch, fn, reps: int, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def graph_ms(torch, fn, calls: int = 20, reps: int = 7) -> float:
+    """Device time of one ``fn`` call: ``calls`` calls captured in one CUDA
+    graph, each replay timed by CUDA events, the median replay over
+    ``calls``.  The host issues one replay per window, so a kernel shorter
+    than its wrapper's Python issue time is timed by the card, not by the
+    host's launch rate (which ``time_ms`` measures for such kernels)."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / calls)
+    return statistics.median(times)
+
+
+def imma_count(lib: Path, kernel: str):
+    """IMMA instructions in each instantiation of ``kernel`` in the built
+    library's SASS, or None where the toolkit has no ``cuobjdump``."""
+    from repro_torch.kernels import mma_matmul as mk
+
+    tool = Path(mk._nvcc()).parent / "cuobjdump"
+    if not tool.exists():
+        return None
+    sass = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True, text=True,
+                          check=True, timeout=300).stdout
+    counts, name = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :")[1].strip()
+            if kernel in name:
+                counts[name] = 0
+        elif name in counts and "IMMA" in line:
+            counts[name] += 1
+    return counts
 
 
 def lm_decode_shapes(cfg):
@@ -335,6 +399,14 @@ def main() -> int:
     for line in ptxas.splitlines():
         if "Compiling entry" in line or "Used" in line or "spill" in line:
             print(f"[ptxas] {line.strip()}")
+    imma = imma_count(lib, "mma_tc_horner_kernel")
+    if imma is None:
+        print("[sass] no cuobjdump in the toolkit: IMMA count not taken")
+    else:
+        check(len(imma) == 32 and min(imma.values()) > 0,
+              f"IMMA instructions per tensor-core instantiation: {sorted(imma.values())}")
+        print(f"[sass] mma_tc_horner_kernel: {len(imma)} instantiations, IMMA instructions "
+              f"{sum(imma.values())} in all, {min(imma.values())}..{max(imma.values())} each")
 
     # ------------------------------------------ 2. kernels vs plain versions
     cfg = unet.UNetConfig(quant_mode="mma_int8")  # calibrated width, kernel datapath
@@ -350,17 +422,23 @@ def main() -> int:
     scaled_err = 0.0
     n_scaled = 0
 
-    def compare(m, k, n, planes, signed=True):
+    def compare(m, k, n, planes, signed=True, bm=None, offset=0):
+        """``bm`` forces the block height; ``offset`` > 0 makes both
+        operands views that many bytes into their storage."""
         nonlocal max_err, n_cases
-        x, w = rand_i8(torch, g, (m, k), dev), rand_i8(torch, g, (k, n), dev)
-        got = mk.mma_matmul_kernel(x, w, planes=planes, signed=signed)
+        x = rand_i8(torch, g, (m * k + offset,), dev)[offset:].view(m, k)
+        w = rand_i8(torch, g, (k * n + offset,), dev)[offset:].view(k, n)
+        if offset:
+            check(x.data_ptr() % 16 != 0 and w.data_ptr() % 16 != 0, "views are 16-byte aligned")
+        got = (mk.mma_matmul_kernel(x, w, planes=planes, signed=signed) if bm is None
+               else mk._launch(x, w, planes, signed, bm=bm))
         want = mk.mma_matmul_plain(x, w, planes=planes, signed=signed)
         torch.cuda.synchronize()
         err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max()) if got.numel() else 0
         max_err = max(max_err, err)
         n_cases += 1
-        check(torch.equal(got, want),
-              f"kernel != plain at M={m} K={k} N={n} planes={planes} signed={signed}")
+        check(torch.equal(got, want), f"kernel != plain at M={m} K={k} N={n} planes={planes} "
+              f"signed={signed} bm={bm} offset={offset}")
 
     def compare_scaled(m, k, n, planes, signed=True):
         nonlocal scaled_err, n_scaled
@@ -382,13 +460,25 @@ def main() -> int:
         for planes in range(1, 9):
             for signed in (True, False):
                 cmp(67, 129, 70, planes, signed)
-                cmp(3, 129, 70, planes, signed)  # the 16-row tile of small M
+                cmp(3, 129, 70, planes, signed)  # small M: the scaled kernel's 16-row tile
     for m, k, n in SCALED_SWEEP:
         for planes in (8, 5):
             compare_scaled(m, k, n, planes)
     for _, m, k, n in layers:
         compare(m * TILES_PER_BATCH, k, n, 8)
         compare(m * TILES_PER_BATCH, k, n, 5)
+    for k in STAGING_K:
+        for n in STAGING_N:
+            compare(67, k, n, 8)
+    for offset in (1, 4):
+        compare(67, 300, 48, 8, offset=offset)
+        compare(45, 5184, 192, 5, offset=offset)
+    for bm in (32, 64):
+        for m in RAGGED_M:
+            compare(m, 256, 80, 8, bm=bm)
+        for planes in range(1, 9):
+            for signed in (True, False):
+                compare(33, 256, 80, planes, signed, bm=bm)
     lm_cfg = get_config("yi_6b")
     decode_shapes = lm_decode_shapes(lm_cfg)
     for _, k, n in decode_shapes:
@@ -497,7 +587,9 @@ def main() -> int:
     for name, m1, k, n in layers:
         m = m1 * TILES_PER_BATCH
         x8, w8 = rand_i8(torch, g, (m, k), dev), rand_i8(torch, g, (k, n), dev)
-        ms = time_ms(torch, lambda: mk.mma_matmul_kernel(x8, w8, planes=8), reps=20)
+        ms_planes = {p: graph_ms(torch, lambda: mk.mma_matmul_kernel(x8, w8, planes=p))
+                     for p in SERVED_PLANES}
+        ms = ms_planes[8]
         plain_ms = time_ms(torch, lambda: mk.mma_matmul_plain(x8, w8, planes=8), reps=3, warmup=1)
         # the library yardstick on the truncate_to_planes operand (identity at
         # 8 planes); _int_mm wants K and N multiples of 8, so pad K with zero
@@ -509,17 +601,20 @@ def main() -> int:
         wl[:k] = w8
         check(torch.equal(torch._int_mm(xl, wl), mk.mma_matmul_kernel(x8, w8)),
               f"{name}: library yardstick disagrees with the kernel")
-        lib_ms = time_ms(torch, lambda: torch._int_mm(xl, wl), reps=20)
+        lib_ms = graph_ms(torch, lambda: torch._int_mm(xl, wl))
         nbytes = m * k + k * n + 4 * m * n
         nops = 2 * m * k * n
         t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, nops / INT8_OPS_PER_S * 1e3
         row = dict(name=name, M=m, K=k, N=n, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                    bound_ms=max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops else "operations",
-                   bytes=nbytes, ops=nops)
+                   plane_floor_ms=8 * t_ops, ms_planes=ms_planes, bytes=nbytes, ops=nops,
+                   block_rows=mk.tile_rows(m, n, torch.cuda.get_device_properties(0).multi_processor_count))
         per_shape.append(row)
-        print(f"[time] {card} | mma_matmul {name} M={m} K={k} N={n} planes=8: kernel {ms:.4f} ms, "
-              f"plain {plain_ms:.4f} ms, torch._int_mm {lib_ms:.4f} ms, bound {row['bound_ms']:.5f} ms "
-              f"({row['bound_by']}), {nops / ms / 1e9:.1f} GOP/s")
+        print(f"[time] {card} | mma_matmul {name} M={m} K={k} N={n} planes=8 (block rows "
+              f"{row['block_rows']}): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, torch._int_mm "
+              f"{lib_ms:.4f} ms, bound {row['bound_ms']:.5f} ms ({row['bound_by']}), plane-work "
+              f"floor {row['plane_floor_ms']:.5f} ms, {nops / ms / 1e9:.1f} GOP/s | planes 5: "
+              f"{ms_planes[5]:.4f} ms, planes 1: {ms_planes[1]:.4f} ms")
 
     tot_bytes = sum(r["bytes"] for r in per_shape)
     tot_ops = sum(r["ops"] for r in per_shape)
@@ -531,11 +626,15 @@ def main() -> int:
         bound_ms=max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops else "operations",
         library_ms=sum(r["library_ms"] for r in per_shape),
         work="one 4-tile micro-batch: the 7 conv shapes of an 80x80 window, planes 8",
+        ms_planes={p: sum(r["ms_planes"][p] for r in per_shape) for p in SERVED_PLANES},
+        plane_floor_ms=8 * t_ops, imma=None if imma is None else sum(imma.values()),
         launches_lm=lm["unscaled"], per_shape=per_shape,
     )
     print(f"[time] {card} | mma_matmul one 4-tile forward: kernel {summary['ms']:.4f} ms, "
           f"plain {summary['plain_ms']:.4f} ms, torch._int_mm {summary['library_ms']:.4f} ms, "
-          f"bound {summary['bound_ms']:.5f} ms ({summary['bound_by']})")
+          f"bound {summary['bound_ms']:.5f} ms ({summary['bound_by']}), plane-work floor "
+          f"{summary['plane_floor_ms']:.5f} ms | planes 5: {summary['ms_planes'][5]:.4f} ms, "
+          f"planes 1: {summary['ms_planes'][1]:.4f} ms")
     scaled_summary = lm_times(torch, dev, card, lm, decode_shapes)
     scaled_summary["max_abs_err"] = scaled_err
     print(json.dumps({"kernels": [summary, scaled_summary]}))

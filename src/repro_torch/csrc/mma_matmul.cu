@@ -1,12 +1,13 @@
 // Merged multiply-add (MMA) as a bit-plane Horner matmul, for Hopper (sm_90a).
 //
 // Replaces the TPU kernel repro/kernels/mma_matmul.py::_mma_kernel in both
-// its forms: unscaled (scaled=False, launched by _mma_matmul_impl), the
-// kernel the U-Net's 3x3 convolutions run through, and scaled (scaled=True,
-// launched by _mma_matmul_scaled_impl), the fused-dequant form every int8
-// linear of LM serving runs through.
+// its forms, with one CUDA kernel each: unscaled (scaled=False, launched by
+// _mma_matmul_impl), the kernel the U-Net's 3x3 convolutions run through,
+// is mma_tc_horner_kernel; scaled (scaled=True, launched by
+// _mma_matmul_scaled_impl), the fused-dequant form every int8 linear of LM
+// serving runs through, is mma_horner_kernel.
 //
-// What it computes, bit for bit: (M,K) int8 @ (K,N) int8 -> (M,N) int32.
+// What both compute, bit for bit: (M,K) int8 @ (K,N) int8 -> (M,N).
 //   u   = x + 128 (signed) or the byte of x read as uint8 (unsigned)
 //   per K tile:  h = 0;  for b = 7 .. 8-PLANES:  h = 2*h + ((u >> b) & 1) @ w
 //                acc += h * 2^(8-PLANES)
@@ -14,37 +15,347 @@
 //   out = acc                                       (unscaled, int32)
 //   out = (float(acc) * x_scale) * w_scale[n]       (scaled, float32)
 // All arithmetic before the epilogue is int32, so the integer result is
-// exact for any K (the TPU kernel runs the plane products in bf16 with f32
-// partials and is exact only for K <= 512 per block).  The scaled epilogue
-// rounds to nearest at each of its two products and contracts no FMA, in
-// the reference's order; x_scale is read from device memory, so a caller
-// never synchronizes to hand it over.
+// exact for any K with |acc| < 2^31, i.e. K <= 65,793 (the TPU kernel runs
+// the plane products in bf16 with f32 partials and is exact only for
+// K <= 512 per block).  The scaled epilogue rounds to nearest at each of
+// its two products and contracts no FMA, in the reference's order; x_scale
+// is read from device memory, so a caller never synchronizes to hand it
+// over.
 //
-// What bounds it on this card.  The function itself moves M*K + K*N bytes
-// in (plus 4*N of scales) and 4*M*N out and does 2*M*K*N int8 operations;
-// at the shapes the port serves the bytes term is the larger, so the
-// card's bound is its memory rate.  This kernel is far above that bound: it
-// runs the digit-serial recurrence on the CUDA cores, one int32
-// multiply-add per (row, column, k, plane), so it is bound by the SM's
-// int32 issue rate, PLANES times the work of a bit-parallel product.
+// What bounds them on this card.  The function moves M*K + K*N bytes in
+// (plus 4*N of scales) and 4*M*N out and does 2*M*K*N int8 operations; at
+// the shapes the port serves the bytes term is the larger, so the card's
+// bound is its memory rate.  The digit-serial recurrence multiplies the
+// operations by PLANES: the plane-work floor, PLANES * 2*M*K*N int8
+// operations at the tensor cores' peak, is the least the recurrence itself
+// can cost.
 //
-// What the design does about it.  It keeps the "merged" property of the
-// reference: a block owns one BM x 64 output tile, x and w are read from
-// global memory once per tile into shared memory, and the Horner residual
-// h and the accumulator never leave registers.  PLANES and SIGNED are
-// template parameters, so a 4-plane layer issues half the multiply-adds of
-// an 8-plane one.  TM (output rows per thread) sets the tile height
-// BM = 16*TM: 64 rows for wide M (convolutions, prefill), 16 rows when M is
-// at most 16 (batched decode), where a 64-row tile would spend 15/16 of its
-// work on masked rows.  Ragged edges are masked in the kernel: rows of w
-// past K read as 0, so neither the product nor the colsum correction sees
-// them.  Tensor-core plane products (mma.sync / wgmma on the 0/1 planes),
-// TMA and a pipelined shared-memory ring are left to later work.
+// The unscaled kernel: Horner plane products on the int8 tensor cores.
+// Each plane product is its own mma.sync m16n8k32 (A the 0/1 plane as u8,
+// B the weights as s8, int32 accumulate), issued MSB first into a residual
+// h that never leaves registers, then acc += h << (8-PLANES) once per
+// 64-deep K tile.  What bounds it (measured on an H100 at the U-Net's
+// shapes, PERF.md): per plane, the mma.sync issue with its two integer ops
+// of plane extraction ((u >> b) & 0x01010101, four values at once) and the
+// doubling of h, about a quarter of the int8 tensor-core peak; below that,
+// a fixed cost per K tile (staging latency with two tiles in flight, the
+// B-fragment transposes, colsum), which sets the time at few planes and
+// long K; and grids of few blocks on the small convs.  What the design
+// does about it:
+//   - the activation fragments are loaded once per K tile with ldmatrix
+//     and every plane is extracted from them in registers; the +128 offset
+//     is one xor (x ^ 0x80 per byte);
+//   - the weight fragments are built once per K tile with __byte_perm 4x4
+//     byte transposes of the staged [k][n] tile, and every plane and every
+//     m16 fragment reuses them.  Lane g of a warp feeds column 4g+j of the
+//     warp's 32 columns to n8 fragment j, so each thread's outputs are 8
+//     consecutive columns of a row (two 16-byte stores);
+//   - colsum(w) is one more mma per k32 chunk with an all-ones A;
+//   - x and w tiles stream through a 3-deep cp.async ring (16-byte copies
+//     where the row stride and base pointer allow, 4-byte copies where they
+//     allow that, byte loads otherwise; the wrapper picks), zero-filled past
+//     the M, K and N edges so masked rows and columns add 0 to the product
+//     and to colsum.  x rows are padded to 80 bytes and w row groups by 32
+//     bytes, so ldmatrix and the B-fragment loads are free of bank
+//     conflicts;
+//   - a block of 4 warps owns a BM x 64 tile (each warp BM/2 x 32):
+//     BM = 64, or BM = 32 for shapes whose 64-row grid is under one wave of
+//     the card's SMs (the wrapper picks).
+//
+// The scaled kernel: the Horner on the CUDA cores, one int32 multiply-add
+// per (row, column, k, plane), bound by the SM's int32 issue rate.  A block
+// owns one BM x 64 output tile, x and w are read from global memory once
+// per tile into shared memory, and h and the accumulator never leave
+// registers.  TM (output rows per thread) sets BM = 16*TM: 64 rows for wide
+// M, 16 rows when M is at most 16 (batched decode), where a 64-row tile
+// would spend 15/16 of its work on masked rows.  Rows of w past K read as 0,
+// so neither the product nor the colsum correction sees them.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
+
+// ---------------------------------------------------------------------------
+// The unscaled kernel: plane products on the tensor cores
+// ---------------------------------------------------------------------------
+
+constexpr int TC_BN = 64;        // output columns per block
+constexpr int TC_BK = 64;        // contraction depth of one staged K tile, bytes
+constexpr int TC_STAGES = 3;     // depth of the cp.async ring
+constexpr int TC_THREADS = 128;  // 4 warps, 2 x 2 over the block's tile
+constexpr int XS_STRIDE = TC_BK + 16;  // x row pitch in shared memory, bytes
+// w tile: rows of TC_BN bytes, 32 bytes of pad after every 4 rows
+constexpr int WS_BYTES = (TC_BK / 4) * (4 * TC_BN + 32);
+constexpr uint32_t LOW_BITS = 0x01010101u;  // bit 0 of each byte
+
+__device__ __forceinline__ int ws_row(int k) { return k * TC_BN + (k >> 2) * 32; }
+
+struct XRows {
+  __device__ int operator()(int r) const { return r * XS_STRIDE; }
+};
+struct WRows {
+  __device__ int operator()(int r) const { return ws_row(r); }
+};
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// cp.async of `bytes` from global to shared; bytes past `n` are zero-filled
+// and not read.
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int n) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src), "r"(n)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, int n) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src), "r"(n)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int PENDING>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(PENDING) : "memory");
+}
+
+// The m16n8k32 A fragment of a 16 x 32-byte tile (a 16 x 16 tile of b16):
+// lanes 8j..8j+7 give the row addresses of 8x8 matrix j.
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr)
+               : "memory");
+}
+
+// d += a @ b: a 16 x 32 u8 (row), b 32 x 8 s8 (col), int32 accumulate.
+__device__ __forceinline__ void mma_u8s8(int (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k32.row.col.s32.u8.s8.s32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// 4x4 byte transpose: r[j] holds 4 bytes of row j; afterwards r[i] holds
+// byte i of rows 0..3, row 0 in the low byte.
+__device__ __forceinline__ void transpose4x4(uint32_t (&r)[4]) {
+  const uint32_t t0 = __byte_perm(r[0], r[1], 0x5140), t1 = __byte_perm(r[0], r[1], 0x7362);
+  const uint32_t t2 = __byte_perm(r[2], r[3], 0x5140), t3 = __byte_perm(r[2], r[3], 0x7362);
+  r[0] = __byte_perm(t0, t2, 0x5410);
+  r[1] = __byte_perm(t0, t2, 0x7632);
+  r[2] = __byte_perm(t1, t3, 0x5410);
+  r[3] = __byte_perm(t1, t3, 0x7632);
+}
+
+// Stage a ROWS x 64-byte tile of a row-major int8 matrix (row stride `ld`
+// bytes, origin (r0, c0)) at `dst`, row r at dst + row_off(r); zero at rows
+// >= rlim and columns >= clim.  `vec`: 16 or 4, cp.async copies of that
+// width (the wrapper has checked that `ld` and the base pointer are
+// multiples of it); 1, byte loads stored as words.
+template <int ROWS, typename RowOff>
+__device__ __forceinline__ void stage_tile(uint8_t* dst, const int8_t* src, int ld, int r0,
+                                           int rlim, int c0, int clim, int vec, RowOff row_off) {
+  const int tid = threadIdx.x;
+  if (vec == 16) {
+#pragma unroll
+    for (int i = tid; i < ROWS * 4; i += TC_THREADS) {
+      const int r = i >> 2, c = (i & 3) * 16, gr = r0 + r, gc = c0 + c;
+      const int n = gr < rlim ? min(max(clim - gc, 0), 16) : 0;
+      cp_async16(smem_addr(dst + row_off(r) + c), n > 0 ? src + (size_t)gr * ld + gc : src, n);
+    }
+  } else if (vec == 4) {
+#pragma unroll
+    for (int i = tid; i < ROWS * 16; i += TC_THREADS) {
+      const int r = i >> 4, c = (i & 15) * 4, gr = r0 + r, gc = c0 + c;
+      const int n = gr < rlim ? min(max(clim - gc, 0), 4) : 0;
+      cp_async4(smem_addr(dst + row_off(r) + c), n > 0 ? src + (size_t)gr * ld + gc : src, n);
+    }
+  } else {
+    for (int i = tid; i < ROWS * 16; i += TC_THREADS) {
+      const int r = i >> 4, c = (i & 15) * 4, gr = r0 + r, gc = c0 + c;
+      uint32_t word = 0;
+      if (gr < rlim) {
+        const int8_t* p = src + (size_t)gr * ld + gc;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          if (gc + j < clim) word |= (uint32_t)(uint8_t)p[j] << (8 * j);
+        }
+      }
+      *reinterpret_cast<uint32_t*>(dst + row_off(r) + c) = word;
+    }
+  }
+}
+
+template <int PLANES, bool SIGNED, int BM>
+__global__ void __launch_bounds__(TC_THREADS, 3)
+mma_tc_horner_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
+                     int32_t* __restrict__ out, int M, int K, int N, int x_vec, int w_vec) {
+  constexpr int MI = BM / 32;  // m16 fragments per warp: a warp owns BM/2 rows x 32 columns
+  constexpr int NI = 4;        // n8 fragments per warp: one per byte of the 4x4 transpose
+  __shared__ __align__(16) uint8_t xs[TC_STAGES][BM * XS_STRIDE];
+  __shared__ __align__(16) uint8_t ws[TC_STAGES][WS_BYTES];
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;  // fragment row / column group, thread in group
+  const int wm = (warp >> 1) * (BM / 2), wn = (warp & 1) * 32;  // the warp's tile origin
+  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * TC_BN;
+  const int ktiles = (K + TC_BK - 1) / TC_BK;
+
+  auto stage = [&](int buf, int kt) {
+    const int k0 = kt * TC_BK;
+    stage_tile<BM>(xs[buf], x, K, m0, M, k0, K, x_vec, XRows{});
+    stage_tile<TC_BK>(ws[buf], w, N, k0, K, n0, N, w_vec, WRows{});
+  };
+
+  int acc[MI][NI][4];
+  int cs[NI][4];  // colsum(w) per column, the same in every row of the fragment
+#pragma unroll
+  for (int j = 0; j < NI; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      cs[j][e] = 0;
+#pragma unroll
+      for (int mi = 0; mi < MI; ++mi) acc[mi][j][e] = 0;
+    }
+
+#pragma unroll
+  for (int s = 0; s < TC_STAGES - 1; ++s) {
+    if (s < ktiles) stage(s, s);
+    cp_async_commit();
+  }
+
+  for (int kt = 0; kt < ktiles; ++kt) {
+    cp_async_wait<TC_STAGES - 2>();  // this thread's copies of tile kt have landed
+    __syncthreads();  // everyone's have, and every warp is done with tile kt-1's buffer
+    if (kt + TC_STAGES - 1 < ktiles) stage((kt + TC_STAGES - 1) % TC_STAGES, kt + TC_STAGES - 1);
+    cp_async_commit();
+    const uint8_t* xb = xs[kt % TC_STAGES];
+    const uint8_t* wb = ws[kt % TC_STAGES];
+
+    // B fragments, once per K tile: bf[c][hh][j] holds column wn+4g+j at
+    // k = 32c + 16hh + 4t .. +3 (the lane's k of n8 fragment j, k32 chunk c)
+    uint32_t bf[2][2][NI];
+#pragma unroll
+    for (int c = 0; c < 2; ++c)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int k = 32 * c + 16 * hh + 4 * t;
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          bf[c][hh][j] = *reinterpret_cast<const uint32_t*>(wb + ws_row(k + j) + wn + 4 * g);
+        transpose4x4(bf[c][hh]);
+      }
+    // A fragments of the offset activations u, once per K tile
+    uint32_t xa[MI][2][4];
+#pragma unroll
+    for (int mi = 0; mi < MI; ++mi)
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int row = wm + 16 * mi + (lane & 7) + 8 * ((lane >> 3) & 1);
+        ldmatrix_x4(xa[mi][c], smem_addr(xb + row * XS_STRIDE + 32 * c + 16 * (lane >> 4)));
+        if (SIGNED) {
+#pragma unroll
+          for (int q = 0; q < 4; ++q) xa[mi][c][q] ^= 0x80808080u;  // x + 128 per byte
+        }
+      }
+    if (SIGNED) {  // colsum(w): the all-ones activation times w
+      const uint32_t ones[4] = {LOW_BITS, LOW_BITS, LOW_BITS, LOW_BITS};
+#pragma unroll
+      for (int c = 0; c < 2; ++c)
+#pragma unroll
+        for (int j = 0; j < NI; ++j) mma_u8s8(cs[j], ones, bf[c][0][j], bf[c][1][j]);
+    }
+
+    // MSB-first Horner over the planes: h = 2h + plane_b @ w, one tensor-core
+    // product per plane and fragment
+    int h[MI][NI][4];
+#pragma unroll
+    for (int mi = 0; mi < MI; ++mi)
+#pragma unroll
+      for (int j = 0; j < NI; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) h[mi][j][e] = 0;
+#pragma unroll
+    for (int i = 0; i < PLANES; ++i) {
+      const int b = 7 - i;
+#pragma unroll
+      for (int mi = 0; mi < MI; ++mi)
+#pragma unroll
+        for (int j = 0; j < NI; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) h[mi][j][e] += h[mi][j][e];
+#pragma unroll
+      for (int c = 0; c < 2; ++c)
+#pragma unroll
+        for (int mi = 0; mi < MI; ++mi) {
+          uint32_t plane[4];
+#pragma unroll
+          for (int q = 0; q < 4; ++q) plane[q] = (xa[mi][c][q] >> b) & LOW_BITS;
+#pragma unroll
+          for (int j = 0; j < NI; ++j) mma_u8s8(h[mi][j], plane, bf[c][0][j], bf[c][1][j]);
+        }
+    }
+#pragma unroll
+    for (int mi = 0; mi < MI; ++mi)
+#pragma unroll
+      for (int j = 0; j < NI; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[mi][j][e] += h[mi][j][e] * (1 << (8 - PLANES));
+  }
+
+  // Epilogue: fragment j's C columns 2t, 2t+1 are columns wn+8t+j, wn+8t+4+j,
+  // so a thread holds columns n .. n+7 of rows g and g+8 of each m16 fragment
+  const int n = n0 + wn + 8 * t;
+  const bool vec_out = (N & 3) == 0 && n + 8 <= N;
+#pragma unroll
+  for (int mi = 0; mi < MI; ++mi)
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      const int m = m0 + wm + 16 * mi + g + 8 * hr;
+      if (m >= M) continue;
+      int v[8];
+#pragma unroll
+      for (int j = 0; j < NI; ++j) {
+        v[j] = acc[mi][j][2 * hr] - (SIGNED ? 128 * cs[j][0] : 0);
+        v[4 + j] = acc[mi][j][2 * hr + 1] - (SIGNED ? 128 * cs[j][1] : 0);
+      }
+      int32_t* o = out + (size_t)m * N + n;
+      if (vec_out) {
+        reinterpret_cast<int4*>(o)[0] = make_int4(v[0], v[1], v[2], v[3]);
+        reinterpret_cast<int4*>(o)[1] = make_int4(v[4], v[5], v[6], v[7]);
+      } else {
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          if (n + j < N) o[j] = v[j];
+      }
+    }
+}
+
+template <int PLANES, bool SIGNED>
+void launch_tc(const int8_t* x, const int8_t* w, int32_t* out, int M, int K, int N, int bm,
+               int x_vec, int w_vec, cudaStream_t stream) {
+  const dim3 grid((M + bm - 1) / bm, (N + TC_BN - 1) / TC_BN);
+  if (bm == 32) {
+    mma_tc_horner_kernel<PLANES, SIGNED, 32>
+        <<<grid, TC_THREADS, 0, stream>>>(x, w, out, M, K, N, x_vec, w_vec);
+  } else {
+    mma_tc_horner_kernel<PLANES, SIGNED, 64>
+        <<<grid, TC_THREADS, 0, stream>>>(x, w, out, M, K, N, x_vec, w_vec);
+  }
+}
+
+// A copy width the loader may use: 16 or 4 bytes where the row stride and
+// the base pointer are multiples of it, or 1.
+bool copy_width_ok(int vec, int ld, const void* p) {
+  return (vec == 1 || vec == 4 || vec == 16) && ld % vec == 0 &&
+         reinterpret_cast<uintptr_t>(p) % vec == 0;
+}
+
+// ---------------------------------------------------------------------------
+// The scaled kernel: the Horner on the CUDA cores, fused dequant epilogue
+// ---------------------------------------------------------------------------
 
 constexpr int BN = 64;   // output columns per block
 constexpr int BK = 16;   // contraction depth staged in shared memory
@@ -57,12 +368,12 @@ constexpr int SMALL_M = 16;  // at most this many rows: the 16-row tile
 static_assert(THREADS == BK * (BN / 4), "w loader: one int4 per thread");
 static_assert(BK % KH == 0, "Horner passes tile the stage");
 
-template <int PLANES, bool SIGNED, bool SCALED, int TM>
+template <int PLANES, bool SIGNED, int TM>
 __global__ void __launch_bounds__(THREADS, 2)
 mma_horner_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
                   const float* __restrict__ x_scale,
                   const float* __restrict__ w_scale,
-                  void* __restrict__ out, int M, int K, int N) {
+                  float* __restrict__ out, int M, int K, int N) {
   constexpr int BM = ROW_GROUPS * TM;  // output rows per block
   static_assert(TM == 1 || TM % 4 == 0, "a thread's rows lie in whole words or one byte");
   static_assert(BK * (BM / 4) <= THREADS, "x loader: at most one word per thread");
@@ -171,7 +482,7 @@ mma_horner_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
     __syncthreads();  // the next stage overwrites xs and ws
   }
 
-  const float xsv = SCALED ? *x_scale : 0.0f;
+  const float xsv = *x_scale;
 #pragma unroll
   for (int r = 0; r < TM; ++r) {
     const int gm = m0 + TM * tr + r;
@@ -181,47 +492,50 @@ mma_horner_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
       const int gn = n0 + TN * tc + c;
       if (gn >= N) continue;
       const int v = acc[r][c] - (SIGNED ? 128 * colsum[c] : 0);
-      const size_t o = (size_t)gm * N + gn;
-      if (SCALED) {
-        // fused dequant epilogue: (acc * x_scale) * w_scale[n], each product
-        // rounded to nearest, no contraction into an FMA
-        static_cast<float*>(out)[o] = __fmul_rn(__fmul_rn(__int2float_rn(v), xsv), w_scale[gn]);
-      } else {
-        static_cast<int32_t*>(out)[o] = v;
-      }
+      // fused dequant epilogue: (acc * x_scale) * w_scale[n], each product
+      // rounded to nearest, no contraction into an FMA
+      out[(size_t)gm * N + gn] = __fmul_rn(__fmul_rn(__int2float_rn(v), xsv), w_scale[gn]);
     }
   }
 }
 
-template <int PLANES, bool SIGNED, bool SCALED>
-void launch(const void* x, const void* w, const void* xs, const void* ws, void* out,
-            int M, int K, int N, cudaStream_t stream) {
-  const auto* xp = static_cast<const int8_t*>(x);
-  const auto* wp = static_cast<const int8_t*>(w);
-  const auto* xsp = static_cast<const float*>(xs);
-  const auto* wsp = static_cast<const float*>(ws);
+template <int PLANES, bool SIGNED>
+void launch_scaled(const int8_t* x, const int8_t* w, const float* xs, const float* ws,
+                   float* out, int M, int K, int N, cudaStream_t stream) {
   const int gy = (N + BN - 1) / BN;
   if (M <= SMALL_M) {
-    mma_horner_kernel<PLANES, SIGNED, SCALED, 1><<<dim3(1, gy), THREADS, 0, stream>>>(
-        xp, wp, xsp, wsp, out, M, K, N);
+    mma_horner_kernel<PLANES, SIGNED, 1><<<dim3(1, gy), THREADS, 0, stream>>>(
+        x, w, xs, ws, out, M, K, N);
   } else {
     constexpr int BM = ROW_GROUPS * 4;
-    mma_horner_kernel<PLANES, SIGNED, SCALED, 4>
-        <<<dim3((M + BM - 1) / BM, gy), THREADS, 0, stream>>>(xp, wp, xsp, wsp, out, M, K, N);
+    mma_horner_kernel<PLANES, SIGNED, 4>
+        <<<dim3((M + BM - 1) / BM, gy), THREADS, 0, stream>>>(x, w, xs, ws, out, M, K, N);
   }
 }
 
-template <bool SCALED>
-int dispatch(const void* x, const void* w, const void* xs, const void* ws, void* out,
-             int M, int K, int N, int planes, int is_signed, void* stream) {
-  if (M <= 0 || N <= 0 || K < 0 || (N + BN - 1) / BN > 65535) {
+}  // namespace
+
+// Plain C interface, loaded with ctypes.  Each returns cudaGetLastError()
+// after the launch (0 on success); a refused launch is reported here, not at
+// the next synchronize.
+
+// bm: block rows, 32 or 64.  x_vec, w_vec: copy widths of the x and w tiles
+// (16, 4 or 1 bytes), each dividing its row stride (K, N) and base pointer.
+extern "C" int mma_matmul_launch(const void* x, const void* w, void* out, int M, int K, int N,
+                                 int planes, int is_signed, int bm, int x_vec, int w_vec,
+                                 void* stream) {
+  if (M <= 0 || N <= 0 || K < 0 || (N + TC_BN - 1) / TC_BN > 65535 || (bm != 32 && bm != 64) ||
+      !copy_width_ok(x_vec, K, x) || !copy_width_ok(w_vec, N, w)) {
     return (int)cudaErrorInvalidValue;
   }
+  const auto* xp = static_cast<const int8_t*>(x);
+  const auto* wp = static_cast<const int8_t*>(w);
+  auto* op = static_cast<int32_t*>(out);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define MMA_CASE(P)                                                          \
-  case P:                                                                    \
-    if (is_signed) launch<P, true, SCALED>(x, w, xs, ws, out, M, K, N, s);   \
-    else launch<P, false, SCALED>(x, w, xs, ws, out, M, K, N, s);            \
+#define MMA_CASE(P)                                                                   \
+  case P:                                                                             \
+    if (is_signed) launch_tc<P, true>(xp, wp, op, M, K, N, bm, x_vec, w_vec, s);      \
+    else launch_tc<P, false>(xp, wp, op, M, K, N, bm, x_vec, w_vec, s);               \
     break;
   switch (planes) {
     MMA_CASE(1)
@@ -239,23 +553,39 @@ int dispatch(const void* x, const void* w, const void* xs, const void* ws, void*
   return (int)cudaGetLastError();
 }
 
-}  // namespace
-
-// Plain C interface, loaded with ctypes.  Each returns cudaGetLastError()
-// after the launch (0 on success); a refused launch is reported here, not at
-// the next synchronize.
-extern "C" int mma_matmul_launch(const void* x, const void* w, void* out,
-                                 int M, int K, int N, int planes, int is_signed,
-                                 void* stream) {
-  return dispatch<false>(x, w, nullptr, nullptr, out, M, K, N, planes, is_signed, stream);
-}
-
 // x_scale: one float32 on the device; w_scale: N float32 on the device.
 extern "C" int mma_matmul_scaled_launch(const void* x, const void* w,
                                         const void* x_scale, const void* w_scale,
                                         void* out, int M, int K, int N, int planes,
                                         int is_signed, void* stream) {
-  return dispatch<true>(x, w, x_scale, w_scale, out, M, K, N, planes, is_signed, stream);
+  if (M <= 0 || N <= 0 || K < 0 || (N + BN - 1) / BN > 65535) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const auto* xp = static_cast<const int8_t*>(x);
+  const auto* wp = static_cast<const int8_t*>(w);
+  const auto* xsp = static_cast<const float*>(x_scale);
+  const auto* wsp = static_cast<const float*>(w_scale);
+  auto* op = static_cast<float*>(out);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define MMA_CASE(P)                                                                   \
+  case P:                                                                             \
+    if (is_signed) launch_scaled<P, true>(xp, wp, xsp, wsp, op, M, K, N, s);          \
+    else launch_scaled<P, false>(xp, wp, xsp, wsp, op, M, K, N, s);                   \
+    break;
+  switch (planes) {
+    MMA_CASE(1)
+    MMA_CASE(2)
+    MMA_CASE(3)
+    MMA_CASE(4)
+    MMA_CASE(5)
+    MMA_CASE(6)
+    MMA_CASE(7)
+    MMA_CASE(8)
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+#undef MMA_CASE
+  return (int)cudaGetLastError();
 }
 
 extern "C" const char* mma_matmul_error_string(int code) {

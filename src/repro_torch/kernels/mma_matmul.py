@@ -2,13 +2,20 @@
 Hopper (``csrc/mma_matmul.cu``), its plain PyTorch versions, and the
 variant table between them.
 
-The kernel replaces the TPU kernel ``repro/kernels/mma_matmul.py::
+The kernels replace the TPU kernel ``repro/kernels/mma_matmul.py::
 _mma_kernel`` in both forms.  Unscaled: (M, K) int8 @ (K, N) int8 -> (M, N)
 int32 as an MSB-first Horner over ``planes`` bit planes of the offset
-activation, with the residual held in registers — x and w are read from
-global memory once per output tile, plane partials never leave the SM.
-Scaled: the same product with the dequant epilogue fused into the store,
-float32 ``(acc * x_scale) * w_scale[n]``.
+activation, one int8 tensor-core product per plane, with the residual held
+in registers — x and w stream once per output tile through a ``cp.async``
+ring, plane partials never leave the SM.  Scaled: the same product on the
+CUDA cores with the dequant epilogue fused into the store, float32
+``(acc * x_scale) * w_scale[n]``.
+
+The unscaled wrapper picks two things from what it can see, in plain
+Python (:func:`tile_rows`, :func:`copy_width`): the block height (64 rows,
+or 32 where a 64-row grid would not fill the card's SMs once) and the copy
+width of each operand's staging (16 or 4 bytes where the row stride and the
+base pointer allow, else 1).
 
 Build: at first use, ``nvcc`` compiles the checkout's source into a shared
 library with a plain C interface under ``csrc/build/`` (named by a hash of
@@ -85,7 +92,7 @@ def build() -> tuple[Path, str]:
 def _library() -> ctypes.CDLL:
     path, _ = build()
     lib = ctypes.CDLL(str(path))
-    lib.mma_matmul_launch.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    lib.mma_matmul_launch.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
     lib.mma_matmul_launch.restype = ctypes.c_int
     lib.mma_matmul_scaled_launch.argtypes = (
         [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
@@ -94,6 +101,28 @@ def _library() -> ctypes.CDLL:
     lib.mma_matmul_error_string.argtypes = [ctypes.c_int]
     lib.mma_matmul_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def tile_rows(m: int, n: int, sms: int) -> int:
+    """Block height of the unscaled kernel for an (m, n) output on a card
+    with ``sms`` SMs: 64 rows, or 32 where the 64 x 64 grid is under one
+    wave (fewer blocks than SMs), so more SMs get work."""
+    return 32 if -(-m // 64) * -(-n // 64) < sms else 64
+
+
+def copy_width(ptr: int, row_bytes: int) -> int:
+    """Bytes per copy when the kernel stages an operand whose rows are
+    ``row_bytes`` apart from address ``ptr``: 16 or 4 where both are
+    multiples of it (``cp.async`` wants aligned ends), else 1."""
+    for width in (16, 4):
+        if ptr % width == 0 and row_bytes % width == 0:
+            return width
+    return 1
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def mma_matmul_plain(
@@ -152,7 +181,11 @@ def _raise_on(err: int) -> None:
         raise RuntimeError(f"mma_matmul kernel launch failed: {msg} (cudaError {err})")
 
 
-def _launch(x: torch.Tensor, w: torch.Tensor, planes: int, signed: bool) -> torch.Tensor:
+def _launch(
+    x: torch.Tensor, w: torch.Tensor, planes: int, signed: bool, *, bm: int | None = None
+) -> torch.Tensor:
+    """The unscaled kernel; ``bm`` forces the block height (32 or 64), else
+    :func:`tile_rows` picks it."""
     global launches
     _check(x, w)
     if x.device.type == "cpu":
@@ -165,8 +198,11 @@ def _launch(x: torch.Tensor, w: torch.Tensor, planes: int, signed: bool) -> torc
     if m == 0 or n == 0:
         return out
     with torch.cuda.device(x.device):
+        if bm is None:
+            bm = tile_rows(m, n, _sm_count(torch.cuda.current_device()))
         err = _library().mma_matmul_launch(
-            x.data_ptr(), w.data_ptr(), out.data_ptr(), m, k, n, planes, int(signed),
+            x.data_ptr(), w.data_ptr(), out.data_ptr(), m, k, n, planes, int(signed), bm,
+            copy_width(x.data_ptr(), k), copy_width(w.data_ptr(), n),
             torch.cuda.current_stream().cuda_stream,
         )
     _raise_on(err)
@@ -205,8 +241,8 @@ def _launch_scaled(
 def plane_variant(planes: int, signed: bool = True, *, scaled: bool = False):
     """The kernel specialization for one plane budget.
 
-    ``planes`` and ``signed`` are template parameters of the CUDA kernel:
-    a 4-plane variant issues half the multiply-adds of the 8-plane one, so
+    ``planes`` and ``signed`` are template parameters of the CUDA kernels:
+    a 4-plane variant issues half the plane products of the 8-plane one, so
     a schedule that gives a layer 4 planes runs a smaller kernel, not a
     masked full-width one.  ``scaled`` selects the fused-dequant form, which
     takes ``(x, w, x_scale, w_scale)``.  ``plane_variant.cache_info()``

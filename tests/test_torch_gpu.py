@@ -59,11 +59,18 @@ def cuda():
     return torch.device("cuda")
 
 
-def _kernel_vs_plain(dev, m, k, n, planes, signed=True, seed=0, scaled=False):
+def _kernel_vs_plain(dev, m, k, n, planes, signed=True, seed=0, scaled=False, bm=None,
+                     offset=0):
+    """``bm`` forces the unscaled kernel's block height; ``offset`` makes x
+    and w views that many bytes into their storage."""
     g = torch.Generator().manual_seed(seed)
-    x = torch.randint(-128, 128, (m, k), dtype=torch.int8, generator=g).to(dev)
-    w = torch.randint(-128, 128, (k, n), dtype=torch.int8, generator=g).to(dev)
-    if scaled:
+    x = torch.randint(-128, 128, (m * k + offset,), dtype=torch.int8, generator=g)
+    w = torch.randint(-128, 128, (k * n + offset,), dtype=torch.int8, generator=g)
+    x, w = x.to(dev)[offset:].view(m, k), w.to(dev)[offset:].view(k, n)
+    if bm is not None:
+        got = mk._launch(x, w, planes, signed, bm=bm)
+        want = mk.mma_matmul_plain(x, w, planes=planes, signed=signed)
+    elif scaled:
         xs = (torch.rand(1, generator=g) * 0.1 + 1e-3).to(dev)
         ws = (torch.rand(n, generator=g) * 0.01 + 1e-4).to(dev)
         got = mk.mma_matmul_scaled_kernel(x, w, xs, ws, planes=planes, signed=signed)
@@ -93,6 +100,41 @@ def test_gpu_kernel_vs_plain_every_variant(cuda, planes, signed):
 @pytest.mark.parametrize("m,k,n", LAYER_SHAPES)
 def test_gpu_kernel_vs_plain_layer_shapes(cuda, m, k, n):
     _kernel_vs_plain(cuda, 4 * m, k, n, 8)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", [7, 36, 129, 300, 5184])
+@pytest.mark.parametrize("n", [3, 48, 70, 192])
+def test_gpu_kernel_staging_paths(cuda, k, n):
+    """Each operand's staging path: 16-byte copies (K 5184; N 48, 192),
+    4-byte copies (K 36, 300) and byte loads (K 7, 129; N 3, 70)."""
+    _kernel_vs_plain(cuda, 67, k, n, 8)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("offset,width", [(1, 1), (4, 4)])
+def test_gpu_kernel_misaligned_views(cuda, offset, width):
+    """Contiguous views 1 or 4 bytes into their storage: the 16-byte path
+    is refused for both operands, and the result is the same."""
+    x = torch.zeros(300 * 48 + offset, dtype=torch.int8, device=cuda)[offset:]
+    assert mk.copy_width(x.data_ptr(), 48) == width
+    _kernel_vs_plain(cuda, 67, 300, 48, 8, offset=offset)
+    _kernel_vs_plain(cuda, 45, 5184, 192, 5, offset=offset)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", [1, 15, 16, 17, 33])
+@pytest.mark.parametrize("bm", [32, 64])
+def test_gpu_kernel_ragged_rows_on_both_tiles(cuda, m, bm):
+    _kernel_vs_plain(cuda, m, 256, 80, 8, bm=bm)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("planes", range(1, 9))
+@pytest.mark.parametrize("signed", [True, False])
+@pytest.mark.parametrize("bm", [32, 64])
+def test_gpu_kernel_every_variant_on_both_tiles(cuda, planes, signed, bm):
+    _kernel_vs_plain(cuda, 33, 256, 80, planes, signed=signed, bm=bm)
 
 
 @pytest.mark.gpu

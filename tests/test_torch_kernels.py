@@ -15,6 +15,7 @@ from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro_torch.kernels import mma_matmul as mk
 from repro_torch.kernels import ops, ref
+from repro_torch.models import unet
 
 SWEEP = [
     (4, 32, 8), (32, 128, 32), (128, 512, 128), (37, 100, 65),
@@ -164,6 +165,93 @@ def test_cpu_path_does_not_count_launches():
     before = mk.launches
     ops.mma_matmul(_rand_i8(rng, (4, 8)), _rand_i8(rng, (8, 4)), device="cpu")
     assert mk.launches == before
+
+
+# ------------------------------------- the unscaled kernel's design, on the CPU
+
+H100_SMS = 132
+
+
+def test_tile_rows_on_the_unet_shapes():
+    """The calibrated U-Net's convs at a 4-tile micro-batch: the three whose
+    64 x 64 grid is under one wave of 132 SMs (enc2: 75 blocks, bottleneck:
+    42, dec2: 75) take the 32-row block."""
+    cfg = unet.UNetConfig(quant_mode="mma_int8")
+    got = [mk.tile_rows(4 * c.out_h * c.out_w, c.cout, H100_SMS) for c in cfg.conv_layers()]
+    assert got == [64, 64, 32, 32, 32, 64, 64]
+
+
+@pytest.mark.parametrize("m,n,want", [
+    (131 * 64, 64, 32),      # 131 blocks of 64 x 64: one short of a wave
+    (131 * 64 + 1, 64, 64),  # the ragged last row block makes 132
+    (132 * 64, 64, 64),
+    (64, 131 * 64, 32),      # the same count along N
+    (64, 132 * 64, 64),
+    (1, 1, 32),
+])
+def test_tile_rows_at_the_wave_boundary(m, n, want):
+    assert mk.tile_rows(m, n, H100_SMS) == want
+
+
+@pytest.mark.parametrize("ptr,row_bytes,want", [
+    (0, 5184, 16), (512, 48, 16),  # the U-Net's K and N: 16-byte cp.async
+    (0, 36, 4), (0, 300, 4),       # enc0's K = 36: 4-byte cp.async
+    (0, 7, 1), (0, 129, 1), (0, 70, 1), (0, 3, 1),
+    (1, 5184, 1),                  # a view one byte into its storage
+    (4, 5184, 4), (8, 5184, 4),
+])
+def test_copy_width(ptr, row_bytes, want):
+    assert mk.copy_width(ptr, row_bytes) == want
+
+
+def _tensor_core_emulation(x: torch.Tensor, w: torch.Tensor, planes: int,
+                           signed: bool) -> torch.Tensor:
+    """The unscaled CUDA kernel's arithmetic, emulated in torch: K in whole
+    64-deep tiles, zero-filled past K as the cp.async ring fills it; the
+    offset as an xor of four activation bytes in a 32-bit word; per tile an
+    MSB-first Horner ``h = 2h + plane_b @ w`` whose planes are extracted
+    from the words as ``(u >> b) & 0x01010101``, then ``acc += h << (8-P)``;
+    colsum(w) as the all-ones activation times w."""
+    m, k = x.shape
+    kp = -(-k // 64) * 64
+    xp = torch.zeros((m, kp), dtype=torch.int8)
+    xp[:, :k] = x
+    wp = torch.zeros((kp, w.shape[1]), dtype=torch.int64)
+    wp[:k] = w.to(torch.int64)
+    words = xp.view(torch.int32)
+    if signed:
+        words = words ^ torch.tensor(0x80808080 - 2**32, dtype=torch.int32)  # x + 128 per byte
+    acc = torch.zeros((m, w.shape[1]), dtype=torch.int64)
+    cs = torch.zeros((1, w.shape[1]), dtype=torch.int64)
+    for k0 in range(0, kp, 64):
+        u = words[:, k0 // 4:(k0 + 64) // 4].contiguous()
+        wt = wp[k0:k0 + 64]
+        cs += torch.ones((1, 64), dtype=torch.int64) @ wt
+        h = torch.zeros_like(acc)
+        for b in range(7, 7 - planes, -1):
+            plane = ((u >> b) & 0x01010101).view(torch.uint8).to(torch.int64)
+            h = h + h + plane @ wt
+        acc += h << (8 - planes)
+    return (acc - 128 * cs if signed else acc).to(torch.int32)
+
+
+@pytest.mark.parametrize("m,k,n", [(37, 100, 65), (1, 7, 3), (64, 300, 90), (5, 129, 70),
+                                   (33, 36, 48)])
+@pytest.mark.parametrize("planes,signed", [(8, True), (5, True), (1, True), (8, False),
+                                           (3, False)])
+def test_tensor_core_decomposition_vs_plain_and_pallas(m, k, n, planes, signed):
+    """The decomposition the CUDA kernel computes (``_tensor_core_emulation``)
+    equals the plain version and the reference's Pallas kernel in interpret
+    mode bit for bit, on ragged shapes."""
+    rng = np.random.default_rng(m * 1009 + k * 17 + n + planes)
+    x, w = _rand_i8(rng, (m, k)), _rand_i8(rng, (k, n))
+    got = _tensor_core_emulation(torch.from_numpy(x), torch.from_numpy(w), planes, signed)
+    plain = mk.mma_matmul_plain(torch.from_numpy(x), torch.from_numpy(w), planes=planes,
+                                signed=signed)
+    pallas = np.asarray(jops.mma_matmul(jnp.asarray(x), jnp.asarray(w), planes=planes,
+                                        signed=signed, interpret=True))
+    assert torch.equal(got, plain)
+    np.testing.assert_array_equal(got.numpy(), pallas)
 
 
 # --------------------------------------------------------- the scaled kernel
