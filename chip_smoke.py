@@ -9,13 +9,17 @@ Phases, in one process; any failure ends the run with a non-zero exit:
    of every kernel from the checkout's sources, with ``-Xptxas -v``.
 2. Kernels vs plain versions: both CUDA MMA kernels (unscaled, on the
    tensor cores, int32 out; scaled, with the fused dequant epilogue, float32
-   out) against their plain PyTorch versions on the card, bit for bit
-   (``torch.equal``), on the reference's kernel sweep, every (planes,
-   signed) variant, and the main paths' shapes (the U-Net's conv layers,
-   Yi-6B's decode linears); for the unscaled kernel also its three staging
-   paths (16-byte, 4-byte and byte copies, by K and N), operands whose
-   base pointer is 1 or 4 bytes off alignment, and ragged M on both block
-   heights with every (planes, signed).
+   out: on the tensor cores at M <= 16, on the CUDA cores above) against
+   their plain PyTorch versions on the card, bit for bit (``torch.equal``),
+   on the reference's kernel sweep, every (planes, signed) variant, and the
+   main paths' shapes (the U-Net's conv layers, Yi-6B's decode linears);
+   for the unscaled kernel also its three staging paths (16-byte, 4-byte
+   and byte copies, by K and N), operands whose base pointer is 1 or 4
+   bytes off alignment, and ragged M on both block heights with every
+   (planes, signed); for the scaled kernel at decode shapes, M 1-16 across
+   K and N that give every staging path, every (planes, signed), the K
+   split count forced to 1, 2 and ``max_splits``, views 1 and 4 bytes off
+   alignment, and one call captured in a CUDA graph and replayed twice.
 3. Forward: the full-width quantized U-Net (80x80x4, base 48, depth 3)
    under uniform 8 planes and a ``from_weights(0.05)`` schedule — the kernel
    path against the plain Horner path, every conv's int32 output equal; and
@@ -32,16 +36,19 @@ Phases, in one process; any failure ends the run with a non-zero exit:
    per decode call (32 x 7 linears + the head); every scaled linear of one
    recorded decode call must equal the plain version bit for bit; that
    call's logits are held against the same call on the plain Horner path.
-6. Times (CUDA events; the unscaled kernel and its library yardstick from
-   replays of a CUDA graph of 20 calls, so the host's launch rate is not
-   what is timed): each kernel at each main-path shape and per unit of
-   work (a 4-tile U-Net micro-batch, at 8 planes and at the served 5 and 1;
-   one LM decode call, replayed from the recorded one), its plain version, a
-   ``torch._int_mm`` library yardstick (timed only; the port never calls
-   it), the card's bound and, for the unscaled kernel, the plane-work floor
-   (planes x 2MKN int8 operations at the tensor-core peak).  Where the
-   toolkit has ``cuobjdump``, the count of ``IMMA`` (integer tensor-core)
-   instructions in the unscaled kernel's SASS, which must not be 0.
+6. Times (both kernels and their library yardsticks from replays of a
+   CUDA graph, so the host's launch rate is not what is timed; the plain
+   versions by CUDA events): each kernel at each main-path shape and per
+   unit of work (a 4-tile U-Net micro-batch; one LM decode call, the
+   recorded call's 225 linears in one graph), at 8 planes and at fewer,
+   its plain version, a ``torch._int_mm`` library yardstick (timed only;
+   the port never calls it), the card's bound and, for the unscaled
+   kernel, the plane-work floor (planes x 2MKN int8 operations at the
+   tensor-core peak).  The scaled kernel's per-shape graphs rotate through
+   copies of w that together exceed the 50 MB L2, so each call reads w
+   from device memory as a decode call does.  Where the toolkit has
+   ``cuobjdump``, the count of ``IMMA`` (integer tensor-core) instructions
+   in the SASS of every tensor-core kernel's instantiations, none 0.
 
 The line before the last is a JSON object naming every kernel with its
 launches on its main path and its times; the last line is
@@ -50,6 +57,7 @@ launches on its main path and its times; the last line is
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import json
 import statistics
 import subprocess
@@ -74,6 +82,12 @@ STAGING_N = (3, 48, 70, 192)
 RAGGED_M = (1, 15, 16, 17, 33)
 SERVED_PLANES = (8, 5, 1)  # the U-Net path's budgets: uniform, class 0, class 6
 SCALED_SWEEP = [(16, 96, 40), (64, 256, 128), (3, 50, 7)]  # the reference's epilogue test
+# the scaled kernel at decode shapes: M on one and two n8 fragments, K and N
+# that give 16-byte, 4-byte and byte staging, one or many K tiles
+DECODE_M = (1, 3, 4, 8, 9, 15, 16)
+DECODE_K = (7, 129, 4096, 11008)
+DECODE_N = (3, 70, 512, 4096)
+L2_BYTES = 50 * 2**20  # the H100's L2: per-shape timings read more w than this
 
 # Logits of the kernel path and the plain path go through the same float
 # head on bitwise-equal conv outputs: equal up to the card's reduction order.
@@ -171,6 +185,74 @@ def imma_count(lib: Path, kernel: str):
         elif name in counts and "IMMA" in line:
             counts[name] += 1
     return counts
+
+
+def decode_cases(torch, dev) -> int:
+    """The scaled kernel at decode shapes (M <= 16, the tensor-core decode
+    kernel) against its plain version, bit for bit; returns the number of
+    cases.  Fails on the first that differs."""
+    from repro_torch.kernels import mma_matmul as mk
+
+    g = torch.Generator(device=dev).manual_seed(2)
+    n_cases = 0
+
+    def operands(m, k, n, offset=0):
+        x = torch.randint(-128, 128, (m * k + offset,), dtype=torch.int8, device=dev, generator=g)
+        w = torch.randint(-128, 128, (k * n + offset,), dtype=torch.int8, device=dev, generator=g)
+        xs = torch.rand(1, device=dev, generator=g) * 0.1 + 1e-3
+        ws = torch.rand(n, device=dev, generator=g) * 0.01 + 1e-4
+        return x[offset:].view(m, k), w[offset:].view(k, n), xs, ws
+
+    def case(x, w, xs, ws, planes=8, signed=True, splits=None, what=""):
+        nonlocal n_cases
+        got = mk._launch_scaled(x, w, xs, ws, planes, signed, splits=splits)
+        want = mk.mma_matmul_scaled_plain(x, w, xs, ws, planes=planes, signed=signed)
+        torch.cuda.synchronize()
+        n_cases += 1
+        check(torch.equal(got, want), f"decode kernel != plain at M={x.shape[0]} K={w.shape[0]} "
+              f"N={w.shape[1]} planes={planes} signed={signed} splits={splits} {what}")
+        return got
+
+    for k in DECODE_K:
+        for n in DECODE_N:
+            for m in DECODE_M:
+                case(*operands(m, k, n))
+    for k, n in ((129, 70), (4096, 512)):
+        for m in (4, 9):
+            args = operands(m, k, n)
+            for planes in range(1, 9):
+                for signed in (True, False):
+                    case(*args, planes, signed)
+    for k in (129, 4096, 11008):
+        for n in (70, 4096):
+            for m in (1, 4, 16):
+                args = operands(m, k, n)
+                for splits in sorted({1, min(2, -(-k // mk.DECODE_BK)), mk.max_splits(k)}):
+                    case(*args, 5, True, splits)
+    for offset in (1, 4):
+        for m, k, n in ((4, 4096, 512), (9, 129, 70), (16, 11008, 4096)):
+            x, w, xs, ws = operands(m, k, n, offset)
+            check(x.data_ptr() % 16 != 0 and w.data_ptr() % 16 != 0, "views are 16-byte aligned")
+            case(x, w, xs, ws, 5, True, what=f"offset={offset}")
+    # one call captured in a CUDA graph (its workspace zeroed inside it),
+    # replayed twice: equal outputs, equal to the plain version
+    for m, k, n in ((4, 4096, 512), (9, 11008, 4096)):
+        x, w, xs, ws = operands(m, k, n)
+        check(mk.split_k(m, k, n, torch.cuda.get_device_properties(0).multi_processor_count) > 1,
+              "the graph case takes no K split")
+        want = case(x, w, xs, ws, 5)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = mk.mma_matmul_scaled_kernel(x, w, xs, ws, planes=5)
+        outs = []
+        for _ in range(2):
+            graph.replay()
+            torch.cuda.synchronize()
+            outs.append(out.clone())
+        n_cases += 1
+        check(torch.equal(outs[0], outs[1]) and torch.equal(outs[0], want),
+              f"graph replays of the decode kernel differ at M={m} K={k} N={n}")
+    return n_cases
 
 
 def lm_decode_shapes(cfg):
@@ -300,8 +382,9 @@ def lm_serving(torch, np, dev, cfg):
 
 
 def lm_times(torch, dev, card, lm, decode_shapes):
-    """The scaled kernel's times: per decode shape at 8 planes, and per
-    decode call, replaying the recorded call's 225 kernel calls."""
+    """The scaled kernel's times, from CUDA-graph replays: per decode shape
+    at 8, 5 and 1 planes with w cold in L2, and per decode call, replaying
+    the recorded call's 225 kernel calls."""
     from repro_torch.core import bitplane
     from repro_torch.kernels import mma_matmul as mk
 
@@ -319,52 +402,73 @@ def lm_times(torch, dev, card, lm, decode_shapes):
         t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, nops / INT8_OPS_PER_S * 1e3
         return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations", nbytes, nops
 
-    g = torch.Generator().manual_seed(1)
+    def rotating(fns):
+        """One call per graph slot, cycling through ``fns``."""
+        it = itertools.cycle(fns)
+        return lambda: next(it)()
+
+    g = torch.Generator(device=dev).manual_seed(1)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     per_shape = []
     for name, k, n in decode_shapes:
         m = LM_BATCH
-        x, w = rand_i8(torch, g, (m, k), dev), rand_i8(torch, g, (k, n), dev)
+        # enough copies of w that a graph of calls never finds one in L2
+        copies = -(-2 * L2_BYTES // (k * n))
+        calls = max(20, copies)
+        x = torch.randint(-128, 128, (m, k), dtype=torch.int8, device=dev, generator=g)
+        ws_ = [torch.randint(-128, 128, (k, n), dtype=torch.int8, device=dev, generator=g)
+               for _ in range(copies)]
         xs = torch.full((1,), 0.01, device=dev)
-        ws = (torch.rand(n, generator=g) * 0.01 + 1e-4).to(dev)
-        lib = library(x, w, xs, ws, 8)
-        check(torch.equal(lib(), mk.mma_matmul_scaled_kernel(x, w, xs, ws)),
+        wsc = torch.rand(n, device=dev, generator=g) * 0.01 + 1e-4
+        libs = [library(x, w, xs, wsc, 8) for w in ws_]
+        check(torch.equal(libs[0](), mk.mma_matmul_scaled_kernel(x, ws_[0], xs, wsc)),
               f"{name}: library yardstick disagrees with the scaled kernel")
-        ms = time_ms(torch, lambda: mk.mma_matmul_scaled_kernel(x, w, xs, ws), reps=10)
-        plain_ms = time_ms(torch, lambda: mk.mma_matmul_scaled_plain(x, w, xs, ws), reps=3, warmup=1)
-        lib_ms = time_ms(torch, lib, reps=20)
+        ms_planes = {p: graph_ms(torch, rotating([
+            lambda w=w, p=p: mk.mma_matmul_scaled_kernel(x, w, xs, wsc, planes=p) for w in ws_]),
+            calls=calls) for p in (8, 5, 1)}
+        ms = ms_planes[8]
+        lib_ms = graph_ms(torch, rotating(libs), calls=calls)
+        plain_ms = time_ms(torch, lambda: mk.mma_matmul_scaled_plain(x, ws_[0], xs, wsc), reps=3,
+                           warmup=1)
         b_ms, b_by, nbytes, nops = bound([(m, k, n)])
-        per_shape.append(dict(name=name, M=m, K=k, N=n, ms=ms, plain_ms=plain_ms,
-                              library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
-                              bytes=nbytes, ops=nops))
-        print(f"[time] {card} | mma_matmul_scaled {name} M={m} K={k} N={n} planes=8: kernel "
-              f"{ms:.4f} ms, plain {plain_ms:.4f} ms, torch._int_mm+scale {lib_ms:.4f} ms, "
-              f"bound {b_ms:.5f} ms ({b_by}), {nops / ms / 1e9:.1f} GOP/s")
+        splits = mk.split_k(m, k, n, sms)
+        per_shape.append(dict(name=name, M=m, K=k, N=n, ms=ms, ms_planes=ms_planes,
+                              plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
+                              bytes=nbytes, ops=nops, splits=splits, w_copies=copies))
+        print(f"[time] {card} | mma_matmul_scaled {name} M={m} K={k} N={n} ({splits} K splits; "
+              f"graph of {calls} calls over {copies} copies of w, {calls * k * n / 2**20:.0f} MiB "
+              f"of distinct w per replay, > the {L2_BYTES >> 20} MiB L2: cold) planes 8: kernel "
+              f"{ms:.5f} ms, plain {plain_ms:.4f} ms, torch._int_mm+scale {lib_ms:.5f} ms, bound "
+              f"{b_ms:.5f} ms ({b_by}), {nbytes / ms / 1e6:.0f} GB/s | planes 5: "
+              f"{ms_planes[5]:.5f} ms, planes 1: {ms_planes[1]:.5f} ms")
+        del ws_, libs
 
     calls = [(x.reshape(-1, w.shape[0]), w, xs, ws, planes) for x, w, xs, ws, planes, _ in lm["calls"]]
     libs = [library(*c) for c in calls]
-    ms = time_ms(torch, lambda: [mk.mma_matmul_scaled_kernel(x, w, xs, ws, planes=p)
-                                 for x, w, xs, ws, p in calls], reps=3, warmup=1)
+    ms = graph_ms(torch, lambda: [mk.mma_matmul_scaled_kernel(x, w, xs, ws, planes=p)
+                                  for x, w, xs, ws, p in calls], calls=1)
+    lib_ms = graph_ms(torch, lambda: [f() for f in libs], calls=1)
     plain_ms = time_ms(torch, lambda: [mk.mma_matmul_scaled_plain(x, w, xs, ws, planes=p)
                                        for x, w, xs, ws, p in calls], reps=1, warmup=1)
-    lib_ms = time_ms(torch, lambda: [f() for f in libs], reps=5)
     b_ms, b_by, nbytes, nops = bound([(x.shape[0], w.shape[0], w.shape[1]) for x, w, *_ in calls])
     print(f"[time] {card} | mma_matmul_scaled one decode call ({len(calls)} linears, the "
-          f"schedule's planes): kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
-          f"torch._int_mm+scale {lib_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by}; "
-          f"{nbytes / 1e9:.3f} GB, {nops / 1e9:.1f} G int8 ops) | Engine.run host wall "
-          f"{lm['wall_s']:.2f} s for {lm['decode_calls']} decode calls")
+          f"schedule's planes, one CUDA graph; {nbytes / 1e9:.3f} GB of distinct w: cold): kernel "
+          f"{ms:.4f} ms, plain {plain_ms:.3f} ms, torch._int_mm+scale {lib_ms:.4f} ms, bound "
+          f"{b_ms:.4f} ms ({b_by}; {nops / 1e9:.1f} G int8 ops), {nbytes / ms / 1e6:.0f} GB/s | "
+          f"Engine.run host wall {lm['wall_s']:.2f} s for {lm['decode_calls']} decode calls")
     return dict(
         name="mma_matmul_scaled", route="cuda", source="src/repro_torch/csrc/mma_matmul.cu",
         replaces="src/repro/kernels/mma_matmul.py:163", launches=lm["launches"],
         max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
         library_ms=lib_ms,
         work=f"one Yi-6B decode call at batch {LM_BATCH}: {len(calls)} linears at the "
-             f"schedule's planes, replayed from the served run",
+             f"schedule's planes, replayed from the served run as one CUDA graph",
         lm_wall_s=lm["wall_s"], lm_decode_calls=lm["decode_calls"], per_shape=per_shape,
     )
 
 
 def main() -> int:
+    t_start = time.perf_counter()
     import torch
 
     if not torch.cuda.is_available():
@@ -399,14 +503,17 @@ def main() -> int:
     for line in ptxas.splitlines():
         if "Compiling entry" in line or "Used" in line or "spill" in line:
             print(f"[ptxas] {line.strip()}")
-    imma = imma_count(lib, "mma_tc_horner_kernel")
-    if imma is None:
-        print("[sass] no cuobjdump in the toolkit: IMMA count not taken")
-    else:
-        check(len(imma) == 32 and min(imma.values()) > 0,
-              f"IMMA instructions per tensor-core instantiation: {sorted(imma.values())}")
-        print(f"[sass] mma_tc_horner_kernel: {len(imma)} instantiations, IMMA instructions "
-              f"{sum(imma.values())} in all, {min(imma.values())}..{max(imma.values())} each")
+    imma = {}
+    for kernel in ("mma_tc_horner_kernel", "mma_tc_decode_kernel"):
+        counts = imma_count(lib, kernel)
+        if counts is None:
+            print("[sass] no cuobjdump in the toolkit: IMMA count not taken")
+            break
+        check(len(counts) == 32 and min(counts.values()) > 0,
+              f"{kernel}: IMMA instructions per instantiation: {sorted(counts.values())}")
+        imma[kernel] = sum(counts.values())
+        print(f"[sass] {kernel}: {len(counts)} instantiations, IMMA instructions "
+              f"{imma[kernel]} in all, {min(counts.values())}..{max(counts.values())} each")
 
     # ------------------------------------------ 2. kernels vs plain versions
     cfg = unet.UNetConfig(quant_mode="mma_int8")  # calibrated width, kernel datapath
@@ -460,7 +567,7 @@ def main() -> int:
         for planes in range(1, 9):
             for signed in (True, False):
                 cmp(67, 129, 70, planes, signed)
-                cmp(3, 129, 70, planes, signed)  # small M: the scaled kernel's 16-row tile
+                cmp(3, 129, 70, planes, signed)  # small M: the scaled kernel's decode path
     for m, k, n in SCALED_SWEEP:
         for planes in (8, 5):
             compare_scaled(m, k, n, planes)
@@ -484,10 +591,11 @@ def main() -> int:
     for _, k, n in decode_shapes:
         compare_scaled(LM_BATCH, k, n, 8)
         compare_scaled(LM_BATCH, k, n, 5)
+    n_decode = decode_cases(torch, dev)
     print(f"[kernel] mma_matmul: {n_cases} cases bit-exact against the plain version, "
           f"max_abs_err {max_err}")
-    print(f"[kernel] mma_matmul_scaled: {n_scaled} cases bit-exact against the plain version, "
-          f"max_abs_err {scaled_err}")
+    print(f"[kernel] mma_matmul_scaled: {n_scaled} cases plus {n_decode} decode cases "
+          f"bit-exact against the plain version, max_abs_err {scaled_err}")
 
     # ------------------------------------------------------- 3. forward
     params = unet.init_params(0, cfg)
@@ -613,7 +721,7 @@ def main() -> int:
         print(f"[time] {card} | mma_matmul {name} M={m} K={k} N={n} planes=8 (block rows "
               f"{row['block_rows']}): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, torch._int_mm "
               f"{lib_ms:.4f} ms, bound {row['bound_ms']:.5f} ms ({row['bound_by']}), plane-work "
-              f"floor {row['plane_floor_ms']:.5f} ms, {nops / ms / 1e9:.1f} GOP/s | planes 5: "
+              f"floor {row['plane_floor_ms']:.5f} ms, {nops / ms / 1e6:.1f} GOP/s | planes 5: "
               f"{ms_planes[5]:.4f} ms, planes 1: {ms_planes[1]:.4f} ms")
 
     tot_bytes = sum(r["bytes"] for r in per_shape)
@@ -627,7 +735,7 @@ def main() -> int:
         library_ms=sum(r["library_ms"] for r in per_shape),
         work="one 4-tile micro-batch: the 7 conv shapes of an 80x80 window, planes 8",
         ms_planes={p: sum(r["ms_planes"][p] for r in per_shape) for p in SERVED_PLANES},
-        plane_floor_ms=8 * t_ops, imma=None if imma is None else sum(imma.values()),
+        plane_floor_ms=8 * t_ops, imma=imma.get("mma_tc_horner_kernel"),
         launches_lm=lm["unscaled"], per_shape=per_shape,
     )
     print(f"[time] {card} | mma_matmul one 4-tile forward: kernel {summary['ms']:.4f} ms, "
@@ -637,6 +745,8 @@ def main() -> int:
           f"planes 1: {summary['ms_planes'][1]:.4f} ms")
     scaled_summary = lm_times(torch, dev, card, lm, decode_shapes)
     scaled_summary["max_abs_err"] = scaled_err
+    scaled_summary["imma"] = imma.get("mma_tc_decode_kernel")
+    print(f"[done] every phase passed in {time.perf_counter() - t_start:.1f} s, the build included")
     print(json.dumps({"kernels": [summary, scaled_summary]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

@@ -124,9 +124,11 @@ def main() -> int:
     if not intervals:
         raise RuntimeError("the profiler recorded no device activity")
     busy_ms = _busy_us(intervals) / 1e3
-    # the unscaled kernel (tensor cores) and the scaled one (CUDA cores)
+    # the unscaled kernel, the scaled one at decode shapes (both on the
+    # tensor cores) and the scaled one above 16 rows (CUDA cores)
     mma_ms = sum(ms for name, (_, ms) in by_name.items()
-                 if "mma_tc_horner_kernel" in name or "mma_horner_kernel" in name)
+                 if any(k in name for k in ("mma_tc_horner_kernel", "mma_tc_decode_kernel",
+                                            "mma_horner_kernel")))
     print(f"{card}")
     print(f"[profile] {card} | {what}: host wall {wall_ms:.2f} ms, device busy "
           f"{busy_ms:.2f} ms, idle share {1 - busy_ms / wall_ms:.3f}, MMA kernels {mma_ms:.2f} ms "

@@ -1,11 +1,12 @@
 // Merged multiply-add (MMA) as a bit-plane Horner matmul, for Hopper (sm_90a).
 //
 // Replaces the TPU kernel repro/kernels/mma_matmul.py::_mma_kernel in both
-// its forms, with one CUDA kernel each: unscaled (scaled=False, launched by
-// _mma_matmul_impl), the kernel the U-Net's 3x3 convolutions run through,
-// is mma_tc_horner_kernel; scaled (scaled=True, launched by
-// _mma_matmul_scaled_impl), the fused-dequant form every int8 linear of LM
-// serving runs through, is mma_horner_kernel.
+// its forms.  Unscaled (scaled=False, launched by _mma_matmul_impl), the
+// kernel the U-Net's 3x3 convolutions run through: mma_tc_horner_kernel.
+// Scaled (scaled=True, launched by _mma_matmul_scaled_impl), the
+// fused-dequant form every int8 linear of LM serving runs through: at
+// decode shapes (M <= 16 rows) mma_tc_decode_kernel, above that
+// mma_horner_kernel.
 //
 // What both compute, bit for bit: (M,K) int8 @ (K,N) int8 -> (M,N).
 //   u   = x + 128 (signed) or the byte of x read as uint8 (unsigned)
@@ -62,14 +63,46 @@
 //     BM = 64, or BM = 32 for shapes whose 64-row grid is under one wave of
 //     the card's SMs (the wrapper picks).
 //
-// The scaled kernel: the Horner on the CUDA cores, one int32 multiply-add
-// per (row, column, k, plane), bound by the SM's int32 issue rate.  A block
-// owns one BM x 64 output tile, x and w are read from global memory once
-// per tile into shared memory, and h and the accumulator never leave
-// registers.  TM (output rows per thread) sets BM = 16*TM: 64 rows for wide
-// M, 16 rows when M is at most 16 (batched decode), where a 64-row tile
-// would spend 15/16 of its work on masked rows.  Rows of w past K read as 0,
-// so neither the product nor the colsum correction sees them.
+// The scaled kernel at decode shapes (M <= 16): what bounds it on this card
+// is the bytes of w.  A decode call streams every weight once (5.8 GB per
+// Yi-6B call at batch 4) and does M = 4 rows of work per weight byte, far
+// below the tensor cores' operations-per-byte line, so the least it can
+// take is w's bytes over the memory rate.  What the design does about it:
+//   - tensor-core planes, operands swapped: each plane product is one
+//     mma.sync m16n8k32 with A = w^T (16 output columns x 32 k, s8, built
+//     by the same __byte_perm transposes of the staged [k][n] tile) and
+//     B = the 0/1 plane of x (32 k x 8 rows, u8: a lane's B register is a
+//     plain 32-bit word of one x row).  An n8 fragment holds 8 rows, so at
+//     M = 4 half of the plane work is masked, not three quarters as with
+//     a 16-row A; rows 9..16 take a second n8 fragment (template NF).
+//     The Horner, the in-register plane extraction and colsum (one more
+//     mma with an all-ones B) are the unscaled kernel's;
+//   - split K: blocks of 64 columns give the projections 8 to 172 blocks
+//     on 132 SMs, so K is split across blocks (the wrapper picks the count,
+//     split_k).  Each split adds its int32 partial, h << (8-P) over its
+//     tiles minus its share of 128*colsum, into a zeroed int32 workspace
+//     with atomicAdd: integer sums are exact in any arrival order.  The
+//     last block to arrive for a column block (an arrival counter after
+//     __threadfence) runs the float epilogue once on the full sum.  One
+//     launch per linear, no host synchronization; the wrapper allocates
+//     the workspace per call, so a captured CUDA graph zeroes it at every
+//     replay;
+//   - bytes in flight: w streams through a 4-deep cp.async ring of
+//     128-deep x 64-column tiles (8 KB, 16-byte copies where the stride
+//     and pointer allow), so each block keeps 24 KB of w in flight, and up
+//     to 4 blocks share an SM.  Rows, k and columns past M, K and N are
+//     zero-filled, so they add 0 to the plane products and to colsum.
+//   Within a block, 4 warps split the 128-deep tile into two 64-deep
+//   halves x two 32-column halves; the two k halves meet in shared memory
+//   before the epilogue.
+//
+// The scaled kernel above 16 rows: the Horner on the CUDA cores, one int32
+// multiply-add per (row, column, k, plane), bound by the SM's int32 issue
+// rate.  A block owns one 64 x 64 output tile, x and w are read from
+// global memory once per tile into shared memory, and h and the
+// accumulator never leave registers.  Rows of w past K read as 0, so
+// neither the product nor the colsum correction sees them.  No served path
+// reaches it: LM decode runs at M = batch.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -354,29 +387,265 @@ bool copy_width_ok(int vec, int ld, const void* p) {
 }
 
 // ---------------------------------------------------------------------------
-// The scaled kernel: the Horner on the CUDA cores, fused dequant epilogue
+// The scaled kernel at decode shapes: tensor-core planes with the operands
+// swapped, split K, fused dequant epilogue
+// ---------------------------------------------------------------------------
+
+constexpr int DECODE_M = 16;    // at most this many rows: mma_tc_decode_kernel
+constexpr int DC_BN = 64;       // output columns per block
+constexpr int DC_BK = 128;      // contraction depth of one staged K tile, bytes
+constexpr int DC_STAGES = 4;    // depth of the cp.async ring
+constexpr int DC_XS_STRIDE = DC_BK + 16;  // x row pitch in shared memory, bytes
+constexpr int DC_WS_BYTES = (DC_BK / 4) * (4 * DC_BN + 32);  // w tile, ws_row layout
+
+struct XRowsDecode {
+  __device__ int operator()(int r) const { return r * DC_XS_STRIDE; }
+};
+
+// d += a @ b: a 16 x 32 s8 (row), b 32 x 8 u8 (col), int32 accumulate.
+__device__ __forceinline__ void mma_s8u8(int (&d)[4], uint32_t a0, uint32_t a1, uint32_t a2,
+                                         uint32_t a3, uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k32.row.col.s32.s8.u8.s32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+// One block: 64 output columns x all M (<= 8*NF) rows over K tiles
+// [kt0, kt1) of its split (blockIdx.y).  Warp w owns columns 32*(w&1) ..
+// +31 and the 64-deep half (w>>1) of every 128-deep K tile.
+template <int PLANES, bool SIGNED, int NF>
+__global__ void __launch_bounds__(TC_THREADS, 4)
+mma_tc_decode_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
+                     const float* __restrict__ x_scale, const float* __restrict__ w_scale,
+                     float* __restrict__ out, int32_t* __restrict__ work, int M, int K, int N,
+                     int splits, int x_vec, int w_vec) {
+  constexpr int XR = 8 * NF;  // staged x rows: one n8 fragment per 8
+  __shared__ __align__(16) uint8_t ws[DC_STAGES][DC_WS_BYTES];
+  __shared__ __align__(16) uint8_t xs[DC_STAGES][XR * DC_XS_STRIDE];
+  __shared__ int is_last;
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;  // fragment row / column group, thread in group
+  const int wn = (warp & 1) * 32, wk = (warp >> 1) * 64;
+  const int n0 = blockIdx.x * DC_BN;
+  const int ktiles = (K + DC_BK - 1) / DC_BK;
+  const int kt0 = (int)((long long)blockIdx.y * ktiles / splits);
+  const int kt1 = (int)((long long)(blockIdx.y + 1) * ktiles / splits);
+
+  auto stage = [&](int buf, int kt) {
+    const int k0 = kt * DC_BK;
+    stage_tile<XR>(xs[buf], x, K, 0, M, k0, K, x_vec, XRowsDecode{});
+    stage_tile<XR>(xs[buf] + 64, x, K, 0, M, k0 + 64, K, x_vec, XRowsDecode{});
+    stage_tile<DC_BK>(ws[buf], w, N, k0, K, n0, N, w_vec, WRows{});
+  };
+
+  // acc[q][f]: the C fragment of n8 fragment q (x rows 8q..8q+7) and m16
+  // fragment f (columns wn+4g+2f, wn+4g+2f+1 in its rows g, g+8)
+  int acc[NF][2][4];
+  int cs[2][4];  // colsum(w) of the same columns, equal in every C column
+#pragma unroll
+  for (int f = 0; f < 2; ++f)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      cs[f][e] = 0;
+#pragma unroll
+      for (int q = 0; q < NF; ++q) acc[q][f][e] = 0;
+    }
+
+#pragma unroll
+  for (int s = 0; s < DC_STAGES - 1; ++s) {
+    if (kt0 + s < kt1) stage(s, kt0 + s);
+    cp_async_commit();
+  }
+
+  for (int kt = kt0; kt < kt1; ++kt) {
+    const int it = kt - kt0;
+    cp_async_wait<DC_STAGES - 2>();  // this thread's copies of tile kt have landed
+    __syncthreads();  // everyone's have, and every warp is done with tile kt-1's buffer
+    if (kt + DC_STAGES - 1 < kt1) stage((it + DC_STAGES - 1) % DC_STAGES, kt + DC_STAGES - 1);
+    cp_async_commit();
+    const uint8_t* xb = xs[it % DC_STAGES];
+    const uint8_t* wb = ws[it % DC_STAGES];
+
+    // A fragments (w^T), once per K tile: wt[c][hh][j] holds column
+    // wn+4g+j at k = wk + 32c + 16hh + 4t .. +3.  m16 fragment f takes
+    // column 4g+2f as its row g and 4g+2f+1 as its row g+8.
+    uint32_t wt[2][2][4];
+#pragma unroll
+    for (int c = 0; c < 2; ++c)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int k = wk + 32 * c + 16 * hh + 4 * t;
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          wt[c][hh][j] = *reinterpret_cast<const uint32_t*>(wb + ws_row(k + j) + wn + 4 * g);
+        transpose4x4(wt[c][hh]);
+      }
+    // B words of the offset activations u: x row 8q+g at the same k
+    uint32_t xw[NF][2][2];
+#pragma unroll
+    for (int q = 0; q < NF; ++q)
+#pragma unroll
+      for (int c = 0; c < 2; ++c)
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          xw[q][c][hh] = *reinterpret_cast<const uint32_t*>(
+              xb + (8 * q + g) * DC_XS_STRIDE + wk + 32 * c + 16 * hh + 4 * t);
+          if (SIGNED) xw[q][c][hh] ^= 0x80808080u;  // x + 128 per byte
+        }
+    if (SIGNED) {  // colsum(w): w^T times the all-ones activation
+#pragma unroll
+      for (int c = 0; c < 2; ++c)
+#pragma unroll
+        for (int f = 0; f < 2; ++f)
+          mma_s8u8(cs[f], wt[c][0][2 * f], wt[c][0][2 * f + 1], wt[c][1][2 * f],
+                   wt[c][1][2 * f + 1], LOW_BITS, LOW_BITS);
+    }
+
+    // MSB-first Horner over the planes: h = 2h + w^T @ plane_b
+    int h[NF][2][4];
+#pragma unroll
+    for (int q = 0; q < NF; ++q)
+#pragma unroll
+      for (int f = 0; f < 2; ++f)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) h[q][f][e] = 0;
+#pragma unroll
+    for (int i = 0; i < PLANES; ++i) {
+      const int b = 7 - i;
+#pragma unroll
+      for (int q = 0; q < NF; ++q)
+#pragma unroll
+        for (int f = 0; f < 2; ++f)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) h[q][f][e] += h[q][f][e];
+#pragma unroll
+      for (int c = 0; c < 2; ++c)
+#pragma unroll
+        for (int q = 0; q < NF; ++q) {
+          const uint32_t b0 = (xw[q][c][0] >> b) & LOW_BITS, b1 = (xw[q][c][1] >> b) & LOW_BITS;
+#pragma unroll
+          for (int f = 0; f < 2; ++f)
+            mma_s8u8(h[q][f], wt[c][0][2 * f], wt[c][0][2 * f + 1], wt[c][1][2 * f],
+                     wt[c][1][2 * f + 1], b0, b1);
+        }
+    }
+#pragma unroll
+    for (int q = 0; q < NF; ++q)
+#pragma unroll
+      for (int f = 0; f < 2; ++f)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[q][f][e] += h[q][f][e] * (1 << (8 - PLANES));
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // the ring is free: red reuses it
+
+  // The two k halves meet in red[row][column] (XR x 64 int32): C element
+  // e = 2*hi + r of fragment (q, f) is x row 8q+2t+r, column wn+4g+2f+hi.
+  int* red = reinterpret_cast<int*>(ws[0]);
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    if ((warp >> 1) == half) {
+#pragma unroll
+      for (int q = 0; q < NF; ++q)
+#pragma unroll
+        for (int f = 0; f < 2; ++f)
+#pragma unroll
+          for (int hi = 0; hi < 2; ++hi)
+#pragma unroll
+            for (int r = 0; r < 2; ++r) {
+              const int v = acc[q][f][2 * hi + r] - (SIGNED ? 128 * cs[f][2 * hi] : 0);
+              int& dst = red[(8 * q + 2 * t + r) * DC_BN + wn + 4 * g + 2 * f + hi];
+              dst = half ? dst + v : v;
+            }
+    }
+    __syncthreads();
+  }
+
+  // Epilogue: thread tid owns columns n .. n+3 of rows tid/16 + 8*q
+  const int cn = 4 * (tid & 15), n = n0 + cn, r0 = tid >> 4;
+  int v[NF][4];
+#pragma unroll
+  for (int q = 0; q < NF; ++q)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) v[q][j] = red[(r0 + 8 * q) * DC_BN + cn + j];
+  if (splits > 1) {
+    // add this split's partial to the workspace; the last split to arrive
+    // for the column block reads the full sum and runs the epilogue
+    int32_t* sum = work;
+    int32_t* count = work + (size_t)M * N;
+#pragma unroll
+    for (int q = 0; q < NF; ++q) {
+      const int m = r0 + 8 * q;
+      if (m >= M) continue;
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        if (n + j < N) atomicAdd(sum + (size_t)m * N + n + j, v[q][j]);
+    }
+    __threadfence();  // the partial is visible device-wide before the arrival
+    __syncthreads();
+    if (tid == 0) is_last = atomicAdd(count + blockIdx.x, 1) == splits - 1;
+    __syncthreads();
+    if (!is_last) return;
+    __threadfence();
+#pragma unroll
+    for (int q = 0; q < NF; ++q) {
+      const int m = r0 + 8 * q;
+      if (m >= M) continue;
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        if (n + j < N) v[q][j] = __ldcg(sum + (size_t)m * N + n + j);
+    }
+  }
+  const float xsv = *x_scale;
+  float wsv[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) wsv[j] = n + j < N ? w_scale[n + j] : 0.f;
+  const bool vec_out = (N & 3) == 0 && n + 4 <= N;
+#pragma unroll
+  for (int q = 0; q < NF; ++q) {
+    const int m = r0 + 8 * q;
+    if (m >= M) continue;
+    // fused dequant epilogue: (acc * x_scale) * w_scale[n], each product
+    // rounded to nearest, no contraction into an FMA
+    float o[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) o[j] = __fmul_rn(__fmul_rn(__int2float_rn(v[q][j]), xsv), wsv[j]);
+    float* dst = out + (size_t)m * N + n;
+    if (vec_out) {
+      *reinterpret_cast<float4*>(dst) = make_float4(o[0], o[1], o[2], o[3]);
+    } else {
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        if (n + j < N) dst[j] = o[j];
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The scaled kernel above 16 rows: the Horner on the CUDA cores
 // ---------------------------------------------------------------------------
 
 constexpr int BN = 64;   // output columns per block
 constexpr int BK = 16;   // contraction depth staged in shared memory
 constexpr int KH = 8;    // contraction depth of one register Horner pass
 constexpr int TN = 4;    // output columns per thread
+constexpr int TM = 4;    // output rows per thread
 constexpr int ROW_GROUPS = 16;                    // threads along M
+constexpr int BM = ROW_GROUPS * TM;               // output rows per block
 constexpr int THREADS = ROW_GROUPS * (BN / TN);   // 256
-constexpr int SMALL_M = 16;  // at most this many rows: the 16-row tile
 
 static_assert(THREADS == BK * (BN / 4), "w loader: one int4 per thread");
 static_assert(BK % KH == 0, "Horner passes tile the stage");
+static_assert(BK * (BM / 4) <= THREADS, "x loader: at most one word per thread");
 
-template <int PLANES, bool SIGNED, int TM>
+template <int PLANES, bool SIGNED>
 __global__ void __launch_bounds__(THREADS, 2)
 mma_horner_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
                   const float* __restrict__ x_scale,
                   const float* __restrict__ w_scale,
                   float* __restrict__ out, int M, int K, int N) {
-  constexpr int BM = ROW_GROUPS * TM;  // output rows per block
-  static_assert(TM == 1 || TM % 4 == 0, "a thread's rows lie in whole words or one byte");
-  static_assert(BK * (BM / 4) <= THREADS, "x loader: at most one word per thread");
   // xs[k][q]: offset activations u of rows 4q..4q+3 at depth k, one byte each
   __shared__ uint32_t xs[BK][BM / 4];
   // ws[k][q]: sign-extended weights of columns 4q..4q+3 at depth k (0 past K)
@@ -387,10 +656,6 @@ mma_horner_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
   const int tc = tid % (BN / TN);  // this thread's columns: n0 + 4*tc .. +3
   const int m0 = blockIdx.x * BM;
   const int n0 = blockIdx.y * BN;
-  const int xword = (TM * tr) / 4;  // the first word of xs holding this thread's rows
-  // bit offset of this thread's row in its word: rows of a 16-row tile share
-  // words; a taller tile gives each thread whole words (offset 0)
-  const int xshift = TM == 1 ? 8 * (tr % 4) : 0;
 
   int acc[TM][TN];
   int colsum[TN];
@@ -435,12 +700,11 @@ mma_horner_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
 
 #pragma unroll
     for (int kh = 0; kh < BK; kh += KH) {
-      uint32_t xr[KH][(TM + 3) / 4];
+      uint32_t xr[KH];  // the u bytes of this thread's TM rows, one word per depth
       int wr[KH][TN];
 #pragma unroll
       for (int k = 0; k < KH; ++k) {
-#pragma unroll
-        for (int j = 0; j < (TM + 3) / 4; ++j) xr[k][j] = xs[kh + k][xword + j];
+        xr[k] = xs[kh + k][tr];
         const int4 q = ws[kh + k][tc];
         wr[k][0] = q.x;
         wr[k][1] = q.y;
@@ -468,7 +732,7 @@ mma_horner_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
         for (int k = 0; k < KH; ++k) {
 #pragma unroll
           for (int r = 0; r < TM; ++r) {
-            const int bit = (int)((xr[k][r / 4] >> (xshift + 8 * (r % 4) + b)) & 1u);
+            const int bit = (int)((xr[k] >> (8 * r + b)) & 1u);
 #pragma unroll
             for (int c = 0; c < TN; ++c) h[r][c] += bit * wr[k][c];
           }
@@ -501,15 +765,20 @@ mma_horner_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
 
 template <int PLANES, bool SIGNED>
 void launch_scaled(const int8_t* x, const int8_t* w, const float* xs, const float* ws,
-                   float* out, int M, int K, int N, cudaStream_t stream) {
-  const int gy = (N + BN - 1) / BN;
-  if (M <= SMALL_M) {
-    mma_horner_kernel<PLANES, SIGNED, 1><<<dim3(1, gy), THREADS, 0, stream>>>(
-        x, w, xs, ws, out, M, K, N);
+                   float* out, int32_t* work, int M, int K, int N, int splits, int x_vec,
+                   int w_vec, cudaStream_t stream) {
+  if (M <= 8) {
+    mma_tc_decode_kernel<PLANES, SIGNED, 1>
+        <<<dim3((N + DC_BN - 1) / DC_BN, splits), TC_THREADS, 0, stream>>>(
+            x, w, xs, ws, out, work, M, K, N, splits, x_vec, w_vec);
+  } else if (M <= DECODE_M) {
+    mma_tc_decode_kernel<PLANES, SIGNED, 2>
+        <<<dim3((N + DC_BN - 1) / DC_BN, splits), TC_THREADS, 0, stream>>>(
+            x, w, xs, ws, out, work, M, K, N, splits, x_vec, w_vec);
   } else {
-    constexpr int BM = ROW_GROUPS * 4;
-    mma_horner_kernel<PLANES, SIGNED, 4>
-        <<<dim3((M + BM - 1) / BM, gy), THREADS, 0, stream>>>(x, w, xs, ws, out, M, K, N);
+    mma_horner_kernel<PLANES, SIGNED>
+        <<<dim3((M + BM - 1) / BM, (N + BN - 1) / BN), THREADS, 0, stream>>>(
+            x, w, xs, ws, out, M, K, N);
   }
 }
 
@@ -554,11 +823,26 @@ extern "C" int mma_matmul_launch(const void* x, const void* w, void* out, int M,
 }
 
 // x_scale: one float32 on the device; w_scale: N float32 on the device.
+// M <= 16 (the tensor-core decode kernel): splits, the K splits (1 up to
+// the number of 128-deep K tiles); work, M*N + ceil(N/64) zeroed int32 on
+// the device when splits > 1 (the split sums, then one arrival counter per
+// column block), else unused; x_vec, w_vec as for mma_matmul_launch.
+// M > 16 (the CUDA-core kernel): splits must be 1; the copy widths are
+// unused.
 extern "C" int mma_matmul_scaled_launch(const void* x, const void* w,
                                         const void* x_scale, const void* w_scale,
-                                        void* out, int M, int K, int N, int planes,
-                                        int is_signed, void* stream) {
-  if (M <= 0 || N <= 0 || K < 0 || (N + BN - 1) / BN > 65535) {
+                                        void* out, void* work, int M, int K, int N, int planes,
+                                        int is_signed, int splits, int x_vec, int w_vec,
+                                        void* stream) {
+  if (M <= 0 || N <= 0 || K < 0) return (int)cudaErrorInvalidValue;
+  if (M <= DECODE_M) {
+    const int ktiles = (K + DC_BK - 1) / DC_BK;
+    if (splits < 1 || splits > (ktiles > 1 ? ktiles : 1) || splits > 65535 ||
+        (splits > 1 && work == nullptr) || !copy_width_ok(x_vec, K, x) ||
+        !copy_width_ok(w_vec, N, w)) {
+      return (int)cudaErrorInvalidValue;
+    }
+  } else if (splits != 1 || (N + BN - 1) / BN > 65535) {
     return (int)cudaErrorInvalidValue;
   }
   const auto* xp = static_cast<const int8_t*>(x);
@@ -566,11 +850,14 @@ extern "C" int mma_matmul_scaled_launch(const void* x, const void* w,
   const auto* xsp = static_cast<const float*>(x_scale);
   const auto* wsp = static_cast<const float*>(w_scale);
   auto* op = static_cast<float*>(out);
+  auto* wk = static_cast<int32_t*>(work);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define MMA_CASE(P)                                                                   \
-  case P:                                                                             \
-    if (is_signed) launch_scaled<P, true>(xp, wp, xsp, wsp, op, M, K, N, s);          \
-    else launch_scaled<P, false>(xp, wp, xsp, wsp, op, M, K, N, s);                   \
+#define MMA_CASE(P)                                                                       \
+  case P:                                                                                 \
+    if (is_signed)                                                                        \
+      launch_scaled<P, true>(xp, wp, xsp, wsp, op, wk, M, K, N, splits, x_vec, w_vec, s); \
+    else                                                                                  \
+      launch_scaled<P, false>(xp, wp, xsp, wsp, op, wk, M, K, N, splits, x_vec, w_vec, s); \
     break;
   switch (planes) {
     MMA_CASE(1)

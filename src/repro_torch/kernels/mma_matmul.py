@@ -1,5 +1,5 @@
-"""The merged multiply-add (MMA) kernel: a hand-written CUDA kernel for
-Hopper (``csrc/mma_matmul.cu``), its plain PyTorch versions, and the
+"""The merged multiply-add (MMA) kernel: hand-written CUDA kernels for
+Hopper (``csrc/mma_matmul.cu``), their plain PyTorch versions, and the
 variant table between them.
 
 The kernels replace the TPU kernel ``repro/kernels/mma_matmul.py::
@@ -7,15 +7,18 @@ _mma_kernel`` in both forms.  Unscaled: (M, K) int8 @ (K, N) int8 -> (M, N)
 int32 as an MSB-first Horner over ``planes`` bit planes of the offset
 activation, one int8 tensor-core product per plane, with the residual held
 in registers — x and w stream once per output tile through a ``cp.async``
-ring, plane partials never leave the SM.  Scaled: the same product on the
-CUDA cores with the dequant epilogue fused into the store, float32
-``(acc * x_scale) * w_scale[n]``.
+ring, plane partials never leave the SM.  Scaled: the same product with the
+dequant epilogue fused into the store, float32 ``(acc * x_scale) *
+w_scale[n]``; at decode shapes (M <= 16) on the tensor cores with the
+operands swapped (w^T times the plane of x) and K split across blocks,
+above 16 rows on the CUDA cores.
 
-The unscaled wrapper picks two things from what it can see, in plain
-Python (:func:`tile_rows`, :func:`copy_width`): the block height (64 rows,
-or 32 where a 64-row grid would not fill the card's SMs once) and the copy
-width of each operand's staging (16 or 4 bytes where the row stride and the
-base pointer allow, else 1).
+The wrappers pick, in plain Python from what they can see: the unscaled
+kernel's block height (:func:`tile_rows`: 64 rows, or 32 where a 64-row grid
+would not fill the card's SMs once), the decode kernel's K splits
+(:func:`split_k`), and the copy width of each operand's staging
+(:func:`copy_width`: 16 or 4 bytes where the row stride and the base
+pointer allow, else 1).
 
 Build: at first use, ``nvcc`` compiles the checkout's source into a shared
 library with a plain C interface under ``csrc/build/`` (named by a hash of
@@ -95,7 +98,7 @@ def _library() -> ctypes.CDLL:
     lib.mma_matmul_launch.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
     lib.mma_matmul_launch.restype = ctypes.c_int
     lib.mma_matmul_scaled_launch.argtypes = (
-        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
     )
     lib.mma_matmul_scaled_launch.restype = ctypes.c_int
     lib.mma_matmul_error_string.argtypes = [ctypes.c_int]
@@ -108,6 +111,33 @@ def tile_rows(m: int, n: int, sms: int) -> int:
     with ``sms`` SMs: 64 rows, or 32 where the 64 x 64 grid is under one
     wave (fewer blocks than SMs), so more SMs get work."""
     return 32 if -(-m // 64) * -(-n // 64) < sms else 64
+
+
+#: The decode kernel: M up to this many rows runs on the tensor cores
+#: (``mma_tc_decode_kernel``), in blocks of ``DECODE_BN`` columns over
+#: ``DECODE_BK``-deep K tiles (``DECODE_M``, ``DC_BN`` and ``DC_BK`` in
+#: ``csrc/mma_matmul.cu``).
+DECODE_M, DECODE_BN, DECODE_BK = 16, 64, 128
+#: The fewest K tiles a split keeps.
+MIN_SPLIT_TILES = 2
+
+
+def max_splits(k: int) -> int:
+    """The most K splits :func:`split_k` gives a contraction of depth ``k``:
+    each split keeps at least ``MIN_SPLIT_TILES`` K tiles."""
+    return max(1, -(-k // DECODE_BK) // MIN_SPLIT_TILES)
+
+
+def split_k(m: int, k: int, n: int, sms: int) -> int:
+    """K splits of the scaled kernel for an (m, k) @ (k, n) product on a
+    card with ``sms`` SMs: enough that the grid of ``DECODE_BN``-column
+    blocks times splits covers two waves of SMs, but no more than
+    :func:`max_splits`.  1 above ``DECODE_M`` rows (the CUDA-core kernel
+    does not split) and where the column blocks alone make two waves."""
+    if m > DECODE_M:
+        return 1
+    blocks = -(-n // DECODE_BN)
+    return max(1, min(-(-2 * sms // blocks), max_splits(k)))
 
 
 def copy_width(ptr: int, row_bytes: int) -> int:
@@ -212,8 +242,10 @@ def _launch(
 
 def _launch_scaled(
     x: torch.Tensor, w: torch.Tensor, x_scale: torch.Tensor, w_scale: torch.Tensor,
-    planes: int, signed: bool,
+    planes: int, signed: bool, *, splits: int | None = None,
 ) -> torch.Tensor:
+    """The scaled kernel; ``splits`` forces the decode kernel's K splits,
+    else :func:`split_k` picks them."""
     global scaled_launches
     _check(x, w)
     _check_scales(x_scale, w_scale, w)
@@ -227,9 +259,16 @@ def _launch_scaled(
     if m == 0 or n == 0:
         return out
     with torch.cuda.device(x.device):
+        if splits is None:
+            splits = split_k(m, k, n, _sm_count(torch.cuda.current_device()))
+        # split sums and one arrival counter per column block, zeroed on
+        # the stream (inside a captured graph, at every replay)
+        work = (torch.zeros(m * n + -(-n // DECODE_BN), dtype=torch.int32, device=x.device)
+                if splits > 1 else None)
         err = _library().mma_matmul_scaled_launch(
             x.data_ptr(), w.data_ptr(), x_scale.data_ptr(), w_scale.data_ptr(),
-            out.data_ptr(), m, k, n, planes, int(signed),
+            out.data_ptr(), None if work is None else work.data_ptr(), m, k, n, planes,
+            int(signed), splits, copy_width(x.data_ptr(), k), copy_width(w.data_ptr(), n),
             torch.cuda.current_stream().cuda_stream,
         )
     _raise_on(err)

@@ -60,9 +60,10 @@ def cuda():
 
 
 def _kernel_vs_plain(dev, m, k, n, planes, signed=True, seed=0, scaled=False, bm=None,
-                     offset=0):
-    """``bm`` forces the unscaled kernel's block height; ``offset`` makes x
-    and w views that many bytes into their storage."""
+                     offset=0, splits=None):
+    """``bm`` forces the unscaled kernel's block height, ``splits`` the
+    scaled kernel's K splits; ``offset`` makes x and w views that many bytes
+    into their storage."""
     g = torch.Generator().manual_seed(seed)
     x = torch.randint(-128, 128, (m * k + offset,), dtype=torch.int8, generator=g)
     w = torch.randint(-128, 128, (k * n + offset,), dtype=torch.int8, generator=g)
@@ -73,7 +74,8 @@ def _kernel_vs_plain(dev, m, k, n, planes, signed=True, seed=0, scaled=False, bm
     elif scaled:
         xs = (torch.rand(1, generator=g) * 0.1 + 1e-3).to(dev)
         ws = (torch.rand(n, generator=g) * 0.01 + 1e-4).to(dev)
-        got = mk.mma_matmul_scaled_kernel(x, w, xs, ws, planes=planes, signed=signed)
+        got = (mk.mma_matmul_scaled_kernel(x, w, xs, ws, planes=planes, signed=signed)
+               if splits is None else mk._launch_scaled(x, w, xs, ws, planes, signed, splits=splits))
         want = mk.mma_matmul_scaled_plain(x, w, xs, ws, planes=planes, signed=signed)
     else:
         got = mk.mma_matmul_kernel(x, w, planes=planes, signed=signed)
@@ -181,7 +183,7 @@ def test_gpu_scaled_kernel_vs_plain_sweep(cuda, m, k, n, planes):
 @pytest.mark.parametrize("signed", [True, False])
 def test_gpu_scaled_kernel_vs_plain_every_variant(cuda, planes, signed):
     _kernel_vs_plain(cuda, 67, 129, 70, planes, signed=signed, scaled=True)
-    _kernel_vs_plain(cuda, 3, 129, 70, planes, signed=signed, scaled=True)  # the 16-row tile
+    _kernel_vs_plain(cuda, 3, 129, 70, planes, signed=signed, scaled=True)  # the decode kernel
 
 
 @pytest.mark.gpu
@@ -189,6 +191,80 @@ def test_gpu_scaled_kernel_vs_plain_every_variant(cuda, planes, signed):
 def test_gpu_scaled_kernel_vs_plain_decode_shapes(cuda, m, k, n):
     for planes in (8, 5):
         _kernel_vs_plain(cuda, m, k, n, planes, scaled=True)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", [1, 3, 4, 8, 9, 15, 16])
+@pytest.mark.parametrize("k", [7, 129, 4096, 11008])
+@pytest.mark.parametrize("n", [3, 70, 512, 4096])
+def test_gpu_decode_kernel_vs_plain(cuda, m, k, n):
+    """The tensor-core decode kernel (M <= 16) on one and two n8 fragments,
+    16-byte, 4-byte and byte staging, one to 86 K tiles, its chosen splits."""
+    _kernel_vs_plain(cuda, m, k, n, 8, scaled=True)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("planes", range(1, 9))
+@pytest.mark.parametrize("signed", [True, False])
+@pytest.mark.parametrize("m", [4, 9])
+def test_gpu_decode_kernel_every_variant(cuda, planes, signed, m):
+    _kernel_vs_plain(cuda, m, 129, 70, planes, signed=signed, scaled=True)
+    _kernel_vs_plain(cuda, m, 4096, 512, planes, signed=signed, scaled=True)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", [1, 4, 16])
+@pytest.mark.parametrize("k", [129, 4096, 11008])
+@pytest.mark.parametrize("n", [70, 4096])
+def test_gpu_decode_kernel_forced_splits(cuda, m, k, n):
+    """The split sum is exact at 1, 2 and the most splits the chooser gives."""
+    for splits in sorted({1, min(2, -(-k // mk.DECODE_BK)), mk.max_splits(k)}):
+        _kernel_vs_plain(cuda, m, k, n, 5, scaled=True, splits=splits)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("offset", [1, 4])
+def test_gpu_decode_kernel_misaligned_views(cuda, offset):
+    for m, k, n in ((4, 4096, 512), (9, 129, 70), (16, 11008, 4096)):
+        _kernel_vs_plain(cuda, m, k, n, 5, scaled=True, offset=offset)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,k,n", [(4, 4096, 512), (9, 11008, 4096)])
+def test_gpu_decode_kernel_graph_replayed_twice(cuda, m, k, n):
+    """A split call captured in a CUDA graph zeroes its workspace at every
+    replay: two replays give equal outputs, equal to the plain version."""
+    assert mk.split_k(m, k, n, torch.cuda.get_device_properties(0).multi_processor_count) > 1
+    g = torch.Generator(device=cuda).manual_seed(3)
+    x = torch.randint(-128, 128, (m, k), dtype=torch.int8, device=cuda, generator=g)
+    w = torch.randint(-128, 128, (k, n), dtype=torch.int8, device=cuda, generator=g)
+    xs = torch.rand(1, device=cuda, generator=g) * 0.1 + 1e-3
+    ws = torch.rand(n, device=cuda, generator=g) * 0.01 + 1e-4
+    mk.mma_matmul_scaled_kernel(x, w, xs, ws, planes=5)  # build and load outside the capture
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = mk.mma_matmul_scaled_kernel(x, w, xs, ws, planes=5)
+    outs = []
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        outs.append(out.clone())
+    assert torch.equal(outs[0], outs[1])
+    assert torch.equal(outs[0], mk.mma_matmul_scaled_plain(x, w, xs, ws, planes=5))
+
+
+@pytest.mark.gpu
+def test_gpu_decode_kernel_refuses_bad_splits(cuda):
+    x = torch.zeros((4, 300), dtype=torch.int8, device=cuda)
+    w = torch.zeros((300, 70), dtype=torch.int8, device=cuda)
+    xs, ws = torch.ones(1, device=cuda), torch.ones(70, device=cuda)
+    for splits in (0, 4):  # 300 is 3 K tiles
+        with pytest.raises(RuntimeError, match="launch failed"):
+            mk._launch_scaled(x, w, xs, ws, 8, True, splits=splits)
+    with pytest.raises(RuntimeError, match="launch failed"):  # no split above 16 rows
+        mk._launch_scaled(torch.zeros((17, 300), dtype=torch.int8, device=cuda), w, xs, ws, 8,
+                          True, splits=2)
 
 
 @pytest.mark.gpu

@@ -312,6 +312,110 @@ def test_scaled_variants_are_cached_and_checked():
         mk.mma_matmul_scaled_kernel(x, w, xs, ws[:7])
 
 
+# ---------------------------------- the scaled kernel's decode design, on the CPU
+
+# Yi-6B's linears at batched decode (M = 4 slots): (name, K, N, K splits on
+# 132 SMs).  64-column blocks: wq/wo and w_down give 64, wk/wv 8, w_gate/w_up
+# 172, the head 1000.
+YI_DECODE = [("wq/wo", 4096, 4096, 5), ("wk/wv", 4096, 512, 16),
+             ("w_gate/w_up", 4096, 11008, 2), ("w_down", 11008, 4096, 5),
+             ("head", 4096, 64000, 1)]
+
+
+@pytest.mark.parametrize("name,k,n,want", YI_DECODE)
+def test_split_k_on_the_yi_decode_shapes(name, k, n, want):
+    """Two waves of 132 SMs: ceil(264 / column blocks) splits, at most one
+    per two 128-deep K tiles; the head's 1000 blocks take none."""
+    assert mk.split_k(4, k, n, H100_SMS) == want
+    blocks = -(-n // mk.DECODE_BN)
+    assert want == 1 or blocks * want >= 2 * H100_SMS or want == mk.max_splits(k)
+
+
+@pytest.mark.parametrize("m,k,n,want", [
+    (4, 7, 512, 1),              # K under one tile
+    (4, 128, 512, 1),            # one tile
+    (4, 256, 64, 1),             # two tiles: one split keeps both
+    (4, 4096, 64, 16),           # one column block: capped at max_splits
+    (4, 4096, 264 * 64, 1),      # 2 waves of column blocks
+    (4, 4096, 132 * 64, 2),      # 1 wave
+    (4, 4096, 132 * 64 + 1, 2),  # a ragged block past one wave
+    (16, 4096, 4096, 5),         # the largest decode M
+    (17, 4096, 4096, 1),         # above 16 rows: the CUDA-core kernel, no split
+    (4, 0, 70, 1),               # empty contraction
+])
+def test_split_k_at_its_edges(m, k, n, want):
+    assert mk.split_k(m, k, n, H100_SMS) == want
+
+
+def test_max_splits_keeps_two_tiles_each():
+    assert [mk.max_splits(k) for k in (0, 1, 128, 255, 256, 4096, 11008)] == [1, 1, 1, 1, 1, 16, 43]
+
+
+def _decode_emulation(x: torch.Tensor, w: torch.Tensor, x_scale: torch.Tensor,
+                      w_scale: torch.Tensor, planes: int, signed: bool, splits: int,
+                      order: torch.Generator) -> torch.Tensor:
+    """The scaled decode kernel's arithmetic, emulated in torch.  Operands
+    swapped: w^T (N x 64, s8) times the plane of x (64 x M, u8), giving the
+    transposed product.  K in 128-deep staged tiles, zero-filled past K,
+    cut into ``splits`` runs of whole tiles as the kernel's grid cuts them;
+    each tile is two 64-deep halves with a Horner of their own.  Per split:
+    sum of ``h << (8-P)`` minus its share of 128 * colsum(w), an int32
+    partial.  The partials are summed in an order drawn from ``order`` (the
+    blocks' arrival order), then the float epilogue runs once."""
+    m, k = x.shape
+    n = w.shape[1]
+    ktiles = -(-k // mk.DECODE_BK)
+    kp = ktiles * mk.DECODE_BK
+    xp = torch.zeros((m, kp), dtype=torch.int64)
+    xp[:, :k] = x.to(torch.int64) + 128 if signed else x.to(torch.int64) & 0xFF
+    wt = torch.zeros((n, kp), dtype=torch.int64)  # A = w^T
+    wt[:, :k] = w.to(torch.int64).T
+    partials = []
+    for s in range(splits):
+        kt0, kt1 = s * ktiles // splits, (s + 1) * ktiles // splits
+        part = torch.zeros((n, m), dtype=torch.int64)
+        for k0 in range(kt0 * mk.DECODE_BK, kt1 * mk.DECODE_BK, 64):
+            a = wt[:, k0:k0 + 64]
+            h = torch.zeros_like(part)
+            for b in range(7, 7 - planes, -1):
+                h = h + h + a @ ((xp[:, k0:k0 + 64] >> b) & 1).T  # B = the plane of x
+            part += h << (8 - planes)
+            if signed:
+                part -= 128 * (a @ torch.ones((64, 1), dtype=torch.int64))
+        partials.append(part.to(torch.int32))
+    acc = torch.zeros((n, m), dtype=torch.int32)
+    for i in torch.randperm(splits, generator=order).tolist():
+        acc += partials[i]
+    return acc.T.to(torch.float32) * x_scale.reshape(()) * w_scale.reshape(-1)
+
+
+@pytest.mark.parametrize("m,k,n", [(1, 7, 3), (4, 300, 70), (9, 520, 33), (16, 1000, 65)])
+@pytest.mark.parametrize("planes", range(1, 9))
+@pytest.mark.parametrize("signed", [True, False])
+def test_decode_decomposition_vs_plain_and_pallas(m, k, n, planes, signed):
+    """The decomposition the decode kernel computes (``_decode_emulation``)
+    equals the plain version bit for bit at every split count from 1 to the
+    number of K tiles, in shuffled arrival orders, and the reference's
+    Pallas kernel in interpret mode, on ragged decode shapes."""
+    rng = np.random.default_rng(m * 7 + k * 3 + n + 17 * planes + signed)
+    x, w = _rand_i8(rng, (m, k)), _rand_i8(rng, (k, n))
+    xs = np.float32(rng.uniform(1e-3, 0.1))
+    ws = rng.uniform(1e-4, 1e-2, n).astype(np.float32)
+    tx, tw, txs, tws = (torch.from_numpy(x), torch.from_numpy(w), torch.tensor([xs]),
+                        torch.from_numpy(ws))
+    plain = mk.mma_matmul_scaled_plain(tx, tw, txs, tws, planes=planes, signed=signed)
+    order = torch.Generator().manual_seed(planes)
+    ktiles = -(-k // mk.DECODE_BK)
+    for splits in sorted({1, ktiles, mk.max_splits(k), mk.split_k(m, k, n, H100_SMS)}):
+        for _ in range(2):
+            got = _decode_emulation(tx, tw, txs, tws, planes, signed, splits, order)
+            assert torch.equal(got, plain), splits
+    pallas = np.asarray(jops.mma_matmul_scaled(jnp.asarray(x), jnp.asarray(w), jnp.float32(xs),
+                                               jnp.asarray(ws), planes=planes, signed=signed,
+                                               interpret=True))
+    np.testing.assert_array_equal(got.numpy(), pallas)
+
+
 def test_cpu_scaled_path_does_not_count_launches():
     rng = np.random.default_rng(14)
     before = (mk.launches, mk.scaled_launches)
