@@ -49,6 +49,16 @@ Phases, in one process; any failure ends the run with a non-zero exit:
    from device memory as a decode call does.  Where the toolkit has
    ``cuobjdump``, the count of ``IMMA`` (integer tensor-core) instructions
    in the SASS of every tensor-core kernel's instantiations, none 0.
+7. Certified tuning: ``tune_unet`` on the calibrated U-Net of phase 3 with
+   two phantom calibration images at target 0.05, through the kernel (the
+   calibration sweep runs every plane count 1-8) and again through the
+   plain Horner path on the card: the two plans must be equal.  The plan
+   then serves phase 4's four images through ``engine_from_plan``: 7
+   launches per micro-batch, logits and accounting equal to the plain-path
+   plan engine's, and each tile's seven int32 conv outputs equal whether
+   its image is served alone or among the others (per-tile activation
+   scales).  Last, the measured rows of the Table 1 twin
+   (``repro_torch.bench.table1``).
 
 The line before the last is a JSON object naming every kernel with its
 launches on its main path and its times; the last line is
@@ -59,7 +69,6 @@ from __future__ import annotations
 import dataclasses
 import itertools
 import json
-import statistics
 import subprocess
 import sys
 import time
@@ -112,14 +121,6 @@ def check(cond: bool, msg: str) -> None:
         raise RuntimeError(f"chip_smoke check failed: {msg}")
 
 
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    )
-    return out.stdout.strip().splitlines()[0]
-
-
 def rand_i8(torch, g, shape, dev):
     return torch.randint(-128, 128, shape, dtype=torch.int8, generator=g).to(dev)
 
@@ -138,32 +139,6 @@ def time_ms(torch, fn, reps: int, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
-
-
-def graph_ms(torch, fn, calls: int = 20, reps: int = 7) -> float:
-    """Device time of one ``fn`` call: ``calls`` calls captured in one CUDA
-    graph, each replay timed by CUDA events, the median replay over
-    ``calls``.  The host issues one replay per window, so a kernel shorter
-    than its wrapper's Python issue time is timed by the card, not by the
-    host's launch rate (which ``time_ms`` measures for such kernels)."""
-    fn()
-    torch.cuda.synchronize()
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(calls):
-            fn()
-    graph.replay()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        graph.replay()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end) / calls)
-    return statistics.median(times)
 
 
 def imma_count(lib: Path, kernel: str):
@@ -253,6 +228,167 @@ def decode_cases(torch, dev) -> int:
         check(torch.equal(outs[0], outs[1]) and torch.equal(outs[0], want),
               f"graph replays of the decode kernel differ at M={m} K={k} N={n}")
     return n_cases
+
+
+def certified_tuning(torch, np, card, cfg, params, images):
+    """Phase 7: tune a plan through the kernel and through the plain path,
+    serve it, check it, and time the Table 1 twin's measured rows.  Returns
+    what the kernels line reports of this path."""
+    from repro_torch import autotune
+    from repro_torch.bench import table1
+    from repro_torch.kernels import mma_matmul as mk
+    from repro_torch.kernels import ops
+    from repro_torch.models import unet
+    from repro_torch.obs.events import RecordingSink
+    from repro_torch.segserve.synth import phantom_image
+
+    t_phase = time.perf_counter()
+    calib = [phantom_image(160, 128, cfg.in_ch, seed=s) for s in (0, 1)]
+    forward = unet.forward
+
+    def tune(tcfg):
+        """``tune_unet`` with its forwards counted; the plan, host wall and
+        forward count."""
+        n = [0]
+
+        def counted(*a, **kw):
+            n[0] += 1
+            return forward(*a, **kw)
+
+        unet.forward = counted
+        try:
+            t0 = time.perf_counter()
+            plan = autotune.tune_unet(params, tcfg, calib, target_rel_err=0.05)
+            torch.cuda.synchronize()
+            wall_s = time.perf_counter() - t0
+        finally:
+            unet.forward = forward
+        return plan, wall_s, n[0]
+
+    mk.launches = 0
+    mk.variant_launches.clear()
+    plan, tune_s, n_fwd = tune(cfg)
+    tune_launches, variants = mk.launches, dict(sorted(mk.variant_launches.items()))
+    cert = plan.certificate
+    print(f"[tune] {plan.describe()}")
+    print(f"[tune] certificate: measured {cert['measured_rel_err']:.6g} <= cert "
+          f"{cert['cert']:.6g} <= target {plan.target_rel_err:g} (holds {cert['holds']}); sound "
+          f"bound {cert['sound_bound']:.6g}; repairs {cert['repairs']}, measure calls "
+          f"{cert['measure_calls']}; class planes {[list(c) for c in plan.class_planes]}")
+    print(f"[tune] {card} | tune_unet through the kernel: {tune_s:.2f} s host wall, {n_fwd} "
+          f"forwards, {tune_launches} kernel launches by (planes, signed): {variants}")
+    check(cert["measured_rel_err"] <= cert["cert"] <= plan.target_rel_err and cert["holds"],
+          f"certificate does not hold: {cert}")
+    check(sorted(p for p, _ in variants) == list(range(1, 9)),
+          f"tuning launched the kernel at planes {sorted(variants)}, expected every count 1-8")
+    check(tune_launches == sum(variants.values()), "launch counts disagree")
+
+    mk.launches = 0
+    plain, plain_s, plain_fwd = tune(dataclasses.replace(cfg, impl="horner"))
+    check(mk.launches == 0, f"the plain path launched the kernel {mk.launches} times")
+    for field in ("planes", "class_planes", "tile", "halo", "class_thresholds"):
+        check(getattr(plan, field) == getattr(plain, field),
+              f"plans differ in {field}: kernel {getattr(plan, field)}, plain "
+              f"{getattr(plain, field)}")
+    for key in ("repairs", "measure_calls"):
+        check(cert[key] == plain.certificate[key], f"plans differ in {key}")
+    d_meas = abs(cert["measured_rel_err"] - plain.certificate["measured_rel_err"])
+    check(d_meas <= 1e-6, f"measured_rel_err kernel vs plain differ by {d_meas}")
+    check(n_fwd == plain_fwd, f"{n_fwd} forwards through the kernel, {plain_fwd} plain")
+    print(f"[tune] tune_unet through the plain path on the card: the same plan (planes, class "
+          f"planes, tile, halo, thresholds, repairs, measure calls; measured rel err differs by "
+          f"{d_meas:.3g}), {plain_s:.2f} s host wall, {plain_fwd} forwards")
+
+    # serve the plan: launches per micro-batch, against the plain path
+    engine = autotune.engine_from_plan(cfg, params, plan)
+    engine.obs = RecordingSink()
+    mk.launches = 0
+    t0 = time.perf_counter()
+    results = engine.run(images)
+    torch.cuda.synchronize()
+    serve_ms = (time.perf_counter() - t0) * 1e3
+    serve_launches, batches = mk.launches, len(engine.obs)
+    check(batches > 0 and serve_launches == 7 * batches,
+          f"plan serving: {serve_launches} launches for {batches} micro-batches")
+    ref = autotune.engine_from_plan(dataclasses.replace(cfg, impl="horner"), params, plan).run(images)
+    for i, (r, p) in enumerate(zip(results, ref)):
+        h, w = images[i].shape[:2]
+        check(r.logits.shape == (h, w, cfg.n_classes) and bool(np.isfinite(r.logits).all()),
+              f"plan image {i}: logits {r.logits.shape} not finite or of the wrong shape")
+        diff = float(np.abs(r.logits - p.logits).max())
+        check(diff <= LOGIT_ATOL, f"plan image {i}: logits kernel vs plain differ by {diff}")
+        check((r.cycles, r.pj, r.class_counts) == (p.cycles, p.pj, p.class_counts),
+              f"plan image {i}: accounting differs between datapaths")
+        print(f"[plan] image {i} {h}x{w}: tiles {r.n_tiles} classes {r.class_counts} cycles "
+              f"{r.cycles} pJ {r.pj} | paper's FPGA model: {r.time_ms:.3f} ms, "
+              f"{r.gops_per_w:.2f} GOPS/W, metered {r.metered_gops_per_w:.2f} GOPS/W | logits vs "
+              f"plain max diff {diff}")
+    print(f"[plan] {card} | engine_from_plan run(): {len(images)} images, {batches} "
+          f"micro-batches, {serve_launches} kernel launches (7 per micro-batch), {serve_ms:.1f} ms "
+          f"host wall")
+
+    # each tile's conv outputs alone and among the other images' tiles
+    conv = ops.mma_conv2d
+
+    def tiles(imgs):
+        """Serve ``imgs``; every nonzero batch row's 7 int32 conv outputs,
+        keyed by the row's input window, and each micro-batch's keys."""
+        rows, batches, seen = {}, [], []
+
+        def rec_conv(*a, **kw):
+            out = conv(*a, **kw)
+            seen.append(out)
+            return out
+
+        def rec_forward(p, x, fcfg, **kw):
+            seen.clear()
+            out = forward(p, x, fcfg, **kw)
+            keys = []
+            for b in range(x.shape[0]):
+                if np.any(x[b]):
+                    keys.append(x[b].tobytes())
+                    rows[keys[-1]] = [c[b] for c in seen]
+            batches.append(keys)
+            return out
+
+        unet.forward, ops.mma_conv2d = rec_forward, rec_conv
+        try:
+            autotune.engine_from_plan(cfg, params, plan).run(imgs)
+            torch.cuda.synchronize()
+        finally:
+            unet.forward, ops.mma_conv2d = forward, conv
+        return rows, batches
+
+    together, together_batches = tiles(images)
+    owner = {}
+    for i, im in enumerate(images):
+        alone, _ = tiles([im])
+        for key, outs in alone.items():
+            check(key in together and len(outs) == len(together[key]) == 7,
+                  f"image {i}: a tile served alone has no counterpart among the others")
+            for l, (a, b) in enumerate(zip(outs, together[key])):
+                check(torch.equal(a, b),
+                      f"image {i}: a tile's conv {l} int32 output depends on its batch mates")
+            owner[key] = i
+    check(len(owner) == len(together) == sum(r.n_tiles for r in results),
+          f"{len(owner)} tiles served alone, {len(together)} among the others")
+    mixed = sum(len({owner[k] for k in keys}) > 1 for keys in together_batches)
+    check(mixed > 0, "no micro-batch mixed tiles of different images")
+    print(f"[plan] per-tile scales: {len(owner)} tiles, each one's 7 int32 conv outputs equal "
+          f"served alone and among the other images ({mixed} of {len(together_batches)} "
+          f"micro-batches mixed images)")
+
+    # the Table 1 twin's measured rows, the int8 row at the plan's planes
+    rows = table1.measured_rows(planes=plan.planes)
+    for name, us, derived in rows:
+        check(us > 0, f"{name}: no time")
+        print(f"[table1] {name},{us:.3f},{derived}")
+    phase_s = time.perf_counter() - t_phase
+    print(f"[tune] phase 7 took {phase_s:.1f} s")
+    return dict(launches_tuning=tune_launches, launches_tuning_by_planes={
+        f"{p}{'' if sg else 'u'}": n for (p, sg), n in variants.items()},
+        launches_plan_serving=serve_launches, tune_s=tune_s, plan_serve_ms=serve_ms,
+        phase7_s=phase_s)
 
 
 def lm_decode_shapes(cfg):
@@ -385,6 +521,7 @@ def lm_times(torch, dev, card, lm, decode_shapes):
     """The scaled kernel's times, from CUDA-graph replays: per decode shape
     at 8, 5 and 1 planes with w cold in L2, and per decode call, replaying
     the recorded call's 225 kernel calls."""
+    from repro_torch.bench.table1 import graph_ms
     from repro_torch.core import bitplane
     from repro_torch.kernels import mma_matmul as mk
 
@@ -481,6 +618,7 @@ def main() -> int:
     sys.path.insert(0, str(SRC))
     import numpy as np
 
+    from repro_torch.bench.table1 import card_line, graph_ms
     from repro_torch.configs import get_config
     from repro_torch.core import bitplane
     from repro_torch.kernels import mma_matmul as mk
@@ -746,6 +884,9 @@ def main() -> int:
     scaled_summary = lm_times(torch, dev, card, lm, decode_shapes)
     scaled_summary["max_abs_err"] = scaled_err
     scaled_summary["imma"] = imma.get("mma_tc_decode_kernel")
+
+    # ------------------------------------------------ 7. certified tuning
+    summary.update(certified_tuning(torch, np, card, cfg, params, images))
     print(f"[done] every phase passed in {time.perf_counter() - t_start:.1f} s, the build included")
     print(json.dumps({"kernels": [summary, scaled_summary]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

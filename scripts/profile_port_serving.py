@@ -2,14 +2,19 @@
 """Where the port's serving time goes on the card.
 
     python3 scripts/profile_port_serving.py          # segmentation (U-Net)
+    python3 scripts/profile_port_serving.py --plan   # segmentation, tuned plan
     python3 scripts/profile_port_serving.py --lm     # LM decode (Yi-6B)
 
 Default: serves the four phantom images of ``chip_smoke.py`` through the
 full-width ``SegEngine`` (calibrated U-Net, ``from_weights(0.05)``
-schedule, adaptive budget classes).  ``--lm``: serves ``chip_smoke.py``'s
-four requests through ``Engine.run`` on Yi-6B at full width (random int8
-weights from seed 0, ``from_weights(0.05)`` schedule of the ``w_up``
-weights, batch 4).  Either runs once to warm up, then once under
+schedule, adaptive budget classes).  ``--plan``: first tunes a plan as
+``chip_smoke.py`` phase 7 does (``tune_unet`` at target 0.05 on two
+phantom calibration images, not profiled), then serves the same four
+images through ``engine_from_plan`` (per-tile activation scales).
+``--lm``: serves ``chip_smoke.py``'s four requests through ``Engine.run``
+on Yi-6B at full width (random int8 weights from seed 0,
+``from_weights(0.05)`` schedule of the ``w_up`` weights, batch 4).  Each
+mode runs its serving pass once to warm up, then once under
 ``torch.profiler``, and prints: host wall time, device busy time (the union
 of kernel and copy intervals on the card) and idle share, device time by
 kernel name, and the MMA kernels' launches.  The last line is a JSON
@@ -19,7 +24,6 @@ from __future__ import annotations
 
 import dataclasses
 import json
-import subprocess
 import sys
 import time
 from collections import defaultdict
@@ -58,6 +62,22 @@ def _unet_run():
     return (lambda: SegEngine(scfg, params).run(images)), "SegEngine.run() of 4 images"
 
 
+def _plan_run():
+    """Serving a tuned plan: a callable and its description."""
+    from repro_torch import autotune
+    from repro_torch.models import unet
+    from repro_torch.segserve.synth import phantom_image
+
+    cfg = unet.UNetConfig(quant_mode="mma_int8")
+    params = unet.init_params(0, cfg)
+    calib = [phantom_image(160, 128, cfg.in_ch, seed=s) for s in (0, 1)]
+    plan = autotune.tune_unet(params, cfg, calib, target_rel_err=0.05)
+    images = [phantom_image(160, 128, cfg.in_ch, seed=0), phantom_image(160, 128, cfg.in_ch, seed=1),
+              phantom_image(80, 80, cfg.in_ch), phantom_image(200, 152, cfg.in_ch)]
+    return ((lambda: autotune.engine_from_plan(cfg, params, plan).run(images)),
+            f"engine_from_plan run() of 4 images, {plan.describe()}")
+
+
 def _lm_run():
     """The LM serving pass (``chip_smoke.py``'s requests): a callable and
     its description."""
@@ -93,14 +113,12 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("profile_port_serving: no CUDA card", file=sys.stderr)
         return 1
+    from repro_torch.bench.table1 import card_line
     from repro_torch.kernels import mma_matmul as mk
 
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip().splitlines()[0]
-    lm = "--lm" in sys.argv[1:]
-    serve, what = _lm_run() if lm else _unet_run()
+    card = card_line()
+    mode = "lm" if "--lm" in sys.argv[1:] else "plan" if "--plan" in sys.argv[1:] else "unet"
+    serve, what = {"lm": _lm_run, "plan": _plan_run, "unet": _unet_run}[mode]()
     serve()  # warm-up: build, allocator, cuBLAS handles
     torch.cuda.synchronize()
 
@@ -135,7 +153,7 @@ def main() -> int:
           f"over {launches} launches")
     for name, (n, ms) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:15]:
         print(f"[profile] {ms:9.3f} ms {n:6d}x  {name[:110]}")
-    print(json.dumps(dict(card=card, mode="lm" if lm else "unet", wall_ms=wall_ms, busy_ms=busy_ms,
+    print(json.dumps(dict(card=card, mode=mode, wall_ms=wall_ms, busy_ms=busy_ms,
                           idle_share=1 - busy_ms / wall_ms, mma_kernel_ms=mma_ms,
                           mma_launches=launches, device_events=len(intervals))))
     return 0

@@ -29,6 +29,7 @@ kernel (or raises), a CPU tensor runs :func:`mma_matmul_plain`.
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 import hashlib
@@ -55,6 +56,10 @@ NVCC_FLAGS = (
 #: main path went through the kernel.  Callers reset them by assigning 0.
 launches = 0  # the unscaled kernel (int32 out)
 scaled_launches = 0  # the scaled kernel (fused dequant epilogue, float32 out)
+#: The unscaled kernel's launches by ``(planes, signed)`` template
+#: instantiation, counted at the same place as ``launches``; reset with
+#: ``.clear()``.
+variant_launches: collections.Counter = collections.Counter()
 
 
 def _nvcc() -> str:
@@ -237,6 +242,7 @@ def _launch(
         )
     _raise_on(err)
     launches += 1
+    variant_launches[(planes, bool(signed))] += 1
     return out
 
 

@@ -172,14 +172,19 @@ def init_params(seed: int, cfg: UNetConfig, *, device=None) -> dict:
 # --------------------------------------------------------------- forward
 
 
-def conv3x3(p, x: torch.Tensor, cfg: UNetConfig, *, planes=None) -> torch.Tensor:
+def conv3x3(
+    p, x: torch.Tensor, cfg: UNetConfig, *, planes=None, per_sample_scale: bool = False
+) -> torch.Tensor:
     """3x3 conv through the selected datapath (float or MMA int8), on
     ``x``'s device.  ``planes`` overrides ``cfg.planes`` for this layer —
-    the hook the per-layer :class:`PlaneSchedule` drives."""
+    the hook the per-layer :class:`PlaneSchedule` drives.
+    ``per_sample_scale`` quantizes the activations with one int8 scale per
+    sample (batch row) instead of one for the whole tensor, so a sample's
+    numerics never depend on its batch mates."""
     if planes is None:
         planes = cfg.planes
     if cfg.quant_mode == "mma_int8":
-        xq = quant.quantize_acts(x)
+        xq = quant.quantize_acts(x, batch_axis=0 if per_sample_scale else None)
         wq = quant.quantize_weights(p["w"], channel_axis=-1)
         out = ops.mma_conv2d(
             xq.values, wq.values, planes=planes, impl=cfg.impl,
@@ -218,7 +223,10 @@ def _prepare(params, x, device) -> tuple[dict, torch.Tensor]:
     return params_to(params, dev), x
 
 
-def forward(params, x, cfg: UNetConfig, *, planes_arr=None, taps=None, device=None):
+def forward(
+    params, x, cfg: UNetConfig, *, planes_arr=None, taps=None, per_sample_scale: bool = False,
+    device=None,
+):
     """x: (N, H, W, Cin) -> logits (N, H, W, n_classes), on ``device``
     (the CUDA card unless ``device='cpu'``).
 
@@ -230,7 +238,10 @@ def forward(params, x, cfg: UNetConfig, *, planes_arr=None, taps=None, device=No
     ``planes_arr``: per-conv plane budgets overriding ``cfg``'s schedule
     (quantized datapath only); tensor entries fold into the data via the
     exact bit-mask identity.  ``taps``: a list to append each post-ReLU
-    conv activation to, in schedule order.
+    conv activation to, in schedule order.  ``per_sample_scale``: quantize
+    every conv's activations with one scale per sample, so one batched call
+    computes what a forward of each sample alone computes (the per-tile
+    quantization a tuned plan is served with).
     """
     params, x = _prepare(params, x, device)
     mult = 2**cfg.depth
@@ -250,7 +261,7 @@ def forward(params, x, cfg: UNetConfig, *, planes_arr=None, taps=None, device=No
         else:
             pl = sched.planes_for(li) if sched is not None else None
         li += 1
-        out = torch.relu(conv3x3(conv, h, cfg, planes=pl))
+        out = torch.relu(conv3x3(conv, h, cfg, planes=pl, per_sample_scale=per_sample_scale))
         if taps is not None:
             taps.append(out)
         return out

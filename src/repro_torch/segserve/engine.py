@@ -10,8 +10,11 @@ of tiles.  Tiles are grouped by
 and packed into fixed-size batches (padded with zero tiles).  Every tile of
 a batch runs one static per-layer plane schedule, so each conv launches one
 specialization of the MMA kernel (``kernels.mma_matmul.plane_variant``).
-Activations are quantized with one scale over the whole micro-batch, zero
-tiles included, exactly as the reference engine does.
+Without a tuned plan, activations are quantized with one scale over the
+whole micro-batch, zero tiles included, exactly as the reference engine
+does.  Under a plan each tile gets its own scale (still one kernel launch
+per conv per micro-batch), so a tile's numerics do not depend on its batch
+mates and the plan's per-tile certificate carries over to batched serving.
 
 Accounting per image: relation-(2) cycles of every tile the image consumed
 (halo overhead included) under its refined schedule, against the useful
@@ -144,6 +147,13 @@ class SegEngine:
       adaptive: refine the layer schedule per budget class (quantized
         datapath only).
       max_class: amplitude-octave cap for flat/empty tiles.
+      plan: a :class:`~repro_torch.autotune.plan.TunedPlan` — overrides
+        ``tile`` and ``halo`` with the tuned geometry (validated through
+        ``cfg.validate_tile``), classifies tiles by the *calibrated*
+        thresholds instead of fixed octaves, runs each class at the plan's
+        measured-ratio refined schedule, and switches the quantized
+        datapath to per-tile activation scales so the plan's certificate
+        transfers to the batched path exactly.
       priority: pick the pending group with the lowest budget class first
         (structure before background); scheduling order only.
       device: where the forward runs — the CUDA card unless ``'cpu'``.
@@ -160,10 +170,25 @@ class SegEngine:
         max_active: int = 4,
         adaptive: bool = True,
         max_class: int = adaptive.MAX_CLASS,
+        plan=None,
         priority: bool = True,
         device=None,
     ):
         self.device = resolve_device(device)
+        if plan is not None:
+            if getattr(plan, "workload", "unet") != "unet":
+                raise ValueError(
+                    f"cannot serve a {plan.workload!r} plan through the "
+                    f"segmentation engine"
+                )
+            if len(plan.planes) != len(cfg.conv_layers()):
+                raise ValueError(
+                    f"plan covers {len(plan.planes)} convs but this "
+                    f"geometry has {len(cfg.conv_layers())}"
+                )
+            # the halo walk's geometry guard, through UNetConfig validation
+            tile = cfg.validate_tile(int(plan.tile), halo=int(plan.halo))
+            halo = int(plan.halo)
         mult = 2**cfg.depth
         if tile < mult or tile % mult:
             raise ValueError(
@@ -174,15 +199,22 @@ class SegEngine:
         if batch < 1:
             raise ValueError(f"batch {batch} < 1")
         self.cfg = cfg
+        self.plan = plan
         self.params = unet.params_to(params, self.device)
         self.tile = tile
         self.halo = halo
         self.batch = batch
         self.priority = priority
         quantized = cfg.quant_mode == "mma_int8"
-        self.adaptive = adaptive and quantized
+        self.adaptive = adaptive and quantized and (
+            plan is None or plan.class_thresholds is not None
+        )
         self.max_class = max_class
-        if quantized:
+        # per-tile activation scales exactly when a plan drives the int8 path
+        self.per_tile_quant = plan is not None and quantized
+        if plan is not None and quantized:
+            self.base_schedule = plan.schedule()
+        elif quantized:
             self.base_schedule = cfg.schedule()
         else:
             self.base_schedule = PlaneSchedule.uniform(8, len(cfg.conv_layers()))
@@ -200,7 +232,10 @@ class SegEngine:
     # ----------------------------------------------------------- schedules
 
     def _class_planes(self, k: int) -> tuple[int, ...]:
-        """Per-layer budgets class-``k`` micro-batches run."""
+        """Per-layer budgets class-``k`` micro-batches run: the plan's
+        calibrated table, else the octave-heuristic refinement."""
+        if self.plan is not None:
+            return tuple(self.plan.class_schedule(k))
         return adaptive.class_schedule(self.base_schedule, k).planes
 
     def class_cfg(self, k: int) -> unet.UNetConfig:
@@ -275,12 +310,20 @@ class SegEngine:
         amax = float(np.max(np.abs(canvas)))
         if self.adaptive:
             classes = adaptive.classify_tiles(
-                canvas, req.plan, max_class=self.max_class, amax=amax
+                canvas, req.plan, max_class=self.max_class, amax=amax,
+                thresholds=(
+                    None if self.plan is None else self.plan.class_thresholds
+                ),
             )
         else:
             classes = [0] * req.plan.n_tiles
-        # The octave key keeps batch-shared dynamic scales compatible.
-        octave = int(math.floor(math.log2(amax))) if amax > 0 else 0
+        # The octave key keeps batch-shared dynamic scales compatible; under
+        # a plan every tile has its own scale, so it would only fragment
+        # the packing — collapse it.
+        if self.plan is not None:
+            octave = 0
+        else:
+            octave = int(math.floor(math.log2(amax))) if amax > 0 else 0
         for ti, (spec, k) in enumerate(zip(req.plan.tiles, classes)):
             key = (spec.in_h, spec.in_w, k, octave, req.group)
             self._tasks.setdefault(key, []).append((req, ti))
@@ -340,7 +383,8 @@ class SegEngine:
         for b, (req, ti) in enumerate(taken):
             spec = req.plan.tiles[ti]
             x[b] = req.canvas_in[spec.y0 : spec.y1, spec.x0 : spec.x1]
-        out = unet.forward(self.params, x, self.class_cfg(k), device=self.device)
+        out = unet.forward(self.params, x, self.class_cfg(k),
+                           per_sample_scale=self.per_tile_quant, device=self.device)
         out = out.cpu().numpy()
         events: list[TileEvent] = []
         cyc = self._tile_cycles(in_h, in_w, k)  # one price, both accounts

@@ -9,16 +9,20 @@ no jax (the machine with the card has none), so it runs there with
 (``--noconftest``: the suite's shared conftest imports jax).
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
+from repro_torch import autotune
 from repro_torch.configs import get_smoke_config
 from repro_torch.configs.base import QuantConfig
 from repro_torch.core import quant
 from repro_torch.kernels import mma_matmul as mk
 from repro_torch.kernels import ops
 from repro_torch.models import transformer, unet
+from repro_torch.obs.events import RecordingSink
 from repro_torch.segserve import SegEngine
 from repro_torch.serve import Engine, Request
 from repro_torch.segserve.synth import phantom_image
@@ -325,3 +329,95 @@ def test_gpu_lm_engine_equals_cpu_engine(cuda):
             break
     else:
         assert tok_g == tok_c
+
+
+# ------------------------------------------------------- certified tuning
+
+
+def _tuning_net():
+    """A small quantized U-Net (depth 2, 5 convs) and two phantom images of
+    the calibrated set's kind."""
+    cfg = unet.UNetConfig(hw=16, in_ch=3, base=8, depth=2, quant_mode="mma_int8")
+    params = unet.init_params(0, cfg, device="cpu")
+    images = [phantom_image(96, 80, 3, seed=0), phantom_image(96, 80, 3, seed=1)]
+    return cfg, params, images
+
+
+def _tune(cfg, params, images, dev):
+    """At this target and tile the plan drops planes and has two classes,
+    and each image has 9 tiles."""
+    return autotune.tune_unet(params, cfg, images, target_rel_err=0.2, tile=32, device=dev)
+
+
+@pytest.mark.gpu
+def test_gpu_tune_unet_kernel_equals_plain(cuda):
+    """``tune_unet`` through the kernel on the card gives the plan the plain
+    path gives there: the int32 datapath is bit-exact, so the measurements
+    the search reads are equal and so are its choices."""
+    cfg, params, images = _tuning_net()
+    before = mk.launches
+    got = _tune(cfg, params, images, cuda)
+    assert mk.launches > before
+    launched = mk.launches
+    want = _tune(dataclasses.replace(cfg, impl="horner"), params, images, cuda)
+    assert mk.launches == launched  # the plain path launches no kernel
+    for field in ("planes", "class_planes", "tile", "halo", "class_thresholds", "modeled"):
+        assert getattr(got, field) == getattr(want, field), field
+    for key in ("repairs", "measure_calls"):
+        assert got.certificate[key] == want.certificate[key], key
+    assert abs(got.certificate["measured_rel_err"] - want.certificate["measured_rel_err"]) <= 1e-6
+
+
+@pytest.mark.gpu
+def test_gpu_plan_engine_kernel_vs_plain(cuda):
+    """A tuned plan served through ``SegEngine(plan=...)`` on the card: one
+    kernel launch per conv per micro-batch, the plain path's accounting and,
+    up to the float head, its logits."""
+    cfg, params, images = _tuning_net()
+    plan = _tune(cfg, params, images, cuda)
+    assert min(plan.planes) < 8 and plan.n_classes > 1
+    eng = autotune.engine_from_plan(cfg, params, plan, device=cuda)
+    eng.obs = RecordingSink()
+    before = mk.launches
+    got = eng.run(images)
+    torch.cuda.synchronize()
+    assert len(eng.obs) > 0
+    assert mk.launches - before == len(cfg.conv_layers()) * len(eng.obs)
+    plain = autotune.engine_from_plan(dataclasses.replace(cfg, impl="horner"), params, plan,
+                                      device=cuda).run(images)
+    for a, b in zip(got, plain):
+        assert (a.cycles, a.pj, a.class_counts) == (b.cycles, b.pj, b.class_counts)
+        np.testing.assert_allclose(a.logits, b.logits, atol=1e-5)
+
+
+@pytest.mark.gpu
+def test_gpu_per_tile_conv_outputs_independent_of_batch_mates(cuda, monkeypatch):
+    """Under per-sample scales each tile's int32 conv outputs on the card
+    are the same alone and among other tiles, in one launch per conv."""
+    cfg, params, _ = _tuning_net()
+    params = unet.params_to(params, cuda)
+    rng = np.random.default_rng(3)
+    x = rng.normal(0.0, 1.0, (4, 32, 32, 3)).astype(np.float32)
+    x[2] *= 1e-3
+
+    def convs(xin):
+        seen = []
+        conv = ops.mma_conv2d
+
+        def recording(*a, **kw):
+            out = conv(*a, **kw)
+            seen.append(out)
+            return out
+
+        monkeypatch.setattr(ops, "mma_conv2d", recording)
+        before = mk.launches
+        unet.forward(params, xin, cfg, per_sample_scale=True, device=cuda)
+        torch.cuda.synchronize()
+        monkeypatch.setattr(ops, "mma_conv2d", conv)
+        assert mk.launches - before == len(cfg.conv_layers())
+        return seen
+
+    batched = convs(x)
+    for b in range(x.shape[0]):
+        for l, (alone, mate) in enumerate(zip(convs(x[b : b + 1]), batched)):
+            assert torch.equal(alone[0], mate[b]), (b, l)
