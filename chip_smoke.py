@@ -59,6 +59,23 @@ Phases, in one process; any failure ends the run with a non-zero exit:
    its image is served alone or among the others (per-tile activation
    scales).  Last, the measured rows of the Table 1 twin
    (``repro_torch.bench.table1``).
+8. The serving gateway (main path 3): ``traces/gateway_burst.json`` (35
+   requests: 20 interactive and 12 batch LM, 3 seg) replayed open-loop
+   through ``Gateway`` (fair, preemptive) with ``LMAdapter`` serving
+   minitron_4b at full width and depth (random int8 weights drawn and
+   quantized on the card, ``from_weights(0.05)`` schedule, ``impl='kernel'``,
+   batch 20: every LM linear is a scaled-kernel launch at M = 20, the CUDA-
+   core branch) and ``SegAdapter`` serving phase 3's U-Net under phase 7's
+   plan.  The trace's clock is scaled by the served LM's relation-(2) step
+   price over the smoke LM's (``repro_torch.bench.gateway``).  Checks: every
+   request completes (LM requests with their token budget, in the
+   vocabulary); 225 scaled launches per decode call, 7 unscaled per seg
+   micro-batch and none on the LM; every scaled linear of one recorded
+   decode call equals the plain version bit for bit; every seg request's
+   logits equal its image served alone; the exec events' cycles sum to the
+   round clock's worked cycles.  Times the recorded call's 225 linears at
+   M = 20 and at M = 16 (the tensor-core decode kernel) against
+   ``torch._int_mm`` + scale.
 
 The line before the last is a JSON object naming every kernel with its
 launches on its main path and its times; the last line is
@@ -75,6 +92,7 @@ import time
 from pathlib import Path
 
 SRC = Path(__file__).resolve().parent / "src"
+TRACE = SRC.parent / "traces" / "gateway_burst.json"  # the gateway's canonical trace
 
 # NVIDIA H100 SXM data sheet, dense: HBM rate and the int8 tensor-core peak.
 HBM_BYTES_PER_S = 3.35e12
@@ -233,7 +251,7 @@ def decode_cases(torch, dev) -> int:
 def certified_tuning(torch, np, card, cfg, params, images):
     """Phase 7: tune a plan through the kernel and through the plain path,
     serve it, check it, and time the Table 1 twin's measured rows.  Returns
-    what the kernels line reports of this path."""
+    what the kernels line reports of this path, and the plan."""
     from repro_torch import autotune
     from repro_torch.bench import table1
     from repro_torch.kernels import mma_matmul as mk
@@ -388,7 +406,201 @@ def certified_tuning(torch, np, card, cfg, params, images):
     return dict(launches_tuning=tune_launches, launches_tuning_by_planes={
         f"{p}{'' if sg else 'u'}": n for (p, sg), n in variants.items()},
         launches_plan_serving=serve_launches, tune_s=tune_s, plan_serve_ms=serve_ms,
-        phase7_s=phase_s)
+        phase7_s=phase_s), plan
+
+
+def gateway_replay(torch, np, dev, card, ucfg, uparams, plan):
+    """Phase 8: ``traces/gateway_burst.json`` replayed open-loop through the
+    gateway at full width (minitron_4b at batch 20 and the calibrated U-Net
+    under phase 7's plan), its checks, and the scaled kernel's times at the
+    gateway's M = 20 against M = 16.  Returns what the kernels line
+    reports of this path."""
+    from repro_torch.autotune import engine_from_plan
+    from repro_torch.bench import gateway as gwb
+    from repro_torch.bench.table1 import graph_ms
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels import mma_matmul as mk
+    from repro_torch.kernels import ops
+    from repro_torch.obs.events import RecordingSink
+    from repro_torch.workload import Trace, replay_trace
+
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    cfg, params, sched = gwb.minitron(device=dev)
+    torch.cuda.synchronize()
+    blocks = params["blocks"]
+    linears = [blocks["attn"][n] for n in ("wq", "wk", "wv", "wo")] + \
+        [blocks["mlp"][n] for n in ("w_gate", "w_up", "w_down")] + [params["head"]]
+    check(all("w_q" in p and "w" not in p for p in linears),
+          "a minitron_4b linear stayed in float after quantize_params_int8")
+    n_weights = sum(p["w_q"].numel() for p in linears)
+    print(f"[gateway] minitron_4b params on the card in {time.perf_counter() - t0:.1f} s: "
+          f"{cfg.n_layers} layers, d_model {cfg.d_model}, d_ff {cfg.d_ff}, vocab {cfg.vocab}, "
+          f"{n_weights / 1e9:.3f} G int8 weights, {torch.cuda.memory_allocated() / 2**30:.2f} GiB "
+          f"allocated; {sched.describe()}")
+    k = gwb.clock_scale(cfg)
+    base = Trace.load(TRACE)
+    trace = gwb.scaled_trace(base, k)
+    print(f"[gateway] clock scale k = {k}: a token step of the served LM is "
+          f"{gwb.lm_step_cycles(cfg, cfg.quant.plane_schedule)} modeled cycles, of the smoke LM "
+          f"at 8 planes {gwb.lm_step_cycles(get_smoke_config(gwb.SMOKE_LM))} (relation (2), "
+          f"the paper's FPGA model); arrivals and the round budget x{k}: round budget "
+          f"{trace.meta['round_budget']}, span {trace.span_cycles} cycles, {len(trace)} requests")
+
+    sink = RecordingSink()
+    gw, mats = gwb.build(cfg, params, ucfg, uparams, plan, trace, device=dev, sink=sink)
+    lm_ad, seg_ad = gw.adapters["lm"], gw.adapters["seg"]
+    check(lm_ad._step_cycles == gwb.lm_step_cycles(cfg, cfg.quant.plane_schedule),
+          "the adapter prices a token step differently from the clock scale")
+    plan_fp, served_fp = seg_ad.verify_info()
+    check(plan_fp == served_fp, f"the plan's fingerprint {plan_fp} != served {served_fp}")
+
+    # Record the first decode step's call (M = 20 rows, whatever the step's
+    # class): every scaled-kernel call it makes.  Recording adds no launch.
+    engine = lm_ad.engine
+    rec = {"n": 0, "calls": [], "armed": False}
+    decode, step, scaled = engine.decode_fn, engine.step, ops.mma_matmul_scaled
+
+    def recording_scaled(x, w, xs, ws, **kw):
+        out = scaled(x, w, xs, ws, **kw)
+        rec["calls"].append((x, w, xs, ws, kw["planes"], out))
+        return out
+
+    def counted_decode(*args):
+        rec["n"] += 1
+        if not rec["armed"]:
+            return decode(*args)
+        rec["armed"] = False
+        ops.mma_matmul_scaled = recording_scaled
+        try:
+            return decode(*args)
+        finally:
+            ops.mma_matmul_scaled = scaled
+
+    def recording_step(only=None):
+        if not rec["calls"]:
+            rec["armed"] = True
+            rec["live_rows"] = len(engine.ready_slots())
+        return step(only=only)
+
+    engine.decode_fn, engine.step = counted_decode, recording_step
+    mk.launches = mk.scaled_launches = 0
+    t0 = time.perf_counter()
+    try:
+        summary = replay_trace(gw, trace, mats, max_rounds=10_000)
+        torch.cuda.synchronize()
+    finally:
+        engine.decode_fn, engine.step = decode, step
+    wall_s = time.perf_counter() - t0
+    launches, unscaled = mk.scaled_launches, mk.launches
+    calls = rec["n"]
+    seg_batches = sum(1 for e in sink.events if e.etype == "seg-batch")
+
+    # 1. every request served
+    reqs = gw.requests
+    want_kinds = [r.kind for r in trace.requests]
+    check([g.kind for g in reqs] == want_kinds and all(g.done for g in reqs),
+          f"{sum(g.done for g in reqs)} of {len(trace)} requests completed")
+    for g in reqs:
+        if g.kind == "lm":
+            out = g.handle.out
+            check(len(out) == g.handle.max_new and all(0 <= t < cfg.vocab for t in out),
+                  f"LM request {g.rid}: {len(out)} tokens of {g.handle.max_new}, or one outside "
+                  f"the vocabulary")
+        else:
+            lg = g.handle.result.logits
+            check(lg.shape == (*g.handle.image.shape[:2], ucfg.n_classes)
+                  and bool(np.isfinite(lg).all()), f"seg request {g.rid}: logits {lg.shape}")
+    st = gw.stats()
+    counts = {c: (pc["n"], pc["completed"]) for c, pc in st["per_class"].items()}
+    check(counts == {"interactive": (20, 20), "batch": (12, 12), "seg": (3, 3)},
+          f"per-class counts {counts}")
+
+    # 2. launches on this path
+    per_call = 7 * cfg.n_layers + 1
+    check(calls > 0 and launches == per_call * calls,
+          f"{launches} scaled-kernel launches for {calls} decode calls, expected {per_call} each")
+    check(seg_batches > 0 and unscaled == 7 * seg_batches,
+          f"{unscaled} unscaled-kernel launches for {seg_batches} seg micro-batches (7 each, "
+          f"none on the LM)")
+
+    # 3. the recorded decode call, per linear, bit for bit
+    check(len(rec["calls"]) == per_call, f"{len(rec['calls'])} scaled calls recorded")
+    rows = set()
+    for x, w, xs, ws, planes, out in rec["calls"]:
+        kk, n = w.shape
+        x2 = x.reshape(-1, kk)
+        rows.add(x2.shape[0])
+        want = mk.mma_matmul_scaled_plain(x2, w, xs, ws, planes=planes)
+        check(torch.equal(out.reshape(-1, n), want),
+              f"recorded M={x2.shape[0]} call: scaled linear K={kk} N={n} != plain")
+    check(rows == {gwb.LM_BATCH}, f"recorded call rows {rows}, expected {gwb.LM_BATCH}")
+
+    # 4. every seg request's logits equal its image served alone
+    for i, (g, treq) in enumerate(zip(reqs, trace.requests)):
+        if g.kind != "seg":
+            continue
+        image, _ = mats["seg"](treq, trace.seed, i)
+        alone = engine_from_plan(ucfg, uparams, plan, batch=gwb.SEG_BATCH,
+                                 device=dev).run([image])[0]
+        check(np.array_equal(alone.logits, g.handle.result.logits),
+              f"seg request {g.rid}: logits differ from the image served alone")
+        check((alone.cycles, alone.pj) == (g.handle.result.cycles, g.handle.result.pj),
+              f"seg request {g.rid}: accounting differs from the image served alone")
+
+    # 5. the accounting closes
+    exec_cycles = sum(e.data["cycles"] for e in sink.events if e.etype == "exec")
+    worked = gw.round_clock.worked_total
+    check(exec_cycles == worked, f"exec events sum to {exec_cycles} cycles, the round clock "
+          f"worked {worked}")
+
+    prefill_tokens = sum(e.data["tokens"] for e in sink.events if e.etype == "lm-prefill")
+    steps = sum(1 for e in sink.events if e.etype == "lm-step")
+    print(f"[gateway] {card} | replay of {base.name} (x{k}): {len(reqs)} requests, host wall "
+          f"{wall_s:.2f} s; {calls} decode calls at M = {gwb.LM_BATCH} ({prefill_tokens} prefill "
+          f"tokens, {steps} decode steps), {launches} scaled-kernel launches ({per_call} per "
+          f"call); {seg_batches} seg micro-batches, {unscaled} unscaled launches (7 each); "
+          f"{st['rounds']} rounds, {st['forced']} forced, {len(sink)} events")
+    print(f"[gateway] recorded decode call (the first decode step, {rec['live_rows']} live rows "
+          f"of {gwb.LM_BATCH}): {per_call} scaled linears bit-exact against the plain version; "
+          f"3 seg requests' logits equal served alone; exec events {exec_cycles} cycles = round "
+          f"clock worked {worked}")
+    for c, pc in st["per_class"].items():
+        print(f"[gateway] class {c}: {pc['completed']} of {pc['n']} done, modeled latency p50 "
+              f"{pc['p50_ms']:.3f} ms p99 {pc['p99_ms']:.3f} ms (relation (2) clock, the "
+              f"paper's FPGA model), deadline misses {pc['deadline_misses']}")
+    print(f"[gateway] aggregate {st['gops_w']:.3f} GOPS/W over {st['total_ops']} ops "
+          f"(the paper's FPGA model at its implied power, not the card)")
+
+    # times: the recorded call's 225 linears at M = 20 (CUDA cores) and the
+    # same shapes at M = 16 (the tensor-core decode kernel)
+    times = {}
+    for m in (gwb.LM_BATCH, 16):
+        mcalls = [(x.reshape(-1, w.shape[0])[:m], w, xs, ws, p)
+                  for x, w, xs, ws, p, _ in rec["calls"]]
+        libs = [scaled_library(torch, *c) for c in mcalls]
+        ms = graph_ms(torch, lambda: [mk.mma_matmul_scaled_kernel(x, w, xs, ws, planes=p)
+                                      for x, w, xs, ws, p in mcalls], calls=1)
+        lib_ms = graph_ms(torch, lambda: [f() for f in libs], calls=1)
+        plain_ms = time_ms(torch, lambda: [mk.mma_matmul_scaled_plain(x, w, xs, ws, planes=p)
+                                           for x, w, xs, ws, p in mcalls], reps=1, warmup=1)
+        b_ms, b_by, nbytes, nops = scaled_bound([(m, *w.shape) for _, w, *_ in mcalls])
+        branch = "mma_tc_decode_kernel" if m <= mk.DECODE_M else "mma_horner_kernel"
+        times[m] = dict(ms=ms, library_ms=lib_ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                        branch=branch)
+        print(f"[time] {card} | mma_matmul_scaled one minitron_4b decode call at M = {m} "
+              f"({branch}; {len(mcalls)} linears at the schedule's planes, one CUDA graph, "
+              f"{nbytes / 1e9:.3f} GB of distinct w: cold): kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.3f} ms, torch._int_mm+scale {lib_ms:.4f} ms (M "
+              f"{m if m > 16 else 32} rows), bound {b_ms:.4f} ms ({b_by}; {nops / 1e9:.1f} G int8 "
+              f"ops), {nbytes / ms / 1e6:.0f} GB/s")
+    phase_s = time.perf_counter() - t_phase
+    print(f"[gateway] phase 8 took {phase_s:.1f} s")
+    return dict(launches_gateway=launches, gateway_decode_calls=calls, gateway_wall_s=wall_s,
+                gateway_clock_scale=k, gateway_seg_batches=seg_batches,
+                gateway_m20=times[gwb.LM_BATCH], gateway_m16=times[16],
+                gateway_forced=st["forced"], gateway_rounds=st["rounds"], phase8_s=phase_s), \
+        dict(launches_gateway=unscaled)
 
 
 def lm_decode_shapes(cfg):
@@ -517,27 +729,36 @@ def lm_serving(torch, np, dev, cfg):
                 decode_calls=calls)
 
 
+def scaled_library(torch, x, w, xs, ws, planes):
+    """The scaled kernel's library yardstick: ``torch._int_mm`` on the
+    truncated operand, then the same epilogue.  ``_int_mm`` wants M > 16, so
+    up to 16 rows x is padded to 32 (those rows are computed and dropped);
+    above 16 it runs at M."""
+    from repro_torch.core import bitplane
+
+    m, k = x.shape
+    xp = torch.zeros((m if m > 16 else 32, k), dtype=torch.int8, device=x.device)
+    xp[:m] = bitplane.truncate_to_planes(x, planes)
+    return lambda: torch._int_mm(xp, w)[:m].to(torch.float32) * xs.reshape(()) * ws.reshape(-1)
+
+
+def scaled_bound(shapes):
+    """The scaled kernel's bound over ``(M, K, N)`` calls: each input read
+    once (x, w, the scales), the float32 output written once, at the HBM
+    rate; 2MKN int8 operations at the int8 tensor-core peak.  ``(ms, what
+    bounds it, bytes, operations)``."""
+    nbytes = sum(m * k + k * n + 4 * n + 4 + 4 * m * n for m, k, n in shapes)
+    nops = sum(2 * m * k * n for m, k, n in shapes)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, nops / INT8_OPS_PER_S * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations", nbytes, nops
+
+
 def lm_times(torch, dev, card, lm, decode_shapes):
     """The scaled kernel's times, from CUDA-graph replays: per decode shape
     at 8, 5 and 1 planes with w cold in L2, and per decode call, replaying
     the recorded call's 225 kernel calls."""
     from repro_torch.bench.table1 import graph_ms
-    from repro_torch.core import bitplane
     from repro_torch.kernels import mma_matmul as mk
-
-    def library(x, w, xs, ws, planes):
-        """torch._int_mm on the truncated operand (M padded to 32 rows: it
-        wants M > 16), then the same epilogue."""
-        m, k = x.shape
-        xp = torch.zeros((max(32, -(-m // 8) * 8), k), dtype=torch.int8, device=dev)
-        xp[:m] = bitplane.truncate_to_planes(x, planes)
-        return lambda: torch._int_mm(xp, w)[:m].to(torch.float32) * xs.reshape(()) * ws.reshape(-1)
-
-    def bound(shapes):
-        nbytes = sum(m * k + k * n + 4 * n + 4 + 4 * m * n for m, k, n in shapes)
-        nops = sum(2 * m * k * n for m, k, n in shapes)
-        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, nops / INT8_OPS_PER_S * 1e3
-        return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations", nbytes, nops
 
     def rotating(fns):
         """One call per graph slot, cycling through ``fns``."""
@@ -557,7 +778,7 @@ def lm_times(torch, dev, card, lm, decode_shapes):
                for _ in range(copies)]
         xs = torch.full((1,), 0.01, device=dev)
         wsc = torch.rand(n, device=dev, generator=g) * 0.01 + 1e-4
-        libs = [library(x, w, xs, wsc, 8) for w in ws_]
+        libs = [scaled_library(torch, x, w, xs, wsc, 8) for w in ws_]
         check(torch.equal(libs[0](), mk.mma_matmul_scaled_kernel(x, ws_[0], xs, wsc)),
               f"{name}: library yardstick disagrees with the scaled kernel")
         ms_planes = {p: graph_ms(torch, rotating([
@@ -567,7 +788,7 @@ def lm_times(torch, dev, card, lm, decode_shapes):
         lib_ms = graph_ms(torch, rotating(libs), calls=calls)
         plain_ms = time_ms(torch, lambda: mk.mma_matmul_scaled_plain(x, ws_[0], xs, wsc), reps=3,
                            warmup=1)
-        b_ms, b_by, nbytes, nops = bound([(m, k, n)])
+        b_ms, b_by, nbytes, nops = scaled_bound([(m, k, n)])
         splits = mk.split_k(m, k, n, sms)
         per_shape.append(dict(name=name, M=m, K=k, N=n, ms=ms, ms_planes=ms_planes,
                               plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
@@ -581,13 +802,14 @@ def lm_times(torch, dev, card, lm, decode_shapes):
         del ws_, libs
 
     calls = [(x.reshape(-1, w.shape[0]), w, xs, ws, planes) for x, w, xs, ws, planes, _ in lm["calls"]]
-    libs = [library(*c) for c in calls]
+    libs = [scaled_library(torch, *c) for c in calls]
     ms = graph_ms(torch, lambda: [mk.mma_matmul_scaled_kernel(x, w, xs, ws, planes=p)
                                   for x, w, xs, ws, p in calls], calls=1)
     lib_ms = graph_ms(torch, lambda: [f() for f in libs], calls=1)
     plain_ms = time_ms(torch, lambda: [mk.mma_matmul_scaled_plain(x, w, xs, ws, planes=p)
                                        for x, w, xs, ws, p in calls], reps=1, warmup=1)
-    b_ms, b_by, nbytes, nops = bound([(x.shape[0], w.shape[0], w.shape[1]) for x, w, *_ in calls])
+    b_ms, b_by, nbytes, nops = scaled_bound([(x.shape[0], w.shape[0], w.shape[1])
+                                             for x, w, *_ in calls])
     print(f"[time] {card} | mma_matmul_scaled one decode call ({len(calls)} linears, the "
           f"schedule's planes, one CUDA graph; {nbytes / 1e9:.3f} GB of distinct w: cold): kernel "
           f"{ms:.4f} ms, plain {plain_ms:.3f} ms, torch._int_mm+scale {lib_ms:.4f} ms, bound "
@@ -884,9 +1106,17 @@ def main() -> int:
     scaled_summary = lm_times(torch, dev, card, lm, decode_shapes)
     scaled_summary["max_abs_err"] = scaled_err
     scaled_summary["imma"] = imma.get("mma_tc_decode_kernel")
+    del lm  # the recorded calls hold Yi-6B's weights
+    torch.cuda.empty_cache()
 
     # ------------------------------------------------ 7. certified tuning
-    summary.update(certified_tuning(torch, np, card, cfg, params, images))
+    tuning, plan = certified_tuning(torch, np, card, cfg, params, images)
+    summary.update(tuning)
+
+    # ------------------------------------------------- 8. the gateway
+    scaled_gw, unscaled_gw = gateway_replay(torch, np, dev, card, cfg, params, plan)
+    scaled_summary.update(scaled_gw)
+    summary.update(unscaled_gw)
     print(f"[done] every phase passed in {time.perf_counter() - t_start:.1f} s, the build included")
     print(json.dumps({"kernels": [summary, scaled_summary]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

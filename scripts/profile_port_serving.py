@@ -4,6 +4,7 @@
     python3 scripts/profile_port_serving.py          # segmentation (U-Net)
     python3 scripts/profile_port_serving.py --plan   # segmentation, tuned plan
     python3 scripts/profile_port_serving.py --lm     # LM decode (Yi-6B)
+    python3 scripts/profile_port_serving.py --gateway  # the gateway replay
 
 Default: serves the four phantom images of ``chip_smoke.py`` through the
 full-width ``SegEngine`` (calibrated U-Net, ``from_weights(0.05)``
@@ -13,12 +14,18 @@ phantom calibration images, not profiled), then serves the same four
 images through ``engine_from_plan`` (per-tile activation scales).
 ``--lm``: serves ``chip_smoke.py``'s four requests through ``Engine.run``
 on Yi-6B at full width (random int8 weights from seed 0,
-``from_weights(0.05)`` schedule of the ``w_up`` weights, batch 4).  Each
-mode runs its serving pass once to warm up, then once under
-``torch.profiler``, and prints: host wall time, device busy time (the union
-of kernel and copy intervals on the card) and idle share, device time by
-kernel name, and the MMA kernels' launches.  The last line is a JSON
-summary.  Needs a CUDA card.
+``from_weights(0.05)`` schedule of the ``w_up`` weights, batch 4).
+``--gateway``: tunes the plan as ``--plan`` does, then replays
+``traces/gateway_burst.json`` through the gateway as ``chip_smoke.py``
+phase 8 does (minitron_4b at full width, batch 20; the U-Net under the
+plan; the trace's clock scaled, ``repro_torch.bench.gateway``); its warm-up
+replays the trace's first LM and first seg request only, and it records
+device activity only (a replay issues millions of host ops).  Each other
+mode runs its serving pass once to warm up.  Then the pass runs once under
+``torch.profiler``, and the script prints: host wall time, device busy time
+(the union of kernel and copy intervals on the card) and idle share, device
+time by kernel name, and the MMA kernels' launches.  The last line is a
+JSON summary.  Needs a CUDA card.
 """
 from __future__ import annotations
 
@@ -105,6 +112,35 @@ def _lm_run():
     return serve, f"Engine.run() of 4 Yi-6B requests ({calls} decode calls)"
 
 
+def _gateway_run():
+    """The gateway replay of ``chip_smoke.py`` phase 8: a callable, its
+    description and a short warm-up."""
+    from repro_torch import autotune
+    from repro_torch.bench import gateway as gwb
+    from repro_torch.models import unet
+    from repro_torch.segserve.synth import phantom_image
+    from repro_torch.workload import Trace, replay_trace
+
+    cfg = unet.UNetConfig(quant_mode="mma_int8")
+    params = unet.init_params(0, cfg)
+    calib = [phantom_image(160, 128, cfg.in_ch, seed=s) for s in (0, 1)]
+    plan = autotune.tune_unet(params, cfg, calib, target_rel_err=0.05)
+    lm_cfg, lm_params, _ = gwb.minitron()
+    k = gwb.clock_scale(lm_cfg)
+    trace = gwb.scaled_trace(Trace.load(Path(__file__).resolve().parents[1] / "traces"
+                                        / "gateway_burst.json"), k)
+    first = [next(r for r in trace.requests if r.kind == kind) for kind in ("lm", "seg")]
+    warm_trace = dataclasses.replace(trace, requests=tuple(first))
+
+    def serve(t=trace):
+        gw, mats = gwb.build(lm_cfg, lm_params, cfg, params, plan, t)
+        return replay_trace(gw, t, mats, max_rounds=10_000)
+
+    return serve, (f"Gateway replay of {trace.name} ({len(trace)} requests; minitron_4b batch "
+                   f"{gwb.LM_BATCH}, U-Net under {plan.describe()})"), \
+        lambda: serve(warm_trace)
+
+
 def main() -> int:
     import torch
     from torch.autograd import DeviceType
@@ -117,13 +153,17 @@ def main() -> int:
     from repro_torch.kernels import mma_matmul as mk
 
     card = card_line()
-    mode = "lm" if "--lm" in sys.argv[1:] else "plan" if "--plan" in sys.argv[1:] else "unet"
-    serve, what = {"lm": _lm_run, "plan": _plan_run, "unet": _unet_run}[mode]()
-    serve()  # warm-up: build, allocator, cuBLAS handles
+    args = sys.argv[1:]
+    mode = next((m for m in ("lm", "plan", "gateway") if f"--{m}" in args), "unet")
+    serve, what, *warm = {"lm": _lm_run, "plan": _plan_run, "unet": _unet_run,
+                          "gateway": _gateway_run}[mode]()
+    (warm[0] if warm else serve)()  # warm-up: build, allocator, cuBLAS handles
     torch.cuda.synchronize()
 
+    activities = [ProfilerActivity.CUDA] if mode == "gateway" else \
+        [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     mk.launches = mk.scaled_launches = 0
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=activities) as prof:
         t0 = time.perf_counter()
         serve()
         torch.cuda.synchronize()

@@ -15,10 +15,17 @@ Turns (model, validation batch, error budget, geometry) into a serialized
                calibration fingerprint) with atomic JSON round-trip, in
                the reference package's schema;
 ``api``       — :func:`tune_unet` and the wiring into ``UNetConfig`` and
-               ``SegEngine``.  The LM tuners are not ported yet.
+               ``SegEngine``; :func:`apply_plan_lm` installs an LM plan.
+               The LM tuners are not ported yet.
 """
 from . import api, calibrate, plan, search  # noqa: F401
-from .api import apply_plan, engine_from_plan, reference_plan, tune_unet  # noqa: F401
+from .api import (  # noqa: F401
+    apply_plan,
+    apply_plan_lm,
+    engine_from_plan,
+    reference_plan,
+    tune_unet,
+)
 from .calibrate import (  # noqa: F401
     Calibration,
     calibrate_unet,

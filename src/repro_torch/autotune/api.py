@@ -22,8 +22,9 @@ unless ``device='cpu'``:
 
 Every forward of the pipeline runs the port's U-Net, so on the card every
 conv goes through the hand-written MMA kernel at the plane count the
-candidate schedule gives it.  The LM tuners (``tune_lm``, ``tune_spec``,
-``apply_plan_lm``) are not ported yet.
+candidate schedule gives it.  :func:`apply_plan_lm` installs an LM plan
+into an ``ArchConfig`` (the gateway's ``LMAdapter(plan=...)``); the LM
+tuners (``tune_lm``, ``tune_spec``) are not ported yet.
 """
 from __future__ import annotations
 
@@ -76,6 +77,18 @@ def apply_plan(cfg: unet.UNetConfig, plan: TunedPlan) -> unet.UNetConfig:
     if plan.workload != "unet":
         raise ValueError(f"cannot apply a {plan.workload!r} plan to a U-Net")
     return dataclasses.replace(cfg, plane_schedule=tuple(plan.planes))
+
+
+def apply_plan_lm(cfg, plan: TunedPlan):
+    """Install an LM plan into an ``ArchConfig``: the int8 MMA datapath at
+    the plan's per-layer budgets (``quant.plane_schedule``), the impl as
+    ``cfg`` gives it."""
+    if plan.workload != "lm":
+        raise ValueError(f"cannot apply a {plan.workload!r} plan to an LM")
+    return cfg.replace(
+        quant=dataclasses.replace(cfg.quant, mode="mma_int8",
+                                  plane_schedule=tuple(plan.planes))
+    )
 
 
 def reference_plan(plan: TunedPlan) -> TunedPlan:

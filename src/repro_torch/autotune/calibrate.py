@@ -67,10 +67,16 @@ def _leaves(tree) -> list:
 
 def _hash_arrays(h, arrays) -> None:
     for leaf in arrays:
+        dtype = None
         if isinstance(leaf, torch.Tensor):
-            leaf = leaf.detach().cpu().numpy()
+            leaf = leaf.detach().cpu()
+            if leaf.dtype == torch.bfloat16:
+                # numpy has no bf16: hash its bytes under the name numpy's
+                # bf16 extension type (the reference's leaves) gives it
+                dtype, leaf = "bfloat16", leaf.contiguous().view(torch.int16)
+            leaf = leaf.numpy()
         a = np.asarray(leaf)
-        h.update(str((a.shape, str(a.dtype))).encode())
+        h.update(str((a.shape, dtype or str(a.dtype))).encode())
         h.update(np.ascontiguousarray(a).tobytes())
 
 

@@ -20,8 +20,7 @@ operating point, plus the evidence that made the point trustworthy:
     plus a ``params_fingerprint`` over the weights alone, the half a
     serving gateway can re-derive at admission time (it holds the served
     params but not the calibration set) to reject or quarantine a plan
-    tuned against different weights (the reference's ``serve/gateway.py``;
-    not ported yet).
+    tuned against different weights (``repro_torch.serve.gateway``).
 
 Plans round-trip losslessly through JSON (``to_json`` / ``from_json``) and
 persist with the checkpoint module's crash-safety discipline

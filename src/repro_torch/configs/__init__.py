@@ -1,4 +1,5 @@
-"""Architecture configs of the port (so far: Yi-6B, the dense family).
+"""Architecture configs of the port (so far: Yi-6B and Minitron-4B, the dense
+family).
 
 ``get_config(name)`` returns the full-size config; ``get_smoke_config(name)``
 a reduced same-family config for CPU smoke tests.

@@ -75,6 +75,29 @@ def lm_schedule_from_params(params, cfg, target_rel_err: float):
     return PlaneSchedule.from_weights(wq, target_rel_err)
 
 
+def lm_schedule_from_plan(plan, cfg):
+    """The serving-time half of the autotuner: a certified LM
+    :class:`~repro_torch.autotune.plan.TunedPlan` turned back into the
+    per-layer policy the engine installs.  Prefer it over the analytic
+    :func:`lm_schedule_from_params` when a plan exists: the analytic
+    per-layer bound compounds loosely end to end, while the plan's budgets
+    were validated against the measured logits error."""
+    from repro_torch.core.plane_schedule import PlaneSchedule
+
+    if getattr(plan, "workload", None) != "lm":
+        raise ValueError("lm_schedule_from_plan needs an LM TunedPlan")
+    if len(plan.planes) != cfg.n_layers:
+        raise ValueError(
+            f"plan covers {len(plan.planes)} layers but cfg has "
+            f"{cfg.n_layers}"
+        )
+    return PlaneSchedule(
+        planes=tuple(plan.planes),
+        target_rel_err=plan.target_rel_err,
+        layer_bounds=plan.layer_bounds,
+    )
+
+
 @dataclass
 class Request:
     rid: int

@@ -24,7 +24,7 @@ from repro_torch.kernels import ops
 from repro_torch.models import transformer, unet
 from repro_torch.obs.events import RecordingSink
 from repro_torch.segserve import SegEngine
-from repro_torch.serve import Engine, Request
+from repro_torch.serve import Engine, Gateway, LMAdapter, Request, SegAdapter
 from repro_torch.segserve.synth import phantom_image
 
 SWEEP = [
@@ -43,6 +43,10 @@ LAYER_SHAPES = [
 # w_down, the head.
 DECODE_SHAPES = [(4, 4096, 4096), (4, 4096, 512), (4, 4096, 11008),
                  (4, 11008, 4096), (4, 4096, 64000)]
+
+# minitron_4b's linears (K, N): wq/wo, wk/wv, w_gate/w_up, w_down, the head.
+# The gateway serves it at batch 20, above the decode kernel's 16 rows.
+MINITRON_SHAPES = [(3072, 3072), (3072, 1024), (3072, 9216), (9216, 3072), (3072, 256000)]
 
 # Bf16 logits of the small LM, card against CPU, relative to the call's
 # largest logit.  The integer products and the scaled epilogue are equal and
@@ -329,6 +333,66 @@ def test_gpu_lm_engine_equals_cpu_engine(cuda):
             break
     else:
         assert tok_g == tok_c
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", [17, 20, 32])
+@pytest.mark.parametrize("k,n", MINITRON_SHAPES)
+def test_gpu_scaled_kernel_vs_plain_minitron_shapes(cuda, m, k, n):
+    """The scaled kernel above 16 rows (the CUDA-core branch the gateway's
+    batch 20 takes) on every minitron_4b linear."""
+    assert mk.split_k(m, k, n, 132) == 1
+    _kernel_vs_plain(cuda, m, k, n, 5, scaled=True)
+
+
+def _gateway_run(dev, lm, seg):
+    """A small mixed gateway (fair, preemptive, traced): five LM requests in
+    two QoS classes at batch 20, two seg images under a plan."""
+    from repro_torch.obs.events import RecordingSink
+
+    sink = RecordingSink()
+    (cfg, params), (ucfg, uparams, plan) = lm, seg
+    gw = Gateway([LMAdapter(cfg, params, batch=20, max_seq=24, device=dev),
+                  SegAdapter(ucfg, uparams, plan=plan, batch=2, device=dev)],
+                 policy="fair", round_budget=300_000,
+                 shares={"lm": 0.3, "fast": 0.3, "seg": 0.3}, sink=sink)
+    rng = np.random.default_rng(0)
+    for i in range(5):
+        gw.submit("lm", rng.integers(0, cfg.vocab, 3 + i), max_new=4,
+                  qos="fast" if i % 2 else None)
+    for s in (0, 1):
+        gw.submit("seg", phantom_image(40, 48, ucfg.in_ch, seed=s))
+    before = (mk.launches, mk.scaled_launches)
+    gw.drain(max_rounds=1_000)
+    torch.cuda.synchronize()
+    return gw, sink, (mk.launches - before[0], mk.scaled_launches - before[1])
+
+
+@pytest.mark.gpu
+def test_gpu_gateway_serves_mixed_real_traffic(cuda):
+    """Both adapters on the card behind one gateway: every request done,
+    15 scaled launches per LM decode call (M = 20), 5 unscaled per seg
+    micro-batch, and the event stream byte for byte a ``device='cpu'`` run's
+    (every event counts work, none depends on a float value)."""
+    cfg = get_smoke_config("minitron_4b").replace(quant=QuantConfig(mode="mma_int8",
+                                                                    impl="kernel"))
+    params = transformer.init_params(0, cfg, device="cpu", int8_min_dim=64)
+    ucfg, uparams, images = _tuning_net()
+    plan = autotune.tune_unet(uparams, ucfg, images, target_rel_err=0.2, tile=32, device="cpu")
+    runs = [_gateway_run(dev, (cfg, params), (ucfg, uparams, plan)) for dev in (cuda, "cpu")]
+    (gw, sink, launched), (gw_c, sink_c, launched_c) = runs
+    assert all(g.done for g in gw.requests) and len(gw.requests) == 7
+    assert all(len(g.handle.out) == 4 for g in gw.requests if g.kind == "lm")
+    calls = sum(e.data["tokens"] for e in sink.events if e.etype == "lm-prefill") + \
+        sum(1 for e in sink.events if e.etype == "lm-step")
+    batches = sum(1 for e in sink.events if e.etype == "seg-batch")
+    assert launched == (5 * batches, 15 * calls) and launched_c == (0, 0)
+    assert sink.canonical_bytes() == sink_c.canonical_bytes()
+    assert gw.stats() == gw_c.stats()
+    for g, c in zip(gw.requests, gw_c.requests):
+        if g.kind == "seg":
+            np.testing.assert_allclose(g.handle.result.logits, c.handle.result.logits,
+                                       atol=1e-4, rtol=0)
 
 
 # ------------------------------------------------------- certified tuning

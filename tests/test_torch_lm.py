@@ -22,6 +22,7 @@ source rounds, as the reference run op by op does (``jax.disable_jit``,
 too slow for this suite, agrees with ``_exact_jit`` here).
 """
 import dataclasses
+import itertools
 
 import jax
 import jax.numpy as jnp
@@ -118,8 +119,9 @@ def _leaves(tree, prefix=()):
 
 
 def test_config_copies_match_the_reference():
-    for t, j in ((get_config("yi_6b"), jget_config("yi_6b")),
-                 (get_smoke_config("yi_6b"), jget_smoke_config("yi_6b"))):
+    for t, j in itertools.chain.from_iterable(
+            ((get_config(n), jget_config(n)), (get_smoke_config(n), jget_smoke_config(n)))
+            for n in ("yi_6b", "minitron_4b")):
         td, jd = dataclasses.asdict(t), dataclasses.asdict(j)
         assert td.pop("quant")["impl"] == "horner" and jd.pop("quant")["impl"] == "xla"
         assert td == jd
