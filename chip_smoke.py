@@ -9,17 +9,18 @@ Phases, in one process; any failure ends the run with a non-zero exit:
    of every kernel from the checkout's sources, with ``-Xptxas -v``.
 2. Kernels vs plain versions: both CUDA MMA kernels (unscaled, on the
    tensor cores, int32 out; scaled, with the fused dequant epilogue, float32
-   out: on the tensor cores at M <= 16, on the CUDA cores above) against
+   out, on the tensor cores at every M) against
    their plain PyTorch versions on the card, bit for bit (``torch.equal``),
    on the reference's kernel sweep, every (planes, signed) variant, and the
    main paths' shapes (the U-Net's conv layers, Yi-6B's decode linears);
    for the unscaled kernel also its three staging paths (16-byte, 4-byte
    and byte copies, by K and N), operands whose base pointer is 1 or 4
    bytes off alignment, and ragged M on both block heights with every
-   (planes, signed); for the scaled kernel at decode shapes, M 1-16 across
-   K and N that give every staging path, every (planes, signed), the K
-   split count forced to 1, 2 and ``max_splits``, views 1 and 4 bytes off
-   alignment, and one call captured in a CUDA graph and replayed twice.
+   (planes, signed); for the scaled kernel, M 1-16 (one and two n8
+   fragments) and M 17-512 (three and four n8 fragments, row tiles of 32)
+   across K and N that give every staging path, every (planes, signed), the
+   K split count forced to 1, 2 and ``max_splits``, views 1 and 4 bytes off
+   alignment, and calls captured in a CUDA graph and replayed twice.
 3. Forward: the full-width quantized U-Net (80x80x4, base 48, depth 3)
    under uniform 8 planes and a ``from_weights(0.05)`` schedule — the kernel
    path against the plain Horner path, every conv's int32 output equal; and
@@ -48,7 +49,9 @@ Phases, in one process; any failure ends the run with a non-zero exit:
    copies of w that together exceed the 50 MB L2, so each call reads w
    from device memory as a decode call does.  Where the toolkit has
    ``cuobjdump``, the count of ``IMMA`` (integer tensor-core) instructions
-   in the SASS of every tensor-core kernel's instantiations, none 0.
+   in the SASS of every instantiation of both kernels (32 unscaled, 64
+   scaled: NF 1-4), none 0; and no ``mma_horner_kernel`` (the CUDA-core
+   scaled kernel this design replaced) in the library.
 7. Certified tuning: ``tune_unet`` on the calibrated U-Net of phase 3 with
    two phantom calibration images at target 0.05, through the kernel (the
    calibration sweep runs every plane count 1-8) and again through the
@@ -64,8 +67,9 @@ Phases, in one process; any failure ends the run with a non-zero exit:
    through ``Gateway`` (fair, preemptive) with ``LMAdapter`` serving
    minitron_4b at full width and depth (random int8 weights drawn and
    quantized on the card, ``from_weights(0.05)`` schedule, ``impl='kernel'``,
-   batch 20: every LM linear is a scaled-kernel launch at M = 20, the CUDA-
-   core branch) and ``SegAdapter`` serving phase 3's U-Net under phase 7's
+   batch 20: every LM linear is a scaled-kernel launch at M = 20, three
+   n8 fragments in one pass) and ``SegAdapter`` serving phase 3's U-Net
+   under phase 7's
    plan.  The trace's clock is scaled by the served LM's relation-(2) step
    price over the smoke LM's (``repro_torch.bench.gateway``).  Checks: every
    request completes (LM requests with their token budget, in the
@@ -74,8 +78,10 @@ Phases, in one process; any failure ends the run with a non-zero exit:
    decode call equals the plain version bit for bit; every seg request's
    logits equal its image served alone; the exec events' cycles sum to the
    round clock's worked cycles.  Times the recorded call's 225 linears at
-   M = 20 and at M = 16 (the tensor-core decode kernel) against
-   ``torch._int_mm`` + scale.
+   M = 16, 20, 24, 32, 64 and (the layer linears only: the head's output
+   alone is 262 MB) 256 against ``torch._int_mm`` + scale and the bound,
+   its plain version at 16 and 20, and each distinct minitron_4b linear at
+   M = 20 alone with w cold.
 
 The line before the last is a JSON object naming every kernel with its
 launches on its main path and its times; the last line is
@@ -86,6 +92,7 @@ from __future__ import annotations
 import dataclasses
 import itertools
 import json
+import re
 import subprocess
 import sys
 import time
@@ -111,9 +118,16 @@ SERVED_PLANES = (8, 5, 1)  # the U-Net path's budgets: uniform, class 0, class 6
 SCALED_SWEEP = [(16, 96, 40), (64, 256, 128), (3, 50, 7)]  # the reference's epilogue test
 # the scaled kernel at decode shapes: M on one and two n8 fragments, K and N
 # that give 16-byte, 4-byte and byte staging, one or many K tiles
-DECODE_M = (1, 3, 4, 8, 9, 15, 16)
-DECODE_K = (7, 129, 4096, 11008)
-DECODE_N = (3, 70, 512, 4096)
+NARROW_M = (1, 3, 4, 8, 9, 15, 16)
+NARROW_K = (7, 129, 4096, 11008)
+NARROW_N = (3, 70, 512, 4096)
+# the scaled kernel above 16 rows: three and four n8 fragments in one pass,
+# row tiles of 32 (ragged at 33 and 100); minitron_4b's K and N among them
+WIDE_M = (17, 20, 24, 25, 32, 33, 64, 100, 512)
+WIDE_K = (7, 129, 3072, 9216)
+WIDE_N = (3, 70, 1024, 4096)
+GATEWAY_M = (16, 20, 24, 32, 64, 256)  # phase 8's decode-call sweep
+HEAD_OUT_M = 64  # above this many rows the sweep drops the head (256 rows: 262 MB out)
 L2_BYTES = 50 * 2**20  # the H100's L2: per-shape timings read more w than this
 
 # Logits of the kernel path and the plain path go through the same float
@@ -180,13 +194,15 @@ def imma_count(lib: Path, kernel: str):
     return counts
 
 
-def decode_cases(torch, dev) -> int:
-    """The scaled kernel at decode shapes (M <= 16, the tensor-core decode
-    kernel) against its plain version, bit for bit; returns the number of
-    cases.  Fails on the first that differs."""
+def decode_cases(torch, dev) -> tuple[int, int]:
+    """The scaled kernel at decode shapes (M <= 16: one and two n8
+    fragments) and above 16 rows (three and four, row tiles of 32) against
+    its plain version, bit for bit; returns the number of cases of each.
+    Fails on the first that differs."""
     from repro_torch.kernels import mma_matmul as mk
 
     g = torch.Generator(device=dev).manual_seed(2)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     n_cases = 0
 
     def operands(m, k, n, offset=0):
@@ -202,37 +218,17 @@ def decode_cases(torch, dev) -> int:
         want = mk.mma_matmul_scaled_plain(x, w, xs, ws, planes=planes, signed=signed)
         torch.cuda.synchronize()
         n_cases += 1
-        check(torch.equal(got, want), f"decode kernel != plain at M={x.shape[0]} K={w.shape[0]} "
+        check(torch.equal(got, want), f"scaled kernel != plain at M={x.shape[0]} K={w.shape[0]} "
               f"N={w.shape[1]} planes={planes} signed={signed} splits={splits} {what}")
         return got
 
-    for k in DECODE_K:
-        for n in DECODE_N:
-            for m in DECODE_M:
-                case(*operands(m, k, n))
-    for k, n in ((129, 70), (4096, 512)):
-        for m in (4, 9):
-            args = operands(m, k, n)
-            for planes in range(1, 9):
-                for signed in (True, False):
-                    case(*args, planes, signed)
-    for k in (129, 4096, 11008):
-        for n in (70, 4096):
-            for m in (1, 4, 16):
-                args = operands(m, k, n)
-                for splits in sorted({1, min(2, -(-k // mk.DECODE_BK)), mk.max_splits(k)}):
-                    case(*args, 5, True, splits)
-    for offset in (1, 4):
-        for m, k, n in ((4, 4096, 512), (9, 129, 70), (16, 11008, 4096)):
-            x, w, xs, ws = operands(m, k, n, offset)
-            check(x.data_ptr() % 16 != 0 and w.data_ptr() % 16 != 0, "views are 16-byte aligned")
-            case(x, w, xs, ws, 5, True, what=f"offset={offset}")
-    # one call captured in a CUDA graph (its workspace zeroed inside it),
-    # replayed twice: equal outputs, equal to the plain version
-    for m, k, n in ((4, 4096, 512), (9, 11008, 4096)):
+    def graph_case(m, k, n):
+        """One split call captured in a CUDA graph (its workspace zeroed
+        inside it), replayed twice: equal outputs, equal to the plain
+        version."""
+        nonlocal n_cases
         x, w, xs, ws = operands(m, k, n)
-        check(mk.split_k(m, k, n, torch.cuda.get_device_properties(0).multi_processor_count) > 1,
-              "the graph case takes no K split")
+        check(mk.split_k(m, k, n, sms) > 1, f"the graph case M={m} K={k} N={n} takes no K split")
         want = case(x, w, xs, ws, 5)
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(graph):
@@ -244,8 +240,43 @@ def decode_cases(torch, dev) -> int:
             outs.append(out.clone())
         n_cases += 1
         check(torch.equal(outs[0], outs[1]) and torch.equal(outs[0], want),
-              f"graph replays of the decode kernel differ at M={m} K={k} N={n}")
-    return n_cases
+              f"graph replays of the scaled kernel differ at M={m} K={k} N={n}")
+
+    def sweep(ms, ks, ns, variant_shapes, variant_ms, split_ms, split_ks, split_ns,
+              offset_shapes, graph_shapes):
+        for k in ks:
+            for n in ns:
+                for m in ms:
+                    case(*operands(m, k, n))
+        for k, n in variant_shapes:
+            for m in variant_ms:
+                args = operands(m, k, n)
+                for planes in range(1, 9):
+                    for signed in (True, False):
+                        case(*args, planes, signed)
+        for k in split_ks:
+            for n in split_ns:
+                for m in split_ms:
+                    args = operands(m, k, n)
+                    for splits in sorted({1, min(2, -(-k // mk.SCALED_BK)), mk.max_splits(k)}):
+                        case(*args, 5, True, splits)
+        for offset in (1, 4):
+            for m, k, n in offset_shapes:
+                x, w, xs, ws = operands(m, k, n, offset)
+                check(x.data_ptr() % 16 != 0 and w.data_ptr() % 16 != 0,
+                      "views are 16-byte aligned")
+                case(x, w, xs, ws, 5, True, what=f"offset={offset}")
+        for m, k, n in graph_shapes:
+            graph_case(m, k, n)
+
+    sweep(NARROW_M, NARROW_K, NARROW_N, ((129, 70), (4096, 512)), (4, 9), (1, 4, 16),
+          (129, 4096, 11008), (70, 4096), ((4, 4096, 512), (9, 129, 70), (16, 11008, 4096)),
+          ((4, 4096, 512), (9, 11008, 4096)))
+    n_decode, n_cases = n_cases, 0
+    sweep(WIDE_M, WIDE_K, WIDE_N, ((129, 70), (3072, 1024)), (20, 40), (17, 20, 33, 64),
+          (129, 3072, 9216), (70, 1024), ((20, 3072, 1024), (25, 129, 70), (40, 9216, 3072)),
+          ((20, 3072, 1024), (40, 9216, 3072)))
+    return n_decode, n_cases
 
 
 def certified_tuning(torch, np, card, cfg, params, images):
@@ -412,9 +443,10 @@ def certified_tuning(torch, np, card, cfg, params, images):
 def gateway_replay(torch, np, dev, card, ucfg, uparams, plan):
     """Phase 8: ``traces/gateway_burst.json`` replayed open-loop through the
     gateway at full width (minitron_4b at batch 20 and the calibrated U-Net
-    under phase 7's plan), its checks, and the scaled kernel's times at the
-    gateway's M = 20 against M = 16.  Returns what the kernels line
-    reports of this path."""
+    under phase 7's plan), its checks, and the scaled kernel's times: one
+    decode call's linears across M, and each distinct linear alone at the
+    gateway's M = 20.  Returns what the kernels line reports of this
+    path."""
     from repro_torch.autotune import engine_from_plan
     from repro_torch.bench import gateway as gwb
     from repro_torch.bench.table1 import graph_ms
@@ -572,33 +604,62 @@ def gateway_replay(torch, np, dev, card, ucfg, uparams, plan):
     print(f"[gateway] aggregate {st['gops_w']:.3f} GOPS/W over {st['total_ops']} ops "
           f"(the paper's FPGA model at its implied power, not the card)")
 
-    # times: the recorded call's 225 linears at M = 20 (CUDA cores) and the
-    # same shapes at M = 16 (the tensor-core decode kernel)
+    # times: the recorded call's linears across M (x past the recorded 20
+    # rows drawn at random: the kernel's work does not depend on the
+    # values), each with the branch it takes, and each distinct linear at
+    # the gateway's M alone with w cold
+    recorded = [(x.reshape(-1, w.shape[0]), w, xs, ws, p) for x, w, xs, ws, p, _ in rec["calls"]]
+    g = torch.Generator(device=dev).manual_seed(5)
+    extra = {kk: torch.randint(-128, 128, (max(GATEWAY_M), kk), dtype=torch.int8, device=dev,
+                               generator=g) for kk in {w.shape[0] for _, w, *_ in recorded}}
     times = {}
-    for m in (gwb.LM_BATCH, 16):
-        mcalls = [(x.reshape(-1, w.shape[0])[:m], w, xs, ws, p)
-                  for x, w, xs, ws, p, _ in rec["calls"]]
+    for m in GATEWAY_M:
+        mcalls = [(x[:m] if m <= x.shape[0] else torch.cat([x, extra[w.shape[0]][:m - x.shape[0]]]),
+                   w, xs, ws, p) for x, w, xs, ws, p in recorded
+                  if m <= HEAD_OUT_M or w.shape[1] != cfg.vocab]
         libs = [scaled_library(torch, *c) for c in mcalls]
         ms = graph_ms(torch, lambda: [mk.mma_matmul_scaled_kernel(x, w, xs, ws, planes=p)
                                       for x, w, xs, ws, p in mcalls], calls=1)
         lib_ms = graph_ms(torch, lambda: [f() for f in libs], calls=1)
-        plain_ms = time_ms(torch, lambda: [mk.mma_matmul_scaled_plain(x, w, xs, ws, planes=p)
-                                           for x, w, xs, ws, p in mcalls], reps=1, warmup=1)
+        plain_ms = (time_ms(torch, lambda: [mk.mma_matmul_scaled_plain(x, w, xs, ws, planes=p)
+                                            for x, w, xs, ws, p in mcalls], reps=1, warmup=1)
+                    if m in (16, gwb.LM_BATCH) else None)
         b_ms, b_by, nbytes, nops = scaled_bound([(m, *w.shape) for _, w, *_ in mcalls])
-        branch = "mma_tc_decode_kernel" if m <= mk.DECODE_M else "mma_horner_kernel"
+        branch = (f"mma_tc_scaled_kernel, {min(4, -(-m // 8))} n8 fragments per pass, "
+                  f"{mk.row_tiles(m)} row tile{'s' if mk.row_tiles(m) > 1 else ''}")
         times[m] = dict(ms=ms, library_ms=lib_ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                        branch=branch)
+                        branch=branch, linears=len(mcalls))
+        what = "" if len(mcalls) == len(recorded) else ", the layer linears only"
         print(f"[time] {card} | mma_matmul_scaled one minitron_4b decode call at M = {m} "
-              f"({branch}; {len(mcalls)} linears at the schedule's planes, one CUDA graph, "
-              f"{nbytes / 1e9:.3f} GB of distinct w: cold): kernel {ms:.4f} ms, plain "
-              f"{plain_ms:.3f} ms, torch._int_mm+scale {lib_ms:.4f} ms (M "
-              f"{m if m > 16 else 32} rows), bound {b_ms:.4f} ms ({b_by}; {nops / 1e9:.1f} G int8 "
-              f"ops), {nbytes / ms / 1e6:.0f} GB/s")
+              f"({branch}; {len(mcalls)} linears at the schedule's planes{what}, one CUDA "
+              f"graph, {nbytes / 1e9:.3f} GB of distinct w: cold): kernel {ms:.4f} ms, plain "
+              + ("not timed" if plain_ms is None else f"{plain_ms:.3f} ms")
+              + f", torch._int_mm+scale {lib_ms:.4f} ms (M {m if m > 16 else 32} rows), bound "
+              f"{b_ms:.4f} ms ({b_by}; {nops / 1e9:.1f} G int8 ops), {nbytes / ms / 1e6:.0f} GB/s")
+    planes_of = {tuple(w.shape): p for _, w, _, _, p in recorded}
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    per_shape = []
+    m = gwb.LM_BATCH
+    for name, kk, n in lm_decode_shapes(cfg):
+        p = planes_of[(kk, n)]
+        ms_planes, lib_ms, plain_ms, copies, gcalls = cold_shape_times(torch, dev, g, m, kk, n,
+                                                                       (p,))
+        b_ms, b_by, nbytes, _ = scaled_bound([(m, kk, n)])
+        splits = mk.split_k(m, kk, n, sms)
+        per_shape.append(dict(name=name, M=m, K=kk, N=n, planes=p, ms=ms_planes[p],
+                              plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
+                              splits=splits, w_copies=copies))
+        print(f"[time] {card} | mma_matmul_scaled minitron_4b {name} M={m} K={kk} N={n} planes "
+              f"{p} ({splits} K splits; graph of {gcalls} calls over {copies} copies of w: cold): "
+              f"kernel {ms_planes[p]:.5f} ms, plain {plain_ms:.4f} ms, torch._int_mm+scale "
+              f"{lib_ms:.5f} ms, bound {b_ms:.5f} ms ({b_by}), {b_ms / ms_planes[p]:.3f} of the "
+              f"bound, {nbytes / ms_planes[p] / 1e6:.0f} GB/s")
     phase_s = time.perf_counter() - t_phase
     print(f"[gateway] phase 8 took {phase_s:.1f} s")
     return dict(launches_gateway=launches, gateway_decode_calls=calls, gateway_wall_s=wall_s,
                 gateway_clock_scale=k, gateway_seg_batches=seg_batches,
                 gateway_m20=times[gwb.LM_BATCH], gateway_m16=times[16],
+                gateway_m_sweep=times, gateway_m20_per_shape=per_shape,
                 gateway_forced=st["forced"], gateway_rounds=st["rounds"], phase8_s=phase_s), \
         dict(launches_gateway=unscaled)
 
@@ -753,10 +814,13 @@ def scaled_bound(shapes):
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations", nbytes, nops
 
 
-def lm_times(torch, dev, card, lm, decode_shapes):
-    """The scaled kernel's times, from CUDA-graph replays: per decode shape
-    at 8, 5 and 1 planes with w cold in L2, and per decode call, replaying
-    the recorded call's 225 kernel calls."""
+def cold_shape_times(torch, dev, g, m, k, n, planes):
+    """The scaled kernel on one (m, k) @ (k, n) shape with w cold in L2, from
+    CUDA-graph replays: a graph of calls cycling through enough copies of w
+    that it never finds one in L2.  Returns the kernel's ms at each of
+    ``planes``, ``torch._int_mm`` + scale's ms (at ``planes[0]``, checked
+    equal to the kernel's output first), the plain version's ms, and the
+    copies and calls per graph."""
     from repro_torch.bench.table1 import graph_ms
     from repro_torch.kernels import mma_matmul as mk
 
@@ -765,29 +829,42 @@ def lm_times(torch, dev, card, lm, decode_shapes):
         it = itertools.cycle(fns)
         return lambda: next(it)()
 
+    copies = -(-2 * L2_BYTES // (k * n))
+    calls = max(20, copies)
+    x = torch.randint(-128, 128, (m, k), dtype=torch.int8, device=dev, generator=g)
+    ws_ = [torch.randint(-128, 128, (k, n), dtype=torch.int8, device=dev, generator=g)
+           for _ in range(copies)]
+    xs = torch.full((1,), 0.01, device=dev)
+    wsc = torch.rand(n, device=dev, generator=g) * 0.01 + 1e-4
+    libs = [scaled_library(torch, x, w, xs, wsc, planes[0]) for w in ws_]
+    check(torch.equal(libs[0](), mk.mma_matmul_scaled_kernel(x, ws_[0], xs, wsc,
+                                                            planes=planes[0])),
+          f"M={m} K={k} N={n}: library yardstick disagrees with the scaled kernel")
+    ms_planes = {p: graph_ms(torch, rotating([
+        lambda w=w, p=p: mk.mma_matmul_scaled_kernel(x, w, xs, wsc, planes=p) for w in ws_]),
+        calls=calls) for p in planes}
+    lib_ms = graph_ms(torch, rotating(libs), calls=calls)
+    plain_ms = time_ms(torch, lambda: mk.mma_matmul_scaled_plain(x, ws_[0], xs, wsc,
+                                                                 planes=planes[0]),
+                       reps=3, warmup=1)
+    return ms_planes, lib_ms, plain_ms, copies, calls
+
+
+def lm_times(torch, dev, card, lm, decode_shapes):
+    """The scaled kernel's times, from CUDA-graph replays: per decode shape
+    at 8, 5 and 1 planes with w cold in L2, and per decode call, replaying
+    the recorded call's 225 kernel calls."""
+    from repro_torch.bench.table1 import graph_ms
+    from repro_torch.kernels import mma_matmul as mk
+
     g = torch.Generator(device=dev).manual_seed(1)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     per_shape = []
     for name, k, n in decode_shapes:
         m = LM_BATCH
-        # enough copies of w that a graph of calls never finds one in L2
-        copies = -(-2 * L2_BYTES // (k * n))
-        calls = max(20, copies)
-        x = torch.randint(-128, 128, (m, k), dtype=torch.int8, device=dev, generator=g)
-        ws_ = [torch.randint(-128, 128, (k, n), dtype=torch.int8, device=dev, generator=g)
-               for _ in range(copies)]
-        xs = torch.full((1,), 0.01, device=dev)
-        wsc = torch.rand(n, device=dev, generator=g) * 0.01 + 1e-4
-        libs = [scaled_library(torch, x, w, xs, wsc, 8) for w in ws_]
-        check(torch.equal(libs[0](), mk.mma_matmul_scaled_kernel(x, ws_[0], xs, wsc)),
-              f"{name}: library yardstick disagrees with the scaled kernel")
-        ms_planes = {p: graph_ms(torch, rotating([
-            lambda w=w, p=p: mk.mma_matmul_scaled_kernel(x, w, xs, wsc, planes=p) for w in ws_]),
-            calls=calls) for p in (8, 5, 1)}
+        ms_planes, lib_ms, plain_ms, copies, calls = cold_shape_times(torch, dev, g, m, k, n,
+                                                                      (8, 5, 1))
         ms = ms_planes[8]
-        lib_ms = graph_ms(torch, rotating(libs), calls=calls)
-        plain_ms = time_ms(torch, lambda: mk.mma_matmul_scaled_plain(x, ws_[0], xs, wsc), reps=3,
-                           warmup=1)
         b_ms, b_by, nbytes, nops = scaled_bound([(m, k, n)])
         splits = mk.split_k(m, k, n, sms)
         per_shape.append(dict(name=name, M=m, K=k, N=n, ms=ms, ms_planes=ms_planes,
@@ -799,7 +876,6 @@ def lm_times(torch, dev, card, lm, decode_shapes):
               f"{ms:.5f} ms, plain {plain_ms:.4f} ms, torch._int_mm+scale {lib_ms:.5f} ms, bound "
               f"{b_ms:.5f} ms ({b_by}), {nbytes / ms / 1e6:.0f} GB/s | planes 5: "
               f"{ms_planes[5]:.5f} ms, planes 1: {ms_planes[1]:.5f} ms")
-        del ws_, libs
 
     calls = [(x.reshape(-1, w.shape[0]), w, xs, ws, planes) for x, w, xs, ws, planes, _ in lm["calls"]]
     libs = [scaled_library(torch, *c) for c in calls]
@@ -863,17 +939,32 @@ def main() -> int:
     for line in ptxas.splitlines():
         if "Compiling entry" in line or "Used" in line or "spill" in line:
             print(f"[ptxas] {line.strip()}")
+    # the CUDA-core scaled kernel that the scaled kernel's rows above 16
+    # ran on before it covered every M: gone from the library
+    check(b"mma_horner_kernel" not in lib.read_bytes(), "mma_horner_kernel is in the library")
     imma = {}
-    for kernel in ("mma_tc_horner_kernel", "mma_tc_decode_kernel"):
+    # (kernel, instantiations): the unscaled kernel's (planes, signed, block
+    # rows) and the scaled kernel's (planes, signed, NF 1-4)
+    for kernel, n_inst in (("mma_tc_horner_kernel", 32), ("mma_tc_scaled_kernel", 64)):
         counts = imma_count(lib, kernel)
         if counts is None:
             print("[sass] no cuobjdump in the toolkit: IMMA count not taken")
             break
-        check(len(counts) == 32 and min(counts.values()) > 0,
+        check(len(counts) == n_inst and min(counts.values()) > 0,
               f"{kernel}: IMMA instructions per instantiation: {sorted(counts.values())}")
         imma[kernel] = sum(counts.values())
         print(f"[sass] {kernel}: {len(counts)} instantiations, IMMA instructions "
               f"{imma[kernel]} in all, {min(counts.values())}..{max(counts.values())} each")
+        if kernel == "mma_tc_scaled_kernel":
+            # NF, the last template argument, in the mangled or the demangled name
+            nf_of = {name: re.search(r"mma_tc_scaled_kernel(?:ILi\d+ELb[01]ELi(\d)E|"
+                                     r"<\d+, (?:true|false), (\d)>)", name) for name in counts}
+            by_nf = {nf: sorted(c for name, c in counts.items()
+                                if nf_of[name] and str(nf) in nf_of[name].groups())
+                     for nf in range(1, 5)}
+            check(all(len(c) == 16 for c in by_nf.values()), f"instantiations by NF: {by_nf}")
+            print("[sass] mma_tc_scaled_kernel IMMA by NF (16 instantiations each): " + ", ".join(
+                f"NF {nf} {c[0]}..{c[-1]}" for nf, c in by_nf.items()))
 
     # ------------------------------------------ 2. kernels vs plain versions
     cfg = unet.UNetConfig(quant_mode="mma_int8")  # calibrated width, kernel datapath
@@ -951,11 +1042,12 @@ def main() -> int:
     for _, k, n in decode_shapes:
         compare_scaled(LM_BATCH, k, n, 8)
         compare_scaled(LM_BATCH, k, n, 5)
-    n_decode = decode_cases(torch, dev)
+    n_decode, n_wide = decode_cases(torch, dev)
     print(f"[kernel] mma_matmul: {n_cases} cases bit-exact against the plain version, "
           f"max_abs_err {max_err}")
-    print(f"[kernel] mma_matmul_scaled: {n_scaled} cases plus {n_decode} decode cases "
-          f"bit-exact against the plain version, max_abs_err {scaled_err}")
+    print(f"[kernel] mma_matmul_scaled: {n_scaled} cases plus {n_decode} decode cases (M <= 16) "
+          f"and {n_wide} above 16 rows bit-exact against the plain version, max_abs_err "
+          f"{scaled_err}")
 
     # ------------------------------------------------------- 3. forward
     params = unet.init_params(0, cfg)
@@ -1105,7 +1197,7 @@ def main() -> int:
           f"planes 1: {summary['ms_planes'][1]:.4f} ms")
     scaled_summary = lm_times(torch, dev, card, lm, decode_shapes)
     scaled_summary["max_abs_err"] = scaled_err
-    scaled_summary["imma"] = imma.get("mma_tc_decode_kernel")
+    scaled_summary["imma"] = imma.get("mma_tc_scaled_kernel")
     del lm  # the recorded calls hold Yi-6B's weights
     torch.cuda.empty_cache()
 

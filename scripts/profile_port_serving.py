@@ -182,19 +182,21 @@ def main() -> int:
     if not intervals:
         raise RuntimeError("the profiler recorded no device activity")
     busy_ms = _busy_us(intervals) / 1e3
-    # the unscaled kernel, the scaled one at decode shapes (both on the
-    # tensor cores) and the scaled one above 16 rows (CUDA cores)
-    mma_ms = sum(ms for name, (_, ms) in by_name.items()
-                 if any(k in name for k in ("mma_tc_horner_kernel", "mma_tc_decode_kernel",
-                                            "mma_horner_kernel")))
+    # the unscaled kernel and the scaled one, both on the tensor cores
+    kernel_ms = {k: sum(ms for name, (_, ms) in by_name.items() if k in name)
+                 for k in ("mma_tc_horner_kernel", "mma_tc_scaled_kernel")}
+    mma_ms = sum(kernel_ms.values())
     print(f"{card}")
     print(f"[profile] {card} | {what}: host wall {wall_ms:.2f} ms, device busy "
           f"{busy_ms:.2f} ms, idle share {1 - busy_ms / wall_ms:.3f}, MMA kernels {mma_ms:.2f} ms "
-          f"over {launches} launches")
+          f"over {launches} launches (unscaled {kernel_ms['mma_tc_horner_kernel']:.2f} ms, scaled "
+          f"{kernel_ms['mma_tc_scaled_kernel']:.2f} ms: "
+          f"{kernel_ms['mma_tc_scaled_kernel'] / busy_ms:.3f} of device busy)")
     for name, (n, ms) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:15]:
         print(f"[profile] {ms:9.3f} ms {n:6d}x  {name[:110]}")
     print(json.dumps(dict(card=card, mode=mode, wall_ms=wall_ms, busy_ms=busy_ms,
                           idle_share=1 - busy_ms / wall_ms, mma_kernel_ms=mma_ms,
+                          mma_kernel_ms_by_name=kernel_ms,
                           mma_launches=launches, device_events=len(intervals))))
     return 0
 

@@ -4,9 +4,8 @@
 // its forms.  Unscaled (scaled=False, launched by _mma_matmul_impl), the
 // kernel the U-Net's 3x3 convolutions run through: mma_tc_horner_kernel.
 // Scaled (scaled=True, launched by _mma_matmul_scaled_impl), the
-// fused-dequant form every int8 linear of LM serving runs through: at
-// decode shapes (M <= 16 rows) mma_tc_decode_kernel, above that
-// mma_horner_kernel.
+// fused-dequant form every int8 linear of LM serving runs through, at every
+// M: mma_tc_scaled_kernel.
 //
 // What both compute, bit for bit: (M,K) int8 @ (K,N) int8 -> (M,N).
 //   u   = x + 128 (signed) or the byte of x read as uint8 (unsigned)
@@ -63,46 +62,52 @@
 //     BM = 64, or BM = 32 for shapes whose 64-row grid is under one wave of
 //     the card's SMs (the wrapper picks).
 //
-// The scaled kernel at decode shapes (M <= 16): what bounds it on this card
-// is the bytes of w.  A decode call streams every weight once (5.8 GB per
-// Yi-6B call at batch 4) and does M = 4 rows of work per weight byte, far
-// below the tensor cores' operations-per-byte line, so the least it can
-// take is w's bytes over the memory rate.  What the design does about it:
+// The scaled kernel (every M): what bounds it on this card at the shapes
+// served is the bytes of w.  A decode call streams every weight once (5.8
+// GB per Yi-6B call, 4.4 GB per minitron_4b call) and does M = 4 to 20 rows
+// of work per weight byte, far below the tensor cores' operations-per-byte
+// line, so the least it can take is w's bytes over the memory rate.  What
+// the design does about it:
 //   - tensor-core planes, operands swapped: each plane product is one
 //     mma.sync m16n8k32 with A = w^T (16 output columns x 32 k, s8, built
 //     by the same __byte_perm transposes of the staged [k][n] tile) and
 //     B = the 0/1 plane of x (32 k x 8 rows, u8: a lane's B register is a
-//     plain 32-bit word of one x row).  An n8 fragment holds 8 rows, so at
-//     M = 4 half of the plane work is masked, not three quarters as with
-//     a 16-row A; rows 9..16 take a second n8 fragment (template NF).
-//     The Horner, the in-register plane extraction and colsum (one more
-//     mma with an all-ones B) are the unscaled kernel's;
-//   - split K: blocks of 64 columns give the projections 8 to 172 blocks
-//     on 132 SMs, so K is split across blocks (the wrapper picks the count,
-//     split_k).  Each split adds its int32 partial, h << (8-P) over its
-//     tiles minus its share of 128*colsum, into a zeroed int32 workspace
-//     with atomicAdd: integer sums are exact in any arrival order.  The
-//     last block to arrive for a column block (an arrival counter after
-//     __threadfence) runs the float epilogue once on the full sum.  One
-//     launch per linear, no host synchronization; the wrapper allocates
-//     the workspace per call, so a captured CUDA graph zeroes it at every
-//     replay;
-//   - bytes in flight: w streams through a 4-deep cp.async ring of
-//     128-deep x 64-column tiles (8 KB, 16-byte copies where the stride
-//     and pointer allow), so each block keeps 24 KB of w in flight, and up
-//     to 4 blocks share an SM.  Rows, k and columns past M, K and N are
-//     zero-filled, so they add 0 to the plane products and to colsum.
+//     plain 32-bit word of one x row).  An n8 fragment holds 8 rows, so a
+//     pass pays for M rounded up to 8, not to 16 or 64: the template NF
+//     (1-4 n8 fragments, 8-32 staged x rows) is the fewest that hold M,
+//     and at M = 20 one pass of w serves all 20 rows (NF 3).  The Horner,
+//     the in-register plane extraction and colsum (one more mma with an
+//     all-ones B) are the unscaled kernel's;
+//   - row tiles: above 32 rows M is cut into tiles of 32 (NF 4), one grid
+//     index each, each tile with its own pass over w.  The tiles that share
+//     a column block are adjacent in the grid's order, so their reads of
+//     the same w tiles meet in the 50 MB L2;
+//   - split K: blocks of 64 columns give the linears 8 to 4,000 blocks on
+//     132 SMs, so K is split across blocks (the wrapper picks the count,
+//     split_k, over column blocks x row tiles).  Each split adds its int32
+//     partial, h << (8-P) over its tiles minus its share of 128*colsum,
+//     into a zeroed int32 workspace with atomicAdd: integer sums are exact
+//     in any arrival order.  The last block to arrive for its (row tile,
+//     column block) (an arrival counter per pair, after __threadfence)
+//     runs the float epilogue once on the full sum.  One launch per
+//     linear, no host synchronization; the wrapper allocates the workspace
+//     per call, so a captured CUDA graph zeroes it at every replay;
+//   - bytes in flight: w streams through a cp.async ring of 128-deep x
+//     64-column tiles (8 KB, 16-byte copies where the stride and pointer
+//     allow), 4 deep at NF 1 and 2 (24 KB of w in flight per block) and 3
+//     deep at NF 3 and 4 (16 KB), 4 blocks to an SM.  Rows, k and columns
+//     past M, K and N are zero-filled, so they add 0 to colsum and to the
+//     kept rows' products.  Every ring is static shared memory, under 48
+//     KB: a 4-deep ring at NF 3 and 4 (50,688 and 55,296 bytes) needs
+//     dynamic shared memory and ran 2-14% slower on the card at M = 20-32
+//     (PERF.md);
+//   - registers: NF 1-4 keep about 56 + 20*NF ints live (acc and h 8*NF
+//     each, x words 4*NF, w^T 16, colsum 8); at 5 planes, signed, ptxas
+//     gives 112, 123, 110 and 128 registers, and no instantiation spills
+//     at 4 blocks per SM (128 a thread); a hint of 3 ran no faster.
 //   Within a block, 4 warps split the 128-deep tile into two 64-deep
 //   halves x two 32-column halves; the two k halves meet in shared memory
 //   before the epilogue.
-//
-// The scaled kernel above 16 rows: the Horner on the CUDA cores, one int32
-// multiply-add per (row, column, k, plane), bound by the SM's int32 issue
-// rate.  A block owns one 64 x 64 output tile, x and w are read from
-// global memory once per tile into shared memory, and h and the
-// accumulator never leave registers.  Rows of w past K read as 0, so
-// neither the product nor the colsum correction sees them.  No served path
-// reaches it: LM decode runs at M = batch.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -387,19 +392,18 @@ bool copy_width_ok(int vec, int ld, const void* p) {
 }
 
 // ---------------------------------------------------------------------------
-// The scaled kernel at decode shapes: tensor-core planes with the operands
-// swapped, split K, fused dequant epilogue
+// The scaled kernel: tensor-core planes with the operands swapped, row
+// tiles, split K, fused dequant epilogue
 // ---------------------------------------------------------------------------
 
-constexpr int DECODE_M = 16;    // at most this many rows: mma_tc_decode_kernel
-constexpr int DC_BN = 64;       // output columns per block
-constexpr int DC_BK = 128;      // contraction depth of one staged K tile, bytes
-constexpr int DC_STAGES = 4;    // depth of the cp.async ring
-constexpr int DC_XS_STRIDE = DC_BK + 16;  // x row pitch in shared memory, bytes
-constexpr int DC_WS_BYTES = (DC_BK / 4) * (4 * DC_BN + 32);  // w tile, ws_row layout
+constexpr int SC_TILE_M = 32;   // rows per pass: a row tile, at most 8*NF staged x rows
+constexpr int SC_BN = 64;       // output columns per block
+constexpr int SC_BK = 128;      // contraction depth of one staged K tile, bytes
+constexpr int SC_XS_STRIDE = SC_BK + 16;  // x row pitch in shared memory, bytes
+constexpr int SC_WS_BYTES = (SC_BK / 4) * (4 * SC_BN + 32);  // w tile, ws_row layout
 
-struct XRowsDecode {
-  __device__ int operator()(int r) const { return r * DC_XS_STRIDE; }
+struct XRowsScaled {
+  __device__ int operator()(int r) const { return r * SC_XS_STRIDE; }
 };
 
 // d += a @ b: a 16 x 32 s8 (row), b 32 x 8 u8 (col), int32 accumulate.
@@ -411,37 +415,48 @@ __device__ __forceinline__ void mma_s8u8(int (&d)[4], uint32_t a0, uint32_t a1, 
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
 }
 
-// One block: 64 output columns x all M (<= 8*NF) rows over K tiles
-// [kt0, kt1) of its split (blockIdx.y).  Warp w owns columns 32*(w&1) ..
-// +31 and the 64-deep half (w>>1) of every 128-deep K tile.
+// One block: 64 output columns x the (at most 8*NF) rows of one row tile
+// over K tiles [kt0, kt1) of its split (blockIdx.y).  blockIdx.x is
+// row tile + row_tiles * column block, so the row tiles of a column block
+// run next to each other.  Warp w owns columns 32*(w&1) .. +31 and the
+// 64-deep half (w>>1) of every 128-deep K tile.
 template <int PLANES, bool SIGNED, int NF>
 __global__ void __launch_bounds__(TC_THREADS, 4)
-mma_tc_decode_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
+mma_tc_scaled_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
                      const float* __restrict__ x_scale, const float* __restrict__ w_scale,
                      float* __restrict__ out, int32_t* __restrict__ work, int M, int K, int N,
-                     int splits, int x_vec, int w_vec) {
+                     int splits, int row_tiles, int x_vec, int w_vec) {
   constexpr int XR = 8 * NF;  // staged x rows: one n8 fragment per 8
-  __shared__ __align__(16) uint8_t ws[DC_STAGES][DC_WS_BYTES];
-  __shared__ __align__(16) uint8_t xs[DC_STAGES][XR * DC_XS_STRIDE];
+  // depth of the cp.async ring: 4, or 3 at NF 3-4, where a 4-deep ring
+  // would pass the 48 KB of static shared memory
+  constexpr int STAGES = NF >= 3 ? 3 : 4;
+  static_assert(XR <= SC_TILE_M, "a pass stages at most one row tile");
+  static_assert(XR * SC_BN * sizeof(int) <= SC_WS_BYTES, "red fits in ring slot 0");
+  static_assert(STAGES * (SC_WS_BYTES + XR * SC_XS_STRIDE) <= 48 * 1024,
+                "the ring is static shared memory");
+  __shared__ __align__(16) uint8_t ws[STAGES][SC_WS_BYTES];
+  __shared__ __align__(16) uint8_t xs[STAGES][XR * SC_XS_STRIDE];
   __shared__ int is_last;
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t = lane & 3;  // fragment row / column group, thread in group
   const int wn = (warp & 1) * 32, wk = (warp >> 1) * 64;
-  const int n0 = blockIdx.x * DC_BN;
-  const int ktiles = (K + DC_BK - 1) / DC_BK;
+  const int m0 = (int)(blockIdx.x % row_tiles) * SC_TILE_M;
+  const int n0 = (int)(blockIdx.x / row_tiles) * SC_BN;
+  const int ktiles = (K + SC_BK - 1) / SC_BK;
   const int kt0 = (int)((long long)blockIdx.y * ktiles / splits);
   const int kt1 = (int)((long long)(blockIdx.y + 1) * ktiles / splits);
 
   auto stage = [&](int buf, int kt) {
-    const int k0 = kt * DC_BK;
-    stage_tile<XR>(xs[buf], x, K, 0, M, k0, K, x_vec, XRowsDecode{});
-    stage_tile<XR>(xs[buf] + 64, x, K, 0, M, k0 + 64, K, x_vec, XRowsDecode{});
-    stage_tile<DC_BK>(ws[buf], w, N, k0, K, n0, N, w_vec, WRows{});
+    const int k0 = kt * SC_BK;
+    stage_tile<XR>(xs[buf], x, K, m0, M, k0, K, x_vec, XRowsScaled{});
+    stage_tile<XR>(xs[buf] + 64, x, K, m0, M, k0 + 64, K, x_vec, XRowsScaled{});
+    stage_tile<SC_BK>(ws[buf], w, N, k0, K, n0, N, w_vec, WRows{});
   };
 
-  // acc[q][f]: the C fragment of n8 fragment q (x rows 8q..8q+7) and m16
-  // fragment f (columns wn+4g+2f, wn+4g+2f+1 in its rows g, g+8)
+  // acc[q][f]: the C fragment of n8 fragment q (x rows 8q..8q+7 of the
+  // tile) and m16 fragment f (columns wn+4g+2f, wn+4g+2f+1 in its rows g,
+  // g+8)
   int acc[NF][2][4];
   int cs[2][4];  // colsum(w) of the same columns, equal in every C column
 #pragma unroll
@@ -454,19 +469,19 @@ mma_tc_decode_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
     }
 
 #pragma unroll
-  for (int s = 0; s < DC_STAGES - 1; ++s) {
+  for (int s = 0; s < STAGES - 1; ++s) {
     if (kt0 + s < kt1) stage(s, kt0 + s);
     cp_async_commit();
   }
 
   for (int kt = kt0; kt < kt1; ++kt) {
     const int it = kt - kt0;
-    cp_async_wait<DC_STAGES - 2>();  // this thread's copies of tile kt have landed
+    cp_async_wait<STAGES - 2>();  // this thread's copies of tile kt have landed
     __syncthreads();  // everyone's have, and every warp is done with tile kt-1's buffer
-    if (kt + DC_STAGES - 1 < kt1) stage((it + DC_STAGES - 1) % DC_STAGES, kt + DC_STAGES - 1);
+    if (kt + STAGES - 1 < kt1) stage((it + STAGES - 1) % STAGES, kt + STAGES - 1);
     cp_async_commit();
-    const uint8_t* xb = xs[it % DC_STAGES];
-    const uint8_t* wb = ws[it % DC_STAGES];
+    const uint8_t* xb = xs[it % STAGES];
+    const uint8_t* wb = ws[it % STAGES];
 
     // A fragments (w^T), once per K tile: wt[c][hh][j] holds column
     // wn+4g+j at k = wk + 32c + 16hh + 4t .. +3.  m16 fragment f takes
@@ -491,7 +506,7 @@ mma_tc_decode_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
 #pragma unroll
         for (int hh = 0; hh < 2; ++hh) {
           xw[q][c][hh] = *reinterpret_cast<const uint32_t*>(
-              xb + (8 * q + g) * DC_XS_STRIDE + wk + 32 * c + 16 * hh + 4 * t);
+              xb + (8 * q + g) * SC_XS_STRIDE + wk + 32 * c + 16 * hh + 4 * t);
           if (SIGNED) xw[q][c][hh] ^= 0x80808080u;  // x + 128 per byte
         }
     if (SIGNED) {  // colsum(w): w^T times the all-ones activation
@@ -542,7 +557,7 @@ mma_tc_decode_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
   __syncthreads();  // the ring is free: red reuses it
 
   // The two k halves meet in red[row][column] (XR x 64 int32): C element
-  // e = 2*hi + r of fragment (q, f) is x row 8q+2t+r, column wn+4g+2f+hi.
+  // e = 2*hi + r of fragment (q, f) is tile row 8q+2t+r, column wn+4g+2f+hi.
   int* red = reinterpret_cast<int*>(ws[0]);
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
@@ -556,23 +571,24 @@ mma_tc_decode_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
 #pragma unroll
             for (int r = 0; r < 2; ++r) {
               const int v = acc[q][f][2 * hi + r] - (SIGNED ? 128 * cs[f][2 * hi] : 0);
-              int& dst = red[(8 * q + 2 * t + r) * DC_BN + wn + 4 * g + 2 * f + hi];
+              int& dst = red[(8 * q + 2 * t + r) * SC_BN + wn + 4 * g + 2 * f + hi];
               dst = half ? dst + v : v;
             }
     }
     __syncthreads();
   }
 
-  // Epilogue: thread tid owns columns n .. n+3 of rows tid/16 + 8*q
-  const int cn = 4 * (tid & 15), n = n0 + cn, r0 = tid >> 4;
+  // Epilogue: thread tid owns columns n .. n+3 of tile rows tid/16 + 8*q
+  const int cn = 4 * (tid & 15), n = n0 + cn, r0 = m0 + (tid >> 4);
   int v[NF][4];
 #pragma unroll
   for (int q = 0; q < NF; ++q)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) v[q][j] = red[(r0 + 8 * q) * DC_BN + cn + j];
+    for (int j = 0; j < 4; ++j) v[q][j] = red[((tid >> 4) + 8 * q) * SC_BN + cn + j];
   if (splits > 1) {
     // add this split's partial to the workspace; the last split to arrive
-    // for the column block reads the full sum and runs the epilogue
+    // for the (row tile, column block) reads the full sum and runs the
+    // epilogue
     int32_t* sum = work;
     int32_t* count = work + (size_t)M * N;
 #pragma unroll
@@ -623,162 +639,33 @@ mma_tc_decode_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
   }
 }
 
-// ---------------------------------------------------------------------------
-// The scaled kernel above 16 rows: the Horner on the CUDA cores
-// ---------------------------------------------------------------------------
-
-constexpr int BN = 64;   // output columns per block
-constexpr int BK = 16;   // contraction depth staged in shared memory
-constexpr int KH = 8;    // contraction depth of one register Horner pass
-constexpr int TN = 4;    // output columns per thread
-constexpr int TM = 4;    // output rows per thread
-constexpr int ROW_GROUPS = 16;                    // threads along M
-constexpr int BM = ROW_GROUPS * TM;               // output rows per block
-constexpr int THREADS = ROW_GROUPS * (BN / TN);   // 256
-
-static_assert(THREADS == BK * (BN / 4), "w loader: one int4 per thread");
-static_assert(BK % KH == 0, "Horner passes tile the stage");
-static_assert(BK * (BM / 4) <= THREADS, "x loader: at most one word per thread");
-
-template <int PLANES, bool SIGNED>
-__global__ void __launch_bounds__(THREADS, 2)
-mma_horner_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
-                  const float* __restrict__ x_scale,
-                  const float* __restrict__ w_scale,
-                  float* __restrict__ out, int M, int K, int N) {
-  // xs[k][q]: offset activations u of rows 4q..4q+3 at depth k, one byte each
-  __shared__ uint32_t xs[BK][BM / 4];
-  // ws[k][q]: sign-extended weights of columns 4q..4q+3 at depth k (0 past K)
-  __shared__ int4 ws[BK][BN / 4];
-
-  const int tid = threadIdx.x;
-  const int tr = tid / (BN / TN);  // this thread's rows: m0 + TM*tr .. +TM-1
-  const int tc = tid % (BN / TN);  // this thread's columns: n0 + 4*tc .. +3
-  const int m0 = blockIdx.x * BM;
-  const int n0 = blockIdx.y * BN;
-
-  int acc[TM][TN];
-  int colsum[TN];
-#pragma unroll
-  for (int c = 0; c < TN; ++c) {
-    colsum[c] = 0;
-#pragma unroll
-    for (int r = 0; r < TM; ++r) acc[r][c] = 0;
-  }
-
-  for (int k0 = 0; k0 < K; k0 += BK) {
-    if (tid < BK * (BM / 4)) {  // stage x: rows 4q..4q+3 at depth k, packed u bytes
-      const int k = tid % BK;
-      const int q = tid / BK;
-      const int gk = k0 + k;
-      uint32_t word = 0;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int gm = m0 + 4 * q + j;
-        uint32_t u = 0;
-        if (gm < M && gk < K) {
-          const int8_t v = x[(size_t)gm * K + gk];
-          u = SIGNED ? (uint32_t)((int)v + 128) : (uint32_t)(uint8_t)v;
-        }
-        word |= u << (8 * j);
-      }
-      xs[k][q] = word;
-    }
-    {  // stage w: thread loads columns 4q..4q+3 at depth k
-      const int k = tid / (BN / 4);
-      const int q = tid % (BN / 4);
-      const int gk = k0 + k;
-      int v[4];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int gn = n0 + 4 * q + j;
-        v[j] = (gk < K && gn < N) ? (int)w[(size_t)gk * N + gn] : 0;
-      }
-      ws[k][q] = make_int4(v[0], v[1], v[2], v[3]);
-    }
-    __syncthreads();
-
-#pragma unroll
-    for (int kh = 0; kh < BK; kh += KH) {
-      uint32_t xr[KH];  // the u bytes of this thread's TM rows, one word per depth
-      int wr[KH][TN];
-#pragma unroll
-      for (int k = 0; k < KH; ++k) {
-        xr[k] = xs[kh + k][tr];
-        const int4 q = ws[kh + k][tc];
-        wr[k][0] = q.x;
-        wr[k][1] = q.y;
-        wr[k][2] = q.z;
-        wr[k][3] = q.w;
-        if (SIGNED) {
-#pragma unroll
-          for (int c = 0; c < TN; ++c) colsum[c] += wr[k][c];
-        }
-      }
-      // MSB-first Horner over the planes: the left-shifted residual h
-      int h[TM][TN];
-#pragma unroll
-      for (int r = 0; r < TM; ++r)
-#pragma unroll
-        for (int c = 0; c < TN; ++c) h[r][c] = 0;
-#pragma unroll
-      for (int i = 0; i < PLANES; ++i) {
-        const int b = 7 - i;
-#pragma unroll
-        for (int r = 0; r < TM; ++r)
-#pragma unroll
-          for (int c = 0; c < TN; ++c) h[r][c] *= 2;
-#pragma unroll
-        for (int k = 0; k < KH; ++k) {
-#pragma unroll
-          for (int r = 0; r < TM; ++r) {
-            const int bit = (int)((xr[k] >> (8 * r + b)) & 1u);
-#pragma unroll
-            for (int c = 0; c < TN; ++c) h[r][c] += bit * wr[k][c];
-          }
-        }
-      }
-#pragma unroll
-      for (int r = 0; r < TM; ++r)
-#pragma unroll
-        for (int c = 0; c < TN; ++c) acc[r][c] += h[r][c] * (1 << (8 - PLANES));
-    }
-    __syncthreads();  // the next stage overwrites xs and ws
-  }
-
-  const float xsv = *x_scale;
-#pragma unroll
-  for (int r = 0; r < TM; ++r) {
-    const int gm = m0 + TM * tr + r;
-    if (gm >= M) continue;
-#pragma unroll
-    for (int c = 0; c < TN; ++c) {
-      const int gn = n0 + TN * tc + c;
-      if (gn >= N) continue;
-      const int v = acc[r][c] - (SIGNED ? 128 * colsum[c] : 0);
-      // fused dequant epilogue: (acc * x_scale) * w_scale[n], each product
-      // rounded to nearest, no contraction into an FMA
-      out[(size_t)gm * N + gn] = __fmul_rn(__fmul_rn(__int2float_rn(v), xsv), w_scale[gn]);
-    }
-  }
+template <int PLANES, bool SIGNED, int NF>
+void launch_scaled_nf(const int8_t* x, const int8_t* w, const float* xs, const float* ws,
+                   float* out, int32_t* work, int M, int K, int N, int splits, int x_vec,
+                   int w_vec, cudaStream_t stream) {
+  const int row_tiles = (M - 1) / SC_TILE_M + 1, col_blocks = (N - 1) / SC_BN + 1;
+  mma_tc_scaled_kernel<PLANES, SIGNED, NF>
+      <<<dim3(row_tiles * col_blocks, splits), TC_THREADS, 0, stream>>>(
+          x, w, xs, ws, out, work, M, K, N, splits, row_tiles, x_vec, w_vec);
 }
 
+// NF: the fewest n8 fragments that hold M rows, 4 (and row tiles) above 24.
 template <int PLANES, bool SIGNED>
 void launch_scaled(const int8_t* x, const int8_t* w, const float* xs, const float* ws,
                    float* out, int32_t* work, int M, int K, int N, int splits, int x_vec,
                    int w_vec, cudaStream_t stream) {
   if (M <= 8) {
-    mma_tc_decode_kernel<PLANES, SIGNED, 1>
-        <<<dim3((N + DC_BN - 1) / DC_BN, splits), TC_THREADS, 0, stream>>>(
-            x, w, xs, ws, out, work, M, K, N, splits, x_vec, w_vec);
-  } else if (M <= DECODE_M) {
-    mma_tc_decode_kernel<PLANES, SIGNED, 2>
-        <<<dim3((N + DC_BN - 1) / DC_BN, splits), TC_THREADS, 0, stream>>>(
-            x, w, xs, ws, out, work, M, K, N, splits, x_vec, w_vec);
+    launch_scaled_nf<PLANES, SIGNED, 1>(x, w, xs, ws, out, work, M, K, N, splits, x_vec, w_vec,
+                                     stream);
+  } else if (M <= 16) {
+    launch_scaled_nf<PLANES, SIGNED, 2>(x, w, xs, ws, out, work, M, K, N, splits, x_vec, w_vec,
+                                     stream);
+  } else if (M <= 24) {
+    launch_scaled_nf<PLANES, SIGNED, 3>(x, w, xs, ws, out, work, M, K, N, splits, x_vec, w_vec,
+                                     stream);
   } else {
-    mma_horner_kernel<PLANES, SIGNED>
-        <<<dim3((M + BM - 1) / BM, (N + BN - 1) / BN), THREADS, 0, stream>>>(
-            x, w, xs, ws, out, M, K, N);
+    launch_scaled_nf<PLANES, SIGNED, 4>(x, w, xs, ws, out, work, M, K, N, splits, x_vec, w_vec,
+                                     stream);
   }
 }
 
@@ -823,26 +710,21 @@ extern "C" int mma_matmul_launch(const void* x, const void* w, void* out, int M,
 }
 
 // x_scale: one float32 on the device; w_scale: N float32 on the device.
-// M <= 16 (the tensor-core decode kernel): splits, the K splits (1 up to
-// the number of 128-deep K tiles); work, M*N + ceil(N/64) zeroed int32 on
-// the device when splits > 1 (the split sums, then one arrival counter per
-// column block), else unused; x_vec, w_vec as for mma_matmul_launch.
-// M > 16 (the CUDA-core kernel): splits must be 1; the copy widths are
-// unused.
+// splits: the K splits (1 up to the number of 128-deep K tiles); work,
+// M*N + ceil(M/32)*ceil(N/64) zeroed int32 on the device when splits > 1
+// (the split sums, then one arrival counter per row tile and column
+// block), else unused; x_vec, w_vec as for mma_matmul_launch.
 extern "C" int mma_matmul_scaled_launch(const void* x, const void* w,
                                         const void* x_scale, const void* w_scale,
                                         void* out, void* work, int M, int K, int N, int planes,
                                         int is_signed, int splits, int x_vec, int w_vec,
                                         void* stream) {
   if (M <= 0 || N <= 0 || K < 0) return (int)cudaErrorInvalidValue;
-  if (M <= DECODE_M) {
-    const int ktiles = (K + DC_BK - 1) / DC_BK;
-    if (splits < 1 || splits > (ktiles > 1 ? ktiles : 1) || splits > 65535 ||
-        (splits > 1 && work == nullptr) || !copy_width_ok(x_vec, K, x) ||
-        !copy_width_ok(w_vec, N, w)) {
-      return (int)cudaErrorInvalidValue;
-    }
-  } else if (splits != 1 || (N + BN - 1) / BN > 65535) {
+  const int ktiles = (K + SC_BK - 1) / SC_BK;
+  const long long blocks = (long long)((M - 1) / SC_TILE_M + 1) * ((N - 1) / SC_BN + 1);
+  if (splits < 1 || splits > (ktiles > 1 ? ktiles : 1) || splits > 65535 ||
+      blocks > 0x7fffffffLL || (splits > 1 && work == nullptr) ||
+      !copy_width_ok(x_vec, K, x) || !copy_width_ok(w_vec, N, w)) {
     return (int)cudaErrorInvalidValue;
   }
   const auto* xp = static_cast<const int8_t*>(x);

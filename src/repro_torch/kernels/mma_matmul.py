@@ -9,13 +9,13 @@ activation, one int8 tensor-core product per plane, with the residual held
 in registers — x and w stream once per output tile through a ``cp.async``
 ring, plane partials never leave the SM.  Scaled: the same product with the
 dequant epilogue fused into the store, float32 ``(acc * x_scale) *
-w_scale[n]``; at decode shapes (M <= 16) on the tensor cores with the
-operands swapped (w^T times the plane of x) and K split across blocks,
-above 16 rows on the CUDA cores.
+w_scale[n]``, on the tensor cores with the operands swapped (w^T times the
+plane of x): one pass of w per row tile of up to 32 rows, K split across
+blocks.
 
 The wrappers pick, in plain Python from what they can see: the unscaled
 kernel's block height (:func:`tile_rows`: 64 rows, or 32 where a 64-row grid
-would not fill the card's SMs once), the decode kernel's K splits
+would not fill the card's SMs once), the scaled kernel's K splits
 (:func:`split_k`), and the copy width of each operand's staging
 (:func:`copy_width`: 16 or 4 bytes where the row stride and the base
 pointer allow, else 1).
@@ -118,11 +118,11 @@ def tile_rows(m: int, n: int, sms: int) -> int:
     return 32 if -(-m // 64) * -(-n // 64) < sms else 64
 
 
-#: The decode kernel: M up to this many rows runs on the tensor cores
-#: (``mma_tc_decode_kernel``), in blocks of ``DECODE_BN`` columns over
-#: ``DECODE_BK``-deep K tiles (``DECODE_M``, ``DC_BN`` and ``DC_BK`` in
-#: ``csrc/mma_matmul.cu``).
-DECODE_M, DECODE_BN, DECODE_BK = 16, 64, 128
+#: The scaled kernel (``mma_tc_scaled_kernel``): rows per pass over w (a
+#: row tile; M above it is cut into tiles of this many rows, each with its
+#: own pass), in blocks of ``SCALED_BN`` columns over ``SCALED_BK``-deep K
+#: tiles (``SC_TILE_M``, ``SC_BN`` and ``SC_BK`` in ``csrc/mma_matmul.cu``).
+SCALED_TILE_M, SCALED_BN, SCALED_BK = 32, 64, 128
 #: The fewest K tiles a split keeps.
 MIN_SPLIT_TILES = 2
 
@@ -130,18 +130,22 @@ MIN_SPLIT_TILES = 2
 def max_splits(k: int) -> int:
     """The most K splits :func:`split_k` gives a contraction of depth ``k``:
     each split keeps at least ``MIN_SPLIT_TILES`` K tiles."""
-    return max(1, -(-k // DECODE_BK) // MIN_SPLIT_TILES)
+    return max(1, -(-k // SCALED_BK) // MIN_SPLIT_TILES)
+
+
+def row_tiles(m: int) -> int:
+    """Row tiles of ``SCALED_TILE_M`` rows the scaled kernel cuts ``m`` rows
+    into, one pass over w each."""
+    return max(1, -(-m // SCALED_TILE_M))
 
 
 def split_k(m: int, k: int, n: int, sms: int) -> int:
     """K splits of the scaled kernel for an (m, k) @ (k, n) product on a
-    card with ``sms`` SMs: enough that the grid of ``DECODE_BN``-column
-    blocks times splits covers two waves of SMs, but no more than
-    :func:`max_splits`.  1 above ``DECODE_M`` rows (the CUDA-core kernel
-    does not split) and where the column blocks alone make two waves."""
-    if m > DECODE_M:
-        return 1
-    blocks = -(-n // DECODE_BN)
+    card with ``sms`` SMs: enough that the grid of ``SCALED_BN``-column
+    blocks times row tiles times splits covers two waves of SMs, but no
+    more than :func:`max_splits`.  1 where the blocks alone make two
+    waves."""
+    blocks = -(-n // SCALED_BN) * row_tiles(m)
     return max(1, min(-(-2 * sms // blocks), max_splits(k)))
 
 
@@ -250,8 +254,8 @@ def _launch_scaled(
     x: torch.Tensor, w: torch.Tensor, x_scale: torch.Tensor, w_scale: torch.Tensor,
     planes: int, signed: bool, *, splits: int | None = None,
 ) -> torch.Tensor:
-    """The scaled kernel; ``splits`` forces the decode kernel's K splits,
-    else :func:`split_k` picks them."""
+    """The scaled kernel; ``splits`` forces its K splits, else
+    :func:`split_k` picks them."""
     global scaled_launches
     _check(x, w)
     _check_scales(x_scale, w_scale, w)
@@ -267,10 +271,10 @@ def _launch_scaled(
     with torch.cuda.device(x.device):
         if splits is None:
             splits = split_k(m, k, n, _sm_count(torch.cuda.current_device()))
-        # split sums and one arrival counter per column block, zeroed on
-        # the stream (inside a captured graph, at every replay)
-        work = (torch.zeros(m * n + -(-n // DECODE_BN), dtype=torch.int32, device=x.device)
-                if splits > 1 else None)
+        # split sums and one arrival counter per (row tile, column block),
+        # zeroed on the stream (inside a captured graph, at every replay)
+        work = (torch.zeros(m * n + row_tiles(m) * -(-n // SCALED_BN), dtype=torch.int32,
+                            device=x.device) if splits > 1 else None)
         err = _library().mma_matmul_scaled_launch(
             x.data_ptr(), w.data_ptr(), x_scale.data_ptr(), w_scale.data_ptr(),
             out.data_ptr(), None if work is None else work.data_ptr(), m, k, n, planes,

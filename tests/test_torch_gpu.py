@@ -45,8 +45,11 @@ DECODE_SHAPES = [(4, 4096, 4096), (4, 4096, 512), (4, 4096, 11008),
                  (4, 11008, 4096), (4, 4096, 64000)]
 
 # minitron_4b's linears (K, N): wq/wo, wk/wv, w_gate/w_up, w_down, the head.
-# The gateway serves it at batch 20, above the decode kernel's 16 rows.
+# The gateway serves it at batch 20: one pass of three n8 fragments.
 MINITRON_SHAPES = [(3072, 3072), (3072, 1024), (3072, 9216), (9216, 3072), (3072, 256000)]
+# Their K splits on 132 SMs at up to 32 rows (one row tile).
+MINITRON_SPLITS = {(3072, 3072): 6, (3072, 1024): 12, (3072, 9216): 2, (9216, 3072): 6,
+                   (3072, 256000): 1}
 
 # Bf16 logits of the small LM, card against CPU, relative to the call's
 # largest logit.  The integer products and the scaled epilogue are equal and
@@ -191,7 +194,7 @@ def test_gpu_scaled_kernel_vs_plain_sweep(cuda, m, k, n, planes):
 @pytest.mark.parametrize("signed", [True, False])
 def test_gpu_scaled_kernel_vs_plain_every_variant(cuda, planes, signed):
     _kernel_vs_plain(cuda, 67, 129, 70, planes, signed=signed, scaled=True)
-    _kernel_vs_plain(cuda, 3, 129, 70, planes, signed=signed, scaled=True)  # the decode kernel
+    _kernel_vs_plain(cuda, 3, 129, 70, planes, signed=signed, scaled=True)  # one n8 fragment
 
 
 @pytest.mark.gpu
@@ -206,8 +209,9 @@ def test_gpu_scaled_kernel_vs_plain_decode_shapes(cuda, m, k, n):
 @pytest.mark.parametrize("k", [7, 129, 4096, 11008])
 @pytest.mark.parametrize("n", [3, 70, 512, 4096])
 def test_gpu_decode_kernel_vs_plain(cuda, m, k, n):
-    """The tensor-core decode kernel (M <= 16) on one and two n8 fragments,
-    16-byte, 4-byte and byte staging, one to 86 K tiles, its chosen splits."""
+    """The scaled kernel at decode shapes (M <= 16) on one and two n8
+    fragments, 16-byte, 4-byte and byte staging, one to 86 K tiles, its
+    chosen splits."""
     _kernel_vs_plain(cuda, m, k, n, 8, scaled=True)
 
 
@@ -226,7 +230,7 @@ def test_gpu_decode_kernel_every_variant(cuda, planes, signed, m):
 @pytest.mark.parametrize("n", [70, 4096])
 def test_gpu_decode_kernel_forced_splits(cuda, m, k, n):
     """The split sum is exact at 1, 2 and the most splits the chooser gives."""
-    for splits in sorted({1, min(2, -(-k // mk.DECODE_BK)), mk.max_splits(k)}):
+    for splits in sorted({1, min(2, -(-k // mk.SCALED_BK)), mk.max_splits(k)}):
         _kernel_vs_plain(cuda, m, k, n, 5, scaled=True, splits=splits)
 
 
@@ -270,9 +274,9 @@ def test_gpu_decode_kernel_refuses_bad_splits(cuda):
     for splits in (0, 4):  # 300 is 3 K tiles
         with pytest.raises(RuntimeError, match="launch failed"):
             mk._launch_scaled(x, w, xs, ws, 8, True, splits=splits)
-    with pytest.raises(RuntimeError, match="launch failed"):  # no split above 16 rows
+    with pytest.raises(RuntimeError, match="launch failed"):  # above 16 rows too
         mk._launch_scaled(torch.zeros((17, 300), dtype=torch.int8, device=cuda), w, xs, ws, 8,
-                          True, splits=2)
+                          True, splits=4)
 
 
 @pytest.mark.gpu
@@ -339,10 +343,86 @@ def test_gpu_lm_engine_equals_cpu_engine(cuda):
 @pytest.mark.parametrize("m", [17, 20, 32])
 @pytest.mark.parametrize("k,n", MINITRON_SHAPES)
 def test_gpu_scaled_kernel_vs_plain_minitron_shapes(cuda, m, k, n):
-    """The scaled kernel above 16 rows (the CUDA-core branch the gateway's
-    batch 20 takes) on every minitron_4b linear."""
-    assert mk.split_k(m, k, n, 132) == 1
+    """The scaled kernel above 16 rows (three or four n8 fragments in one
+    pass; the gateway's batch 20) on every minitron_4b linear, at the K
+    splits the chooser gives."""
+    assert mk.split_k(m, k, n, 132) == MINITRON_SPLITS[(k, n)]
     _kernel_vs_plain(cuda, m, k, n, 5, scaled=True)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", [17, 20, 24, 25, 32, 33, 64, 100, 512])
+@pytest.mark.parametrize("k", [7, 129, 3072, 9216])
+@pytest.mark.parametrize("n", [3, 70, 1024, 4096])
+def test_gpu_row_tiled_kernel_vs_plain(cuda, m, k, n):
+    """The scaled kernel above 16 rows: three and four n8 fragments in one
+    pass, row tiles of 32 (a ragged last tile at 33 and 100 rows), every
+    staging path, one to 72 K tiles, its chosen splits."""
+    _kernel_vs_plain(cuda, m, k, n, 8, scaled=True)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("planes", range(1, 9))
+@pytest.mark.parametrize("signed", [True, False])
+@pytest.mark.parametrize("m", [20, 40])
+def test_gpu_row_tiled_kernel_every_variant(cuda, planes, signed, m):
+    _kernel_vs_plain(cuda, m, 129, 70, planes, signed=signed, scaled=True)
+    _kernel_vs_plain(cuda, m, 3072, 1024, planes, signed=signed, scaled=True)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", [17, 20, 33, 64])
+@pytest.mark.parametrize("k", [129, 3072, 9216])
+@pytest.mark.parametrize("n", [70, 1024])
+def test_gpu_row_tiled_kernel_forced_splits(cuda, m, k, n):
+    """The split sum is exact per row tile at 1, 2 and the most splits the
+    chooser gives."""
+    for splits in sorted({1, min(2, -(-k // mk.SCALED_BK)), mk.max_splits(k)}):
+        _kernel_vs_plain(cuda, m, k, n, 5, scaled=True, splits=splits)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("offset", [1, 4])
+def test_gpu_row_tiled_kernel_misaligned_views(cuda, offset):
+    for m, k, n in ((20, 3072, 1024), (25, 129, 70), (40, 9216, 3072)):
+        _kernel_vs_plain(cuda, m, k, n, 5, scaled=True, offset=offset)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,k,n", [(20, 3072, 1024), (40, 9216, 3072)])
+def test_gpu_row_tiled_kernel_graph_replayed_twice(cuda, m, k, n):
+    """A split call above 16 rows captured in a CUDA graph (the wrapper's
+    once-per-device preparation runs at the first call, before the
+    capture): two replays give equal outputs, equal to the plain version."""
+    assert mk.split_k(m, k, n, torch.cuda.get_device_properties(0).multi_processor_count) > 1
+    g = torch.Generator(device=cuda).manual_seed(4)
+    x = torch.randint(-128, 128, (m, k), dtype=torch.int8, device=cuda, generator=g)
+    w = torch.randint(-128, 128, (k, n), dtype=torch.int8, device=cuda, generator=g)
+    xs = torch.rand(1, device=cuda, generator=g) * 0.1 + 1e-3
+    ws = torch.rand(n, device=cuda, generator=g) * 0.01 + 1e-4
+    mk.mma_matmul_scaled_kernel(x, w, xs, ws, planes=5)  # build, load and prepare first
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = mk.mma_matmul_scaled_kernel(x, w, xs, ws, planes=5)
+    outs = []
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        outs.append(out.clone())
+    assert torch.equal(outs[0], outs[1])
+    assert torch.equal(outs[0], mk.mma_matmul_scaled_plain(x, w, xs, ws, planes=5))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", [20, 40])
+def test_gpu_row_tiled_kernel_refuses_bad_splits(cuda, m):
+    x = torch.zeros((m, 300), dtype=torch.int8, device=cuda)
+    w = torch.zeros((300, 70), dtype=torch.int8, device=cuda)
+    xs, ws = torch.ones(1, device=cuda), torch.ones(70, device=cuda)
+    for splits in (0, 4, 70000):  # 300 is 3 K tiles
+        with pytest.raises(RuntimeError, match="launch failed"):
+            mk._launch_scaled(x, w, xs, ws, 8, True, splits=splits)
 
 
 def _gateway_run(dev, lm, seg):

@@ -327,7 +327,7 @@ def test_split_k_on_the_yi_decode_shapes(name, k, n, want):
     """Two waves of 132 SMs: ceil(264 / column blocks) splits, at most one
     per two 128-deep K tiles; the head's 1000 blocks take none."""
     assert mk.split_k(4, k, n, H100_SMS) == want
-    blocks = -(-n // mk.DECODE_BN)
+    blocks = -(-n // mk.SCALED_BN)
     assert want == 1 or blocks * want >= 2 * H100_SMS or want == mk.max_splits(k)
 
 
@@ -339,8 +339,10 @@ def test_split_k_on_the_yi_decode_shapes(name, k, n, want):
     (4, 4096, 264 * 64, 1),      # 2 waves of column blocks
     (4, 4096, 132 * 64, 2),      # 1 wave
     (4, 4096, 132 * 64 + 1, 2),  # a ragged block past one wave
-    (16, 4096, 4096, 5),         # the largest decode M
-    (17, 4096, 4096, 1),         # above 16 rows: the CUDA-core kernel, no split
+    (16, 4096, 4096, 5),         # two n8 fragments
+    (17, 4096, 4096, 5),         # three n8 fragments, one row tile: the same rule
+    (33, 4096, 4096, 3),         # two row tiles of 32: 128 blocks
+    (512, 4096, 4096, 1),        # 16 row tiles x 64 column blocks: two waves
     (4, 0, 70, 1),               # empty contraction
 ])
 def test_split_k_at_its_edges(m, k, n, want):
@@ -351,53 +353,86 @@ def test_max_splits_keeps_two_tiles_each():
     assert [mk.max_splits(k) for k in (0, 1, 128, 255, 256, 4096, 11008)] == [1, 1, 1, 1, 1, 16, 43]
 
 
-def _decode_emulation(x: torch.Tensor, w: torch.Tensor, x_scale: torch.Tensor,
+# minitron_4b's linears at the gateway's batch (M = 20 rows, one row tile):
+# (name, K, N, K splits on 132 SMs).  64-column blocks: wq/wo and w_down give
+# 48, wk/wv 16, w_gate/w_up 144, the head 4000.
+MINITRON_DECODE = [("wq/wo", 3072, 3072, 6), ("wk/wv", 3072, 1024, 12),
+                   ("w_gate/w_up", 3072, 9216, 2), ("w_down", 9216, 3072, 6),
+                   ("head", 3072, 256000, 1)]
+
+
+@pytest.mark.parametrize("name,k,n,want", MINITRON_DECODE)
+def test_split_k_on_the_minitron_shapes_at_20_rows(name, k, n, want):
+    """The same two-wave rule above 16 rows; wk/wv's 16 column blocks are
+    capped at max_splits (24 K tiles, 12 splits)."""
+    assert mk.split_k(20, k, n, H100_SMS) == want
+    blocks = -(-n // mk.SCALED_BN)
+    assert want == 1 or blocks * want >= 2 * H100_SMS or want == mk.max_splits(k)
+
+
+@pytest.mark.parametrize("m,want", [(1, 1), (16, 1), (20, 1), (32, 1), (33, 2), (64, 2),
+                                    (65, 3), (512, 16)])
+def test_row_tiles_of_32_rows(m, want):
+    assert mk.row_tiles(m) == want
+
+
+def _scaled_emulation(x: torch.Tensor, w: torch.Tensor, x_scale: torch.Tensor,
                       w_scale: torch.Tensor, planes: int, signed: bool, splits: int,
                       order: torch.Generator) -> torch.Tensor:
-    """The scaled decode kernel's arithmetic, emulated in torch.  Operands
-    swapped: w^T (N x 64, s8) times the plane of x (64 x M, u8), giving the
-    transposed product.  K in 128-deep staged tiles, zero-filled past K,
-    cut into ``splits`` runs of whole tiles as the kernel's grid cuts them;
-    each tile is two 64-deep halves with a Horner of their own.  Per split:
-    sum of ``h << (8-P)`` minus its share of 128 * colsum(w), an int32
-    partial.  The partials are summed in an order drawn from ``order`` (the
-    blocks' arrival order), then the float epilogue runs once."""
+    """The scaled kernel's arithmetic, emulated in torch.  Rows: a pass
+    stages the fewest n8 fragments (NF, 8 rows each, at most 4) that hold
+    its row tile; above ``SCALED_TILE_M`` = 32 rows M is cut into tiles of 32,
+    each with its own pass over w and its own arrival counter.  Staged bytes
+    past M and K are 0 (offset to 128 when signed, as the xor does); the
+    products of rows past M are computed and dropped.  Operands swapped:
+    w^T (N x 64, s8) times the plane of x (64 x 8*NF, u8), giving the
+    transposed product.  K in 128-deep staged tiles, cut into ``splits``
+    runs of whole tiles as the kernel's grid cuts them; each tile is two
+    64-deep halves with a Horner of their own.  Per split: sum of
+    ``h << (8-P)`` minus its share of 128 * colsum(w), an int32 partial.
+    Each row tile's partials are summed in an order drawn from ``order``
+    (its blocks' arrival order), then the float epilogue runs once."""
     m, k = x.shape
     n = w.shape[1]
-    ktiles = -(-k // mk.DECODE_BK)
-    kp = ktiles * mk.DECODE_BK
-    xp = torch.zeros((m, kp), dtype=torch.int64)
-    xp[:, :k] = x.to(torch.int64) + 128 if signed else x.to(torch.int64) & 0xFF
+    ktiles = -(-k // mk.SCALED_BK)
+    kp = ktiles * mk.SCALED_BK
+    tiles = mk.row_tiles(m)
+    xr = 8 * min(4, -(-m // 8))  # staged rows per pass
+    xb = torch.zeros((max(tiles * mk.SCALED_TILE_M, xr), kp), dtype=torch.int64)
+    xb[:m, :k] = x.to(torch.int64) & 0xFF
+    u = xb ^ 0x80 if signed else xb
     wt = torch.zeros((n, kp), dtype=torch.int64)  # A = w^T
     wt[:, :k] = w.to(torch.int64).T
-    partials = []
-    for s in range(splits):
-        kt0, kt1 = s * ktiles // splits, (s + 1) * ktiles // splits
-        part = torch.zeros((n, m), dtype=torch.int64)
-        for k0 in range(kt0 * mk.DECODE_BK, kt1 * mk.DECODE_BK, 64):
-            a = wt[:, k0:k0 + 64]
-            h = torch.zeros_like(part)
-            for b in range(7, 7 - planes, -1):
-                h = h + h + a @ ((xp[:, k0:k0 + 64] >> b) & 1).T  # B = the plane of x
-            part += h << (8 - planes)
-            if signed:
-                part -= 128 * (a @ torch.ones((64, 1), dtype=torch.int64))
-        partials.append(part.to(torch.int32))
-    acc = torch.zeros((n, m), dtype=torch.int32)
-    for i in torch.randperm(splits, generator=order).tolist():
-        acc += partials[i]
-    return acc.T.to(torch.float32) * x_scale.reshape(()) * w_scale.reshape(-1)
+    rows = []
+    for rt in range(tiles):
+        ut = u[rt * mk.SCALED_TILE_M:rt * mk.SCALED_TILE_M + xr]
+        partials = []
+        for s in range(splits):
+            kt0, kt1 = s * ktiles // splits, (s + 1) * ktiles // splits
+            part = torch.zeros((n, xr), dtype=torch.int64)
+            for k0 in range(kt0 * mk.SCALED_BK, kt1 * mk.SCALED_BK, 64):
+                a = wt[:, k0:k0 + 64]
+                h = torch.zeros_like(part)
+                for b in range(7, 7 - planes, -1):
+                    h = h + h + a @ ((ut[:, k0:k0 + 64] >> b) & 1).T  # B = the plane of x
+                part += h << (8 - planes)
+                if signed:
+                    part -= 128 * (a @ torch.ones((64, 1), dtype=torch.int64))
+            partials.append(part.to(torch.int32))
+        acc = torch.zeros((n, xr), dtype=torch.int32)
+        for i in torch.randperm(splits, generator=order).tolist():
+            acc += partials[i]
+        rows.append(acc.T[:min(mk.SCALED_TILE_M, m - rt * mk.SCALED_TILE_M)])
+    acc = torch.cat(rows)
+    return acc.to(torch.float32) * x_scale.reshape(()) * w_scale.reshape(-1)
 
 
-@pytest.mark.parametrize("m,k,n", [(1, 7, 3), (4, 300, 70), (9, 520, 33), (16, 1000, 65)])
-@pytest.mark.parametrize("planes", range(1, 9))
-@pytest.mark.parametrize("signed", [True, False])
-def test_decode_decomposition_vs_plain_and_pallas(m, k, n, planes, signed):
-    """The decomposition the decode kernel computes (``_decode_emulation``)
-    equals the plain version bit for bit at every split count from 1 to the
-    number of K tiles, in shuffled arrival orders, and the reference's
-    Pallas kernel in interpret mode, on ragged decode shapes."""
-    rng = np.random.default_rng(m * 7 + k * 3 + n + 17 * planes + signed)
+def _decomposition_vs_plain_and_pallas(m, k, n, planes, signed, seed):
+    """``_scaled_emulation`` equals the plain version bit for bit at split
+    counts 1, all K tiles, ``max_splits`` and ``split_k``'s choice, twice
+    each in shuffled arrival orders, and the reference's Pallas kernel in
+    interpret mode."""
+    rng = np.random.default_rng(seed)
     x, w = _rand_i8(rng, (m, k)), _rand_i8(rng, (k, n))
     xs = np.float32(rng.uniform(1e-3, 0.1))
     ws = rng.uniform(1e-4, 1e-2, n).astype(np.float32)
@@ -405,15 +440,41 @@ def test_decode_decomposition_vs_plain_and_pallas(m, k, n, planes, signed):
                         torch.from_numpy(ws))
     plain = mk.mma_matmul_scaled_plain(tx, tw, txs, tws, planes=planes, signed=signed)
     order = torch.Generator().manual_seed(planes)
-    ktiles = -(-k // mk.DECODE_BK)
+    ktiles = -(-k // mk.SCALED_BK)
     for splits in sorted({1, ktiles, mk.max_splits(k), mk.split_k(m, k, n, H100_SMS)}):
         for _ in range(2):
-            got = _decode_emulation(tx, tw, txs, tws, planes, signed, splits, order)
+            got = _scaled_emulation(tx, tw, txs, tws, planes, signed, splits, order)
             assert torch.equal(got, plain), splits
     pallas = np.asarray(jops.mma_matmul_scaled(jnp.asarray(x), jnp.asarray(w), jnp.float32(xs),
                                                jnp.asarray(ws), planes=planes, signed=signed,
                                                interpret=True))
     np.testing.assert_array_equal(got.numpy(), pallas)
+
+
+@pytest.mark.parametrize("m,k,n", [(1, 7, 3), (4, 300, 70), (9, 520, 33), (16, 1000, 65)])
+@pytest.mark.parametrize("planes", range(1, 9))
+@pytest.mark.parametrize("signed", [True, False])
+def test_decode_decomposition_vs_plain_and_pallas(m, k, n, planes, signed):
+    """The decomposition the scaled kernel computes (``_scaled_emulation``)
+    on one and two n8 fragments, on ragged decode shapes."""
+    _decomposition_vs_plain_and_pallas(m, k, n, planes, signed,
+                                       m * 7 + k * 3 + n + 17 * planes + signed)
+
+
+# M above 16 rows: three and four n8 fragments in one pass (17-32 rows), and
+# row tiles of 32 (33-70 rows: the last tile ragged), with ragged K and N.
+ROW_TILED = [(17, 300, 70), (20, 1000, 65), (24, 129, 33), (25, 520, 70), (32, 7, 3),
+             (33, 1000, 70), (64, 384, 40), (70, 640, 70)]
+
+
+@pytest.mark.parametrize("m,k,n", ROW_TILED)
+@pytest.mark.parametrize("planes", [1, 5, 8])
+@pytest.mark.parametrize("signed", [True, False])
+def test_row_tiled_decomposition_vs_plain_and_pallas(m, k, n, planes, signed):
+    """The scaled kernel's decomposition above 16 rows: NF 3 and 4, and row
+    tiles with a counter each."""
+    _decomposition_vs_plain_and_pallas(m, k, n, planes, signed,
+                                       m * 5 + k * 3 + n + 11 * planes + signed)
 
 
 def test_cpu_scaled_path_does_not_count_launches():
