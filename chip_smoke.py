@@ -83,6 +83,24 @@ Phases, in one process; any failure ends the run with a non-zero exit:
    its plain version at 16 and 20, and each distinct minitron_4b linear at
    M = 20 alone with w cold.
 
+9. Precision-speculative decoding (main path 4) on phase 8's minitron_4b
+   (full width and depth, ``impl='kernel'``): ``tune_lm`` at target 0.05 on
+   one 16-token prompt (the Horner route, the repair loop capped at 8;
+   re-measuring its planes gives its ``measured_rel_err`` to the last bit),
+   ``tune_spec`` extending that plan on draft planes 2 and 4 x depth 2 and
+   4, then four requests served through ``Gateway`` + ``SpecLMAdapter`` under
+   the tuned v3 plan: every request completes, 225 scaled launches per
+   decode call (draft calls at the draft budget, the others at the plan's
+   planes, every head at 8), one recorded draft call and one verify call
+   bit-exact against the plain version on all 225 linears, exec cycles
+   equal to the round clock's, the draft/verify/accept events present.
+   The same requests through a greedy ``Engine`` and a ``SpecEngine`` on the
+   kernel route: identical streams counted, not gated (one activation scale
+   per tensor couples the slots); on the Horner route at 4 layers, gated:
+   streams, lengths and live cache rows equal greedy's.  Times the recorded
+   draft and verify calls' 225 linears (CUDA-graph replays, w cold) against
+   ``torch._int_mm`` + scale and the bound.
+
 The line before the last is a JSON object naming every kernel with its
 launches on its main path and its times; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -127,6 +145,12 @@ WIDE_M = (17, 20, 24, 25, 32, 33, 64, 100, 512)
 WIDE_K = (7, 129, 3072, 9216)
 WIDE_N = (3, 70, 1024, 4096)
 GATEWAY_M = (16, 20, 24, 32, 64, 256)  # phase 8's decode-call sweep
+# phase 9: tune_lm on one 16-token prompt, the repair loop capped; tune_spec
+# on the reference bench's trimmed grid; four 4-token requests served
+SPEC_TARGET, SPEC_MAX_REPAIR, SPEC_TUNE_TOKENS = 0.05, 8, 16
+SPEC_PLANE_GRID, SPEC_K_GRID = (2, 4), (2, 4)
+SPEC_BATCH, SPEC_MAX_SEQ, SPEC_MAX_NEW, SPEC_PROMPT = 4, 48, 8, 4
+SPEC_HORNER_LAYERS = 4  # the plain Horner route's identity gate runs at this depth
 HEAD_OUT_M = 64  # above this many rows the sweep drops the head (256 rows: 262 MB out)
 L2_BYTES = 50 * 2**20  # the H100's L2: per-shape timings read more w than this
 
@@ -661,7 +685,308 @@ def gateway_replay(torch, np, dev, card, ucfg, uparams, plan):
                 gateway_m20=times[gwb.LM_BATCH], gateway_m16=times[16],
                 gateway_m_sweep=times, gateway_m20_per_shape=per_shape,
                 gateway_forced=st["forced"], gateway_rounds=st["rounds"], phase8_s=phase_s), \
-        dict(launches_gateway=unscaled)
+        dict(launches_gateway=unscaled), (cfg, params)
+
+
+def _first_layers(tree, n: int):
+    """The parameter tree with every stacked block leaf cut to its first
+    ``n`` layers (views)."""
+    if isinstance(tree, dict):
+        return {k: _first_layers(v, n) for k, v in tree.items()}
+    return tree[:n]
+
+
+def spec_decoding(torch, np, dev, card, cfg, params):
+    """Phase 9: precision-speculative decoding at full width on phase 8's
+    minitron_4b — ``tune_lm``, ``tune_spec``, serving through ``Gateway`` +
+    ``SpecLMAdapter``, kernel-route identity (measured), Horner-route
+    identity at a cut depth (gated), and the recorded draft and verify
+    calls timed.  Returns what the kernels line reports of this path."""
+    from collections import Counter
+
+    from repro_torch import autotune
+    from repro_torch.bench.table1 import graph_ms
+    from repro_torch.configs.base import QuantConfig
+    from repro_torch.kernels import mma_matmul as mk
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer
+    from repro_torch.obs import RecordingSink, reconcile
+    from repro_torch.serve import Engine, Gateway, Request, SpecEngine, SpecLMAdapter
+
+    t_phase = time.perf_counter()
+    per_call = 7 * cfg.n_layers + 1
+    n_lin = 7 * cfg.n_layers
+    rng = np.random.default_rng(0)
+
+    # ---- 1. tune_lm (the Horner route, as the reference builds it)
+    tokens = rng.integers(0, cfg.vocab, (1, SPEC_TUNE_TOKENS)).astype(np.int32)
+    forward, n_fwd = transformer.forward, [0]
+
+    def counted(*a, **kw):
+        n_fwd[0] += 1
+        return forward(*a, **kw)
+
+    transformer.forward = counted
+    mk.scaled_launches = 0
+    try:
+        t0 = time.perf_counter()
+        plan = autotune.tune_lm(params, cfg, tokens, target_rel_err=SPEC_TARGET,
+                                max_repair=SPEC_MAX_REPAIR, device=dev)
+        torch.cuda.synchronize()
+        tune_s = time.perf_counter() - t0
+    finally:
+        transformer.forward = forward
+    check(mk.scaled_launches == 0, f"tune_lm (Horner route) launched the scaled kernel "
+          f"{mk.scaled_launches} times")
+    cert = plan.certificate
+    print(f"[spec] {card} | tune_lm target {SPEC_TARGET} on {tokens.size} tokens (seed 0), "
+          f"max_repair {SPEC_MAX_REPAIR}: {n_fwd[0]} forwards, {cert['repairs']} repairs, "
+          f"planes {list(plan.planes)}, measured_rel_err {cert['measured_rel_err']!r}, cert "
+          f"{cert['cert']!r}, holds {cert['holds']}; {tune_s:.2f} s host wall (the plan's "
+          f"two fingerprints, one pass over the weights, included)")
+    check(cert["holds"] == (cert["cert"] <= plan.target_rel_err), f"holds disagrees: {cert}")
+
+    def logits(schedule):
+        qcfg = cfg.replace(quant=QuantConfig(mode="mma_int8", planes=8, plane_schedule=schedule))
+        return transformer.forward(params, tokens, qcfg, device=dev).to(torch.float32)
+
+    ref = logits(None)
+    again = float((logits(tuple(plan.planes)) - ref).abs().max()) / max(float(ref.abs().max()),
+                                                                         1e-8)
+    check(again == cert["measured_rel_err"],
+          f"re-measured rel err {again!r} != tune_lm's {cert['measured_rel_err']!r}")
+    print(f"[spec] re-measured with the same forward on the same tokens: {again!r} (equal to the "
+          f"last bit)")
+
+    # ---- 2. tune_spec on the kernel route
+    prompts2 = [rng.integers(0, cfg.vocab, SPEC_PROMPT).astype(np.int32) for _ in range(2)]
+    mk.scaled_launches = 0
+    mk.scaled_variant_launches.clear()
+    t0 = time.perf_counter()
+    splan = autotune.tune_spec(params, cfg, prompts2, plan=plan, batch=2, max_seq=SPEC_MAX_SEQ,
+                               max_new=SPEC_MAX_NEW, k_candidates=SPEC_K_GRID,
+                               plane_candidates=SPEC_PLANE_GRID, device=dev)
+    torch.cuda.synchronize()
+    tspec_s = time.perf_counter() - t0
+    tspec_calls, tspec_launches = mk.scaled_launches // per_call, mk.scaled_launches
+    check(tspec_launches == per_call * tspec_calls and tspec_calls > 0,
+          f"tune_spec: {tspec_launches} scaled launches, not {per_call} per decode call")
+    check(all((p, True) in mk.scaled_variant_launches for p in SPEC_PLANE_GRID),
+          f"tune_spec launched the kernel at {sorted(mk.scaled_variant_launches)}")
+    spec_rec = splan.modeled["spec"]
+    for g in spec_rec["grid"]:
+        print(f"[spec] tune_spec grid: draft planes {g['planes']} k {g['k']}: cycles {g['cycles']}"
+              f" emitted {g['emitted']} accepted {g['accepted']} drafted {g['drafted']} "
+              f"(relation (2), the paper's FPGA model)")
+    print(f"[spec] {card} | tune_spec: best draft planes {spec_rec['best']['planes']} k "
+          f"{spec_rec['best']['k']}, modeled speedup {spec_rec['speedup']:.4f} (relation (2), the "
+          f"paper's FPGA model, not a card number); {tspec_s:.2f} s host wall, {tspec_calls} "
+          f"decode calls ({tspec_launches} scaled launches)")
+
+    # ---- 3. serve through the gateway: the spec main path
+    prompts = [rng.integers(0, cfg.vocab, SPEC_PROMPT).astype(np.int32)
+               for _ in range(SPEC_BATCH)]
+    sink = RecordingSink()
+    adapter = SpecLMAdapter(cfg, params, batch=SPEC_BATCH, max_seq=SPEC_MAX_SEQ, plan=splan,
+                            device=dev)
+    budget = 2 * SPEC_BATCH * adapter._spec_slot_cycles(splan.spec_k)
+    gw = Gateway([adapter], policy="fair", round_budget=budget, sink=sink)
+    engine = adapter.engine
+    draft_planes = splan.spec_planes[0]
+    rec = {"draft": [], "verify": [], "n_draft": 0, "n_decode": 0, "in_round": False}
+    draft_fn, decode_fn, spec_step = engine.draft_fn, engine.decode_fn, engine.spec_step
+    scaled = ops.mma_matmul_scaled
+
+    def recorded(fn, into, *args):
+        """``fn(*args)`` with every scaled-kernel call recorded into
+        ``into``.  Recording adds no launch."""
+        def recording(x, w, xs, ws, **kw):
+            out = scaled(x, w, xs, ws, **kw)
+            into.append((x, w, xs, ws, kw["planes"], out))
+            return out
+
+        ops.mma_matmul_scaled = recording
+        try:
+            return fn(*args)
+        finally:
+            ops.mma_matmul_scaled = scaled
+
+    def counted_draft(*args):
+        rec["n_draft"] += 1
+        if rec["draft"]:
+            return draft_fn(*args)
+        return recorded(draft_fn, rec["draft"], *args)
+
+    def counted_decode(*args):
+        rec["n_decode"] += 1
+        if rec["verify"] or not rec["in_round"]:
+            return decode_fn(*args)
+        return recorded(decode_fn, rec["verify"], *args)
+
+    def marked_spec_step(only=None):
+        rec["in_round"] = True
+        try:
+            return spec_step(only=only)
+        finally:
+            rec["in_round"] = False
+
+    engine.draft_fn, engine.decode_fn, engine.spec_step = counted_draft, counted_decode, \
+        marked_spec_step
+    # the first submission hashes the served weights (params_fingerprint) and
+    # refuses the plan unless they are the ones it was tuned on
+    t0 = time.perf_counter()
+    reqs = [gw.submit("lm", p, max_new=SPEC_MAX_NEW) for p in prompts]
+    submit_s = time.perf_counter() - t0
+    mk.scaled_launches = 0
+    mk.scaled_variant_launches.clear()
+    t0 = time.perf_counter()
+    gw.drain(max_rounds=1_000)
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t0
+    launches, by_planes = mk.scaled_launches, Counter(mk.scaled_variant_launches)
+    check(all(r.done and len(r.handle.out) == SPEC_MAX_NEW
+              and all(0 <= t < cfg.vocab for t in r.handle.out) for r in reqs),
+          "a spec request did not complete with its budget in the vocabulary")
+    n_draft, n_decode = rec["n_draft"], rec["n_decode"]
+    check(launches == per_call * (n_draft + n_decode),
+          f"{launches} scaled launches for {n_draft} draft and {n_decode} other decode calls, "
+          f"expected {per_call} each")
+    want = Counter({(draft_planes, True): n_lin * n_draft, (8, True): n_draft + n_decode})
+    for p in plan.planes:
+        want[(p, True)] += 7 * n_decode
+    check(by_planes == want, f"launches by planes {dict(by_planes)}, expected {dict(want)}")
+    for name, calls, planes in (("draft", rec["draft"], (draft_planes,) * cfg.n_layers),
+                                ("verify", rec["verify"], tuple(plan.planes))):
+        check(len(calls) == per_call, f"{len(calls)} scaled calls recorded in the {name} call")
+        check([p for *_, p, _ in calls] == [p for p in planes for _ in range(7)] + [8],
+              f"the {name} call's linears ran at planes {[p for *_, p, _ in calls]}")
+        for x, w, xs, ws, p, out in calls:
+            x2 = x.reshape(-1, w.shape[0])
+            check(torch.equal(out.reshape(-1, w.shape[1]),
+                              mk.mma_matmul_scaled_plain(x2, w, xs, ws, planes=p)),
+                  f"recorded {name} call: scaled linear K={w.shape[0]} N={w.shape[1]} != plain")
+    recon = reconcile(sink.events, [gw.round_clock])
+    check(recon["holds"], f"exec events {recon['total_exec']} != worked {recon['total_worked']}")
+    etypes = Counter(e.etype for e in sink.events)
+    check(all(etypes[e] for e in ("draft", "verify", "accept")), f"spec events {dict(etypes)}")
+    rounds = [e.data for e in sink.events if e.etype == "lm-spec"]
+    print(f"[spec] {card} | Gateway(fair) + SpecLMAdapter (draft planes {draft_planes}, k "
+          f"{splan.spec_k}, verify planes {list(plan.planes)}): {len(reqs)} requests, "
+          f"{gw.rounds} rounds, {len(rounds)} spec rounds; {n_draft} draft calls + {n_decode} "
+          f"prefill/verify calls, {launches} scaled launches ({per_call} per call; by (planes, "
+          f"signed) {dict(sorted(by_planes.items()))}); {serve_s:.2f} s host wall; submitting, "
+          f"params_fingerprint of the served weights included: {submit_s:.2f} s")
+    print(f"[spec] recorded draft and verify calls: {per_call} scaled linears each bit-exact "
+          f"against the plain version; exec cycles {recon['total_exec']} = worked "
+          f"{recon['total_worked']}; events draft {etypes['draft']} verify {etypes['verify']} "
+          f"accept {etypes['accept']} rollback {etypes['rollback']}")
+    engine.draft_fn, engine.decode_fn, engine.spec_step = draft_fn, decode_fn, spec_step
+    del gw, adapter, engine
+
+    # ---- 4. identity on the kernel route, measured and not gated
+    qcfg = autotune.apply_plan_lm(cfg, splan)
+
+    def serve(qc, prm, spec, k, draft):
+        eng = (SpecEngine(qc, prm, batch=SPEC_BATCH, max_seq=SPEC_MAX_SEQ, draft_schedule=draft,
+                          k=k, device=dev) if spec
+               else Engine(qc, prm, batch=SPEC_BATCH, max_seq=SPEC_MAX_SEQ, device=dev))
+        reqs = [Request(i, p, max_new=SPEC_MAX_NEW) for i, p in enumerate(prompts)]
+        mk.scaled_launches = 0
+        t0 = time.perf_counter()
+        for r in reqs:
+            check(eng.admit(r), "a slot was refused")
+        while eng.ready_slots():
+            eng.spec_step() if spec else eng.step()
+        torch.cuda.synchronize()
+        return eng, [list(r.out) for r in reqs], time.perf_counter() - t0, mk.scaled_launches
+
+    _, gstreams, g_s, g_l = serve(qcfg, params, False, splan.spec_k, splan.spec_planes)
+    emitted = SPEC_BATCH * SPEC_MAX_NEW
+    print(f"[spec] {card} | greedy Engine: {g_s:.2f} s host wall, {g_l // per_call} decode "
+          f"calls, {g_s / emitted * 1e3:.1f} ms per emitted token")
+    tuned = splan.spec_planes[0]
+    identity = {}
+    # the tuned draft budget first, then the grid's others: a budget whose
+    # drafts are accepted by some slots and not others is where one
+    # activation scale per tensor can couple the slots
+    for dp in [tuned] + [p for p in SPEC_PLANE_GRID if p != tuned]:
+        seng, sstreams, s_s, s_l = serve(qcfg, params, True, splan.spec_k,
+                                         (dp,) * cfg.n_layers)
+        same = sum(a == b for a, b in zip(gstreams, sstreams))
+        parts = [next(j for j, (a, b) in enumerate(zip(g, s)) if a != b)
+                 for g, s in zip(gstreams, sstreams) if g != s]
+        drafted = sum(r["drafted"] for r in seng.spec_trace)
+        accepted = [sum(sl["accepted"] for r in seng.spec_trace for sl in r["slots"]
+                        if sl["rid"] == i) for i in range(SPEC_BATCH)]
+        identity[dp] = dict(identical=same, parts=parts, accepted=sum(accepted),
+                            drafted=drafted, wall_s=s_s, calls=s_l // per_call)
+        print(f"[spec] {card} | kernel route identity at draft planes {dp}, k {splan.spec_k} "
+              f"(measured, not gated): {same} of {SPEC_BATCH} streams identical to greedy; the "
+              f"others part at positions {parts}; accepted {sum(accepted)} of {drafted} drafts "
+              f"(by request {accepted}) | SpecEngine: {s_s:.2f} s host wall, {s_l // per_call} "
+              f"decode calls, {s_s / emitted * 1e3:.1f} ms per emitted token")
+    same, parts = identity[tuned]["identical"], identity[tuned]["parts"]
+    drafted, s_s = identity[tuned]["drafted"], identity[tuned]["wall_s"]
+    accept = identity[tuned]["accepted"] / drafted if drafted else 0.0
+
+    # ---- 5. identity on the Horner route (per-row scales), gated, at a cut depth
+    hl = SPEC_HORNER_LAYERS
+    hparams = dict(params, blocks=_first_layers(params["blocks"], hl))
+    hcfg = cfg.replace(n_layers=hl, quant=QuantConfig(mode="mma_int8", impl="horner",
+                                                      plane_schedule=tuple(plan.planes[:hl])))
+    t0 = time.perf_counter()
+    (geng, gh, _, gl), (heng, sh, _, sl) = [serve(hcfg, hparams, spec, 2, (2,) * hl)
+                                            for spec in (False, True)]
+    horner_s = time.perf_counter() - t0
+    check(gl == sl == 0, "the Horner route launched the scaled kernel")
+    check(sh == gh, f"Horner route: spec streams {sh} != greedy {gh}")
+    check(np.array_equal(heng.lengths, geng.lengths), "Horner route: lengths differ")
+    for i, n in enumerate(geng.lengths):
+        for key in ("k", "v"):
+            check(torch.equal(heng.cache[key][:, i, :n], geng.cache[key][:, i, :n]),
+                  f"Horner route: slot {i}'s live {key} cache rows differ from greedy's")
+    hdrafted = sum(r["drafted"] for r in heng.spec_trace)
+    haccepted = sum(r["accepted"] for r in heng.spec_trace)
+    print(f"[spec] {card} | Horner route identity at {hl} of {cfg.n_layers} layers (full width; "
+          f"draft 2 planes, k 2): {SPEC_BATCH} streams equal greedy token for token, lengths "
+          f"and live cache rows bit for bit; accepted {haccepted} of {hdrafted}; "
+          f"{horner_s:.2f} s host wall")
+    del geng, heng, hparams
+
+    # ---- 6. the recorded draft and verify calls timed (CUDA-graph replays, w cold)
+    times = {}
+    for name in ("draft", "verify"):
+        calls = [(x.reshape(-1, w.shape[0]), w, xs, ws, p) for x, w, xs, ws, p, _ in rec[name]]
+        ms = graph_ms(torch, lambda: [mk.mma_matmul_scaled_kernel(x, w, xs, ws, planes=p)
+                                      for x, w, xs, ws, p in calls], calls=1)
+        libs = [scaled_library(torch, *c) for c in calls]
+        lib_ms = graph_ms(torch, lambda: [f() for f in libs], calls=1)
+        plain_ms = time_ms(torch, lambda: [mk.mma_matmul_scaled_plain(x, w, xs, ws, planes=p)
+                                           for x, w, xs, ws, p in calls], reps=1, warmup=1)
+        m = calls[0][0].shape[0]
+        b_ms, b_by, nbytes, nops = scaled_bound([(x.shape[0], *w.shape) for x, w, *_ in calls])
+        times[name] = dict(ms=ms, library_ms=lib_ms, plain_ms=plain_ms, bound_ms=b_ms,
+                           bound_by=b_by, M=m)
+        print(f"[time] {card} | mma_matmul_scaled one minitron_4b {name} call at M = {m} "
+              f"({len(calls)} linears at planes {sorted(set(p for *_, p in calls))}, one CUDA "
+              f"graph, {nbytes / 1e9:.3f} GB of distinct w: cold): kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.3f} ms, torch._int_mm+scale {lib_ms:.4f} ms (32 rows), bound "
+              f"{b_ms:.4f} ms ({b_by}), {nbytes / ms / 1e6:.0f} GB/s")
+    phase_s = time.perf_counter() - t_phase
+    print(f"[spec] phase 9 took {phase_s:.1f} s")
+    return dict(
+        launches_spec=launches,
+        launches_spec_by_planes={f"{p}{'' if sg else 'u'}": n for (p, sg), n in
+                                 sorted(by_planes.items())},
+        spec_draft_calls=n_draft, spec_other_calls=n_decode, spec_serve_wall_s=serve_s,
+        spec_submit_s=submit_s, spec_tune_lm_s=tune_s, spec_tune_lm_planes=list(plan.planes),
+        spec_tune_lm_holds=cert["holds"], spec_tune_spec_s=tspec_s,
+        spec_tune_spec_calls=tspec_calls, spec_best=spec_rec["best"],
+        spec_kernel_identical=same, spec_kernel_parts=parts, spec_accept_rate=accept,
+        spec_kernel_identity_by_draft_planes=identity,
+        spec_greedy_wall_s=g_s, spec_wall_s=s_s, spec_draft_call=times["draft"],
+        spec_verify_call=times["verify"], phase9_s=phase_s,
+    )
 
 
 def lm_decode_shapes(cfg):
@@ -1206,9 +1531,15 @@ def main() -> int:
     summary.update(tuning)
 
     # ------------------------------------------------- 8. the gateway
-    scaled_gw, unscaled_gw = gateway_replay(torch, np, dev, card, cfg, params, plan)
+    scaled_gw, unscaled_gw, (lm_cfg, lm_params) = gateway_replay(torch, np, dev, card, cfg,
+                                                                  params, plan)
     scaled_summary.update(scaled_gw)
     summary.update(unscaled_gw)
+
+    # --------------------------------------- 9. speculative decoding
+    mk.launches = 0
+    scaled_summary.update(spec_decoding(torch, np, dev, card, lm_cfg, lm_params))
+    check(mk.launches == 0, f"phase 9 launched the unscaled kernel {mk.launches} times")
     print(f"[done] every phase passed in {time.perf_counter() - t_start:.1f} s, the build included")
     print(json.dumps({"kernels": [summary, scaled_summary]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

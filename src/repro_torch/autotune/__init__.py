@@ -15,8 +15,10 @@ Turns (model, validation batch, error budget, geometry) into a serialized
                calibration fingerprint) with atomic JSON round-trip, in
                the reference package's schema;
 ``api``       — :func:`tune_unet` and the wiring into ``UNetConfig`` and
-               ``SegEngine``; :func:`apply_plan_lm` installs an LM plan.
-               The LM tuners are not ported yet.
+               ``SegEngine``; the LM tuners :func:`tune_lm` (per-layer
+               budgets, measured and certified) and :func:`tune_spec`
+               (the speculative operating point on a v3 plan);
+               :func:`apply_plan_lm` installs an LM plan.
 """
 from . import api, calibrate, plan, search  # noqa: F401
 from .api import (  # noqa: F401
@@ -24,6 +26,8 @@ from .api import (  # noqa: F401
     apply_plan_lm,
     engine_from_plan,
     reference_plan,
+    tune_lm,
+    tune_spec,
     tune_unet,
 )
 from .calibrate import (  # noqa: F401

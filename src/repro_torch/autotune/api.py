@@ -22,16 +22,26 @@ unless ``device='cpu'``:
 
 Every forward of the pipeline runs the port's U-Net, so on the card every
 conv goes through the hand-written MMA kernel at the plane count the
-candidate schedule gives it.  :func:`apply_plan_lm` installs an LM plan
-into an ``ArchConfig`` (the gateway's ``LMAdapter(plan=...)``); the LM
-tuners (``tune_lm``, ``tune_spec``) are not ported yet.
+candidate schedule gives it.
+
+``tune_lm`` is the LM analogue: seed from the analytic
+``serve.engine.lm_schedule_from_params`` policy, then measure-and-repair
+against the quantized forward on a calibration token batch (the Horner
+route, as the reference builds its own ``QuantConfig``).  ``tune_spec``
+extends an LM plan with the speculative operating point (schema v3
+``spec_planes``/``spec_k``), running the real ``SpecEngine`` on the
+caller's impl: with ``impl='kernel'`` every draft and verify linear is the
+scaled MMA kernel.  :func:`apply_plan_lm` installs an LM plan into an
+``ArchConfig`` (the gateway's ``LMAdapter(plan=...)``).
 """
 from __future__ import annotations
 
 import dataclasses
 
 import numpy as np
+import torch
 
+from repro_torch.core import cycle_model as cm
 from repro_torch.core import quant
 from repro_torch.core.bitplane import N_BITS
 from repro_torch.core.plane_schedule import PlaneSchedule, layer_rel_bound
@@ -314,4 +324,201 @@ def tune_unet(
             full8_cycles_calib=int(full8_cycles),
             mode=mode,
         ),
+    )
+
+
+# --------------------------------------------------------------------- LM
+
+
+def tune_lm(
+    params,
+    cfg,
+    tokens,
+    *,
+    target_rel_err: float,
+    slack: float = _search.DEFAULT_SLACK,
+    margin: float = DEFAULT_MARGIN,
+    max_repair: int | None = None,
+    device=None,
+) -> TunedPlan:
+    """Measured-and-certified per-layer budgets for a block-stacked LM.
+
+    Seeds from the analytic weight-only policy
+    (:func:`repro_torch.serve.engine.lm_schedule_from_params`), measures the
+    end-to-end logits error on ``tokens`` against the full 8-plane
+    datapath, and re-adds planes until the measurement fits ``slack *
+    target``; the certificate is the final measurement inflated by
+    ``margin``.  Every forward runs on ``device`` (the CUDA card unless
+    ``'cpu'``) on the Horner route.  Install with :func:`apply_plan_lm`.
+    """
+    from repro_torch import models
+    from repro_torch.configs.base import QuantConfig
+    from repro_torch.serve.engine import lm_schedule_from_params
+
+    _check_budget_split(slack, margin)
+    dev = resolve_device(device)
+    mod = models.build(cfg)
+    params = mod.params_to(params, dev)
+    toks = np.asarray(tokens, np.int32)
+
+    def logits(qcfg) -> torch.Tensor:
+        return mod.forward(params, toks, cfg.replace(quant=qcfg), device=dev).to(torch.float32)
+
+    ref = logits(QuantConfig(mode="mma_int8", planes=8))
+    denom = max(float(ref.abs().max()), 1e-8)
+
+    def measured(planes) -> float:
+        out = logits(QuantConfig(mode="mma_int8", planes=8, plane_schedule=tuple(planes)))
+        return float((out - ref).abs().max()) / denom
+
+    seed = lm_schedule_from_params(params, cfg, target_rel_err)
+    planes = list(seed.planes)
+    budget = slack * target_rel_err
+    cap = max_repair if max_repair is not None else N_BITS * len(planes)
+    repairs = 0
+    m = measured(planes)
+    while m > budget and repairs < cap:
+        # repair the layer with the fewest planes (ties: largest analytic
+        # bound) — the fewest-digit layer is the dominant error source
+        fixable = [l for l in range(len(planes)) if planes[l] < N_BITS]
+        if not fixable:
+            break
+        bounds = seed.layer_bounds or (0.0,) * len(planes)
+        worst = min(fixable, key=lambda l: (planes[l], -bounds[l]))
+        planes[worst] += 1
+        repairs += 1
+        m = measured(planes)
+
+    cert = float(m * margin)
+    fp, params_fp = _calibrate.fingerprints(
+        params, [toks], target_rel_err=target_rel_err, slack=slack,
+        margin=margin, family=cfg.family,
+    )
+    return TunedPlan(
+        workload="lm",
+        geometry=dict(
+            family=cfg.family, n_layers=cfg.n_layers,
+            d_model=getattr(cfg, "d_model", None),
+        ),
+        planes=tuple(planes),
+        target_rel_err=float(target_rel_err),
+        certificate=dict(
+            target_rel_err=float(target_rel_err),
+            measured_rel_err=float(m),
+            cert=cert,
+            margin=float(margin),
+            slack=float(slack),
+            n_tokens=int(toks.size),
+            repairs=repairs,
+            holds=bool(cert <= target_rel_err),
+        ),
+        fingerprint=fp,
+        params_fingerprint=params_fp,
+        layer_bounds=seed.layer_bounds,
+    )
+
+
+def tune_spec(
+    params,
+    cfg,
+    prompts,
+    *,
+    plan: TunedPlan,
+    batch: int = 2,
+    max_seq: int = 64,
+    max_new: int = 16,
+    k_candidates: tuple[int, ...] = (2, 3, 4),
+    plane_candidates: tuple[int, ...] = (2, 4, 6),
+    mode: str = "pipelined",
+    device=None,
+) -> TunedPlan:
+    """Search the speculative operating point (draft plane budget, depth
+    ``k``) that maximizes *accepted tokens per modeled cycle*, and record
+    it on an existing certified LM plan (schema v3: ``spec_planes`` /
+    ``spec_k``).
+
+    Each candidate runs the real
+    :class:`~repro_torch.serve.specdecode.SpecEngine` on the calibration
+    ``prompts`` on ``device`` (the CUDA card unless ``'cpu'``), with the
+    impl ``cfg`` gives; every round is priced with
+    :func:`repro_torch.core.cycle_model.lm_spec_step_cycles` (relation (2),
+    wasted speculation included).  The verify schedule is the plan's
+    certified ``planes``; the certificate is untouched.
+    """
+    from repro_torch.serve.engine import Request
+    from repro_torch.serve.specdecode import SpecEngine
+
+    if plan.workload != "lm":
+        raise ValueError("tune_spec extends an LM plan")
+    dev = resolve_device(device)
+    qcfg = apply_plan_lm(cfg, plan)
+    full_sched = tuple(plan.planes)
+    kw = dict(
+        n_heads=cfg.n_heads, head_dim=cfg.hd, n_kv_heads=cfg.n_kv_heads,
+        context=max_seq, n_experts=cfg.moe.n_experts, top_k=cfg.moe.top_k,
+    )
+    full_step = cm.lm_step_cycles(
+        cfg.d_model, cfg.d_ff, cfg.n_layers, full_sched, mode=mode, **kw
+    )
+    prompts = [np.asarray(p, np.int32) for p in prompts]
+
+    def run(draft_sched, k):
+        eng = SpecEngine(
+            qcfg, params, batch=batch, max_seq=max_seq,
+            draft_schedule=draft_sched, k=k, device=dev,
+        )
+        pending = [
+            Request(rid=i, prompt=p, max_new=max_new)
+            for i, p in enumerate(prompts)
+        ]
+        cycles = emitted = accepted = drafted = 0
+        while pending or eng.ready_slots():
+            while pending and eng.admit(pending[0]):
+                pending.pop(0)
+            slots = eng.ready_slots()
+            if not slots:
+                break
+            _, rec = eng.spec_step()
+            if rec is None:  # no speculation headroom: plain greedy round
+                cycles += full_step * len(slots)
+                emitted += len(slots)
+                continue
+            sc = cm.lm_spec_step_cycles(
+                cfg.d_model, cfg.d_ff, cfg.n_layers,
+                k=rec["k"], draft_schedule=draft_sched,
+                schedule=full_sched, mode=mode, **kw,
+            )
+            cycles += sc["total_cycles"] * len(rec["slots"])
+            emitted += rec["emitted"]
+            accepted += rec["accepted"]
+            drafted += rec["drafted"]
+        return dict(
+            cycles=int(cycles), emitted=int(emitted),
+            accepted=int(accepted), drafted=int(drafted),
+            tokens_per_cycle=emitted / cycles if cycles else 0.0,
+        )
+
+    grid = []
+    for p in plane_candidates:
+        draft_sched = (int(p),) * cfg.n_layers
+        for k in k_candidates:
+            r = run(draft_sched, int(k))
+            grid.append(dict(planes=int(p), k=int(k), **r))
+    best = max(grid, key=lambda r: r["tokens_per_cycle"])
+    return dataclasses.replace(
+        plan,
+        spec_planes=(int(best["planes"]),) * cfg.n_layers,
+        spec_k=int(best["k"]),
+        modeled=dict(
+            plan.modeled,
+            spec=dict(
+                grid=grid,
+                best=dict(planes=best["planes"], k=best["k"]),
+                # modeled decode speedup at the measured acceptance rate:
+                # tokens-per-cycle relative to one full step per token
+                speedup=best["tokens_per_cycle"] * full_step,
+                mode=mode,
+            ),
+        ),
+        version=max(int(plan.version), 3),
     )

@@ -65,7 +65,10 @@ def _leaves(tree) -> list:
     return [tree]
 
 
-def _hash_arrays(h, arrays) -> None:
+def _hash_arrays(hashers, arrays) -> None:
+    """Feed every array's shape, dtype and bytes to each of ``hashers``:
+    each tensor is copied to the host once, and its bytes are hashed where
+    they lie."""
     for leaf in arrays:
         dtype = None
         if isinstance(leaf, torch.Tensor):
@@ -76,8 +79,11 @@ def _hash_arrays(h, arrays) -> None:
                 dtype, leaf = "bfloat16", leaf.contiguous().view(torch.int16)
             leaf = leaf.numpy()
         a = np.asarray(leaf)
-        h.update(str((a.shape, dtype or str(a.dtype))).encode())
-        h.update(np.ascontiguousarray(a).tobytes())
+        head = str((a.shape, dtype or str(a.dtype))).encode()
+        data = np.ascontiguousarray(a).data
+        for h in hashers:
+            h.update(head)
+            h.update(data)
 
 
 def params_fingerprint(params) -> str:
@@ -86,18 +92,24 @@ def params_fingerprint(params) -> str:
     but not the calibration inputs).  Equal to the reference package's
     digest on the same weights."""
     h = hashlib.sha256()
-    _hash_arrays(h, _leaves(params))
+    _hash_arrays((h,), _leaves(params))
     return h.hexdigest()
+
+
+def fingerprints(params, images, **knobs) -> tuple[str, str]:
+    """``(fingerprint(params, images, **knobs), params_fingerprint(params))``
+    from one pass over the weights."""
+    h, hp = hashlib.sha256(), hashlib.sha256()
+    _hash_arrays((h, hp), _leaves(params))
+    _hash_arrays((h,), images)
+    h.update(repr(sorted((k, repr(v)) for k, v in knobs.items())).encode())
+    return h.hexdigest(), hp.hexdigest()
 
 
 def fingerprint(params, images, **knobs) -> str:
     """SHA-256 over the exact weights, calibration inputs and knobs a plan
     was derived from — byte-level, so any drift invalidates the plan."""
-    h = hashlib.sha256()
-    _hash_arrays(h, _leaves(params))
-    _hash_arrays(h, images)
-    h.update(repr(sorted((k, repr(v)) for k, v in knobs.items())).encode())
-    return h.hexdigest()
+    return fingerprints(params, images, **knobs)[0]
 
 
 @dataclass(frozen=True)

@@ -60,6 +60,9 @@ scaled_launches = 0  # the scaled kernel (fused dequant epilogue, float32 out)
 #: instantiation, counted at the same place as ``launches``; reset with
 #: ``.clear()``.
 variant_launches: collections.Counter = collections.Counter()
+#: The scaled kernel's launches by ``(planes, signed)``, counted at the same
+#: place as ``scaled_launches``; reset with ``.clear()``.
+scaled_variant_launches: collections.Counter = collections.Counter()
 
 
 def _nvcc() -> str:
@@ -283,6 +286,7 @@ def _launch_scaled(
         )
     _raise_on(err)
     scaled_launches += 1
+    scaled_variant_launches[(planes, bool(signed))] += 1
     return out
 
 

@@ -8,10 +8,13 @@ co-scheduled against a shared modeled cycle budget under a pluggable policy
 (FIFO / cycle-budget fair-share / EDF), with tuned-plan fingerprint
 verification at admission and progressive tile streaming.  The engines, the
 round clock and the shared queue/slot primitives stay importable directly
-for single-workload use.  The reference's fabric, modeled adapters and
-speculative decoding are not ported yet.
+for single-workload use.  Precision-speculative decoding
+(:class:`~repro_torch.serve.specdecode.SpecEngine`, served behind the
+gateway by :class:`~repro_torch.serve.specdecode.SpecLMAdapter`) drafts
+tokens at a truncated plane budget and verifies them at the full one.  The
+reference's fabric and modeled adapters are not ported yet.
 """
-from . import clock, engine, gateway, queue, serve_step  # noqa: F401
+from . import clock, engine, gateway, queue, serve_step, specdecode  # noqa: F401
 from .clock import FleetLedger, RoundClock  # noqa: F401
 from .engine import Engine, Request  # noqa: F401
 from .gateway import (  # noqa: F401
@@ -22,3 +25,4 @@ from .gateway import (  # noqa: F401
     StalePlanError,
 )
 from .queue import FifoQueue, SlotTable  # noqa: F401
+from .specdecode import SpecEngine, SpecLMAdapter  # noqa: F401

@@ -51,7 +51,9 @@ def lm_schedule_from_params(params, cfg, target_rel_err: float):
     per-channel int8 and pick the fewest planes whose analytic worst-case
     relative error (``core.early_term``) meets ``target_rel_err``.  Install
     the result with ``cfg.replace(quant=dataclasses.replace(cfg.quant,
-    plane_schedule=tuple(sched)))``.
+    plane_schedule=tuple(sched)))``.  On int8 serving params
+    (``quant.quantize_params_int8``) the ``w_q`` leaves are those int8
+    values already, and are used as they are.
     """
     from repro_torch import models
     from repro_torch.core import quant
@@ -64,14 +66,16 @@ def lm_schedule_from_params(params, cfg, target_rel_err: float):
             f"serve with the global quant.planes knob"
         )
     blocks = params["blocks"]
-    if "mlp" in blocks:
-        ws = blocks["mlp"]["w_up"]["w"]  # (L, d_model, d_ff), stacked
-    else:  # MoE blocks: fall back to the attention query projection
-        ws = blocks["attn"]["wq"]["w"]
-    wq = [
-        quant.quantize_weights(ws[l].to(torch.float32), channel_axis=-1).values
-        for l in range(cfg.n_layers)
-    ]
+    # (L, d_model, d_ff), stacked; MoE blocks fall back to the attention
+    # query projection
+    lin = blocks["mlp"]["w_up"] if "mlp" in blocks else blocks["attn"]["wq"]
+    if "w_q" in lin:  # per-output-channel int8 over the contraction dim
+        wq = [lin["w_q"][l] for l in range(cfg.n_layers)]
+    else:
+        wq = [
+            quant.quantize_weights(lin["w"][l].to(torch.float32), channel_axis=-1).values
+            for l in range(cfg.n_layers)
+        ]
     return PlaneSchedule.from_weights(wq, target_rel_err)
 
 

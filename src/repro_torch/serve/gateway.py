@@ -295,9 +295,9 @@ class LMAdapter:
         self.total_ops = 0
 
     def _make_engine(self, cfg):
-        """Engine factory — the subclass hook (the reference's
-        ``specdecode.SpecLMAdapter`` builds its ``SpecEngine`` here; not
-        ported yet)."""
+        """Engine factory — the subclass hook
+        (:class:`~repro_torch.serve.specdecode.SpecLMAdapter` builds its
+        ``SpecEngine`` here)."""
         from .engine import Engine
 
         return Engine(

@@ -565,3 +565,122 @@ def test_gpu_per_tile_conv_outputs_independent_of_batch_mates(cuda, monkeypatch)
     for b in range(x.shape[0]):
         for l, (alone, mate) in enumerate(zip(convs(x[b : b + 1]), batched)):
             assert torch.equal(alone[0], mate[b]), (b, l)
+
+
+# ------------------------------------------------ speculative decoding
+
+
+def _spec_lm(int8: bool, impl: str):
+    """The minitron_4b smoke LM (2 layers) on the int8 datapath at 8 planes:
+    float weights through ``mma_linear`` (per-row activation scales), or
+    every linear int8 (``w_q``, the scaled kernel on ``impl='kernel'``)."""
+    cfg = get_smoke_config("minitron_4b")
+    cfg = cfg.replace(quant=QuantConfig(mode="mma_int8", impl=impl,
+                                        plane_schedule=(8,) * cfg.n_layers))
+    params = transformer.init_params(0, cfg, device="cpu", int8_min_dim=64 if int8 else None)
+    return cfg, params
+
+
+def _spec_prompts(n=3):
+    rng = np.random.default_rng(4)
+    return [rng.integers(0, 512, 3 + i).astype(np.int32) for i in range(n)]
+
+
+@pytest.mark.gpu
+def test_gpu_spec_engine_horner_equals_greedy(cuda):
+    """``SpecEngine`` on the card, Horner route (per-row activation scales):
+    streams equal the greedy engine's, and after the last round each slot's
+    length and live cache rows equal greedy's bit for bit."""
+    from repro_torch.serve import SpecEngine
+
+    cfg, params = _spec_lm(int8=False, impl="horner")
+    runs = []
+    for spec in (False, True):
+        eng = (SpecEngine(cfg, params, batch=3, max_seq=32, draft_schedule=(2, 2), k=2,
+                          device=cuda) if spec
+               else Engine(cfg, params, batch=3, max_seq=32, device=cuda))
+        reqs = [Request(i, p, max_new=8) for i, p in enumerate(_spec_prompts())]
+        for r in reqs:
+            assert eng.admit(r)
+        while eng.ready_slots():
+            eng.spec_step() if spec else eng.step()
+        runs.append((eng, [r.out for r in reqs]))
+    (g, gout), (s, sout) = runs
+    assert sout == gout and all(len(o) == 8 for o in sout)
+    assert np.array_equal(s.lengths, g.lengths)
+    for i, n in enumerate(g.lengths):
+        for key in ("k", "v"):
+            assert torch.equal(s.cache[key][:, i, :n], g.cache[key][:, i, :n])
+
+
+@pytest.mark.gpu
+def test_gpu_spec_draft_call_kernel_route_vs_plain(cuda, monkeypatch):
+    """The kernel route: every linear of a draft call at 2 planes is one
+    scaled-kernel launch (the head at 8 planes) equal to the plain version
+    bit for bit."""
+    from repro_torch.serve import SpecEngine
+
+    cfg, params = _spec_lm(int8=True, impl="kernel")
+    eng = SpecEngine(cfg, params, batch=3, max_seq=32, draft_schedule=(2, 2), k=2, device=cuda)
+    for i, p in enumerate(_spec_prompts()):
+        assert eng.admit(Request(i, p, max_new=6))
+    calls, draft, scaled = [], eng.draft_fn, ops.mma_matmul_scaled
+
+    def recording(x, w, xs, ws, **kw):
+        out = scaled(x, w, xs, ws, **kw)
+        calls.append((x, w, xs, ws, kw["planes"], out))
+        return out
+
+    def first_draft(*a):
+        if calls:
+            return draft(*a)
+        monkeypatch.setattr(ops, "mma_matmul_scaled", recording)
+        try:
+            return draft(*a)
+        finally:
+            monkeypatch.setattr(ops, "mma_matmul_scaled", scaled)
+
+    eng.draft_fn = first_draft
+    mk.scaled_variant_launches.clear()
+    eng.spec_step()
+    torch.cuda.synchronize()
+    per_call = 7 * cfg.n_layers + 1
+    assert len(calls) == per_call
+    assert sorted(p for *_, p, _ in calls) == [2] * (per_call - 1) + [8]
+    for x, w, xs, ws, planes, out in calls:
+        x2 = x.reshape(-1, w.shape[0])
+        want = mk.mma_matmul_scaled_plain(x2, w, xs, ws, planes=planes)
+        assert torch.equal(out.reshape(-1, w.shape[1]), want), (tuple(w.shape), planes)
+    # 2 draft calls at 2 planes, 3 verify calls at 8; every head at 8
+    layers = 7 * cfg.n_layers
+    assert mk.scaled_variant_launches == {(2, True): 2 * layers, (8, True): 3 * layers + 5}
+
+
+@pytest.mark.gpu
+def test_gpu_spec_adapter_serves_through_the_gateway(cuda):
+    """``SpecLMAdapter`` behind ``Gateway`` on the card, kernel route: every
+    request done with its budget, 15 scaled launches per decode call
+    (prefill, draft and verify alike), the draft/verify/accept events
+    present, and the exec cycles equal to the round clock's worked cycles
+    (``obs.spans.reconcile``)."""
+    from repro_torch.obs import reconcile
+    from repro_torch.serve import SpecLMAdapter
+
+    cfg, params = _spec_lm(int8=True, impl="kernel")
+    sink = RecordingSink()
+    ad = SpecLMAdapter(cfg, params, batch=3, max_seq=32, draft_schedule=(2, 2), k=2,
+                       device=cuda)
+    gw = Gateway([ad], policy="fair", round_budget=2 * 3 * ad._spec_slot_cycles(2), sink=sink)
+    reqs = [gw.submit("lm", p, max_new=8) for p in _spec_prompts()]
+    before = mk.scaled_launches
+    gw.drain(max_rounds=1_000)
+    torch.cuda.synchronize()
+    launched = mk.scaled_launches - before
+    assert all(r.done and len(r.handle.out) == 8 for r in reqs) and gw.rounds > 1
+    calls = sum(e.data["tokens"] for e in sink.events if e.etype == "lm-prefill") + \
+        sum(2 * e.data["k"] + 1 for e in sink.events if e.etype == "lm-spec") + \
+        sum(1 for e in sink.events if e.etype == "lm-step")
+    assert launched == 15 * calls
+    assert {"draft", "verify", "accept"} <= {e.etype for e in sink.events}
+    rec = reconcile(sink.events, [gw.round_clock])
+    assert rec["holds"] and rec["total_exec"] == gw.round_clock.worked_total > 0
