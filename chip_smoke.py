@@ -93,13 +93,38 @@ Phases, in one process; any failure ends the run with a non-zero exit:
    decode call (draft calls at the draft budget, the others at the plan's
    planes, every head at 8), one recorded draft call and one verify call
    bit-exact against the plain version on all 225 linears, exec cycles
-   equal to the round clock's, the draft/verify/accept events present.
+   equal to the round clock's, the draft/verify/accept events present, and
+   the ``EnergyMeter`` armed beside the recording sink (verify work priced
+   at the plan's planes, drafts at the draft budget: the paper's FPGA energy
+   model) closes its spec account (useful + wasted pJ = draft + verify pJ,
+   slot-level cycles = round-level cycles) and its whole ledger.
    The same requests through a greedy ``Engine`` and a ``SpecEngine`` on the
    kernel route: identical streams counted, not gated (one activation scale
    per tensor couples the slots); on the Horner route at 4 layers, gated:
    streams, lengths and live cache rows equal greedy's.  Times the recorded
    draft and verify calls' 225 linears (CUDA-graph replays, w cold) against
    ``torch._int_mm`` + scale and the bound.
+10. The serving fabric (main path 5): ``traces/diurnal_smoke.json`` (51
+   requests, each with a deadline: 35 interactive LM of 4+8 tokens, 11 batch
+   of 24+4, 5 seg of 96x80) replayed open-loop through a ``Fabric`` of two
+   phase-8 gateways (``deficit`` routing, work stealing, seed 0), the shards
+   sharing phase 8's minitron_4b weights and phase 7's plan; the trace's
+   stamps, deadlines and round budget, the interactive SLO's latency
+   target and the monitor's burn windows all scaled by phase 8's k.  Armed:
+   a ``RecordingSink``, an ``SloMonitor`` (the capacity bench's specs), an
+   ``EnergyMeter`` (the served schedules' rates) and a ``CaptureSink``.
+   Checks: every request completes (LM with its budget, in the vocabulary);
+   the fleet ledger is additive; exec events reconcile with every shard's
+   round clock and the fleet ledger; the monitor's misses and attribution
+   equal the span-derived ones and ``stats()``'s; the meter's pJ ledger
+   holds to the picojoule; every shard's ``stats()`` carries ``slo`` and
+   ``energy`` blocks; the captured trace's requests equal the replayed
+   trace's; 225 scaled launches per decode call and 7 unscaled per seg
+   micro-batch; each shard's first decode-step call bit-exact against the
+   plain version on all 225 linears; every seg request's logits equal its
+   image served alone.  Prints the replay's host wall, decode calls and
+   micro-batches per shard, routes and steals, per-class modeled
+   latencies and misses, and metered and analytic GOPS/W (the FPGA model).
 
 The line before the last is a JSON object naming every kernel with its
 launches on its main path and its times; the last line is
@@ -118,6 +143,7 @@ from pathlib import Path
 
 SRC = Path(__file__).resolve().parent / "src"
 TRACE = SRC.parent / "traces" / "gateway_burst.json"  # the gateway's canonical trace
+DIURNAL = SRC.parent / "traces" / "diurnal_smoke.json"  # the fabric's: every request has a deadline
 
 # NVIDIA H100 SXM data sheet, dense: HBM rate and the int8 tensor-core peak.
 HBM_BYTES_PER_S = 3.35e12
@@ -688,6 +714,229 @@ def gateway_replay(torch, np, dev, card, ucfg, uparams, plan):
         dict(launches_gateway=unscaled), (cfg, params)
 
 
+def fabric_replay(torch, np, dev, card, ucfg, uparams, plan, cfg, params):
+    """Phase 10: ``traces/diurnal_smoke.json`` replayed open-loop through a
+    2-shard ``Fabric`` of phase 8's gateways at full width (one set of
+    minitron_4b weights and the U-Net under phase 7's plan, shared by both
+    shards), with a ``RecordingSink``, an ``SloMonitor``, an ``EnergyMeter``
+    and a ``CaptureSink`` armed, and its checks.  Returns what the kernels
+    line reports of this path."""
+    from collections import Counter
+
+    from repro_torch.autotune import engine_from_plan
+    from repro_torch.bench import capacity as capb
+    from repro_torch.bench import gateway as gwb
+    from repro_torch.core import energy_model as em
+    from repro_torch.kernels import mma_matmul as mk
+    from repro_torch.kernels import ops
+    from repro_torch.obs import (CaptureSink, EnergyMeter, RecordingSink, SloMonitor, TeeSink,
+                                 assemble, attach_joules, reconcile)
+    from repro_torch.workload import Trace, replay_trace
+
+    t_phase = time.perf_counter()
+    k = gwb.clock_scale(cfg)
+    base = Trace.load(DIURNAL)
+    trace = gwb.scaled_trace(base, k)
+    check(all(r.deadline_cycles is not None for r in trace.requests)
+          and [r.deadline_cycles for r in trace.requests]
+          == [r.deadline_cycles * k for r in base.requests], "deadlines not scaled by k")
+    # every cycle quantity of the traffic scales with k: the interactive
+    # latency target (modeled ms) and the monitor's burn windows too
+    specs = [dataclasses.replace(sp, latency_target_ms=sp.latency_target_ms * k)
+             if sp.latency_target_ms is not None else sp for sp in capb.slo_specs()]
+    windows = tuple(w * k for w in capb.WINDOWS)
+    # pJ per worked cycle at the served schedules' widest budgets (the LM's
+    # from_weights schedule, the U-Net plan's), as benchmarks/energy.py
+    # prices its plans: the paper's FPGA energy model, not a card reading
+    lm_planes, seg_planes = max(cfg.quant.plane_schedule), max(plan.planes)
+    rates = {"lm": em.active_rate_pj(lm_planes), "seg": em.active_rate_pj(seg_planes)}
+    rec, mon, meter, cap = RecordingSink(), SloMonitor(specs, windows=windows), \
+        EnergyMeter(rates), CaptureSink()
+    fab, mats = gwb.fabric(cfg, params, ucfg, uparams, plan, trace, device=dev,
+                           sink=TeeSink([rec, mon, meter]))
+    n = len(fab.shards)
+    print(f"[fabric] {n} shards, router {fab.router}, steal {fab.steal}, seed {fab.seed}; "
+          f"{base.name} x{k}: {len(trace)} requests "
+          f"{dict(Counter(r.qos for r in trace.requests))}, round budget {fab.round_budget}, "
+          f"span {trace.span_cycles} cycles, deadlines and the interactive latency target "
+          f"({specs[0].latency_target_ms:.1f} modeled ms) x{k}; energy rates lm "
+          f"{rates['lm']} pJ/cycle ({lm_planes} planes), seg {rates['seg']} ({seg_planes} planes)")
+    lm_ads = [g.adapters["lm"] for g in fab.shards]
+    seg_ads = [g.adapters["seg"] for g in fab.shards]
+    leaves = [p["w_q"] for a in lm_ads for p in (a.engine.params["head"],
+                                                  a.engine.params["blocks"]["mlp"]["w_up"])]
+    check(len({t.data_ptr() for t in leaves}) == 2,
+          "the shards' engines do not share one set of minitron_4b weights")
+    for a in seg_ads:
+        plan_fp, served_fp = a.verify_info()
+        check(plan_fp == served_fp, f"the plan's fingerprint {plan_fp} != served {served_fp}")
+
+    # per shard: decode calls counted, the first decode step's call recorded
+    # (every scaled-kernel call it makes; recording adds no launch)
+    scaled = ops.mma_matmul_scaled
+    recs, saved = [], []
+    for a in lm_ads:
+        engine, r = a.engine, {"n": 0, "calls": [], "armed": False}
+        decode, step = engine.decode_fn, engine.step
+
+        def counted_decode(*args, r=r, decode=decode):
+            r["n"] += 1
+            if not r["armed"]:
+                return decode(*args)
+            r["armed"] = False
+
+            def recording(x, w, xs, ws, **kw):
+                out = scaled(x, w, xs, ws, **kw)
+                r["calls"].append((x, w, xs, ws, kw["planes"], out))
+                return out
+
+            ops.mma_matmul_scaled = recording
+            try:
+                return decode(*args)
+            finally:
+                ops.mma_matmul_scaled = scaled
+
+        def recording_step(only=None, r=r, step=step, engine=engine):
+            if not r["calls"]:
+                r["armed"] = True
+                r["live_rows"] = len(engine.ready_slots())
+            return step(only=only)
+
+        saved.append((engine, decode, step))
+        engine.decode_fn, engine.step = counted_decode, recording_step
+        recs.append(r)
+    mk.launches = mk.scaled_launches = 0
+    t0 = time.perf_counter()
+    try:
+        summary = replay_trace(fab, trace, mats, max_rounds=10_000, capture=cap)
+        torch.cuda.synchronize()
+    finally:
+        for engine, decode, step in saved:
+            engine.decode_fn, engine.step = decode, step
+    wall_s = time.perf_counter() - t0
+    launches, unscaled = mk.scaled_launches, mk.launches
+    calls = [r["n"] for r in recs]
+    seg_batches = [sum(1 for e in rec.events if e.etype == "seg-batch" and e.data["shard"] == s)
+                   for s in range(n)]
+
+    # 1. every request served
+    reqs = fab.requests
+    check(len(reqs) == len(trace) and all(g.done for g in reqs),
+          f"{sum(g.done for g in reqs)} of {len(trace)} requests completed")
+    check(Counter(g.kind for g in reqs) == Counter(r.kind for r in trace.requests),
+          "served kinds differ from the trace's")
+    for g in reqs:
+        if g.kind == "lm":
+            out = g.handle.out
+            check(len(out) == g.handle.max_new and all(0 <= t < cfg.vocab for t in out),
+                  f"LM request {g.rid}: {len(out)} tokens of {g.handle.max_new}, or one outside "
+                  f"the vocabulary")
+        else:
+            lg = g.handle.result.logits
+            check(lg.shape == (*g.handle.image.shape[:2], ucfg.n_classes)
+                  and bool(np.isfinite(lg).all()), f"seg request {g.rid}: logits {lg.shape}")
+    st = fab.stats()
+    counts = {c: (pc["n"], pc["completed"]) for c, pc in st["per_class"].items()}
+    want = Counter(r.qos for r in trace.requests)
+    check(counts == {c: (m, m) for c, m in want.items()}, f"per-class counts {counts}")
+
+    # 2. the fleet ledger, spans, SLO and picojoule accounts close
+    add = fab.additivity()
+    check(add["holds"], f"fleet ledger additivity: {add}")
+    recon = reconcile(rec.events, [g.round_clock for g in fab.shards], ledger=fab.ledger)
+    check(recon["holds"], f"exec events {recon['total_exec']} != worked {recon['total_worked']} "
+          f"(ledger {recon.get('ledger_worked')})")
+    spans = attach_joules(assemble(rec.events), meter)
+    slo_rec = mon.reconcile(spans)
+    check(slo_rec["holds"], f"SLO online/offline misses: {slo_rec}")
+    e_rec = meter.reconcile(spans)
+    check(e_rec["holds"], f"energy ledger: {e_rec['checks']}")
+    check(sum(sp.pj for sp in spans if sp.done) == e_rec["spans"]["online_pj"],
+          "span joules differ from the meter's attribution")
+    for s, g in enumerate(fab.shards):
+        sst = g.stats()
+        check("slo" in sst and "energy" in sst and sst["slo"]["scope"] == s
+              and sst["energy"]["scope"] == s, f"shard {s} stats lack its slo/energy blocks")
+    check("slo" in st and "energy" in st and summary["energy"] == st["energy"],
+          "the fleet stats lack the slo/energy blocks")
+    misses = {q: c["deadline_misses"] for q, c in st["per_class"].items() if c["deadline_misses"]}
+    check(misses == mon.miss_counts(), f"stats() misses {misses} != monitor "
+          f"{mon.miss_counts()}")
+
+    # 3. the captured trace is the replayed one
+    back = cap.to_trace("captured", seed=trace.seed, meta=dict(trace.meta))
+    key = lambda r: (r.kind, r.qos, r.arrival_cycle, dict(r.payload), r.deadline_cycles)
+    check([key(r) for r in back.requests] == [key(r) for r in trace.requests],
+          "the captured trace's requests differ from the replayed trace's")
+
+    # 4. launches on this path
+    per_call = 7 * cfg.n_layers + 1
+    check(min(calls) > 0 and launches == per_call * sum(calls),
+          f"{launches} scaled-kernel launches for {calls} decode calls, expected {per_call} each")
+    check(min(seg_batches) > 0 and unscaled == 7 * sum(seg_batches),
+          f"{unscaled} unscaled-kernel launches for {seg_batches} seg micro-batches (7 each, "
+          f"none on the LM)")
+
+    # 5. each shard's recorded decode call, per linear, bit for bit
+    for s, r in enumerate(recs):
+        check(len(r["calls"]) == per_call, f"shard {s}: {len(r['calls'])} scaled calls recorded")
+        for x, w, xs, ws, planes, out in r["calls"]:
+            kk, nn = w.shape
+            x2 = x.reshape(-1, kk)
+            check(x2.shape[0] == gwb.LM_BATCH, f"shard {s}: recorded call of {x2.shape[0]} rows")
+            check(torch.equal(out.reshape(-1, nn),
+                              mk.mma_matmul_scaled_plain(x2, w, xs, ws, planes=planes)),
+                  f"shard {s} recorded call: scaled linear K={kk} N={nn} != plain")
+
+    # 6. every seg request's logits equal its image served alone
+    n_seg = sum(1 for g in reqs if g.kind == "seg")
+    for i, treq in enumerate(trace.requests):
+        if treq.kind != "seg":
+            continue
+        g = next(g for g in reqs if g.kind == "seg" and g.arrival == treq.arrival_cycle)
+        image, _ = mats["seg"](treq, trace.seed, i)
+        alone = engine_from_plan(ucfg, uparams, plan, batch=gwb.SEG_BATCH,
+                                 device=dev).run([image])[0]
+        check(np.array_equal(alone.logits, g.handle.result.logits),
+              f"seg request {g.rid}: logits differ from the image served alone")
+        check((alone.cycles, alone.pj) == (g.handle.result.cycles, g.handle.result.pj),
+              f"seg request {g.rid}: accounting differs from the image served alone")
+
+    print(f"[fabric] {card} | replay of {base.name} (x{k}) through {n} shards: {len(reqs)} "
+          f"requests, host wall {wall_s:.2f} s; decode calls per shard {calls} at M = "
+          f"{gwb.LM_BATCH} ({launches} scaled launches, {per_call} per call), seg micro-batches "
+          f"per shard {seg_batches} ({unscaled} unscaled launches, 7 each); {st['rounds']} "
+          f"rounds, {st['forced']} forced, {len(rec)} events")
+    print(f"[fabric] routes: dispatched per shard {st['dispatched']}, router {st['router_stats']};"
+          f" steals {st['stolen']} (from {st['stolen_from']}, to {st['stolen_to']})")
+    print(f"[fabric] each shard's recorded decode call (the first decode step; live rows "
+          f"{[r['live_rows'] for r in recs]} of {gwb.LM_BATCH}): {per_call} scaled linears "
+          f"bit-exact against the plain version; {n_seg} seg requests' logits "
+          f"equal served alone; fleet additivity holds; exec events "
+          f"{recon['total_exec']} cycles = worked {recon['total_worked']} = ledger; SLO misses "
+          f"online {slo_rec['online']} = span-derived; pJ ledger holds "
+          f"({e_rec['spans']['online_pj']} pJ attributed to completed requests); the captured "
+          f"trace equals the replayed one")
+    for c, pc in st["per_class"].items():
+        sl = st["slo"]["per_class"].get(c, {})
+        print(f"[fabric] class {c}: {pc['completed']} of {pc['n']} done, modeled latency p50 "
+              f"{pc['p50_ms']:.3f} ms p99 {pc['p99_ms']:.3f} ms, deadline misses "
+              f"{pc['deadline_misses']}, attribution {sl.get('attribution')} (relation (2) "
+              f"clock, the paper's FPGA model)")
+    eb = st["energy"]
+    print(f"[fabric] metered {eb['metered_gops_w']:.4f} GOPS/W ({eb['total_mj']:.3f} mJ: active "
+          f"{eb['active_mj']:.3f}, idle {eb['idle_mj']:.3f}), analytic {eb['analytic_gops_w']:.4f}"
+          f" GOPS/W (both the paper's FPGA model at its modeled power, not the card)")
+    phase_s = time.perf_counter() - t_phase
+    print(f"[fabric] phase 10 took {phase_s:.1f} s")
+    return dict(launches_fabric=launches, fabric_decode_calls=calls, fabric_wall_s=wall_s,
+                fabric_seg_batches=seg_batches, fabric_rounds=st["rounds"],
+                fabric_dispatched=st["dispatched"], fabric_stolen=st["stolen"],
+                fabric_misses=misses, fabric_metered_gops_w=eb["metered_gops_w"],
+                fabric_analytic_gops_w=eb["analytic_gops_w"], phase10_s=phase_s), \
+        dict(launches_fabric=unscaled)
+
+
 def _first_layers(tree, n: int):
     """The parameter tree with every stacked block leaf cut to its first
     ``n`` layers (views)."""
@@ -710,7 +959,9 @@ def spec_decoding(torch, np, dev, card, cfg, params):
     from repro_torch.kernels import mma_matmul as mk
     from repro_torch.kernels import ops
     from repro_torch.models import transformer
-    from repro_torch.obs import RecordingSink, reconcile
+    from repro_torch.core import energy_model as em
+    from repro_torch.obs import (EnergyMeter, RecordingSink, TeeSink, assemble, attach_joules,
+                                 reconcile)
     from repro_torch.serve import Engine, Gateway, Request, SpecEngine, SpecLMAdapter
 
     t_phase = time.perf_counter()
@@ -786,13 +1037,17 @@ def spec_decoding(torch, np, dev, card, cfg, params):
     # ---- 3. serve through the gateway: the spec main path
     prompts = [rng.integers(0, cfg.vocab, SPEC_PROMPT).astype(np.int32)
                for _ in range(SPEC_BATCH)]
+    draft_planes = splan.spec_planes[0]
     sink = RecordingSink()
+    # the meter prices verify work at the plan's widest budget and draft work
+    # at the draft budget (the paper's FPGA energy model, not a card reading)
+    meter = EnergyMeter({"lm": em.active_rate_pj(max(plan.planes))},
+                        draft_rates={"lm": em.active_rate_pj(draft_planes)})
     adapter = SpecLMAdapter(cfg, params, batch=SPEC_BATCH, max_seq=SPEC_MAX_SEQ, plan=splan,
                             device=dev)
     budget = 2 * SPEC_BATCH * adapter._spec_slot_cycles(splan.spec_k)
-    gw = Gateway([adapter], policy="fair", round_budget=budget, sink=sink)
+    gw = Gateway([adapter], policy="fair", round_budget=budget, sink=TeeSink([sink, meter]))
     engine = adapter.engine
-    draft_planes = splan.spec_planes[0]
     rec = {"draft": [], "verify": [], "n_draft": 0, "n_decode": 0, "in_round": False}
     draft_fn, decode_fn, spec_step = engine.draft_fn, engine.decode_fn, engine.spec_step
     scaled = ops.mma_matmul_scaled
@@ -869,6 +1124,16 @@ def spec_decoding(torch, np, dev, card, cfg, params):
     check(recon["holds"], f"exec events {recon['total_exec']} != worked {recon['total_worked']}")
     etypes = Counter(e.etype for e in sink.events)
     check(all(etypes[e] for e in ("draft", "verify", "accept")), f"spec events {dict(etypes)}")
+    # the spec energy account closes: useful + wasted pJ = draft + verify pJ,
+    # and the slot-level cycles re-derive the round-level ones
+    e_rec = meter.reconcile(attach_joules(assemble(sink.events), meter))
+    e_spec = meter.spec_summary()
+    check(e_spec is not None and e_spec["useful_pj"] + e_spec["wasted_pj"]
+          == e_spec["draft_pj"] + e_spec["verify_pj"], f"spec pJ account: {e_spec}")
+    check(e_rec["holds"] and all(v["cycles_close"] and v["pj_close"]
+                                 for v in e_rec["spec"].values()),
+          f"energy ledger: {e_rec['checks']}, spec {e_rec['spec']}")
+    check("energy" in gw.stats(), "the spec gateway's stats lack the energy block")
     rounds = [e.data for e in sink.events if e.etype == "lm-spec"]
     print(f"[spec] {card} | Gateway(fair) + SpecLMAdapter (draft planes {draft_planes}, k "
           f"{splan.spec_k}, verify planes {list(plan.planes)}): {len(reqs)} requests, "
@@ -876,6 +1141,11 @@ def spec_decoding(torch, np, dev, card, cfg, params):
           f"prefill/verify calls, {launches} scaled launches ({per_call} per call; by (planes, "
           f"signed) {dict(sorted(by_planes.items()))}); {serve_s:.2f} s host wall; submitting, "
           f"params_fingerprint of the served weights included: {submit_s:.2f} s")
+    print(f"[spec] energy (the paper's FPGA model): draft {e_spec['draft_pj']} pJ over "
+          f"{e_spec['draft_cycles']} cycles at {draft_planes} planes, verify {e_spec['verify_pj']} "
+          f"pJ over {e_spec['verify_cycles']} cycles; useful {e_spec['useful_pj']} + wasted "
+          f"{e_spec['wasted_pj']} = draft + verify; slot-level cycles = round-level; "
+          f"{e_spec['accepted']} of {e_spec['drafted']} drafts accepted")
     print(f"[spec] recorded draft and verify calls: {per_call} scaled linears each bit-exact "
           f"against the plain version; exec cycles {recon['total_exec']} = worked "
           f"{recon['total_worked']}; events draft {etypes['draft']} verify {etypes['verify']} "
@@ -985,7 +1255,7 @@ def spec_decoding(torch, np, dev, card, cfg, params):
         spec_kernel_identical=same, spec_kernel_parts=parts, spec_accept_rate=accept,
         spec_kernel_identity_by_draft_planes=identity,
         spec_greedy_wall_s=g_s, spec_wall_s=s_s, spec_draft_call=times["draft"],
-        spec_verify_call=times["verify"], phase9_s=phase_s,
+        spec_verify_call=times["verify"], spec_energy=e_spec, phase9_s=phase_s,
     )
 
 
@@ -1540,6 +1810,12 @@ def main() -> int:
     mk.launches = 0
     scaled_summary.update(spec_decoding(torch, np, dev, card, lm_cfg, lm_params))
     check(mk.launches == 0, f"phase 9 launched the unscaled kernel {mk.launches} times")
+
+    # -------------------------------------------- 10. the serving fabric
+    scaled_fab, unscaled_fab = fabric_replay(torch, np, dev, card, cfg, params, plan, lm_cfg,
+                                             lm_params)
+    scaled_summary.update(scaled_fab)
+    summary.update(unscaled_fab)
     print(f"[done] every phase passed in {time.perf_counter() - t_start:.1f} s, the build included")
     print(json.dumps({"kernels": [summary, scaled_summary]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

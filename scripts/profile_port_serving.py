@@ -5,6 +5,7 @@
     python3 scripts/profile_port_serving.py --plan   # segmentation, tuned plan
     python3 scripts/profile_port_serving.py --lm     # LM decode (Yi-6B)
     python3 scripts/profile_port_serving.py --gateway  # the gateway replay
+    python3 scripts/profile_port_serving.py --fabric   # the 2-shard fabric replay
 
 Default: serves the four phantom images of ``chip_smoke.py`` through the
 full-width ``SegEngine`` (calibrated U-Net, ``from_weights(0.05)``
@@ -20,7 +21,11 @@ on Yi-6B at full width (random int8 weights from seed 0,
 phase 8 does (minitron_4b at full width, batch 20; the U-Net under the
 plan; the trace's clock scaled, ``repro_torch.bench.gateway``); its warm-up
 replays the trace's first LM and first seg request only, and it records
-device activity only (a replay issues millions of host ops).  Each other
+device activity only (a replay issues millions of host ops).  ``--fabric``:
+the same, for ``chip_smoke.py`` phase 10: ``traces/diurnal_smoke.json``
+(clock and deadlines scaled) through a 2-shard ``Fabric`` of those gateways
+(``deficit`` routing, stealing on, one set of weights shared), with a
+``RecordingSink``, ``SloMonitor`` and ``EnergyMeter`` teed.  Each other
 mode runs its serving pass once to warm up.  Then the pass runs once under
 ``torch.profiler``, and the script prints: host wall time, device busy time
 (the union of kernel and copy intervals on the card) and idle share, device
@@ -141,6 +146,45 @@ def _gateway_run():
         lambda: serve(warm_trace)
 
 
+def _fabric_run():
+    """The fabric replay of ``chip_smoke.py`` phase 10: a callable, its
+    description and a short warm-up."""
+    from repro_torch import autotune
+    from repro_torch.bench import capacity as capb
+    from repro_torch.bench import gateway as gwb
+    from repro_torch.core import energy_model as em
+    from repro_torch.models import unet
+    from repro_torch.obs import EnergyMeter, RecordingSink, SloMonitor, TeeSink
+    from repro_torch.segserve.synth import phantom_image
+    from repro_torch.workload import Trace, replay_trace
+
+    cfg = unet.UNetConfig(quant_mode="mma_int8")
+    params = unet.init_params(0, cfg)
+    calib = [phantom_image(160, 128, cfg.in_ch, seed=s) for s in (0, 1)]
+    plan = autotune.tune_unet(params, cfg, calib, target_rel_err=0.05)
+    lm_cfg, lm_params, _ = gwb.minitron()
+    k = gwb.clock_scale(lm_cfg)
+    trace = gwb.scaled_trace(Trace.load(Path(__file__).resolve().parents[1] / "traces"
+                                        / "diurnal_smoke.json"), k)
+    first = [next(r for r in trace.requests if r.kind == kind) for kind in ("lm", "seg")]
+    warm_trace = dataclasses.replace(trace, requests=tuple(first))
+    specs = [dataclasses.replace(s, latency_target_ms=s.latency_target_ms * k)
+             if s.latency_target_ms is not None else s for s in capb.slo_specs()]
+    rates = {"lm": em.active_rate_pj(max(lm_cfg.quant.plane_schedule)),
+             "seg": em.active_rate_pj(max(plan.planes))}
+
+    def serve(t=trace):
+        sink = TeeSink([RecordingSink(), SloMonitor(specs, windows=[w * k for w in capb.WINDOWS]),
+                        EnergyMeter(rates)])
+        fab, mats = gwb.fabric(lm_cfg, lm_params, cfg, params, plan, t, sink=sink)
+        return replay_trace(fab, t, mats, max_rounds=10_000)
+
+    return serve, (f"Fabric replay of {trace.name} ({len(trace)} requests; "
+                   f"{gwb.FABRIC_SHARDS} shards, {gwb.FABRIC_ROUTER} routing; minitron_4b batch "
+                   f"{gwb.LM_BATCH}, U-Net under {plan.describe()})"), \
+        lambda: serve(warm_trace)
+
+
 def main() -> int:
     import torch
     from torch.autograd import DeviceType
@@ -154,13 +198,13 @@ def main() -> int:
 
     card = card_line()
     args = sys.argv[1:]
-    mode = next((m for m in ("lm", "plan", "gateway") if f"--{m}" in args), "unet")
+    mode = next((m for m in ("lm", "plan", "gateway", "fabric") if f"--{m}" in args), "unet")
     serve, what, *warm = {"lm": _lm_run, "plan": _plan_run, "unet": _unet_run,
-                          "gateway": _gateway_run}[mode]()
+                          "gateway": _gateway_run, "fabric": _fabric_run}[mode]()
     (warm[0] if warm else serve)()  # warm-up: build, allocator, cuBLAS handles
     torch.cuda.synchronize()
 
-    activities = [ProfilerActivity.CUDA] if mode == "gateway" else \
+    activities = [ProfilerActivity.CUDA] if mode in ("gateway", "fabric") else \
         [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     mk.launches = mk.scaled_launches = 0
     with profile(activities=activities) as prof:

@@ -20,10 +20,11 @@ many modeled cycles, so :func:`scaled_trace` multiplies every
 ``arrival_cycle`` and the round budget by that integer ``k``
 (:func:`clock_scale`): the traffic keeps its shape relative to the LM's
 step price, and no step outgrows a round.  The cycles are the paper's FPGA
-model (relation (2)), not a card number.
+model (relation (2)), not a card number.  Deadlines scale with the stamps.
 
-Used by ``chip_smoke.py`` (phase 8) and ``scripts/profile_port_serving.py
---gateway``.
+Used by ``chip_smoke.py`` (phase 8; phase 10 serves ``traces/diurnal_smoke.json``
+through :func:`fabric`, a fleet of these gateways) and
+``scripts/profile_port_serving.py --gateway`` / ``--fabric``.
 """
 from __future__ import annotations
 
@@ -57,17 +58,24 @@ def clock_scale(cfg) -> int:
 
 
 def scaled_trace(trace, k: int):
-    """``trace`` with every arrival stamp and its round budget times ``k``
-    (payloads, seeds and order unchanged, so the same requests arrive)."""
+    """``trace`` with every arrival stamp, every set deadline and its round
+    budget times ``k`` (payloads, seeds and order unchanged, so the same
+    requests arrive, each with its deadline at the same place relative to
+    the LM's step price)."""
     from repro_torch.workload import Trace
 
     if k < 1:
         raise ValueError(f"clock scale {k} < 1")
     meta = dict(trace.meta, round_budget=int(trace.meta["round_budget"]) * k)
+
+    def scale(r):
+        dc = None if r.deadline_cycles is None else r.deadline_cycles * k
+        return dataclasses.replace(r, arrival_cycle=r.arrival_cycle * k,
+                                   deadline_cycles=dc)
+
     return Trace(
         name=f"{trace.name}_clock_x{k}", seed=trace.seed,
-        requests=tuple(dataclasses.replace(r, arrival_cycle=r.arrival_cycle * k)
-                       for r in trace.requests),
+        requests=tuple(scale(r) for r in trace.requests),
         description=trace.description, meta=meta, version=trace.version,
     )
 
@@ -106,3 +114,22 @@ def build(lm_cfg, lm_params, seg_cfg, seg_params, plan, trace, *, device=None, s
     )
     mats = {"lm": lm_materializer(lm_cfg.vocab), "seg": seg_materializer(seg_cfg.in_ch)}
     return gw, mats
+
+
+FABRIC_SHARDS, FABRIC_ROUTER, FABRIC_SEED = 2, "deficit", 0  # the card's fabric, stealing on
+
+
+def fabric(lm_cfg, lm_params, seg_cfg, seg_params, plan, trace, *, device=None, sink=None):
+    """A :class:`~repro_torch.serve.fabric.Fabric` of ``FABRIC_SHARDS``
+    gateways, each :func:`build`'s headline gateway over the same LM and
+    U-Net parameters (the tensors are shared, never copied), behind the
+    ``FABRIC_ROUTER`` router with work stealing, and the materializers for
+    ``trace`` (the scaled one): ``(fabric, materializers)``.  ``sink`` is
+    armed fleet-wide, shard-tagged."""
+    from repro_torch.serve import Fabric
+
+    shards, mats = [], None
+    for _ in range(FABRIC_SHARDS):
+        gw, mats = build(lm_cfg, lm_params, seg_cfg, seg_params, plan, trace, device=device)
+        shards.append(gw)
+    return Fabric(shards, router=FABRIC_ROUTER, seed=FABRIC_SEED, steal=True, sink=sink), mats

@@ -57,10 +57,10 @@ class Span:
     deadline: int | None = None
     exec_cycles: int = 0
     n_exec: int = 0
-    #: attributed energy in integer picojoules, populated by the
-    #: reference's ``obs.energy.attach_joules`` from an armed
-    #: ``EnergyMeter`` (not ported yet; None: no meter rode the run —
-    #: latency-only span)
+    #: attributed energy in integer picojoules, populated by
+    #: :func:`repro_torch.obs.energy.attach_joules` from an armed
+    #: :class:`~repro_torch.obs.energy.EnergyMeter` (None: no meter rode the
+    #: run — latency-only span)
     pj: int | None = None
 
     @property
@@ -74,8 +74,8 @@ class Span:
     @property
     def missed_deadline(self) -> bool:
         """Completed past the absolute deadline its submit/import event
-        carried (the offline truth the reference's ``obs.attrib`` and its
-        online ``SloMonitor`` are reconciled on)."""
+        carried (the offline truth :mod:`repro_torch.obs.attrib` and the
+        online :class:`~repro_torch.obs.slo.SloMonitor` are reconciled on)."""
         return (
             self.done
             and self.deadline is not None

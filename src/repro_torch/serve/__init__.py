@@ -11,12 +11,28 @@ round clock and the shared queue/slot primitives stay importable directly
 for single-workload use.  Precision-speculative decoding
 (:class:`~repro_torch.serve.specdecode.SpecEngine`, served behind the
 gateway by :class:`~repro_torch.serve.specdecode.SpecLMAdapter`) drafts
-tokens at a truncated plane budget and verifies them at the full one.  The
-reference's fabric and modeled adapters are not ported yet.
+tokens at a truncated plane budget and verifies them at the full one.
+
+:class:`~repro_torch.serve.fabric.Fabric` scales the gateway out: N shards
+on independent :class:`~repro_torch.serve.clock.RoundClock` instances behind
+a deterministic router, with work stealing and a
+:class:`~repro_torch.serve.clock.FleetLedger` whose aggregates are exact to
+the integer.  :mod:`repro_torch.serve.modeled` provides pricing-only
+adapters, so fabric-scale benchmarks never build an engine.
 """
-from . import clock, engine, gateway, queue, serve_step, specdecode  # noqa: F401
+from . import (  # noqa: F401
+    clock,
+    engine,
+    fabric,
+    gateway,
+    modeled,
+    queue,
+    serve_step,
+    specdecode,
+)
 from .clock import FleetLedger, RoundClock  # noqa: F401
 from .engine import Engine, Request  # noqa: F401
+from .fabric import Fabric  # noqa: F401
 from .gateway import (  # noqa: F401
     Gateway,
     GatewayRequest,
@@ -24,5 +40,6 @@ from .gateway import (  # noqa: F401
     SegAdapter,
     StalePlanError,
 )
+from .modeled import ModeledLMAdapter, ModeledSegAdapter, modeled_materializer  # noqa: F401
 from .queue import FifoQueue, SlotTable  # noqa: F401
 from .specdecode import SpecEngine, SpecLMAdapter  # noqa: F401

@@ -4,8 +4,8 @@ reference's ``serve/clock.py``; no tensor is touched here).
 Every scheduler advances the same currency — relation-(2) modeled cycles
 (``core.cycle_model``) — in discrete rounds.  Three consumers share this
 bookkeeping: the single :class:`~repro_torch.serve.gateway.Gateway` (one
-modeled chip), each shard of a serving fabric (N chips on independent
-clocks; the reference's ``serve.fabric``, not ported yet), and the fleet
+modeled chip), each shard of a :class:`~repro_torch.serve.fabric.Fabric`
+(N chips on independent clocks), and the fleet
 ledger that must aggregate them *exactly*.  The accounting is written once,
 so a fabric of N gateways cannot drift from N copies of the single
 gateway's arithmetic.

@@ -887,7 +887,7 @@ class Gateway:
 
     def export_queued(self, n: int) -> list[GatewayRequest]:
         """Give up to ``n`` *queued* requests from the queue tail — the
-        work-stealing donor side (the reference's ``serve.fabric``).
+        work-stealing donor side (:class:`~repro_torch.serve.fabric.Fabric`).
 
         Only never-admitted requests move: admitted work owns engine slot
         state (KV cache rows, stitching canvases) that cannot migrate.
@@ -1524,7 +1524,25 @@ class Gateway:
                 if getattr(a, "fallback_reason", None)
             },
         )
-        # the reference adds "slo" and "energy" blocks here when an
-        # SloMonitor or EnergyMeter is armed; neither is ported yet, so no
-        # sink of the port can arm one
+        # an armed SloMonitor (directly, teed, or shard-wrapped) surfaces
+        # its burn rates + miss attribution for this gateway's scope
+        from repro_torch.obs.slo import find_monitor
+
+        mon, shard = find_monitor(self._obs)
+        if mon is not None:
+            out["slo"] = mon.summary(scope=shard)
+        # an armed EnergyMeter surfaces the joule ledger for the same
+        # scope; metered GOPS/W divides this gateway's ops by *metered*
+        # energy (active + idle), refining the analytic constant above
+        from repro_torch.core import energy_model as em
+        from repro_torch.obs.energy import find_meter
+
+        meter, eshard = find_meter(self._obs)
+        if meter is not None:
+            eb = meter.summary(scope=eshard)
+            eb["metered_gops_w"] = em.metered_gops_per_w(
+                total_ops, eb["total_pj"]
+            )
+            eb["analytic_gops_w"] = out["gops_w"]
+            out["energy"] = eb
         return out

@@ -13,10 +13,13 @@ Payloads are materialized from each request's compact spec and the trace
 seed (deterministic per request index), so replaying the same trace twice
 — or on different machines — submits bit-identical prompts and images.
 
-The reference's harness also drives its sharded ``serve.fabric.Fabric``
-(not ported yet): anything with the gateway surface (``clock``/
-``round_budget``/``step_round``/``pending``/``stats``/``adapters``/
-``shares``) replays here.
+The same harness drives a :class:`~repro_torch.serve.fabric.Fabric`: the
+fabric exposes the gateway surface (``clock``/``round_budget``/``step_round``/
+``pending``/``stats``), its ``step_round`` routes each injected arrival
+to a shard, and the shard then sees the identical open-loop contract a
+single gateway does — arrivals at exact mid-round offsets, never waiting
+on completions.  Scheduling currency is the lock-step fleet clock, so
+one trace replays against one chip or N without edits.
 
 ``replay`` returns a summary in the shared bench-tracker schema: one row
 per QoS class (modeled p50/p99 latency) plus the aggregate GOPS/W row,
@@ -85,16 +88,18 @@ def replay(
 ) -> dict:
     """Drive ``gateway`` through ``trace`` open-loop; returns the summary.
 
-    ``gateway`` is a :class:`~repro_torch.serve.gateway.Gateway` (or
-    anything with its surface).  ``materializers`` maps adapter kind to a
-    materializer (see :func:`lm_materializer` / :func:`seg_materializer`).
-    Every QoS class the trace carries must be declared in the gateway's
-    ``shares``.
+    ``gateway`` is a single :class:`~repro_torch.serve.gateway.Gateway` or a
+    :class:`~repro_torch.serve.fabric.Fabric` (routing happens inside the
+    fabric's ``step_round``, at arrival injection).  ``materializers``
+    maps adapter kind to a materializer (see :func:`lm_materializer` /
+    :func:`seg_materializer`; modeled adapters use
+    :func:`repro_torch.serve.modeled.modeled_materializer`).  Every QoS class
+    the trace carries must be declared in the gateway's ``shares``.
 
-    ``capture`` is a sink armed *in addition to* any sink the gateway
-    already carries (teed); the combined sink is left armed.  (The
-    reference passes its ``obs.capture.CaptureSink`` here, which records
-    the replayed arrivals back into trace schema v1; not ported yet.)
+    ``capture`` (a :class:`repro_torch.obs.capture.CaptureSink`) records the
+    replayed arrivals back into trace schema v1 as they happen — the
+    capture→replay round-trip.  It is armed *in addition to* any sink the
+    gateway already carries (teed), and the combined sink is left armed.
     """
     if capture is not None:
         from repro_torch.obs.events import NULL_SINK, TeeSink
@@ -148,7 +153,8 @@ def replay_stream(gateway, feed, *, label: str = "stream",
     tuples, e.g. :func:`repro_torch.workload.diurnal.stream_requests` over
     generator arrivals: only one round's window of arrivals is ever held
     in memory, so a million-request day streams through in O(in-flight)
-    space.  Payloads must already be engine-native.
+    space.  Payloads must already be engine-native (modeled adapters
+    take spec dicts directly — the capacity planner's path).
 
     Returns the :func:`summarize` schema with a ``stream`` block
     (``label`` + fed count) in place of ``trace``.
@@ -223,6 +229,10 @@ def _summary(gateway, row_prefix: str) -> dict:
         forced=st["forced"],
         rows=rows,
     )
+    if "slo" in st:
+        out["slo"] = st["slo"]
+    if "energy" in st:
+        out["energy"] = st["energy"]
     return out
 
 

@@ -272,7 +272,12 @@ def test_port_imports_neither_jax_nor_the_reference():
         "for n in names: importlib.import_module(n)\n"
         "bad = [m for m in sys.modules if m == 'repro' or m.startswith('repro.')]\n"
         "assert not bad, bad\n"
-        "assert len(names) >= 50, names\n"
+        "assert len(names) >= 60, names\n"
+        "need = ['obs.attrib', 'obs.slo', 'obs.energy', 'obs.capture', 'obs.report',\n"
+        "        'serve.modeled', 'serve.fabric', 'bench.fabric', 'bench.capacity',\n"
+        "        'bench.energy']\n"
+        "missing = [n for n in need if 'repro_torch.' + n not in names]\n"
+        "assert not missing, missing\n"
         "print(len(names))\n"
     )
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))

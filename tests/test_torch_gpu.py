@@ -684,3 +684,102 @@ def test_gpu_spec_adapter_serves_through_the_gateway(cuda):
     assert {"draft", "verify", "accept"} <= {e.etype for e in sink.events}
     rec = reconcile(sink.events, [gw.round_clock])
     assert rec["holds"] and rec["total_exec"] == gw.round_clock.worked_total > 0
+
+
+# ------------------------------------------------ the fabric and telemetry
+
+
+def _fabric_run(dev, lm, seg):
+    """A 2-shard fabric of small mixed gateways (``deficit`` routing,
+    stealing on) with a recording sink, an ``SloMonitor`` and an
+    ``EnergyMeter`` teed: twelve LM requests in two QoS classes with
+    deadlines, arriving over three rounds, and two seg images."""
+    from repro_torch.core import energy_model as em
+    from repro_torch.obs import EnergyMeter, SloMonitor, SloSpec, TeeSink
+    from repro_torch.serve import Fabric
+
+    (cfg, params), (ucfg, uparams, plan) = lm, seg
+    rec = RecordingSink()
+    mon = SloMonitor([SloSpec("fast", latency_target_ms=1.0, miss_budget=0.1),
+                      SloSpec("lm", miss_budget=0.2)], windows=(600_000, 3_000_000))
+    meter = EnergyMeter({"lm": em.active_rate_pj(8), "seg": em.active_rate_pj(max(plan.planes))})
+    shards = [Gateway([LMAdapter(cfg, params, batch=20, max_seq=24, device=dev),
+                       SegAdapter(ucfg, uparams, plan=plan, batch=2, device=dev)],
+                      policy="fair", round_budget=300_000,
+                      shares={"lm": 0.3, "fast": 0.3, "seg": 0.3}) for _ in range(2)]
+    fab = Fabric(shards, router="deficit", seed=0, steal=True, sink=TeeSink([rec, mon, meter]))
+    rng = np.random.default_rng(0)
+    arrivals = [[(r * 300_000 + 1_000 * i, "lm", rng.integers(0, cfg.vocab, 3 + i % 4),
+                  dict(max_new=4, qos="fast" if i % 2 else None, deadline_cycles=200_000))
+                 for i in range(4)] for r in range(3)]
+    arrivals[0] += [(5_000 + s, "seg", phantom_image(40, 48, ucfg.in_ch, seed=s), {})
+                    for s in (0, 1)]
+    before = (mk.launches, mk.scaled_launches)
+    for due in arrivals:
+        fab.step_round(arrivals=due)
+    fab.drain(max_rounds=1_000)
+    torch.cuda.synchronize()
+    return fab, rec, mon, meter, (mk.launches - before[0], mk.scaled_launches - before[1])
+
+
+@pytest.mark.gpu
+def test_gpu_fabric_of_real_shards_equals_the_cpu(cuda):
+    """Two real shards on the card behind a ``Fabric``: every request done,
+    15 scaled launches per LM decode call and 5 unscaled per seg
+    micro-batch, the event stream byte for byte a ``device='cpu'`` run's,
+    fleet and shard ``stats()`` (with ``slo`` and ``energy`` blocks) equal,
+    and the fleet ledger, spans, SLO misses and picojoules reconcile."""
+    from repro_torch.obs import assemble, attach_joules, reconcile
+
+    cfg = get_smoke_config("minitron_4b").replace(quant=QuantConfig(mode="mma_int8",
+                                                                    impl="kernel"))
+    params = transformer.init_params(0, cfg, device="cpu", int8_min_dim=64)
+    ucfg, uparams, images = _tuning_net()
+    plan = autotune.tune_unet(uparams, ucfg, images, target_rel_err=0.2, tile=32, device="cpu")
+    runs = [_fabric_run(dev, (cfg, params), (ucfg, uparams, plan)) for dev in (cuda, "cpu")]
+    (fab, rec, mon, meter, launched), (fab_c, rec_c, _, _, launched_c) = runs
+    assert all(g.done for g in fab.requests) and len(fab.requests) == 14
+    assert all(len(g.handle.out) == 4 for g in fab.requests if g.kind == "lm")
+    calls = sum(e.data["tokens"] for e in rec.events if e.etype == "lm-prefill") + \
+        sum(1 for e in rec.events if e.etype == "lm-step")
+    batches = sum(1 for e in rec.events if e.etype == "seg-batch")
+    assert launched == (5 * batches, 15 * calls) and launched_c == (0, 0)
+    assert rec.canonical_bytes() == rec_c.canonical_bytes()
+    assert fab.stats() == fab_c.stats()
+    assert [g.stats() for g in fab.shards] == [g.stats() for g in fab_c.shards]
+    assert all({"slo", "energy"} <= set(g.stats()) for g in fab.shards)
+    assert fab.additivity()["holds"]
+    assert reconcile(rec.events, [g.round_clock for g in fab.shards], ledger=fab.ledger)["holds"]
+    spans = attach_joules(assemble(rec.events), meter)
+    assert mon.reconcile(spans)["holds"] and meter.reconcile(spans)["holds"]
+
+
+@pytest.mark.gpu
+def test_gpu_spec_adapter_energy_account_closes(cuda):
+    """``SpecLMAdapter`` behind ``Gateway`` on the card with an
+    ``EnergyMeter`` pricing drafts at the 2-plane rate: useful + wasted pJ
+    equal draft + verify pJ, the slot-level cycles equal the round-level
+    ones, and the whole ledger holds to the picojoule (the paper's FPGA
+    energy model: the account depends on what was accepted, not on the
+    card's time)."""
+    from repro_torch.core import energy_model as em
+    from repro_torch.obs import EnergyMeter, TeeSink, assemble, attach_joules
+    from repro_torch.serve import SpecLMAdapter
+
+    cfg, params = _spec_lm(int8=True, impl="kernel")
+    sink = RecordingSink()
+    meter = EnergyMeter({"lm": em.active_rate_pj(8)}, draft_rates={"lm": em.active_rate_pj(2)})
+    ad = SpecLMAdapter(cfg, params, batch=3, max_seq=32, draft_schedule=(2, 2), k=2,
+                       device=cuda)
+    gw = Gateway([ad], policy="fair", round_budget=2 * 3 * ad._spec_slot_cycles(2),
+                 sink=TeeSink([sink, meter]))
+    reqs = [gw.submit("lm", p, max_new=8) for p in _spec_prompts()]
+    gw.drain(max_rounds=1_000)
+    torch.cuda.synchronize()
+    assert all(r.done for r in reqs)
+    s = meter.spec_summary()
+    assert s["rounds"] > 0 and s["draft_pj"] > 0
+    assert s["useful_pj"] + s["wasted_pj"] == s["draft_pj"] + s["verify_pj"]
+    out = meter.reconcile(attach_joules(assemble(sink.events), meter))
+    assert out["holds"] and all(v["cycles_close"] and v["pj_close"] for v in out["spec"].values())
+    assert gw.stats()["energy"]["spec"] == s
