@@ -12,7 +12,8 @@ Phases, in one process; any failure ends the run with a non-zero exit:
    out, on the tensor cores at every M) against
    their plain PyTorch versions on the card, bit for bit (``torch.equal``),
    on the reference's kernel sweep, every (planes, signed) variant, and the
-   main paths' shapes (the U-Net's conv layers, Yi-6B's decode linears);
+   main paths' shapes (the U-Net's conv layers, Yi-6B's and OLMoE-1B-7B's
+   decode linears);
    for the unscaled kernel also its three staging paths (16-byte, 4-byte
    and byte copies, by K and N), operands whose base pointer is 1 or 4
    bytes off alignment, and ragged M on both block heights with every
@@ -125,6 +126,28 @@ Phases, in one process; any failure ends the run with a non-zero exit:
    image served alone.  Prints the replay's host wall, decode calls and
    micro-batches per shard, routes and steals, per-class modeled
    latencies and misses, and metered and analytic GOPS/W (the FPGA model).
+11. MoE serving (main path 6): OLMoE-1B-7B at full width and depth (16
+   layers, 64 experts top-8; random weights from seed 0 drawn layer by layer
+   on the card, the attention linears and the head quantized to int8, the
+   router and the experts bf16) under the ``lm_schedule_from_params(0.05)``
+   schedule of its ``wq`` weights serves four requests through
+   ``Engine.run`` (batch 4, ``impl='kernel'``), after phase 8's weights are
+   released.  Checks: every request completes in the vocabulary; 65 scaled
+   launches per decode call (16 x 4 attention linears + the head) and no
+   unscaled one; every scaled linear of one recorded decode call bit-exact
+   against the plain version; that call's logits within ``LM_LOGIT_REL`` of
+   the Horner route.  The MoE block on the card against the CPU, for the
+   recorded call's last block (T = 4) and for layer 0 on T = 64 tokens
+   from a numpy seed (cap 10 of 512 assignments: at least one drop): given
+   the card's router logits, expert ids, positions, kept mask, token order,
+   ``cap`` and the dispatch buffer equal the CPU's exactly, and the output is
+   within ``MOE_REL`` of the CPU's experts and combine on that routing (the
+   served block's output also equals ``moe_ffn`` on its input bit for bit).
+   Times: the decode call's 16 MoE blocks as one CUDA graph against their
+   bytes bound (every expert read: about 12.9 GB), the recorded call's 65
+   linears, and the scaled kernel at OLMoE's decode shapes (M = 4; (2048,
+   2048) and (2048, 50304), w cold) against ``torch._int_mm`` + scale and
+   the bound.
 
 The line before the last is a JSON object naming every kernel with its
 launches on its main path and its times; the last line is
@@ -196,6 +219,13 @@ EPILOGUE_RTOL = 5e-7
 # the largest logit.  0.6 still fails a path that has lost its signal (two
 # unrelated logit vectors differ by more than 1).
 LM_LOGIT_REL = 0.6
+# The MoE block on the card against the CPU, relative to the block's largest
+# output.  The CPU dispatches on the card's router logits, so the routing is
+# the same (gated exactly); what differs is the bf16 expert products'
+# summation order on the two devices and one bf16 rounding of each product.
+MOE_REL = 1e-2
+MOE_T = 64  # phase 11's wide MoE check: T = 64 tokens, cap 10 of 512 assignments
+BF16_OPS_PER_S = 989e12  # the H100 SXM's dense bf16 tensor-core peak
 
 
 def check(cond: bool, msg: str) -> None:
@@ -599,7 +629,7 @@ def gateway_replay(torch, np, dev, card, ucfg, uparams, plan):
           f"per-class counts {counts}")
 
     # 2. launches on this path
-    per_call = 7 * cfg.n_layers + 1
+    per_call = scaled_linears(cfg)
     check(calls > 0 and launches == per_call * calls,
           f"{launches} scaled-kernel launches for {calls} decode calls, expected {per_call} each")
     check(seg_batches > 0 and unscaled == 7 * seg_batches,
@@ -870,7 +900,7 @@ def fabric_replay(torch, np, dev, card, ucfg, uparams, plan, cfg, params):
           "the captured trace's requests differ from the replayed trace's")
 
     # 4. launches on this path
-    per_call = 7 * cfg.n_layers + 1
+    per_call = scaled_linears(cfg)
     check(min(calls) > 0 and launches == per_call * sum(calls),
           f"{launches} scaled-kernel launches for {calls} decode calls, expected {per_call} each")
     check(min(seg_batches) > 0 and unscaled == 7 * sum(seg_batches),
@@ -965,8 +995,8 @@ def spec_decoding(torch, np, dev, card, cfg, params):
     from repro_torch.serve import Engine, Gateway, Request, SpecEngine, SpecLMAdapter
 
     t_phase = time.perf_counter()
-    per_call = 7 * cfg.n_layers + 1
-    n_lin = 7 * cfg.n_layers
+    per_call = scaled_linears(cfg)
+    n_lin = block_linears(cfg) * cfg.n_layers
     rng = np.random.default_rng(0)
 
     # ---- 1. tune_lm (the Horner route, as the reference builds it)
@@ -1108,12 +1138,13 @@ def spec_decoding(torch, np, dev, card, cfg, params):
           f"expected {per_call} each")
     want = Counter({(draft_planes, True): n_lin * n_draft, (8, True): n_draft + n_decode})
     for p in plan.planes:
-        want[(p, True)] += 7 * n_decode
+        want[(p, True)] += block_linears(cfg) * n_decode
     check(by_planes == want, f"launches by planes {dict(by_planes)}, expected {dict(want)}")
     for name, calls, planes in (("draft", rec["draft"], (draft_planes,) * cfg.n_layers),
                                 ("verify", rec["verify"], tuple(plan.planes))):
         check(len(calls) == per_call, f"{len(calls)} scaled calls recorded in the {name} call")
-        check([p for *_, p, _ in calls] == [p for p in planes for _ in range(7)] + [8],
+        check([p for *_, p, _ in calls] == [p for p in planes for _ in range(block_linears(cfg))]
+              + [8],
               f"the {name} call's linears ran at planes {[p for *_, p, _ in calls]}")
         for x, w, xs, ws, p, out in calls:
             x2 = x.reshape(-1, w.shape[0])
@@ -1259,42 +1290,71 @@ def spec_decoding(torch, np, dev, card, cfg, params):
     )
 
 
+def block_linears(cfg) -> int:
+    """Scaled-kernel linears per block: the four attention projections and,
+    in the dense family, the three MLP ones.  MoE experts and the router
+    stay bf16: ``quantize_params_int8`` rewrites only ``{"w"}`` linears
+    whose last two dims are both >= 256."""
+    return 4 if cfg.moe.n_experts else 7
+
+
+def scaled_linears(cfg) -> int:
+    """Scaled-kernel launches per LM decode call: every block's and the head."""
+    return block_linears(cfg) * cfg.n_layers + 1
+
+
 def lm_decode_shapes(cfg):
-    """(name, K, N) of every distinct linear of one LM decode call."""
+    """(name, K, N) of every distinct scaled linear of one LM decode call,
+    linears of one shape named together."""
     d, q, kv = cfg.d_model, cfg.n_heads * cfg.hd, cfg.n_kv_heads * cfg.hd
-    return [("wq/wo", d, q), ("wk/wv", d, kv), ("w_gate/w_up", d, cfg.d_ff),
-            ("w_down", cfg.d_ff, d), ("head", d, cfg.vocab)]
+    lin = [("wq", d, q), ("wo", q, d), ("wk", d, kv), ("wv", d, kv)]
+    if not cfg.moe.n_experts:
+        lin += [("w_gate", d, cfg.d_ff), ("w_up", d, cfg.d_ff), ("w_down", cfg.d_ff, d)]
+    names: dict[tuple[int, int], list[str]] = {}
+    for name, k, n in lin + [("head", d, cfg.vocab)]:
+        names.setdefault((k, n), []).append(name)
+    return [("/".join(v), k, n) for (k, n), v in names.items()]
 
 
-def lm_serving(torch, np, dev, cfg):
-    """Main path 2: Yi-6B at full width served through ``Engine.run``.
+def lm_serving(torch, np, dev, cfg, *, tag="lm", label="Yi-6B", expect=225):
+    """An LM at full width served through ``Engine.run``: main path 2
+    (Yi-6B) and, for the moe family, main path 6 (OLMoE-1B-7B).
 
-    Returns what the times need: the recorded decode call's scaled-kernel
-    calls and the path's launch counts."""
+    Returns what the times and phase 11 need: the recorded decode call's
+    scaled-kernel calls (and, for MoE, each layer's MoE block input and
+    output in that call), the params, and the path's launch counts."""
     from repro_torch.configs.base import QuantConfig
     from repro_torch.core import bitplane
-    from repro_torch.core.plane_schedule import PlaneSchedule
     from repro_torch.kernels import mma_matmul as mk
     from repro_torch.kernels import ops
+    from repro_torch.models import moe as moe_lib
     from repro_torch.models import transformer
     from repro_torch.obs.events import RecordingSink
     from repro_torch.serve import Engine, Request
+    from repro_torch.serve.engine import lm_schedule_from_params
 
     t0 = time.perf_counter()
     params = transformer.init_params(0, cfg, device=dev, int8_min_dim=256)
     torch.cuda.synchronize()
     blocks = params["blocks"]
     linears = [blocks["attn"][n] for n in ("wq", "wk", "wv", "wo")] + \
-        [blocks["mlp"][n] for n in ("w_gate", "w_up", "w_down")] + [params["head"]]
+        [blocks["mlp"][n] for n in ("w_gate", "w_up", "w_down") if "mlp" in blocks] + \
+        [params["head"]]
     check(all("w_q" in p and "w" not in p for p in linears),
-          "a Yi-6B linear stayed in float after quantize_params_int8")
+          f"a {label} linear stayed in float after quantize_params_int8")
     n_weights = sum(p["w_q"].numel() for p in linears)
-    print(f"[lm] Yi-6B params on the card in {time.perf_counter() - t0:.1f} s: "
-          f"{n_weights / 1e9:.3f} G int8 weights, "
-          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
-    up = blocks["mlp"]["w_up"]["w_q"]
-    sched = PlaneSchedule.from_weights([up[l] for l in range(cfg.n_layers)], 0.05)
-    print(f"[lm] {sched.describe()}")
+    n_experts = 0
+    if cfg.moe.n_experts:
+        m = blocks["moe"]
+        check(all(m[n].dtype == torch.bfloat16 for n in ("w_gate", "w_up", "w_down"))
+              and set(m["router"]) == {"w"}, "the MoE experts or router left bf16")
+        n_experts = sum(m[n].numel() for n in ("w_gate", "w_up", "w_down"))
+    print(f"[{tag}] {label} params on the card in {time.perf_counter() - t0:.1f} s: "
+          f"{n_weights / 1e9:.3f} G int8 weights"
+          + (f", {n_experts / 1e9:.3f} G bf16 expert weights" if n_experts else "")
+          + f", {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    sched = lm_schedule_from_params(params, cfg, 0.05)
+    print(f"[{tag}] {sched.describe()}")
     kcfg = cfg.replace(quant=QuantConfig(mode="mma_int8", impl="kernel",
                                          plane_schedule=sched.planes))
     rng = np.random.default_rng(0)
@@ -1304,15 +1364,21 @@ def lm_serving(torch, np, dev, cfg):
     engine.obs = RecordingSink()
 
     # Record the first decode step (every slot active, all prompts in the
-    # cache): its inputs, a copy of the cache before it, and every
-    # scaled-kernel call it makes.  Recording adds no launch.
+    # cache): its inputs, a copy of the cache before it, every scaled-kernel
+    # call it makes and every MoE block's input and output.  Recording adds
+    # no launch.
     record_at = sum(len(p) for p in prompts)
-    rec = {"calls": []}
-    decode, scaled = engine.decode_fn, ops.mma_matmul_scaled
+    rec = {"calls": [], "moe": []}
+    decode, scaled, moe_ffn = engine.decode_fn, ops.mma_matmul_scaled, moe_lib.moe_ffn
 
     def recording_scaled(x, w, xs, ws, **kw):
         out = scaled(x, w, xs, ws, **kw)
         rec["calls"].append((x, w, xs, ws, kw["planes"], out))
+        return out
+
+    def recording_moe(p, x, c):
+        out = moe_ffn(p, x, c)
+        rec["moe"].append((x, out))
         return out
 
     def counted_decode(p, toks, cache, idx, extras):
@@ -1321,11 +1387,11 @@ def lm_serving(torch, np, dev, cfg):
         if n != record_at:
             return decode(p, toks, cache, idx, extras)
         rec["args"] = (toks.copy(), {k: v.clone() for k, v in cache.items()}, idx.copy())
-        ops.mma_matmul_scaled = recording_scaled
+        ops.mma_matmul_scaled, moe_lib.moe_ffn = recording_scaled, recording_moe
         try:
             logits, cache = decode(p, toks, cache, idx, extras)
         finally:
-            ops.mma_matmul_scaled = scaled
+            ops.mma_matmul_scaled, moe_lib.moe_ffn = scaled, moe_ffn
         rec["logits"] = logits.clone()
         return logits, cache
 
@@ -1338,8 +1404,8 @@ def lm_serving(torch, np, dev, cfg):
     wall_s = time.perf_counter() - t0
     launches, unscaled = mk.scaled_launches, mk.launches
     calls = rec["n"]
-    per_call = 7 * cfg.n_layers + 1
-    check(per_call == 225, f"{per_call} linears per decode call, expected 225")
+    per_call = scaled_linears(cfg)
+    check(per_call == expect, f"{per_call} linears per decode call, expected {expect}")
     check(launches == per_call * calls,
           f"{launches} scaled-kernel launches for {calls} decode calls, expected {per_call} each")
     check(unscaled == 0, f"{unscaled} unscaled-kernel launches: a linear missed quantization")
@@ -1347,16 +1413,19 @@ def lm_serving(torch, np, dev, cfg):
           "not every request finished with its token budget")
     check(all(0 <= t < cfg.vocab for r in done for t in r.out), "a token outside the vocabulary")
     steps = sum(1 for e in engine.obs.events if e.etype == "lm-step")
-    print(f"[lm] Engine.run: {len(done)} requests, prompts {[len(p) for p in prompts]}, "
+    print(f"[{tag}] Engine.run: {len(done)} requests, prompts {[len(p) for p in prompts]}, "
           f"{calls} decode calls ({record_at} prefill + {calls - record_at} step; "
           f"{steps} lm-step events), {launches} scaled-kernel launches "
-          f"({launches // calls} per call), {wall_s:.2f} s host wall")
+          f"({launches // calls} per call), {wall_s:.2f} s host wall "
+          f"({wall_s / calls * 1e3:.1f} ms per decode call)")
     for r in sorted(done, key=lambda r: r.rid):
-        print(f"[lm] request {r.rid}: prompt {r.prompt.tolist()} -> tokens {r.out}")
+        print(f"[{tag}] request {r.rid}: prompt {r.prompt.tolist()} -> tokens {r.out}")
 
     # the recorded call: every scaled linear bit for bit against the plain
     # version, and within a few ulp of the Horner path's epilogue
     check(len(rec["calls"]) == per_call, f"{len(rec['calls'])} scaled calls recorded")
+    check(len(rec["moe"]) == (cfg.n_layers if cfg.moe.n_experts else 0),
+          f"{len(rec['moe'])} MoE blocks recorded")
     epi = 0.0
     for x, w, xs, ws, planes, out in rec["calls"]:
         k, n = w.shape
@@ -1377,12 +1446,12 @@ def lm_serving(torch, np, dev, cfg):
     rel = float((lkf - lhf).abs().max() / lhf.abs().max())
     agree = float((lkf.argmax(-1) == lhf.argmax(-1)).to(torch.float32).mean())
     check(rel <= LM_LOGIT_REL, f"recorded call: logits kernel vs Horner differ by {rel} (rel)")
-    print(f"[lm] recorded decode call: {per_call} scaled linears bit-exact against the plain "
+    print(f"[{tag}] recorded decode call: {per_call} scaled linears bit-exact against the plain "
           f"version, epilogue vs Horner order max rel {epi:.3g}; logits vs Horner path max rel "
           f"{rel:.4f} (limit {LM_LOGIT_REL}), top-1 agreement {agree:.2f}, "
           f"max |logit| {float(lhf.abs().max()):.3f}")
-    return dict(calls=rec["calls"], launches=launches, unscaled=unscaled, wall_s=wall_s,
-                decode_calls=calls)
+    return dict(calls=rec["calls"], moe=rec["moe"], params=params, launches=launches,
+                unscaled=unscaled, wall_s=wall_s, decode_calls=calls, logits_rel=rel)
 
 
 def scaled_library(torch, x, w, xs, ws, planes):
@@ -1445,10 +1514,10 @@ def cold_shape_times(torch, dev, g, m, k, n, planes):
     return ms_planes, lib_ms, plain_ms, copies, calls
 
 
-def lm_times(torch, dev, card, lm, decode_shapes):
+def lm_times(torch, dev, card, lm, decode_shapes, label="Yi-6B"):
     """The scaled kernel's times, from CUDA-graph replays: per decode shape
     at 8, 5 and 1 planes with w cold in L2, and per decode call, replaying
-    the recorded call's 225 kernel calls."""
+    the recorded call's kernel calls (225 for Yi-6B, 65 for OLMoE-1B-7B)."""
     from repro_torch.bench.table1 import graph_ms
     from repro_torch.kernels import mma_matmul as mk
 
@@ -1465,7 +1534,7 @@ def lm_times(torch, dev, card, lm, decode_shapes):
         per_shape.append(dict(name=name, M=m, K=k, N=n, ms=ms, ms_planes=ms_planes,
                               plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
                               bytes=nbytes, ops=nops, splits=splits, w_copies=copies))
-        print(f"[time] {card} | mma_matmul_scaled {name} M={m} K={k} N={n} ({splits} K splits; "
+        print(f"[time] {card} | mma_matmul_scaled {label} {name} M={m} K={k} N={n} ({splits} K splits; "
               f"graph of {calls} calls over {copies} copies of w, {calls * k * n / 2**20:.0f} MiB "
               f"of distinct w per replay, > the {L2_BYTES >> 20} MiB L2: cold) planes 8: kernel "
               f"{ms:.5f} ms, plain {plain_ms:.4f} ms, torch._int_mm+scale {lib_ms:.5f} ms, bound "
@@ -1481,7 +1550,7 @@ def lm_times(torch, dev, card, lm, decode_shapes):
                                        for x, w, xs, ws, p in calls], reps=1, warmup=1)
     b_ms, b_by, nbytes, nops = scaled_bound([(x.shape[0], w.shape[0], w.shape[1])
                                              for x, w, *_ in calls])
-    print(f"[time] {card} | mma_matmul_scaled one decode call ({len(calls)} linears, the "
+    print(f"[time] {card} | mma_matmul_scaled one {label} decode call ({len(calls)} linears, the "
           f"schedule's planes, one CUDA graph; {nbytes / 1e9:.3f} GB of distinct w: cold): kernel "
           f"{ms:.4f} ms, plain {plain_ms:.3f} ms, torch._int_mm+scale {lib_ms:.4f} ms, bound "
           f"{b_ms:.4f} ms ({b_by}; {nops / 1e9:.1f} G int8 ops), {nbytes / ms / 1e6:.0f} GB/s | "
@@ -1491,9 +1560,107 @@ def lm_times(torch, dev, card, lm, decode_shapes):
         replaces="src/repro/kernels/mma_matmul.py:163", launches=lm["launches"],
         max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
         library_ms=lib_ms,
-        work=f"one Yi-6B decode call at batch {LM_BATCH}: {len(calls)} linears at the "
+        work=f"one {label} decode call at batch {LM_BATCH}: {len(calls)} linears at the "
              f"schedule's planes, replayed from the served run as one CUDA graph",
         lm_wall_s=lm["wall_s"], lm_decode_calls=lm["decode_calls"], per_shape=per_shape,
+    )
+
+
+def moe_card_vs_cpu(torch, p, x, cfg, y=None):
+    """One MoE block on the card against the CPU.  The card's routing
+    (``_local_dispatch`` on the card's router logits) must equal the CPU's
+    on those logits copied over: expert ids, positions, kept mask, token
+    order, ``cap`` and the dispatch buffer.  The card's ``moe_ffn`` output
+    (and ``y``, the served block's output, bit for bit) must be within
+    ``MOE_REL`` of the CPU's experts and combine on that routing."""
+    from repro_torch.models import moe as moe_lib
+    from repro_torch.models import transformer
+
+    m, d = cfg.moe, cfg.d_model
+    t = x.numel() // d
+    cap = moe_lib.capacity(t, m)
+    xf = x.reshape(t, d)
+    out = moe_lib.moe_ffn(p, x, cfg).reshape(t, d)
+    if y is not None:
+        check(torch.equal(out, y.reshape(t, d)),
+              "the served MoE block's output differs from moe_ffn on its input")
+    logits = moe_lib.router_logits(p, xf)
+    xe_g, meta_g = moe_lib._local_dispatch(xf, logits, m.n_experts, m.top_k, cap, xf.dtype)
+    pc = transformer.params_to(p, "cpu")
+    xe_c, meta_c = moe_lib._local_dispatch(xf.cpu(), logits.cpu(), m.n_experts, m.top_k, cap,
+                                           xf.dtype)
+    for i, what in ((0, "expert ids"), (1, "positions"), (2, "token order"), (4, "kept mask")):
+        check(torch.equal(meta_g[i].cpu(), meta_c[i]), f"MoE T={t}: card {what} != CPU's")
+    check(xe_g.shape == (m.n_experts, cap, d) and torch.equal(xe_g.cpu(), xe_c),
+          f"MoE T={t}: the card's dispatch buffer != CPU's")
+    gate_diff = float((meta_g[3].cpu() - meta_c[3]).abs().max())
+    want = moe_lib._local_combine(moe_lib.expert_ffn(pc, xe_c), meta_c, t, cap, xf.dtype)
+    wf = want.to(torch.float32)
+    rel = float((out.cpu().to(torch.float32) - wf).abs().max() / wf.abs().max())
+    check(bool(torch.isfinite(out).all()) and rel <= MOE_REL,
+          f"MoE T={t}: card output vs CPU, max rel {rel} (limit {MOE_REL})")
+    # not gated: the CPU's own bf16 router product against the card's
+    own = moe_lib.router_logits(pc, xf.cpu())
+    return dict(t=t, cap=cap, assignments=t * m.top_k, dropped=int((~meta_g[4]).sum()),
+                rel=rel, gate_max_diff=gate_diff,
+                router_logits_differ=int((own != logits.cpu()).sum()))
+
+
+def moe_serving(torch, np, dev, card, cfg):
+    """Phase 11, MoE serving (main path 6): OLMoE-1B-7B at full width and
+    depth through ``Engine.run``, its MoE blocks on the card against the
+    CPU, and its times."""
+    from repro_torch.bench.table1 import graph_ms
+    from repro_torch.models import moe as moe_lib
+    from repro_torch.models import transformer
+
+    t_phase = time.perf_counter()
+    lm = lm_serving(torch, np, dev, cfg, tag="moe", label="OLMoE-1B-7B", expect=65)
+    blocks = lm["params"]["blocks"]
+    moe_p = [transformer.layer_params(blocks, l)["moe"] for l in range(cfg.n_layers)]
+
+    # the recorded call's last MoE block (T = batch: dropless by the floor of 4)
+    x_rec, y_rec = lm["moe"][-1]
+    rec = moe_card_vs_cpu(torch, moe_p[-1], x_rec, cfg, y_rec)
+    # layer 0 on T = 64 tokens from a numpy seed: cap 10 of 512 assignments
+    x64 = torch.from_numpy(np.random.default_rng(MOE_T).standard_normal(
+        (1, MOE_T, cfg.d_model)).astype(np.float32)).to(torch.bfloat16).to(dev)
+    wide = moe_card_vs_cpu(torch, moe_p[0], x64, cfg)
+    check(wide["cap"] == 10 and wide["assignments"] == 512 and wide["dropped"] >= 1,
+          f"MoE T={MOE_T}: cap {wide['cap']}, {wide['assignments']} assignments, "
+          f"{wide['dropped']} dropped (expected cap 10, 512, at least one drop)")
+    for name, r in (("recorded call, last layer", rec), (f"layer 0 at T={MOE_T}", wide)):
+        print(f"[moe] MoE block card vs CPU ({name}): T={r['t']} cap {r['cap']}, "
+              f"{r['assignments']} assignments, {r['dropped']} dropped; routing and dispatch "
+              f"buffer equal, gate weights max diff {r['gate_max_diff']:.3g}; output max rel "
+              f"{r['rel']:.3g} (limit {MOE_REL}); the CPU's own router product differs from "
+              f"the card's in {r['router_logits_differ']} of {r['t'] * cfg.moe.n_experts} logits "
+              f"(not gated)")
+
+    # device time of one decode call's MoE blocks: the recorded call's 16
+    # blocks replayed as one CUDA graph; each reads every expert's weights
+    m, d, f = cfg.moe, cfg.d_model, cfg.moe.expert_ff
+    ms = graph_ms(torch, lambda: [moe_lib.moe_ffn(p, x, cfg) for p, (x, _) in
+                                  zip(moe_p, lm["moe"])], calls=1)
+    t = LM_BATCH
+    nbytes = cfg.n_layers * (3 * m.n_experts * d * f * 2 + d * m.n_experts * 2 + 2 * t * d * 2)
+    nops = cfg.n_layers * (2 * t * d * m.n_experts + 3 * 2 * t * m.top_k * d * f)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, nops / BF16_OPS_PER_S * 1e3
+    b_ms = max(t_bytes, t_ops)
+    print(f"[time] {card} | OLMoE-1B-7B MoE blocks of one decode call ({cfg.n_layers} blocks at "
+          f"T={t}, one CUDA graph; stock PyTorch): {ms:.4f} ms, bound {b_ms:.4f} ms "
+          f"({'bytes' if t_bytes >= t_ops else 'operations'}: {nbytes / 1e9:.3f} GB at "
+          f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s), {nbytes / ms / 1e6:.0f} GB/s")
+    times = lm_times(torch, dev, card, lm, lm_decode_shapes(cfg), label="OLMoE-1B-7B")
+    phase_s = time.perf_counter() - t_phase
+    print(f"[moe] phase 11 took {phase_s:.1f} s")
+    return dict(
+        launches_moe=lm["launches"], moe_decode_calls=lm["decode_calls"],
+        moe_wall_s=lm["wall_s"], moe_logits_rel=lm["logits_rel"], moe_call_ms=times["ms"],
+        moe_call_plain_ms=times["plain_ms"], moe_call_library_ms=times["library_ms"],
+        moe_call_bound_ms=times["bound_ms"], moe_per_shape=times["per_shape"],
+        moe_blocks_ms=ms, moe_blocks_bound_ms=b_ms, moe_blocks_bytes=nbytes,
+        moe_recorded=rec, moe_wide=wide, phase11_s=phase_s,
     )
 
 
@@ -1634,7 +1801,8 @@ def main() -> int:
                 compare(33, 256, 80, planes, signed, bm=bm)
     lm_cfg = get_config("yi_6b")
     decode_shapes = lm_decode_shapes(lm_cfg)
-    for _, k, n in decode_shapes:
+    moe_cfg = get_config("olmoe_1b_7b")
+    for _, k, n in decode_shapes + lm_decode_shapes(moe_cfg):
         compare_scaled(LM_BATCH, k, n, 8)
         compare_scaled(LM_BATCH, k, n, 5)
     n_decode, n_wide = decode_cases(torch, dev)
@@ -1816,6 +1984,13 @@ def main() -> int:
                                              lm_params)
     scaled_summary.update(scaled_fab)
     summary.update(unscaled_fab)
+    del lm_params  # minitron_4b's weights: phase 11 serves OLMoE-1B-7B
+    torch.cuda.empty_cache()
+
+    # ---------------------------------------------- 11. MoE serving
+    mk.launches = 0
+    scaled_summary.update(moe_serving(torch, np, dev, card, moe_cfg))
+    check(mk.launches == 0, f"phase 11 launched the unscaled kernel {mk.launches} times")
     print(f"[done] every phase passed in {time.perf_counter() - t_start:.1f} s, the build included")
     print(json.dumps({"kernels": [summary, scaled_summary]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

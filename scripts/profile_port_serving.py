@@ -6,6 +6,7 @@
     python3 scripts/profile_port_serving.py --lm     # LM decode (Yi-6B)
     python3 scripts/profile_port_serving.py --gateway  # the gateway replay
     python3 scripts/profile_port_serving.py --fabric   # the 2-shard fabric replay
+    python3 scripts/profile_port_serving.py --moe      # MoE decode (OLMoE-1B-7B)
 
 Default: serves the four phantom images of ``chip_smoke.py`` through the
 full-width ``SegEngine`` (calibrated U-Net, ``from_weights(0.05)``
@@ -15,7 +16,7 @@ phantom calibration images, not profiled), then serves the same four
 images through ``engine_from_plan`` (per-tile activation scales).
 ``--lm``: serves ``chip_smoke.py``'s four requests through ``Engine.run``
 on Yi-6B at full width (random int8 weights from seed 0,
-``from_weights(0.05)`` schedule of the ``w_up`` weights, batch 4).
+``lm_schedule_from_params(0.05)``: the ``w_up`` weights, batch 4).
 ``--gateway``: tunes the plan as ``--plan`` does, then replays
 ``traces/gateway_burst.json`` through the gateway as ``chip_smoke.py``
 phase 8 does (minitron_4b at full width, batch 20; the U-Net under the
@@ -25,7 +26,12 @@ device activity only (a replay issues millions of host ops).  ``--fabric``:
 the same, for ``chip_smoke.py`` phase 10: ``traces/diurnal_smoke.json``
 (clock and deadlines scaled) through a 2-shard ``Fabric`` of those gateways
 (``deficit`` routing, stealing on, one set of weights shared), with a
-``RecordingSink``, ``SloMonitor`` and ``EnergyMeter`` teed.  Each other
+``RecordingSink``, ``SloMonitor`` and ``EnergyMeter`` teed.  ``--moe``:
+``chip_smoke.py`` phase 11's four requests through ``Engine.run`` on
+OLMoE-1B-7B at full width (random weights from seed 0, attention and head
+int8, experts bf16, ``lm_schedule_from_params(0.05)``, batch 4), each MoE
+block inside a ``moe_ffn`` profiler range, whose device time (the kernels
+its ops launch) is reported beside the scaled kernel's.  Each other
 mode runs its serving pass once to warm up.  Then the pass runs once under
 ``torch.profiler``, and the script prints: host wall time, device busy time
 (the union of kernel and copy intervals on the card) and idle share, device
@@ -90,21 +96,20 @@ def _plan_run():
             f"engine_from_plan run() of 4 images, {plan.describe()}")
 
 
-def _lm_run():
-    """The LM serving pass (``chip_smoke.py``'s requests): a callable and
-    its description."""
+def _lm_run(name="yi_6b", label="Yi-6B"):
+    """LM decode serving (``chip_smoke.py``'s requests, phase 5 on Yi-6B or
+    phase 11 on OLMoE-1B-7B): a callable and its description."""
     import numpy as np
 
     from repro_torch.configs import get_config
     from repro_torch.configs.base import QuantConfig
-    from repro_torch.core.plane_schedule import PlaneSchedule
     from repro_torch.models import transformer
     from repro_torch.serve import Engine, Request
+    from repro_torch.serve.engine import lm_schedule_from_params
 
-    cfg = get_config("yi_6b")
+    cfg = get_config(name)
     params = transformer.init_params(0, cfg, int8_min_dim=256)
-    up = params["blocks"]["mlp"]["w_up"]["w_q"]
-    sched = PlaneSchedule.from_weights([up[l] for l in range(cfg.n_layers)], 0.05)
+    sched = lm_schedule_from_params(params, cfg, 0.05)
     kcfg = cfg.replace(quant=QuantConfig(mode="mma_int8", impl="kernel", plane_schedule=sched.planes))
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, cfg.vocab, int(n)).astype(np.int32) for n in rng.integers(4, 9, 4)]
@@ -114,7 +119,40 @@ def _lm_run():
         return Engine(kcfg, params, batch=4, max_seq=64).run(reqs)
 
     calls = sum(len(p) for p in prompts) + 4
-    return serve, f"Engine.run() of 4 Yi-6B requests ({calls} decode calls)"
+    return serve, f"Engine.run() of 4 {label} requests ({calls} decode calls)"
+
+
+def _ranged(module, name: str) -> None:
+    """Wrap ``module.name`` in a profiler range of that name."""
+    import torch
+
+    inner = getattr(module, name)
+
+    def ranged(*a, **kw):
+        with torch.profiler.record_function(name):
+            return inner(*a, **kw)
+
+    setattr(module, name, ranged)
+
+
+def _range_kernels(events, name: str) -> dict[str, list[float]]:
+    """Device kernels launched inside every ``name`` range: (count, ms) by
+    kernel name."""
+    from torch.autograd import DeviceType
+
+    out: dict[str, list[float]] = defaultdict(lambda: [0, 0.0])
+
+    def walk(evt):
+        for k in evt.kernels:
+            out[k.name][0] += 1
+            out[k.name][1] += k.duration / 1e3
+        for ch in evt.cpu_children:
+            walk(ch)
+
+    for evt in events:
+        if evt.name == name and evt.device_type == DeviceType.CPU:
+            walk(evt)
+    return out
 
 
 def _gateway_run():
@@ -198,9 +236,15 @@ def main() -> int:
 
     card = card_line()
     args = sys.argv[1:]
-    mode = next((m for m in ("lm", "plan", "gateway", "fabric") if f"--{m}" in args), "unet")
+    mode = next((m for m in ("lm", "plan", "gateway", "fabric", "moe") if f"--{m}" in args),
+                "unet")
     serve, what, *warm = {"lm": _lm_run, "plan": _plan_run, "unet": _unet_run,
-                          "gateway": _gateway_run, "fabric": _fabric_run}[mode]()
+                          "gateway": _gateway_run, "fabric": _fabric_run,
+                          "moe": lambda: _lm_run("olmoe_1b_7b", "OLMoE-1B-7B")}[mode]()
+    if mode == "moe":
+        from repro_torch.models import moe
+
+        _ranged(moe, "moe_ffn")
     (warm[0] if warm else serve)()  # warm-up: build, allocator, cuBLAS handles
     torch.cuda.synchronize()
 
@@ -217,7 +261,8 @@ def main() -> int:
     by_name: dict[str, list[float]] = defaultdict(lambda: [0, 0.0])
     intervals = []
     for evt in prof.events():
-        if evt.device_type != DeviceType.CUDA:
+        # device kernels and copies only, not the moe_ffn ranges' device spans
+        if evt.device_type != DeviceType.CUDA or evt.name == "moe_ffn":
             continue
         s, e = evt.time_range.start, evt.time_range.end
         intervals.append((s, e))
@@ -238,10 +283,23 @@ def main() -> int:
           f"{kernel_ms['mma_tc_scaled_kernel'] / busy_ms:.3f} of device busy)")
     for name, (n, ms) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:15]:
         print(f"[profile] {ms:9.3f} ms {n:6d}x  {name[:110]}")
+    extra = {}
+    if mode == "moe":
+        in_moe = _range_kernels(prof.events(), "moe_ffn")
+        moe_ms = sum(ms for _, ms in in_moe.values())
+        print(f"[profile] {card} | MoE blocks (kernels inside moe_ffn ranges): {moe_ms:.2f} ms "
+              f"over {sum(n for n, _ in in_moe.values())} kernels, {moe_ms / busy_ms:.3f} of "
+              f"device busy")
+        for name, (n, ms) in sorted(in_moe.items(), key=lambda kv: -kv[1][1])[:10]:
+            print(f"[profile] moe {ms:9.3f} ms {n:6d}x  {name[:106]}")
+        extra = dict(moe_ms=moe_ms, moe_share=moe_ms / busy_ms,
+                     moe_top={k: v for k, v in sorted(in_moe.items(),
+                                                      key=lambda kv: -kv[1][1])[:10]})
     print(json.dumps(dict(card=card, mode=mode, wall_ms=wall_ms, busy_ms=busy_ms,
                           idle_share=1 - busy_ms / wall_ms, mma_kernel_ms=mma_ms,
-                          mma_kernel_ms_by_name=kernel_ms,
-                          mma_launches=launches, device_events=len(intervals))))
+                          mma_kernel_ms_by_name=kernel_ms, scaled_share=kernel_ms[
+                              "mma_tc_scaled_kernel"] / busy_ms,
+                          mma_launches=launches, device_events=len(intervals), **extra)))
     return 0
 
 

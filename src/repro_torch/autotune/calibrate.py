@@ -37,6 +37,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from repro_torch.checkpoint.ckpt import tree_leaves
 from repro_torch.core.bitplane import N_BITS
 from repro_torch.device import resolve_device
 from repro_torch.models import unet
@@ -51,18 +52,6 @@ from repro_torch.segserve.adaptive import (
 # the gain table: gain = ratio_l / ratio_in diverges as ratio_in -> 0, and
 # flat windows are governed by their measured bias floor instead.
 GAIN_FLOOR = 2.0**-12
-
-
-def _leaves(tree) -> list:
-    """The leaves of a parameter tree in ``jax.tree.leaves`` order: dict
-    values by sorted key, list and tuple items in order, ``None`` empty."""
-    if tree is None:
-        return []
-    if isinstance(tree, dict):
-        return [leaf for k in sorted(tree) for leaf in _leaves(tree[k])]
-    if isinstance(tree, (list, tuple)):
-        return [leaf for v in tree for leaf in _leaves(v)]
-    return [tree]
 
 
 def _hash_arrays(hashers, arrays) -> None:
@@ -92,7 +81,7 @@ def params_fingerprint(params) -> str:
     but not the calibration inputs).  Equal to the reference package's
     digest on the same weights."""
     h = hashlib.sha256()
-    _hash_arrays((h,), _leaves(params))
+    _hash_arrays((h,), tree_leaves(params))
     return h.hexdigest()
 
 
@@ -100,7 +89,7 @@ def fingerprints(params, images, **knobs) -> tuple[str, str]:
     """``(fingerprint(params, images, **knobs), params_fingerprint(params))``
     from one pass over the weights."""
     h, hp = hashlib.sha256(), hashlib.sha256()
-    _hash_arrays((h, hp), _leaves(params))
+    _hash_arrays((h, hp), tree_leaves(params))
     _hash_arrays((h,), images)
     h.update(repr(sorted((k, repr(v)) for k, v in knobs.items())).encode())
     return h.hexdigest(), hp.hexdigest()

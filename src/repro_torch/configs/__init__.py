@@ -1,5 +1,5 @@
 """Architecture configs of the port (so far: Yi-6B and Minitron-4B, the dense
-family).
+family; OLMoE-1B-7B and DBRX-132B, the moe family).
 
 ``get_config(name)`` returns the full-size config; ``get_smoke_config(name)``
 a reduced same-family config for CPU smoke tests.

@@ -1,4 +1,5 @@
-"""Model zoo of the port: the U-Net and the dense transformer LM so far.
+"""Model zoo of the port: the U-Net and the transformer LM (the dense and
+moe families) so far.
 
 ``build(cfg)`` returns the module that serves a config (init / forward /
 decode API), as the reference's ``models.build`` does; families not yet

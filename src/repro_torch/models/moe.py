@@ -1,0 +1,154 @@
+"""Mixture-of-experts FFN: top-k routing and capacity-bounded sort-based
+dispatch, as the reference computes them.
+
+Dispatch: flatten the (token, k) assignments, sort them by expert id, give
+each expert the first ``cap`` of its assignments (the rest are dropped,
+Switch/Mixtral-style), run the expert FFN as batched products over the
+stacked expert weights ``(E, cap, D)``, and add each token's weighted
+outputs back.  The expert products are plain PyTorch (the reference leaves
+them to XLA); the router and the experts stay bf16 under
+``quantize_params_int8`` (the experts are raw arrays, not ``{"w": ...}``
+linears, and the router's E columns are narrower than its ``min_dim``).
+
+Kept from the reference, as it computes them:
+
+- ties among router probabilities go to the lower expert index
+  (``lax.top_k``): a stable descending sort, first k;
+- the expert-id sort is stable and each assignment's position in its
+  expert's segment is ``searchsorted(side="left")``;
+- ``cap = min(T*k, max(int(T*k / E * capacity_factor), 4))``; ``T`` counts
+  every token of the call, an idle decode slot's pad token too, so once an
+  expert is offered more than ``cap`` tokens a token's output depends on
+  its batch mates.  The floor of 4 makes decode at batch <= 4 dropless;
+- the combine adds each token's k contributions in bf16 from zero, in
+  expert-id order (the order of the reference's scatter-add over the
+  sorted assignments).  Here it is k ordered adds, not ``index_add_``,
+  whose atomics on CUDA add in no fixed order.
+
+Expert parallelism (the reference's ``shard_map`` all-to-all) waits for the
+port's parallel layer; on one card ``moe_ffn_ep`` is ``moe_ffn``.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+from . import layers
+
+
+def init_moe(g: torch.Generator, cfg, *, device) -> dict:
+    """The router (a ``{"w"}`` linear) and the stacked expert weights, bf16,
+    each expert tensor normal / sqrt(fan_in)."""
+    m = cfg.moe
+    e, d, f = m.n_experts, cfg.d_model, m.expert_ff
+
+    def ex(shape, fan_in):
+        t = torch.randn(shape, generator=g, dtype=torch.float32, device=device)
+        return (t / math.sqrt(fan_in)).to(torch.bfloat16)
+
+    return {
+        "router": layers.init_linear(g, d, e, device=device),
+        "w_gate": ex((e, d, f), d),
+        "w_up": ex((e, d, f), d),
+        "w_down": ex((e, f, d), f),
+    }
+
+
+def capacity(t: int, m) -> int:
+    """Slots per expert for ``t`` tokens under ``m`` (a ``MoEConfig``)."""
+    return min(t * m.top_k, max(int(t * m.top_k / m.n_experts * m.capacity_factor), 4))
+
+
+def router_logits(p: dict, xf: torch.Tensor) -> torch.Tensor:
+    """(T, D) -> (T, E) float32: the router's bf16 product, then float32."""
+    return layers.linear(p["router"], xf).to(torch.float32)
+
+
+def _top_k(probs: torch.Tensor, k: int):
+    """``lax.top_k``: the k largest along the last axis, ties to the lower
+    index (``torch.topk`` promises no order among equal values)."""
+    vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def _local_dispatch(xf, logits, n_experts: int, top_k: int, cap: int, dtype):
+    """Routing on a token slab: the dispatch buffer ``(E, cap, D)`` and the
+    combine metadata ``(eid_s, pos, tok_s, gw_s, keep)``, each over the
+    T*k assignments sorted by expert id."""
+    t, d = xf.shape
+    dev = xf.device
+    probs = torch.softmax(logits, dim=-1)
+    gate, idx = _top_k(probs, top_k)
+    gate = gate / torch.clamp(gate.sum(-1, keepdim=True), min=1e-9)
+    tk = t * top_k
+    eid = idx.reshape(tk)
+    tok = torch.arange(tk, device=dev) // top_k  # repeat(arange(T), k), no host sync
+    gw = gate.reshape(tk)
+    order = torch.argsort(eid, stable=True)
+    eid_s, tok_s, gw_s = eid[order], tok[order], gw[order]
+    first = torch.searchsorted(eid_s, eid_s, right=False)
+    pos = torch.arange(tk, device=dev) - first
+    keep = pos < cap
+    # a dropped assignment writes row ``cap`` of a (cap + 1)-row buffer,
+    # which is cut off: the reference's out-of-bounds scatter with mode="drop"
+    pos_c = torch.where(keep, pos, cap)
+    buf = torch.zeros((n_experts, cap + 1, d), dtype=dtype, device=dev)
+    buf[eid_s, pos_c] = xf[tok_s].to(dtype)
+    return buf[:, :cap], (eid_s, pos, tok_s, gw_s, keep)
+
+
+def expert_ffn(p: dict, xe: torch.Tensor) -> torch.Tensor:
+    """The SwiGLU experts on the dispatch buffer: (E, C, D) -> (E, C, D)."""
+    dt = xe.dtype
+    g = torch.einsum("ecd,edf->ecf", xe, p["w_gate"].to(dt))
+    u = torch.einsum("ecd,edf->ecf", xe, p["w_up"].to(dt))
+    h = F.silu(g.to(torch.float32)).to(dt) * u
+    return torch.einsum("ecf,efd->ecd", h, p["w_down"].to(dt))
+
+
+def _local_combine(oe, meta, t: int, cap: int, dtype):
+    """Each token's output: its kept assignments' expert outputs times their
+    gate weights, added in bf16 from zero in expert-id order."""
+    eid_s, pos, tok_s, gw_s, keep = meta
+    d = oe.shape[-1]
+    k = tok_s.numel() // t
+    contrib = oe[eid_s, torch.clamp(pos, max=cap - 1)]
+    contrib = contrib * (gw_s * keep)[:, None].to(dtype)
+    # a stable sort by token keeps each token's k assignments in the
+    # expert-id order of the sorted list: (T, k, D), rank r = r-th expert
+    by_tok = contrib[torch.argsort(tok_s, stable=True)].reshape(t, k, d)
+    out = torch.zeros((t, d), dtype=dtype, device=oe.device)
+    for r in range(k):
+        out = out + by_tok[:, r]
+    return out
+
+
+def moe_ffn(p: dict, x: torch.Tensor, cfg) -> torch.Tensor:
+    """x: (B, S, D) -> (B, S, D)."""
+    m = cfg.moe
+    b, s, d = x.shape
+    t = b * s
+    xf = x.reshape(t, d)
+    cap = capacity(t, m)
+    xe, meta = _local_dispatch(xf, router_logits(p, xf), m.n_experts, m.top_k, cap, x.dtype)
+    return _local_combine(expert_ffn(p, xe), meta, t, cap, x.dtype).reshape(b, s, d)
+
+
+def moe_ffn_ep(p: dict, x: torch.Tensor, cfg) -> torch.Tensor:
+    """The reference's expert-parallel FFN.  Without a device mesh, which is
+    always the case on one card, the reference computes ``moe_ffn``; the
+    all-to-all over a mesh waits for the port's parallel layer."""
+    return moe_ffn(p, x, cfg)
+
+
+def load_balance_loss(p: dict, x: torch.Tensor, cfg) -> torch.Tensor:
+    """Auxiliary load-balancing loss (Switch-style: E * sum(f_e * P_e))."""
+    m = cfg.moe
+    xf = x.reshape(-1, x.shape[-1])
+    probs = torch.softmax(router_logits(p, xf), dim=-1)
+    top1 = torch.argmax(probs, dim=-1)  # the first maximum, as jnp.argmax
+    f = F.one_hot(top1, m.n_experts).to(torch.float32).mean(0)
+    pmean = probs.mean(0)
+    return m.n_experts * torch.sum(f * pmean)

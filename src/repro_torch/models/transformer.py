@@ -1,5 +1,5 @@
-"""Decoder-only transformer LM, the 'dense' family (so far the port's only
-LM family; 'moe' and 'vlm' raise until their slice is ported).
+"""Decoder-only transformer LM, the 'dense' and 'moe' families ('vlm'
+raises until its slice is ported).
 
 The parameter tree is the reference's: every block leaf is stacked
 ``(L, ...)`` under ``params["blocks"]``.  The reference scans over that
@@ -21,17 +21,17 @@ from repro_torch.core.plane_schedule import PlaneSchedule
 from repro_torch.device import resolve_device
 
 from . import layers
+from . import moe as moe_lib
 
 _LATER = {
-    "moe": "mixture-of-experts blocks (models/moe.py) are a later slice of the port",
     "vlm": "the vlm patch-embedding prefix is a later slice of the port (the other families)",
 }
 
 
 def _check_family(cfg) -> None:
-    if cfg.family in _LATER or cfg.moe.n_experts:
-        raise NotImplementedError(_LATER.get(cfg.family, _LATER["moe"]))
-    if cfg.family != "dense":
+    if cfg.family in _LATER:
+        raise NotImplementedError(_LATER[cfg.family])
+    if cfg.family not in ("dense", "moe"):
         raise ValueError(f"not a transformer LM family: {cfg.family!r}")
 
 
@@ -61,12 +61,16 @@ def params_to(params, device) -> dict:
 
 
 def init_block(g: torch.Generator, cfg, *, device) -> dict:
-    return {
+    p = {
         "ln1": layers.init_norm(cfg.d_model, device=device),
         "attn": layers.init_attention(g, cfg, device=device),
         "ln2": layers.init_norm(cfg.d_model, device=device),
-        "mlp": layers.init_mlp(g, cfg, device=device),
     }
+    if cfg.moe.n_experts:
+        p["moe"] = moe_lib.init_moe(g, cfg, device=device)
+    else:
+        p["mlp"] = layers.init_mlp(g, cfg, device=device)
+    return p
 
 
 def init_params(seed: int, cfg, *, device=None, int8_min_dim: int | None = None) -> dict:
@@ -77,7 +81,8 @@ def init_params(seed: int, cfg, *, device=None, int8_min_dim: int | None = None)
     ``int8_min_dim``: quantize each layer with
     ``quant.quantize_params_int8(min_dim=int8_min_dim)`` as soon as it is
     drawn, so no float copy of the whole model is ever held — the way to
-    build a full-width serving model on the card.
+    build a full-width serving model on the card.  MoE experts and the
+    router stay bf16, as ``quantize_params_int8`` leaves them.
     """
     _check_family(cfg)
     dev = resolve_device(device)
@@ -99,9 +104,10 @@ def init_params(seed: int, cfg, *, device=None, int8_min_dim: int | None = None)
 def params_from_jax(tree, *, device=None) -> dict:
     """Carry the reference's parameter tree (leaves as numpy arrays) into the
     port's: the same tree and shapes on ``device``.  Int8 leaves (``w_q``)
-    and ``w_scale`` keep their type; every other leaf is the reference's
-    bf16, handed over as float32 (exact) or as numpy bf16, and becomes
-    bf16 again here."""
+    and ``w_scale`` keep their type; every other leaf (the MoE subtree's
+    raw expert arrays and router ``{"w"}`` too) is the reference's bf16,
+    handed over as float32 (exact) or as numpy bf16, and becomes bf16 again
+    here."""
     dev = resolve_device(device)
 
     def leaf(key, a):
@@ -128,7 +134,12 @@ def _block(p, x, cfg, *, positions, cache=None, cache_index=None):
         positions=positions, cache=cache, cache_index=cache_index,
     )
     x = x + h
-    h2 = layers.mlp(p["mlp"], layers.rmsnorm(p["ln2"], x, cfg.norm_eps), cfg)
+    h2 = layers.rmsnorm(p["ln2"], x, cfg.norm_eps)
+    if cfg.moe.n_experts:
+        ffn = moe_lib.moe_ffn_ep if cfg.moe.ep else moe_lib.moe_ffn
+        h2 = ffn(p["moe"], h2, cfg)
+    else:
+        h2 = layers.mlp(p["mlp"], h2, cfg)
     return x + h2, new_cache
 
 
@@ -162,7 +173,9 @@ def forward(
     With ``cache`` (decode / prefill into the cache): returns (logits,
     cache), the cache ``{"k": (L, B, S_max, KV, hd), "v": ...}`` updated in
     place.  ``cache_index`` is a scalar or a (B,) vector of per-row write
-    positions.
+    positions.  ``return_aux`` (no cache): also the MoE load-balance loss
+    summed over layers (zero for 'dense'), each layer's taken, as the
+    reference takes it, on ``rmsnorm(ln2, h)`` of the block's input ``h``.
     """
     _check_family(cfg)
     if prefix_embeds is not None:
@@ -179,9 +192,13 @@ def forward(
     else:
         positions = base + ar[None, :]
 
+    aux = torch.zeros((), dtype=torch.float32, device=dev) if return_aux else None
     for l, lcfg in enumerate(_layer_cfgs(cfg)):
         blk = layer_params(params["blocks"], l)
         if cache is None:
+            if return_aux and cfg.moe.n_experts:
+                aux = aux + moe_lib.load_balance_loss(
+                    blk["moe"], layers.rmsnorm(blk["ln2"], x, cfg.norm_eps), lcfg)
             x, _ = _block(blk, x, lcfg, positions=positions)
         else:
             x, _ = _block(blk, x, lcfg, positions=positions,
@@ -195,7 +212,7 @@ def forward(
     if cache is not None:
         return logits, cache
     if return_aux:
-        return logits, torch.zeros((), dtype=torch.float32, device=dev)
+        return logits, aux
     return logits
 
 

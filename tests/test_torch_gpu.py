@@ -783,3 +783,78 @@ def test_gpu_spec_adapter_energy_account_closes(cuda):
     out = meter.reconcile(attach_joules(assemble(sink.events), meter))
     assert out["holds"] and all(v["cycles_close"] and v["pj_close"] for v in out["spec"].values())
     assert gw.stats()["energy"]["spec"] == s
+
+
+# The MoE block on the card against the CPU, relative to the block's largest
+# output: the routing is held exactly (the CPU dispatches on the card's
+# router logits), so what differs is the bf16 expert products' summation
+# order on the two devices, a few bf16 ulps of the output.
+MOE_REL = 1e-2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["decode", "drops"])
+def test_gpu_moe_ffn_equals_the_cpu(cuda, case):
+    """``moe_ffn`` on the card at decode (T = 4, dropless by the floor of 4)
+    and at T = 32 with capacity factor 0.5 (cap 4 for 64 assignments over
+    8 experts: drops at capacity): given the card's router logits the CPU's
+    expert ids, positions, kept mask, token order and ``cap`` equal the
+    card's exactly; the output is within ``MOE_REL`` of the CPU's
+    ``moe_ffn`` pieces on that routing."""
+    from repro_torch.models import moe
+
+    cfg = get_smoke_config("olmoe_1b_7b")
+    shape = (4, 1) if case == "decode" else (2, 16)
+    if case == "drops":
+        cfg = cfg.replace(moe=dataclasses.replace(cfg.moe, capacity_factor=0.5))
+    m, d = cfg.moe, cfg.d_model
+    p = moe.init_moe(torch.Generator().manual_seed(0), cfg, device="cpu")
+    pg = transformer.params_to(p, cuda)
+    x = torch.from_numpy(np.random.default_rng(1).standard_normal(shape + (d,))
+                         .astype(np.float32)).to(torch.bfloat16)
+    t = x.numel() // d
+    cap = moe.capacity(t, m)
+    xg = x.to(cuda)
+    y = moe.moe_ffn(pg, xg, cfg)
+    logits = moe.router_logits(pg, xg.reshape(t, d))
+    xe_g, meta_g = moe._local_dispatch(xg.reshape(t, d), logits, m.n_experts, m.top_k, cap,
+                                       torch.bfloat16)
+    xe_c, meta_c = moe._local_dispatch(x.reshape(t, d), logits.cpu(), m.n_experts, m.top_k, cap,
+                                       torch.bfloat16)
+    for i in (0, 1, 2, 4):
+        assert torch.equal(meta_g[i].cpu(), meta_c[i]), i
+    assert torch.equal(xe_g.cpu(), xe_c)
+    want = moe._local_combine(moe.expert_ffn(p, xe_c), meta_c, t, cap, torch.bfloat16)
+    got = y.cpu().reshape(t, d).to(torch.float32)
+    rel = float((got - want.to(torch.float32)).abs().max() / want.to(torch.float32).abs().max())
+    assert rel <= MOE_REL, rel
+    if case == "drops":
+        assert cap == 4 and bool((~meta_g[4]).any())  # drops at capacity
+    else:
+        assert bool(meta_g[4].all())
+
+
+@pytest.mark.gpu
+def test_gpu_checkpointer_keeps_cuda_tensors(cuda, tmp_path):
+    """``save_async`` of CUDA tensors, then ``restore`` into CUDA ``like``
+    leaves: every leaf back on the card, bit-equal, bf16 kept."""
+    from repro_torch.checkpoint import Checkpointer
+
+    g = torch.Generator().manual_seed(0)
+    state = {"params": {"w": torch.randn((64, 32), generator=g).to(torch.bfloat16),
+                        "w_q": torch.randint(-128, 128, (32, 16), dtype=torch.int8, generator=g)},
+             "opt": [torch.randn((5,), generator=g), torch.tensor(3, dtype=torch.int32)]}
+    state = transformer.params_to({"params": state["params"]}, cuda) | {
+        "opt": [a.to(cuda) for a in state["opt"]]}
+    ck = Checkpointer(tmp_path)
+    ck.save_async(3, state)
+    ck.wait()
+    like = {"params": {k: torch.zeros_like(v) for k, v in state["params"].items()},
+            "opt": [torch.zeros_like(a) for a in state["opt"]]}
+    restored, step = ck.restore(like)
+    assert step == 3
+    pairs = list(zip(restored["params"].values(), state["params"].values())) + \
+        list(zip(restored["opt"], state["opt"]))
+    for a, b in pairs:
+        assert a.device.type == "cuda" and a.dtype == b.dtype and torch.equal(a, b)
+    assert restored["params"]["w"].dtype == torch.bfloat16

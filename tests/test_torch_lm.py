@@ -121,7 +121,7 @@ def _leaves(tree, prefix=()):
 def test_config_copies_match_the_reference():
     for t, j in itertools.chain.from_iterable(
             ((get_config(n), jget_config(n)), (get_smoke_config(n), jget_smoke_config(n)))
-            for n in ("yi_6b", "minitron_4b")):
+            for n in ("yi_6b", "minitron_4b", "olmoe_1b_7b", "dbrx_132b")):
         td, jd = dataclasses.asdict(t), dataclasses.asdict(j)
         assert td.pop("quant")["impl"] == "horner" and jd.pop("quant")["impl"] == "xla"
         assert td == jd
@@ -336,9 +336,19 @@ def test_models_build_and_families():
         models.build(_tcfg().replace(family="ssm", quant=QuantConfig()))
     with pytest.raises(NotImplementedError, match="plane_schedule"):
         models.build(_tcfg().replace(family="ssm"))
-    for fam in ("moe", "vlm"):
-        with pytest.raises(NotImplementedError, match="later slice"):
-            transformer.init_params(0, _tcfg().replace(family=fam), device="cpu")
+    # 'moe' builds, draws its experts and serves a forward (the MoE slice);
+    # 'vlm' is still a later slice
+    mcfg = get_smoke_config("olmoe_1b_7b").replace(
+        quant=QuantConfig(mode="mma_int8", impl="kernel", plane_schedule=SCHEDULE))
+    assert models.build(mcfg) is transformer
+    mp = transformer.init_params(0, mcfg, device="cpu", int8_min_dim=128)
+    assert "moe" in mp["blocks"] and "mlp" not in mp["blocks"]
+    assert mp["blocks"]["moe"]["w_gate"].shape == (2, 8, 128, 128)
+    assert mp["blocks"]["moe"]["w_gate"].dtype == torch.bfloat16 and "w_q" in mp["head"]
+    logits = transformer.forward(mp, np.zeros((2, 3), np.int32), mcfg, device="cpu")
+    assert logits.shape == (2, 3, 512) and bool(torch.isfinite(logits.float()).all())
+    with pytest.raises(NotImplementedError, match="later slice"):
+        transformer.init_params(0, _tcfg().replace(family="vlm"), device="cpu")
     with pytest.raises(NotImplementedError):
         tengine.lm_schedule_from_params({}, _tcfg().replace(family="ssm"), 0.05)
 
