@@ -3,7 +3,8 @@
 
     python3 chip_smoke.py
 
-Phases, in one process; any failure ends the run with a non-zero exit:
+Phases, in one process, each printing its seconds; any failure ends the run
+with a non-zero exit:
 
 1. Device: the card's name and power limit (``nvidia-smi``), then the build
    of every kernel from the checkout's sources, with ``-Xptxas -v``.
@@ -13,7 +14,9 @@ Phases, in one process; any failure ends the run with a non-zero exit:
    their plain PyTorch versions on the card, bit for bit (``torch.equal``),
    on the reference's kernel sweep, every (planes, signed) variant, and the
    main paths' shapes (the U-Net's conv layers, Yi-6B's and OLMoE-1B-7B's
-   decode linears);
+   decode linears; RWKV6-3B's and Zamba2-7B's at M 1-8 and 5 planes, and
+   at M = 4 and 8 planes; the unscaled kernel at Zamba2's ``dt_proj``,
+   M 1-8, K 3584, N 112, at 8 and 5 planes);
    for the unscaled kernel also its three staging paths (16-byte, 4-byte
    and byte copies, by K and N), operands whose base pointer is 1 or 4
    bytes off alignment, and ragged M on both block heights with every
@@ -148,6 +151,38 @@ Phases, in one process; any failure ends the run with a non-zero exit:
    linears, and the scaled kernel at OLMoE's decode shapes (M = 4; (2048,
    2048) and (2048, 50304), w cold) against ``torch._int_mm`` + scale and
    the bound.
+12. Recurrent-state serving (main path 7): RWKV6-3B at full width and depth
+   (32 layers, d 2560, 40 heads of 64, d_ff 8960, vocab 65,536; random
+   weights from seed 0 drawn and quantized to int8 layer by layer on the
+   card), ``QuantConfig(mode="mma_int8", impl="kernel", planes=5)`` (the
+   global knob: plane schedules are refused for this family), after phase
+   11's weights are released: phase 5's four requests through
+   ``Engine.run`` (batch 4, ``max_seq`` 64).  Checks: every request
+   completes in the vocabulary; 257 scaled launches per decode call (32 x 8
+   linears + the head; ``mix_lora_a`` takes the Horner route, uncounted)
+   and no unscaled one; every kernel call of one recorded decode call
+   bit-exact against its plain version; that call's logits against the
+   same call on the Horner route from the same state, at 5 planes printed
+   (quirk 1 at 5 planes: one activation scale per tensor against one per
+   row, a gap that grows with depth past ``LM_LOGIT_REL`` on RWKV6) and at
+   8 planes within ``LM_LOGIT_REL``; 32 int8 ``mix_lora_a`` calls per
+   decode call on the Horner route (no kernel), counted; the call's last
+   block repeated on the card bit for bit, and on the CPU from the card's
+   inputs within ``RECURRENT_BLOCK_REL`` (output and new state).  Times:
+   the recorded call's 257 kernel calls as one CUDA graph (w cold) against
+   ``torch._int_mm`` + scale and the bytes bound, each distinct linear at
+   M = 4 with w cold, and the host wall per decode call.
+13. Hybrid serving (main path 8): Zamba2-7B at full width and depth (81
+   Mamba2 layers in 13 groups of 6 and a tail of 3, d 3584, ssm_state 64,
+   one weight-shared attention block on [h ; emb], 7168 wide, used 13
+   times; vocab 32,000), the same traffic and checks, with 309 scaled
+   launches per decode call (81 x z/xbc/out_proj, 13 x the shared block's
+   wq/wk/wv/wo/proj, the head) and 81 unscaled (``dt_proj``, 3584 x 112,
+   bf16, through ``mma_linear`` with per-row scales), every one of the
+   recorded call's 390 kernel calls bit-exact; the block held card vs CPU
+   is the last Mamba2 layer (output, conv window, SSM state).  Times as
+   phase 12, plus the recorded call's 81 unscaled calls as one graph
+   against ``torch._int_mm`` (x padded to 32 rows) and their bound.
 
 The line before the last is a JSON object naming every kernel with its
 launches on its main path and its times; the last line is
@@ -226,6 +261,17 @@ LM_LOGIT_REL = 0.6
 MOE_REL = 1e-2
 MOE_T = 64  # phase 11's wide MoE check: T = 64 tokens, cap 10 of 512 assignments
 BF16_OPS_PER_S = 989e12  # the H100 SXM's dense bf16 tensor-core peak
+# Phases 12-13 (the recurrent families) serve at the global plane knob:
+# plane schedules are refused for them, as in the reference.
+RECURRENT_PLANES = 5
+# One recurrent block on the card against the CPU, relative to the largest
+# output (or state) element.  The integer products are the same on both;
+# a float op between them (an RMSNorm mean, an exp, a float32 sum of the
+# recurrence) that rounds the other way on the card can move an int8 level
+# of the next linear's per-tensor grid, and at 5 planes a truncated level
+# weighs 2**3 of a full one (the bound test_torch_gpu.py's LM_LOGIT_REL
+# holds a small LM's logits to).
+RECURRENT_BLOCK_REL = 5e-2
 
 
 def check(cond: bool, msg: str) -> None:
@@ -1664,6 +1710,288 @@ def moe_serving(torch, np, dev, card, cfg):
     )
 
 
+def recurrent_launches(cfg) -> tuple[int, int, int]:
+    """(scaled, unscaled, Horner) MMA calls per decode call of a recurrent
+    family.  RWKV6: the time-mix's wr/wk/wv/wg/wo and the channel-mix's
+    wk/wv/wr per layer, and the head, on the scaled kernel; ``mix_lora_a``
+    (int8, called without the quant config) on the Horner route, one per
+    layer.  Zamba2: z/xbc/out_proj per Mamba2 layer, the shared block's
+    wq/wk/wv/wo/proj at each of its uses and the head on the scaled kernel;
+    ``dt_proj`` (d_model x heads, below 256 wide: bf16) through
+    ``mma_linear``, the unscaled kernel."""
+    if cfg.family == "ssm":
+        return 8 * cfg.n_layers + 1, 0, cfg.n_layers
+    return 3 * cfg.n_layers + 5 * (cfg.n_layers // cfg.attn_every) + 1, cfg.n_layers, 0
+
+
+def recurrent_decode_shapes(cfg):
+    """(name, K, N) of every distinct scaled linear of a recurrent family's
+    decode call, linears of one shape named together."""
+    d = cfg.d_model
+    if cfg.family == "ssm":
+        lin = [(n, d, d) for n in ("wr", "wk", "wv", "wg", "wo", "cm.wr")] + \
+            [("cm.wk", d, cfg.d_ff), ("cm.wv", cfg.d_ff, d)]
+    else:
+        d_inner = cfg.ssm_expand * d
+        lin = [("z_proj", d, d_inner), ("xbc_proj", d, d_inner + 2 * cfg.ssm_state),
+               ("out_proj", d_inner, d)] + \
+            [(f"shared.{n}", 2 * d, 2 * d) for n in ("wq", "wk", "wv", "wo")] + \
+            [("shared.proj", 2 * d, d)]
+    names: dict[tuple[int, int], list[str]] = {}
+    for name, k, n in lin + [("head", d, cfg.vocab)]:
+        names.setdefault((k, n), []).append(name)
+    return [("/".join(v), k, n) for (k, n), v in names.items()]
+
+
+def unscaled_call_times(torch, card, calls, label):
+    """The unscaled kernel over a decode call's recorded calls ``(x, w,
+    planes)``, from CUDA-graph replays: the calls cycled over enough copies
+    of their w that a replay reads more than the L2 holds (w cold), against
+    ``torch._int_mm`` on the truncated operand (x padded to 32 rows: it
+    wants M > 16) and the bound."""
+    from repro_torch.bench.table1 import graph_ms
+    from repro_torch.core import bitplane
+    from repro_torch.kernels import mma_matmul as mk
+
+    w_bytes = sum(w.numel() for _, w, _ in calls)
+    copies = max(1, -(-2 * L2_BYTES // w_bytes))
+    sets = [[(x, w.clone(), p) for x, w, p in calls] for _ in range(copies)]
+    libs = []
+    for x, w, p in calls:
+        xp = torch.zeros((32, x.shape[1]), dtype=torch.int8, device=x.device)
+        xp[:x.shape[0]] = bitplane.truncate_to_planes(x, p)
+        check(torch.equal(torch._int_mm(xp, w)[:x.shape[0]], mk.mma_matmul_kernel(x, w, planes=p)),
+              f"{label}: library yardstick disagrees with the unscaled kernel")
+        libs.append(lambda xp=xp, w=w: torch._int_mm(xp, w))
+    ms = graph_ms(torch, lambda: [mk.mma_matmul_kernel(x, w, planes=p)
+                                  for cs in sets for x, w, p in cs], calls=1) / copies
+    lib_ms = graph_ms(torch, lambda: [f() for f in libs], calls=1)
+    plain_ms = time_ms(torch, lambda: [mk.mma_matmul_plain(x, w, planes=p) for x, w, p in calls],
+                       reps=1, warmup=1)
+    nbytes = sum(x.numel() + w.numel() + 4 * x.shape[0] * w.shape[1] for x, w, _ in calls)
+    nops = sum(2 * x.shape[0] * w.shape[0] * w.shape[1] for x, w, _ in calls)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, nops / INT8_OPS_PER_S * 1e3
+    b_ms, b_by = max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+    m, k, n = calls[0][0].shape[0], calls[0][1].shape[0], calls[0][1].shape[1]
+    print(f"[time] {card} | mma_matmul one {label} decode call ({len(calls)} calls at M={m} K={k} "
+          f"N={n}, planes {calls[0][2]}; one CUDA graph over {copies} copies of w, "
+          f"{copies * w_bytes / 2**20:.0f} MiB: cold): kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, "
+          f"torch._int_mm {lib_ms:.4f} ms (32 rows), bound {b_ms:.5f} ms ({b_by}), "
+          f"{nbytes / ms / 1e6:.0f} GB/s")
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
+                bytes=nbytes, ops=nops, w_copies=copies)
+
+
+def _rel(a, b) -> float:
+    """max |a - b| over the largest |b|, in float32."""
+    a, b = a.float(), b.float()
+    return float((a - b).abs().max() / b.abs().max().clamp(min=1e-30))
+
+
+def recurrent_block_card_vs_cpu(torch, mod, rec, cfg):
+    """The recorded call's block (RWKV6's last block; Zamba2's last Mamba2
+    layer) on the CPU from the card's inputs: output and new state within
+    ``RECURRENT_BLOCK_REL`` of the card's (the card's own call repeated on
+    its inputs must give its recorded output bit for bit)."""
+    from repro_torch.models import layers, mamba2, rwkv6
+
+    p, x, state, out, new = rec
+    if mod is rwkv6:
+        def run(p_, x_, st_):
+            return rwkv6.block(p_, x_, cfg, state=st_)
+        names = ("tm_s", "tm_x", "cm_x")
+    else:
+        def run(p_, x_, st_):
+            o, ns = mamba2.mamba_forward(p_, x_, cfg, state=st_)
+            return o, (ns["conv"], ns["ssm"])
+        state = dict(state)
+        names = ("conv", "ssm")
+    again, _ = run(p, x, state)
+    check(torch.equal(again, out), "the card's block, repeated on its inputs, differs")
+    cpu = layers.params_to
+    st_c = tuple(t.cpu() for t in state) if isinstance(state, tuple) else cpu(state, "cpu")
+    out_c, new_c = run(cpu(p, "cpu"), x.cpu(), st_c)
+    rels = {"out": _rel(out.cpu(), out_c)}
+    new = new if isinstance(new, tuple) else (new["conv"], new["ssm"])
+    for name, g_, c_ in zip(names, new, new_c):
+        rels[name] = _rel(g_.cpu(), c_)
+    check(all(r <= RECURRENT_BLOCK_REL for r in rels.values()),
+          f"block card vs CPU: max rel {rels} (limit {RECURRENT_BLOCK_REL})")
+    return rels
+
+
+def recurrent_serving(torch, np, dev, card, cfg, *, tag, label, phase):
+    """Phases 12-13: a recurrent family (RWKV6-3B, Zamba2-7B) at full width
+    and depth through ``Engine.run`` on the kernel route at
+    ``RECURRENT_PLANES``, its checks and its times.  Returns the two
+    kernels' entries for this path."""
+    from repro_torch import models
+    from repro_torch.configs.base import QuantConfig
+    from repro_torch.core import mma
+    from repro_torch.kernels import mma_matmul as mk
+    from repro_torch.kernels import ops
+    from repro_torch.models import layers, mamba2, rwkv6
+    from repro_torch.obs.events import RecordingSink
+    from repro_torch.serve import Engine, Request
+
+    t_phase = time.perf_counter()
+    mod = models.build(cfg)
+    t0 = time.perf_counter()
+    params = mod.init_params(0, cfg, device=dev, int8_min_dim=256)
+    torch.cuda.synchronize()
+    leaves = []
+    layers.tree_map(leaves.append, params)
+    n_int8 = sum(t.numel() for t in leaves if t.dtype == torch.int8)
+    n_float = sum(t.numel() for t in leaves if t.dtype != torch.int8)
+    print(f"[{tag}] {label} params on the card in {time.perf_counter() - t0:.1f} s: "
+          f"{n_int8 / 1e9:.3f} G int8 weights, {n_float / 1e6:.1f} M float leaves, "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    kcfg = cfg.replace(quant=QuantConfig(mode="mma_int8", impl="kernel", planes=RECURRENT_PLANES))
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab, int(n)).astype(np.int32)
+               for n in rng.integers(4, 9, LM_BATCH)]
+    engine = Engine(kcfg, params, batch=LM_BATCH, max_seq=LM_MAX_SEQ, device=dev)
+    engine.obs = RecordingSink()
+
+    # Record the first decode step (every slot active, all prompts in):
+    # its inputs, a copy of the state before it, every kernel call it makes
+    # and its last block's inputs and outputs.  Recording adds no launch.
+    record_at = sum(len(p) for p in prompts)
+    rec = {"scaled": [], "unscaled": [], "n": 0}
+    decode, scaled, unscaled = engine.decode_fn, ops.mma_matmul_scaled, ops.mma_matmul
+    block_fn = (rwkv6, "block") if mod is rwkv6 else (mamba2, "mamba_forward")
+    inner_block = getattr(*block_fn)
+
+    def recording_scaled(x, w, xs, ws, **kw):
+        out = scaled(x, w, xs, ws, **kw)
+        rec["scaled"].append((x, w, xs, ws, kw["planes"], out))
+        return out
+
+    def recording_unscaled(x, w, **kw):
+        out = unscaled(x, w, **kw)
+        rec["unscaled"].append((x.reshape(-1, w.shape[0]), w, kw["planes"], out))
+        return out
+
+    def recording_block(p, x, c, *, state=None):
+        out, new = inner_block(p, x, c, state=state)
+        rec["block"] = (p, x, state, out, new)
+        return out, new
+
+    def counted_decode(p, toks, cache, idx, extras):
+        n = rec["n"]
+        rec["n"] = n + 1
+        if n != record_at:
+            return decode(p, toks, cache, idx, extras)
+        rec["args"] = (toks.copy(), layers.tree_map(torch.clone, cache), idx)
+        ops.mma_matmul_scaled, ops.mma_matmul = recording_scaled, recording_unscaled
+        setattr(*block_fn, recording_block)
+        try:
+            logits, cache = decode(p, toks, cache, idx, extras)
+        finally:
+            ops.mma_matmul_scaled, ops.mma_matmul = scaled, unscaled
+            setattr(*block_fn, inner_block)
+        rec["logits"] = logits.clone()
+        return logits, cache
+
+    # the int8 linears on the Horner route (no kernel), counted
+    dot, horner = mma.mma_dot, []
+
+    def counted_dot(*a, **kw):
+        if kw.get("impl") == "horner":
+            horner.append(1)
+        return dot(*a, **kw)
+
+    engine.decode_fn = counted_decode
+    mma.mma_dot = counted_dot
+    mk.launches = 0
+    mk.scaled_launches = 0
+    t0 = time.perf_counter()
+    try:
+        done = engine.run([Request(i, p, max_new=LM_MAX_NEW) for i, p in enumerate(prompts)])
+        torch.cuda.synchronize()
+    finally:
+        mma.mma_dot = dot
+    wall_s = time.perf_counter() - t0
+    launches, launches_u = mk.scaled_launches, mk.launches
+    calls = rec["n"]
+    per_s, per_u, per_h = recurrent_launches(cfg)
+    check(launches == per_s * calls and launches_u == per_u * calls and len(horner) == per_h * calls,
+          f"{launches} scaled and {launches_u} unscaled launches and {len(horner)} Horner-route "
+          f"linears for {calls} decode calls, expected {per_s}, {per_u} and {per_h} each")
+    check(len(done) == LM_BATCH and all(r.done and len(r.out) == LM_MAX_NEW for r in done),
+          "not every request finished with its token budget")
+    check(all(0 <= t < cfg.vocab for r in done for t in r.out), "a token outside the vocabulary")
+    print(f"[{tag}] Engine.run: {len(done)} requests, prompts {[len(p) for p in prompts]}, "
+          f"{calls} decode calls ({record_at} prefill + {calls - record_at} step), {launches} "
+          f"scaled and {launches_u} unscaled launches ({per_s} and {per_u} per call), "
+          f"{len(horner)} int8 linears on the Horner route ({per_h} per call), "
+          f"{wall_s:.2f} s host wall ({wall_s / calls * 1e3:.1f} ms per decode call)")
+    for r in sorted(done, key=lambda r: r.rid):
+        print(f"[{tag}] request {r.rid}: prompt {r.prompt.tolist()} -> tokens {r.out}")
+
+    # the recorded call: every kernel call bit for bit against the plain
+    # version; its logits against the same call on the Horner route
+    check(len(rec["scaled"]) == per_s and len(rec["unscaled"]) == per_u,
+          f"{len(rec['scaled'])} scaled and {len(rec['unscaled'])} unscaled calls recorded")
+    for x, w, xs, ws, planes, out in rec["scaled"]:
+        k, n = w.shape
+        want = mk.mma_matmul_scaled_plain(x.reshape(-1, k), w, xs, ws, planes=planes)
+        check(torch.equal(out.reshape(-1, n), want),
+              f"recorded call: scaled linear K={k} N={n} != plain")
+    for x, w, planes, out in rec["unscaled"]:
+        check(torch.equal(out.reshape(x.shape[0], -1), mk.mma_matmul_plain(x, w, planes=planes)),
+              f"recorded call: unscaled linear K={w.shape[0]} N={w.shape[1]} != plain")
+    # The recorded call's logits, kernel route vs Horner route from the same
+    # state: at the served planes measured, not gated; at 8 planes gated
+    # (quirk 1: the kernel route's one activation scale per tensor and the
+    # Horner route's per-row scales are different int8 grids, and at 5
+    # planes every level the truncation drops is 2**3 of a full one; on
+    # RWKV6's squared-ReLU activations that gap grows with depth past
+    # LM_LOGIT_REL)
+    toks, state, idx = rec["args"]
+    lk = rec["logits"]
+    check(lk.shape == (LM_BATCH, 1, cfg.vocab) and bool(torch.isfinite(lk).all()),
+          f"recorded call: logits {tuple(lk.shape)} not finite or of the wrong shape")
+    gaps = {}
+    for planes in (RECURRENT_PLANES, 8):
+        q = dataclasses.replace(kcfg.quant, planes=planes)
+        if planes != RECURRENT_PLANES:
+            lk, _ = mod.decode_step(params, toks, layers.tree_map(torch.clone, state), idx,
+                                    kcfg.replace(quant=q), device=dev)
+        lh, _ = mod.decode_step(params, toks, layers.tree_map(torch.clone, state), idx,
+                                kcfg.replace(quant=dataclasses.replace(q, impl="horner")),
+                                device=dev)
+        gaps[planes] = (_rel(lk, lh), float((lk.argmax(-1) == lh.argmax(-1)).float().mean()))
+    rel = gaps[8][0]
+    check(rel <= LM_LOGIT_REL, f"recorded call at 8 planes: logits kernel vs Horner differ by "
+          f"{rel} (rel)")
+    blk = recurrent_block_card_vs_cpu(torch, mod, rec["block"], kcfg)
+    print(f"[{tag}] recorded decode call: {per_s} scaled and {per_u} unscaled kernel calls "
+          f"bit-exact against the plain version; logits vs Horner route from its state, max rel "
+          f"(top-1 agreement): at {RECURRENT_PLANES} planes {gaps[RECURRENT_PLANES][0]:.4f} "
+          f"({gaps[RECURRENT_PLANES][1]:.2f}, not gated), at 8 planes {rel:.4f} ({gaps[8][1]:.2f}; "
+          f"limit {LM_LOGIT_REL}); last block card vs CPU max rel "
+          + ", ".join(f"{k} {v:.3g}" for k, v in blk.items()) + f" (limit {RECURRENT_BLOCK_REL})")
+
+    lm = dict(calls=rec["scaled"], launches=launches, wall_s=wall_s, decode_calls=calls)
+    times = lm_times(torch, dev, card, lm, recurrent_decode_shapes(cfg), label=label)
+    out = {"scaled": {f"{tag}_{k}": times[k] for k in ("ms", "plain_ms", "library_ms",
+                                                       "bound_ms", "per_shape")},
+           "unscaled": {f"launches_{tag}": launches_u}}
+    out["scaled"].update({f"launches_{tag}": launches, f"{tag}_wall_s": wall_s,
+                          f"{tag}_decode_calls": calls,
+                          f"{tag}_host_ms_per_call": wall_s / calls * 1e3,
+                          f"{tag}_logits_rel": {p: g[0] for p, g in gaps.items()},
+                          f"{tag}_block_rel": blk})
+    if per_u:
+        ut = unscaled_call_times(torch, card, [(x, w, p) for x, w, p, _ in rec["unscaled"]], label)
+        out["unscaled"].update({f"{tag}_{k}": v for k, v in ut.items()})
+    phase_s = time.perf_counter() - t_phase
+    print(f"[{tag}] phase {phase} took {phase_s:.1f} s")
+    out["scaled"][f"phase{phase}_s"] = phase_s
+    return out
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -1691,6 +2019,12 @@ def main() -> int:
     dev = torch.device("cuda")
     kind = torch.cuda.get_device_name(0)
     card = card_line()
+    laps = [time.perf_counter()]
+
+    def lap(phase) -> None:
+        """Print the seconds since the last phase ended."""
+        laps.append(time.perf_counter())
+        print(f"[phase] {phase} took {laps[-1] - laps[-2]:.1f} s")
 
     # ---------------------------------------------------- 1. device, build
     print(card)
@@ -1727,6 +2061,8 @@ def main() -> int:
             check(all(len(c) == 16 for c in by_nf.values()), f"instantiations by NF: {by_nf}")
             print("[sass] mma_tc_scaled_kernel IMMA by NF (16 instantiations each): " + ", ".join(
                 f"NF {nf} {c[0]}..{c[-1]}" for nf, c in by_nf.items()))
+
+    lap(1)
 
     # ------------------------------------------ 2. kernels vs plain versions
     cfg = unet.UNetConfig(quant_mode="mma_int8")  # calibrated width, kernel datapath
@@ -1805,12 +2141,36 @@ def main() -> int:
     for _, k, n in decode_shapes + lm_decode_shapes(moe_cfg):
         compare_scaled(LM_BATCH, k, n, 8)
         compare_scaled(LM_BATCH, k, n, 5)
+    # this slice's shapes: the scaled kernel at RWKV6-3B's and Zamba2-7B's
+    # linears, M 1-8 at the served planes and M = 4 at 8; the unscaled one at
+    # Zamba2's dt_proj.  w drawn once per shape on the card.
+    rwkv_cfg, zamba_cfg = get_config("rwkv6_3b"), get_config("zamba2_7b")
+    gd = torch.Generator(device=dev).manual_seed(3)
+    for rcfg in (rwkv_cfg, zamba_cfg):
+        for _, k, n in recurrent_decode_shapes(rcfg):
+            w = torch.randint(-128, 128, (k, n), dtype=torch.int8, device=dev, generator=gd)
+            ws = torch.rand(n, device=dev, generator=gd) * 0.01 + 1e-4
+            for m, planes in [(m, RECURRENT_PLANES) for m in range(1, 9)] + [(LM_BATCH, 8)]:
+                x = torch.randint(-128, 128, (m, k), dtype=torch.int8, device=dev, generator=gd)
+                xs = torch.rand(1, device=dev, generator=gd) * 0.1 + 1e-3
+                got = mk.mma_matmul_scaled_kernel(x, w, xs, ws, planes=planes)
+                want = mk.mma_matmul_scaled_plain(x, w, xs, ws, planes=planes)
+                scaled_err = max(scaled_err, float((got - want).abs().max()))
+                n_scaled += 1
+                check(torch.equal(got, want),
+                      f"scaled kernel != plain at M={m} K={k} N={n} planes={planes}")
+    dt_k, dt_n = zamba_cfg.d_model, zamba_cfg.ssm_expand * zamba_cfg.d_model // zamba_cfg.ssm_head_dim
+    for m in range(1, 9):
+        for planes in (8, RECURRENT_PLANES):
+            compare(m, dt_k, dt_n, planes)
     n_decode, n_wide = decode_cases(torch, dev)
     print(f"[kernel] mma_matmul: {n_cases} cases bit-exact against the plain version, "
           f"max_abs_err {max_err}")
     print(f"[kernel] mma_matmul_scaled: {n_scaled} cases plus {n_decode} decode cases (M <= 16) "
           f"and {n_wide} above 16 rows bit-exact against the plain version, max_abs_err "
           f"{scaled_err}")
+
+    lap(2)
 
     # ------------------------------------------------------- 3. forward
     params = unet.init_params(0, cfg)
@@ -1857,6 +2217,8 @@ def main() -> int:
     check(diff <= CPU_LOGIT_ATOL, f"card vs CPU logits differ by {diff}")
     print(f"[forward] 16x16 input, card vs CPU: 7 convs int32-equal, logits max diff {diff}")
 
+    lap(3)
+
     # ------------------------------- 4. segmentation serving (main path 1)
     scfg = dataclasses.replace(cfg, plane_schedule=sched.planes)
     images = [phantom_image(160, 128, cfg.in_ch, seed=0), phantom_image(160, 128, cfg.in_ch, seed=1),
@@ -1902,8 +2264,12 @@ def main() -> int:
               f"{r.metered_gops_per_w:.2f} GOPS/W | host wall to done {done_ms[i]:.1f} ms "
               f"(serve_stream) | logits vs plain max diff {diff}")
 
+    lap(4)
+
     # ---------------------------------------- 5. LM serving (main path 2)
     lm = lm_serving(torch, np, dev, lm_cfg)
+
+    lap(5)
 
     # ---------------------------------------------------------- 6. times
     per_shape = []
@@ -1964,9 +2330,13 @@ def main() -> int:
     del lm  # the recorded calls hold Yi-6B's weights
     torch.cuda.empty_cache()
 
+    lap(6)
+
     # ------------------------------------------------ 7. certified tuning
     tuning, plan = certified_tuning(torch, np, card, cfg, params, images)
     summary.update(tuning)
+
+    lap(7)
 
     # ------------------------------------------------- 8. the gateway
     scaled_gw, unscaled_gw, (lm_cfg, lm_params) = gateway_replay(torch, np, dev, card, cfg,
@@ -1974,10 +2344,14 @@ def main() -> int:
     scaled_summary.update(scaled_gw)
     summary.update(unscaled_gw)
 
+    lap(8)
+
     # --------------------------------------- 9. speculative decoding
     mk.launches = 0
     scaled_summary.update(spec_decoding(torch, np, dev, card, lm_cfg, lm_params))
     check(mk.launches == 0, f"phase 9 launched the unscaled kernel {mk.launches} times")
+
+    lap(9)
 
     # -------------------------------------------- 10. the serving fabric
     scaled_fab, unscaled_fab = fabric_replay(torch, np, dev, card, cfg, params, plan, lm_cfg,
@@ -1987,10 +2361,24 @@ def main() -> int:
     del lm_params  # minitron_4b's weights: phase 11 serves OLMoE-1B-7B
     torch.cuda.empty_cache()
 
+    lap(10)
+
     # ---------------------------------------------- 11. MoE serving
     mk.launches = 0
     scaled_summary.update(moe_serving(torch, np, dev, card, moe_cfg))
     check(mk.launches == 0, f"phase 11 launched the unscaled kernel {mk.launches} times")
+    torch.cuda.empty_cache()
+
+    lap(11)
+
+    # ---------------------------------- 12-13. recurrent-state serving
+    for phase, rcfg, tag, label in ((12, rwkv_cfg, "rwkv6", "RWKV6-3B"),
+                                    (13, zamba_cfg, "zamba2", "Zamba2-7B")):
+        got = recurrent_serving(torch, np, dev, card, rcfg, tag=tag, label=label, phase=phase)
+        scaled_summary.update(got["scaled"])
+        summary.update(got["unscaled"])
+        torch.cuda.empty_cache()
+        lap(phase)
     print(f"[done] every phase passed in {time.perf_counter() - t_start:.1f} s, the build included")
     print(json.dumps({"kernels": [summary, scaled_summary]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -7,6 +7,8 @@
     python3 scripts/profile_port_serving.py --gateway  # the gateway replay
     python3 scripts/profile_port_serving.py --fabric   # the 2-shard fabric replay
     python3 scripts/profile_port_serving.py --moe      # MoE decode (OLMoE-1B-7B)
+    python3 scripts/profile_port_serving.py --rwkv6    # recurrent decode (RWKV6-3B)
+    python3 scripts/profile_port_serving.py --zamba2   # hybrid decode (Zamba2-7B)
 
 Default: serves the four phantom images of ``chip_smoke.py`` through the
 full-width ``SegEngine`` (calibrated U-Net, ``from_weights(0.05)``
@@ -31,7 +33,13 @@ the same, for ``chip_smoke.py`` phase 10: ``traces/diurnal_smoke.json``
 OLMoE-1B-7B at full width (random weights from seed 0, attention and head
 int8, experts bf16, ``lm_schedule_from_params(0.05)``, batch 4), each MoE
 block inside a ``moe_ffn`` profiler range, whose device time (the kernels
-its ops launch) is reported beside the scaled kernel's.  Each other
+its ops launch) is reported beside the scaled kernel's.  ``--rwkv6`` and
+``--zamba2``: ``chip_smoke.py`` phases 12 and 13, the same four requests
+through ``Engine.run`` on RWKV6-3B and Zamba2-7B at full width (random int8
+weights from seed 0, 5 planes, batch 4), the recurrence's stock ops inside
+profiler ranges (``wkv``: the WKV loop; ``ssd_step``: the SSD state
+update; ``_short_conv``: the short conv), whose device time is reported
+beside the kernels'.  Each other
 mode runs its serving pass once to warm up.  Then the pass runs once under
 ``torch.profiler``, and the script prints: host wall time, device busy time
 (the union of kernel and copy intervals on the card) and idle share, device
@@ -41,6 +49,7 @@ JSON summary.  Needs a CUDA card.
 from __future__ import annotations
 
 import dataclasses
+import importlib
 import json
 import sys
 import time
@@ -120,6 +129,35 @@ def _lm_run(name="yi_6b", label="Yi-6B"):
 
     calls = sum(len(p) for p in prompts) + 4
     return serve, f"Engine.run() of 4 {label} requests ({calls} decode calls)"
+
+
+def _recurrent_run(name, label):
+    """Recurrent decode serving (``chip_smoke.py`` phases 12-13): a callable
+    and its description."""
+    import numpy as np
+
+    from repro_torch import models
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import QuantConfig
+    from repro_torch.serve import Engine, Request
+
+    cfg = get_config(name)
+    params = models.build(cfg).init_params(0, cfg, int8_min_dim=256)
+    kcfg = cfg.replace(quant=QuantConfig(mode="mma_int8", impl="kernel", planes=5))
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab, int(n)).astype(np.int32) for n in rng.integers(4, 9, 4)]
+
+    def serve():
+        reqs = [Request(i, p, max_new=4) for i, p in enumerate(prompts)]
+        return Engine(kcfg, params, batch=4, max_seq=64).run(reqs)
+
+    calls = sum(len(p) for p in prompts) + 4
+    return serve, f"Engine.run() of 4 {label} requests ({calls} decode calls)"
+
+
+#: The profiler ranges of each mode: (module, function) pairs.
+RANGES = {"moe": [("moe", "moe_ffn")], "rwkv6": [("rwkv6", "wkv")],
+          "zamba2": [("mamba2", "ssd_step"), ("mamba2", "_short_conv")]}
 
 
 def _ranged(module, name: str) -> None:
@@ -236,15 +274,16 @@ def main() -> int:
 
     card = card_line()
     args = sys.argv[1:]
-    mode = next((m for m in ("lm", "plan", "gateway", "fabric", "moe") if f"--{m}" in args),
-                "unet")
+    mode = next((m for m in ("lm", "plan", "gateway", "fabric", "moe", "rwkv6", "zamba2")
+                 if f"--{m}" in args), "unet")
     serve, what, *warm = {"lm": _lm_run, "plan": _plan_run, "unet": _unet_run,
                           "gateway": _gateway_run, "fabric": _fabric_run,
-                          "moe": lambda: _lm_run("olmoe_1b_7b", "OLMoE-1B-7B")}[mode]()
-    if mode == "moe":
-        from repro_torch.models import moe
-
-        _ranged(moe, "moe_ffn")
+                          "moe": lambda: _lm_run("olmoe_1b_7b", "OLMoE-1B-7B"),
+                          "rwkv6": lambda: _recurrent_run("rwkv6_3b", "RWKV6-3B"),
+                          "zamba2": lambda: _recurrent_run("zamba2_7b", "Zamba2-7B")}[mode]()
+    ranges = [r for _, r in RANGES.get(mode, [])]
+    for mod_name, fn in RANGES.get(mode, []):
+        _ranged(importlib.import_module(f"repro_torch.models.{mod_name}"), fn)
     (warm[0] if warm else serve)()  # warm-up: build, allocator, cuBLAS handles
     torch.cuda.synchronize()
 
@@ -261,8 +300,8 @@ def main() -> int:
     by_name: dict[str, list[float]] = defaultdict(lambda: [0, 0.0])
     intervals = []
     for evt in prof.events():
-        # device kernels and copies only, not the moe_ffn ranges' device spans
-        if evt.device_type != DeviceType.CUDA or evt.name == "moe_ffn":
+        # device kernels and copies only, not the ranges' device spans
+        if evt.device_type != DeviceType.CUDA or evt.name in ranges:
             continue
         s, e = evt.time_range.start, evt.time_range.end
         intervals.append((s, e))
@@ -284,17 +323,15 @@ def main() -> int:
     for name, (n, ms) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:15]:
         print(f"[profile] {ms:9.3f} ms {n:6d}x  {name[:110]}")
     extra = {}
-    if mode == "moe":
-        in_moe = _range_kernels(prof.events(), "moe_ffn")
-        moe_ms = sum(ms for _, ms in in_moe.values())
-        print(f"[profile] {card} | MoE blocks (kernels inside moe_ffn ranges): {moe_ms:.2f} ms "
-              f"over {sum(n for n, _ in in_moe.values())} kernels, {moe_ms / busy_ms:.3f} of "
-              f"device busy")
-        for name, (n, ms) in sorted(in_moe.items(), key=lambda kv: -kv[1][1])[:10]:
-            print(f"[profile] moe {ms:9.3f} ms {n:6d}x  {name[:106]}")
-        extra = dict(moe_ms=moe_ms, moe_share=moe_ms / busy_ms,
-                     moe_top={k: v for k, v in sorted(in_moe.items(),
-                                                      key=lambda kv: -kv[1][1])[:10]})
+    for rng_name in ranges:
+        inside = _range_kernels(prof.events(), rng_name)
+        r_ms = sum(ms for _, ms in inside.values())
+        print(f"[profile] {card} | kernels inside {rng_name} ranges: {r_ms:.2f} ms over "
+              f"{sum(n for n, _ in inside.values())} kernels, {r_ms / busy_ms:.3f} of device busy")
+        top = sorted(inside.items(), key=lambda kv: -kv[1][1])[:10]
+        for name, (n, ms) in top:
+            print(f"[profile] {rng_name} {ms:9.3f} ms {n:6d}x  {name[:100]}")
+        extra[rng_name] = dict(ms=r_ms, share=r_ms / busy_ms, top=dict(top))
     print(json.dumps(dict(card=card, mode=mode, wall_ms=wall_ms, busy_ms=busy_ms,
                           idle_share=1 - busy_ms / wall_ms, mma_kernel_ms=mma_ms,
                           mma_kernel_ms_by_name=kernel_ms, scaled_share=kernel_ms[

@@ -1,5 +1,6 @@
 """Architecture configs of the port (so far: Yi-6B and Minitron-4B, the dense
-family; OLMoE-1B-7B and DBRX-132B, the moe family).
+family; OLMoE-1B-7B and DBRX-132B, the moe family; RWKV6-3B, the ssm family;
+Zamba2-7B, the hybrid family).
 
 ``get_config(name)`` returns the full-size config; ``get_smoke_config(name)``
 a reduced same-family config for CPU smoke tests.

@@ -1,5 +1,5 @@
-"""Model zoo of the port: the U-Net and the transformer LM (the dense and
-moe families) so far.
+"""Model zoo of the port: the U-Net, the transformer LM (the dense and moe
+families), RWKV6 (ssm) and Zamba2 (hybrid) so far.
 
 ``build(cfg)`` returns the module that serves a config (init / forward /
 decode API), as the reference's ``models.build`` does; families not yet
@@ -14,7 +14,7 @@ PLANE_SCHEDULE_FAMILIES = ("dense", "moe", "vlm")
 
 def build(cfg):
     """Return the model module for a config (forward/init/decode API)."""
-    from . import transformer, unet
+    from . import rwkv6, transformer, unet, zamba2
 
     quant = getattr(cfg, "quant", None)
     if (quant is not None and getattr(quant, "plane_schedule", None) is not None
@@ -25,10 +25,11 @@ def build(cfg):
             f"global quant.planes knob there (U-Net has its own "
             f"UNetConfig.plane_schedule)"
         )
-    mods = {"dense": transformer, "moe": transformer, "vlm": transformer, "unet": unet}
+    mods = {"dense": transformer, "moe": transformer, "vlm": transformer, "hybrid": zamba2,
+            "ssm": rwkv6, "unet": unet}
     if cfg.family not in mods:
         raise NotImplementedError(
-            f"family {cfg.family!r} (zamba2, rwkv6, whisper) is a later slice of "
-            f"the port (the other families)"
+            f"family {cfg.family!r} (whisper) is a later slice of the port (the "
+            f"other families)"
         )
     return mods[cfg.family]

@@ -13,6 +13,7 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -23,6 +24,58 @@ from repro_torch.kernels import ops
 # Static scale for the int8 KV cache (post-RMSNorm K/V magnitudes are
 # ~O(1); 0.05 gives +-6.35 of dynamic range).
 KV_CACHE_SCALE = 0.05
+
+# ------------------------------------------------------------ param trees
+
+
+def tree_map(fn, tree):
+    """``fn`` over every tensor of a tree of nested dicts."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def stack_trees(trees: list[dict]) -> dict:
+    """Trees of one structure stacked leaf by leaf along a new axis 0."""
+    if isinstance(trees[0], dict):
+        return {k: stack_trees([t[k] for t in trees]) for k in trees[0]}
+    return torch.stack(trees)
+
+
+def layer_params(blocks: dict, l: int) -> dict:
+    """Layer ``l``'s parameters: views ``leaf[l]`` of a stacked tree."""
+    return tree_map(lambda t: t[l], blocks)
+
+
+def params_to(params, device) -> dict:
+    """The same parameter tree with every tensor on ``device``."""
+    return tree_map(lambda t: t.to(device), params)
+
+
+def params_from_numpy(tree, *, device, float32_keys=None) -> dict:
+    """A tree of numpy leaves (the reference's parameters carried over) as
+    tensors on ``device``, each leaf keeping its dtype: int8 stays int8,
+    numpy bf16 becomes bf16, float32 stays float32.  With
+    ``float32_keys``, a float32 leaf stays float32 only under one of those
+    keys and becomes bf16 elsewhere (for trees whose bf16 leaves were
+    handed over as exact float32)."""
+
+    def leaf(key, a):
+        a = np.asarray(a)
+        if a.dtype.name == "bfloat16":
+            return torch.tensor(a.astype(np.float32), device=device).to(torch.bfloat16)
+        t = torch.tensor(a, device=device)
+        if t.dtype == torch.float32 and float32_keys is not None and key not in float32_keys:
+            return t.to(torch.bfloat16)
+        return t
+
+    def walk(node, key=None):
+        if isinstance(node, dict):
+            return {k: walk(v, k) for k, v in node.items()}
+        return leaf(key, node)
+
+    return walk(tree)
+
 
 # ---------------------------------------------------------------- init utils
 
@@ -323,3 +376,12 @@ def embed(p: dict, tokens: torch.Tensor) -> torch.Tensor:
 
 def unembed(p: dict, x: torch.Tensor) -> torch.Tensor:
     return torch.matmul(x, p["table"].to(x.dtype).T)
+
+
+def next_token_nll(logits: torch.Tensor, targets) -> torch.Tensor:
+    """Mean next-token cross-entropy of (B, S, vocab) logits, in float32."""
+    logits = logits.to(torch.float32)
+    targets = torch.as_tensor(targets, dtype=torch.int64).to(logits.device)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.take_along_dim(logits, targets[..., None], dim=-1)[..., 0]
+    return (logz - gold).mean()

@@ -13,7 +13,6 @@ from __future__ import annotations
 
 import dataclasses
 
-import numpy as np
 import torch
 
 from repro_torch.core import quant
@@ -37,27 +36,8 @@ def _check_family(cfg) -> None:
 
 # ------------------------------------------------------------------ params
 
-
-def _tree_map(fn, tree):
-    if isinstance(tree, dict):
-        return {k: _tree_map(fn, v) for k, v in tree.items()}
-    return fn(tree)
-
-
-def _stack(trees: list[dict]) -> dict:
-    if isinstance(trees[0], dict):
-        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
-    return torch.stack(trees)
-
-
-def layer_params(blocks: dict, l: int) -> dict:
-    """Layer ``l``'s parameters: views ``leaf[l]`` of the stacked tree."""
-    return _tree_map(lambda t: t[l], blocks)
-
-
-def params_to(params, device) -> dict:
-    """The same parameter tree with every tensor on ``device``."""
-    return _tree_map(lambda t: t.to(device), params)
+layer_params = layers.layer_params
+params_to = layers.params_to
 
 
 def init_block(g: torch.Generator, cfg, *, device) -> dict:
@@ -94,7 +74,8 @@ def init_params(seed: int, cfg, *, device=None, int8_min_dim: int | None = None)
         return quant.quantize_params_int8(tree, min_dim=int8_min_dim)
 
     p = {"embed": layers.init_embedding(g, cfg.vocab, cfg.d_model, device=dev)}
-    p["blocks"] = _stack([made(init_block(g, cfg, device=dev)) for _ in range(cfg.n_layers)])
+    p["blocks"] = layers.stack_trees([made(init_block(g, cfg, device=dev))
+                                      for _ in range(cfg.n_layers)])
     p["ln_f"] = layers.init_norm(cfg.d_model, device=dev)
     if not cfg.tie_embeddings:
         p["head"] = made(layers.init_linear(g, cfg.d_model, cfg.vocab, device=dev))
@@ -108,21 +89,8 @@ def params_from_jax(tree, *, device=None) -> dict:
     raw expert arrays and router ``{"w"}`` too) is the reference's bf16,
     handed over as float32 (exact) or as numpy bf16, and becomes bf16 again
     here."""
-    dev = resolve_device(device)
-
-    def leaf(key, a):
-        a = np.asarray(a)
-        if a.dtype == np.int8:
-            return torch.tensor(a, device=dev)
-        t = torch.tensor(np.asarray(a, np.float32), device=dev)
-        return t if key == "w_scale" else t.to(torch.bfloat16)
-
-    def walk(node, key=None):
-        if isinstance(node, dict):
-            return {k: walk(v, k) for k, v in node.items()}
-        return leaf(key, node)
-
-    return walk(tree)
+    return layers.params_from_numpy(tree, device=resolve_device(device),
+                                    float32_keys={"w_scale"})
 
 
 # ----------------------------------------------------------------- forward
@@ -226,11 +194,7 @@ def loss_fn(params, batch, cfg, *, device=None):
         raise NotImplementedError(_LATER["vlm"])
     tok = torch.as_tensor(batch["tokens"], dtype=torch.int64)
     logits, aux = forward(params, tok[:, :-1], cfg, return_aux=True, device=device)
-    targets = tok[:, 1:].to(logits.device)
-    logits = logits.to(torch.float32)
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.take_along_dim(logits, targets[..., None], dim=-1)[..., 0]
-    nll = (logz - gold).mean()
+    nll = layers.next_token_nll(logits, tok[:, 1:])
     loss = nll + 0.01 * aux
     return loss, {"nll": nll, "aux": aux}
 

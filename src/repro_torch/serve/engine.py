@@ -13,11 +13,15 @@ launch of the scaled CUDA kernel.  Precision is governed by a per-layer
 (``cfg.quant.plane_schedule``, built from the served weights via
 :func:`lm_schedule_from_params`).
 
-Two behaviours of the reference are kept as they are: the kernel path
+Three behaviours of the reference are kept as they are: the kernel path
 quantizes activations with one scale per tensor, so a slot's numerics
-depend on the other rows of its batch; and the engine's cache is bf16
+depend on the other rows of its batch; the engine's cache is bf16
 whatever ``quant.kv_int8`` says (only direct ``decode_step`` callers with
-an int8 cache take the int8-KV branch).
+an int8 cache take the int8-KV branch); and the recurrent families (RWKV6,
+Zamba2) share one scalar index across rows: a prefill call runs every
+row, so every slot's state advances on its pad token, and a slot's new
+occupant inherits its predecessor's state and length.  There a request's
+stream depends on its batch mates.
 """
 from __future__ import annotations
 
@@ -139,7 +143,7 @@ class Engine:
         self.extras = extras or {}
         self.decode_fn = shared_decode(cfg, batch, max_seq, self.device)
         # bf16, as the reference's engine builds it (quant.kv_int8 unread)
-        self.cache = self.mod.init_cache(cfg, batch, max_seq, device=self.device)
+        self.cache = ss.init_serving_cache(cfg, batch, max_seq, device=self.device)
         self.slots: SlotTable[Request] = SlotTable(batch)
         self.lengths = np.zeros(batch, np.int32)
         self._vector_index = cfg.family in VECTOR_INDEX_FAMILIES

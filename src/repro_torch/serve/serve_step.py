@@ -1,5 +1,7 @@
 """Serving steps: prefill (prompt -> logits) and decode (one token against a
-KV cache of ``max_seq``) for the transformer LM families the port serves.
+KV cache of ``max_seq``, or an O(1) recurrent state) for the LM families
+the port serves: the transformer families (dense, moe, vlm), Zamba2
+(hybrid) and RWKV6 (ssm).
 
 The MMA quantized datapath (cfg.quant.mode='mma_int8') applies here — this
 is where the paper's early-termination knob (quant.planes) meets LM serving.
@@ -11,10 +13,12 @@ import torch
 from repro_torch import models
 from repro_torch.device import resolve_device
 
+RECURRENT_FAMILIES = ("hybrid", "ssm")
+
 
 def _lm_module(cfg):
     mod = models.build(cfg)  # raises for the families not ported yet
-    if cfg.family not in models.PLANE_SCHEDULE_FAMILIES:
+    if cfg.family not in models.PLANE_SCHEDULE_FAMILIES + RECURRENT_FAMILIES:
         raise ValueError(f"no LM serving step for family {cfg.family!r}")
     return mod
 
@@ -24,9 +28,23 @@ def make_prefill(cfg, *, device=None):
     dev = resolve_device(device)
 
     def prefill(params, tokens, extras):
+        if cfg.family in RECURRENT_FAMILIES:
+            return mod.forward(params, tokens, cfg, device=dev)
         return mod.forward(params, tokens, cfg, prefix_embeds=extras.get("patches"), device=dev)
 
     return prefill
+
+
+def init_serving_cache(cfg, batch: int, max_seq: int, *, dtype=torch.bfloat16, device=None):
+    """The decode cache a family serves from: the transformer's KV cache (of
+    ``dtype``), Zamba2's state of ``max_seq`` (its shared block's KV caches
+    are bf16) or RWKV6's (no sequence dim)."""
+    mod = _lm_module(cfg)
+    if cfg.family == "hybrid":
+        return mod.init_state(cfg, batch, max_seq, device=device)
+    if cfg.family == "ssm":
+        return mod.init_state(cfg, batch, device=device)
+    return mod.init_cache(cfg, batch, max_seq, dtype=dtype, device=device)
 
 
 def make_decode(cfg, batch: int, max_seq: int, *, device=None):
@@ -36,7 +54,7 @@ def make_decode(cfg, batch: int, max_seq: int, *, device=None):
     mod = _lm_module(cfg)
     dev = resolve_device(device)
     cache_dtype = torch.int8 if cfg.quant.kv_int8 else torch.bfloat16
-    spec = mod.init_cache(cfg, batch, max_seq, dtype=cache_dtype, device="meta")
+    spec = init_serving_cache(cfg, batch, max_seq, dtype=cache_dtype, device="meta")
 
     def decode(params, tokens, cache, index, extras):
         return mod.decode_step(params, tokens, cache, index, cfg, device=dev)

@@ -51,6 +51,14 @@ MINITRON_SHAPES = [(3072, 3072), (3072, 1024), (3072, 9216), (9216, 3072), (3072
 MINITRON_SPLITS = {(3072, 3072): 6, (3072, 1024): 12, (3072, 9216): 2, (9216, 3072): 6,
                    (3072, 256000): 1}
 
+# RWKV6-3B's scaled-kernel linears (K, N): time-mix wr/wk/wv/wg/wo and
+# channel-mix wr, channel-mix wk, channel-mix wv, the head.
+RWKV6_SHAPES = [(2560, 2560), (2560, 8960), (8960, 2560), (2560, 65536)]
+# Zamba2-7B's: z_proj, xbc_proj, out_proj, the shared block's wq/wk/wv/wo
+# and proj, the head.  dt_proj (3584 x 112) takes the unscaled kernel.
+ZAMBA2_SHAPES = [(3584, 7168), (3584, 7296), (7168, 3584), (7168, 7168), (3584, 32000)]
+DT_PROJ = (3584, 112)
+
 # Bf16 logits of the small LM, card against CPU, relative to the call's
 # largest logit.  The integer products and the scaled epilogue are equal and
 # most calls agree bit for bit, but a float op between them (an RMSNorm
@@ -60,6 +68,12 @@ MINITRON_SPLITS = {(3072, 3072): 6, (3072, 1024): 12, (3072, 9216): 2, (9216, 30
 # 8 planes that stays near 0.03 of the largest logit; with plane truncation
 # one moved level weighs 2**(8 - planes) as much.
 LM_LOGIT_REL = 0.05
+# The recurrent families' smoke models, card against CPU: the same drift,
+# carried forward by the recurrent state through every later call (RWKV6's
+# WKV state, Zamba2's SSM states and its shared block's KV cache), where
+# Zamba2's 7 Mamba2 / attention block boundaries each requantize per
+# tensor; 0.0526 at Zamba2's seventh call (the card, 8 planes).
+RECURRENT_LOGIT_REL = 0.1
 
 
 @pytest.fixture
@@ -858,3 +872,112 @@ def test_gpu_checkpointer_keeps_cuda_tensors(cuda, tmp_path):
     for a, b in pairs:
         assert a.device.type == "cuda" and a.dtype == b.dtype and torch.equal(a, b)
     assert restored["params"]["w"].dtype == torch.bfloat16
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", range(1, 9))
+def test_gpu_kernel_vs_plain_at_dt_proj(cuda, m):
+    """The unscaled kernel at Zamba2's ``dt_proj`` (K 3584, N 112, M =
+    batch): N = 112 stages w with 16-byte copies, M <= 8 sits in a
+    32-row block."""
+    for planes in (8, 5):
+        _kernel_vs_plain(cuda, m, *DT_PROJ, planes)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", [1, 4, 8])
+@pytest.mark.parametrize("k,n", RWKV6_SHAPES + ZAMBA2_SHAPES)
+def test_gpu_scaled_kernel_vs_plain_recurrent_shapes(cuda, m, k, n):
+    _kernel_vs_plain(cuda, m, k, n, 5, scaled=True)
+
+
+def _recurrent(name, dev):
+    """A recurrent family's smoke model on ``dev`` through the kernel route:
+    the linears of both dims >= 128 int8.  Returns (cfg, module, params,
+    (unscaled, scaled) launches per decode call)."""
+    from repro_torch import models
+
+    cfg = get_smoke_config(name).replace(quant=QuantConfig(mode="mma_int8", impl="kernel"))
+    mod = models.build(cfg)
+    params = mod.init_params(0, cfg, device=dev, int8_min_dim=128)
+    # rwkv6: 2 layers x (5 time-mix + 3 channel-mix) + the head, mix_lora_a
+    # on the Horner route; zamba2: 5 layers x (z/xbc/out_proj) + 2 shared
+    # blocks x 5 + the head scaled, dt_proj unscaled
+    per_call = (0, 17) if name == "rwkv6_3b" else (5, 26)
+    return cfg, mod, params, per_call
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["rwkv6_3b", "zamba2_7b"])
+def test_gpu_recurrent_engine_equals_cpu_engine(cuda, name):
+    """Five requests at batch 4 (one slot reused) through ``Engine`` on the
+    card and on the CPU: the kernels' launches per decode call on the card
+    (none on the CPU), logits within ``RECURRENT_LOGIT_REL`` of the CPU's at
+    every call up to the first whose argmax differs, and equal tokens if
+    none does (as ``test_gpu_lm_engine_equals_cpu_engine``)."""
+    cfg, _, params, per_call = _recurrent(name, "cpu")
+    runs = []
+    for dev in (cuda, "cpu"):
+        rng = np.random.default_rng(0)
+        reqs = [Request(i, rng.integers(0, 512, n).astype(np.int32), max_new=4)
+                for i, n in enumerate((3, 6, 4, 5, 2))]
+        eng = Engine(cfg, params, batch=4, max_seq=32, device=dev)
+        logits, inner = [], eng.decode_fn
+
+        def decode(*a, inner=inner, logits=logits):
+            out = inner(*a)
+            logits.append(out[0][:, -1].to(torch.float32).cpu())
+            return out
+
+        eng.decode_fn = decode
+        before = (mk.launches, mk.scaled_launches)
+        done = eng.run(reqs)
+        torch.cuda.synchronize()
+        runs.append(([r.out for r in done], logits,
+                     (mk.launches - before[0], mk.scaled_launches - before[1])))
+    (tok_g, lg_g, launched_g), (tok_c, lg_c, launched_c) = runs
+    assert launched_g == (per_call[0] * len(lg_g), per_call[1] * len(lg_g))
+    assert launched_c == (0, 0) and len(lg_g) == len(lg_c)
+    for i, (a, b) in enumerate(zip(lg_g, lg_c)):
+        rel = float((a - b).abs().max() / b.abs().max())
+        assert rel <= RECURRENT_LOGIT_REL, f"decode call {i}: logits differ by {rel} of the largest"
+        if not torch.equal(a.argmax(-1), b.argmax(-1)):
+            break
+    else:
+        assert tok_g == tok_c
+
+
+@pytest.mark.gpu
+def test_gpu_zamba2_decode_graph_replayed_twice(cuda):
+    """Zamba2's decode call (both kernels, the Mamba2 recurrences, the shared
+    block's KV write at a scalar index held on the card) captured in a CUDA
+    graph: two replays give logits bit-equal to each other and to an eager
+    call on the same state."""
+    from repro_torch.models import zamba2
+    from repro_torch.serve import serve_step
+
+    cfg, _, params, _ = _recurrent("zamba2_7b", cuda)
+    decode, _ = serve_step.make_decode(cfg, 4, 16, device=cuda)
+    state = zamba2.init_state(cfg, 4, 16, device=cuda)
+    toks = torch.randint(0, 512, (4, 1), device=cuda, generator=torch.Generator(
+        device=cuda).manual_seed(1))
+    for i in range(3):  # a nonzero state
+        _, state = decode(params, toks, state, torch.tensor(i, device=cuda), {})
+    idx = torch.tensor(3, device=cuda)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm up off the capture
+        decode(params, toks, state, idx, {})
+    torch.cuda.current_stream().wait_stream(side)
+    want, _ = decode(params, toks, state, idx, {})
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got, _ = decode(params, toks, state, idx, {})
+    outs = []
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        outs.append(got.clone())
+    assert torch.equal(outs[0], outs[1]) and torch.equal(outs[0], want)
+

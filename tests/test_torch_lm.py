@@ -331,9 +331,13 @@ def test_lm_schedule_from_params_matches_reference(lm):
 
 
 def test_models_build_and_families():
+    from repro_torch.models import rwkv6
+
     assert models.build(_tcfg()) is transformer
+    # 'ssm' builds RWKV6 (the recurrent slice); 'encdec' is still a later slice
+    assert models.build(_tcfg().replace(family="ssm", quant=QuantConfig())) is rwkv6
     with pytest.raises(NotImplementedError):
-        models.build(_tcfg().replace(family="ssm", quant=QuantConfig()))
+        models.build(_tcfg().replace(family="encdec", quant=QuantConfig()))
     with pytest.raises(NotImplementedError, match="plane_schedule"):
         models.build(_tcfg().replace(family="ssm"))
     # 'moe' builds, draws its experts and serves a forward (the MoE slice);
