@@ -183,6 +183,32 @@ with a non-zero exit:
    is the last Mamba2 layer (output, conv window, SSM state).  Times as
    phase 12, plus the recorded call's 81 unscaled calls as one graph
    against ``torch._int_mm`` (x padded to 32 rows) and their bound.
+14. Encoder-decoder serving (main path 9): Whisper-large-v3 at full width
+   and depth (32 encoder and 32 decoder layers, d 1280, 20 heads, d_ff
+   5120, vocab 51,866, 1500 frames; random weights from seed 0 drawn and
+   quantized to int8 layer by layer on the card: every linear),
+   ``QuantConfig(mode="mma_int8", impl="kernel", planes=5)`` (the global
+   knob), after phase 13's weights are released: the encoder over four rows
+   of numpy frames (seed 0), an ``Engine`` (batch 4, ``max_seq`` 64) that
+   projects the cross K/V once from that memory, and phase 5's four requests
+   through ``Engine.run``.  Checks: 192 scaled launches in the encoder and
+   64 in the cross K/V pass, all at M = 6000; 256 per decode call (self
+   attention q/k/v/o, cross attention q/o, the MLP; the head is the tied
+   embedding, a bf16 product); none unscaled; every request completes in
+   the vocabulary; bit for bit against the plain version: every scaled
+   linear of one recorded decode call, encoder layer 0's six at M = 6000
+   (one activation scale over all 6000 rows) and layer 0's cross k/v
+   projections; the recorded call's logits against the same call on the
+   Horner route (same cache, same cross K/V) at 5 planes printed and at 8
+   within ``LM_LOGIT_REL``; the last decoder block repeated on the card bit
+   for bit and on the CPU within ``RECURRENT_BLOCK_REL``, and encoder block
+   0 on one row of 1500 frames card against CPU within it.  Times (CUDA
+   graphs, w cold): the recorded call's 256 linears, each shape at M = 4
+   and at M = 6000, the encoder's 192 and the cross K/V pass's 64 linears as
+   one graph each, against ``torch._int_mm`` + scale, the bound and the
+   plane-work floor; the encoder's and cross K/V pass's host walls, the
+   host wall per decode call and the card's idle share over a second
+   ``Engine.run`` under ``torch.profiler``.
 
 The line before the last is a JSON object naming every kernel with its
 launches on its main path and its times; the last line is
@@ -272,6 +298,9 @@ RECURRENT_PLANES = 5
 # weighs 2**3 of a full one (the bound test_torch_gpu.py's LM_LOGIT_REL
 # holds a small LM's logits to).
 RECURRENT_BLOCK_REL = 5e-2
+# Phase 14 (Whisper, the encdec family) serves at the global plane knob too:
+# plane schedules are refused for it, as in the reference.
+WHISPER_PLANES = 5
 
 
 def check(cond: bool, msg: str) -> None:
@@ -1349,17 +1378,22 @@ def scaled_linears(cfg) -> int:
     return block_linears(cfg) * cfg.n_layers + 1
 
 
-def lm_decode_shapes(cfg):
-    """(name, K, N) of every distinct scaled linear of one LM decode call,
+def distinct_shapes(lin):
+    """(name, K, N) of every distinct shape among the linears ``lin``,
     linears of one shape named together."""
+    names: dict[tuple[int, int], list[str]] = {}
+    for name, k, n in lin:
+        names.setdefault((k, n), []).append(name)
+    return [("/".join(v), k, n) for (k, n), v in names.items()]
+
+
+def lm_decode_shapes(cfg):
+    """(name, K, N) of every distinct scaled linear of one LM decode call."""
     d, q, kv = cfg.d_model, cfg.n_heads * cfg.hd, cfg.n_kv_heads * cfg.hd
     lin = [("wq", d, q), ("wo", q, d), ("wk", d, kv), ("wv", d, kv)]
     if not cfg.moe.n_experts:
         lin += [("w_gate", d, cfg.d_ff), ("w_up", d, cfg.d_ff), ("w_down", cfg.d_ff, d)]
-    names: dict[tuple[int, int], list[str]] = {}
-    for name, k, n in lin + [("head", d, cfg.vocab)]:
-        names.setdefault((k, n), []).append(name)
-    return [("/".join(v), k, n) for (k, n), v in names.items()]
+    return distinct_shapes(lin + [("head", d, cfg.vocab)])
 
 
 def lm_serving(torch, np, dev, cfg, *, tag="lm", label="Yi-6B", expect=225):
@@ -1726,7 +1760,7 @@ def recurrent_launches(cfg) -> tuple[int, int, int]:
 
 def recurrent_decode_shapes(cfg):
     """(name, K, N) of every distinct scaled linear of a recurrent family's
-    decode call, linears of one shape named together."""
+    decode call."""
     d = cfg.d_model
     if cfg.family == "ssm":
         lin = [(n, d, d) for n in ("wr", "wk", "wv", "wg", "wo", "cm.wr")] + \
@@ -1737,10 +1771,7 @@ def recurrent_decode_shapes(cfg):
                ("out_proj", d_inner, d)] + \
             [(f"shared.{n}", 2 * d, 2 * d) for n in ("wq", "wk", "wv", "wo")] + \
             [("shared.proj", 2 * d, d)]
-    names: dict[tuple[int, int], list[str]] = {}
-    for name, k, n in lin + [("head", d, cfg.vocab)]:
-        names.setdefault((k, n), []).append(name)
-    return [("/".join(v), k, n) for (k, n), v in names.items()]
+    return distinct_shapes(lin + [("head", d, cfg.vocab)])
 
 
 def unscaled_call_times(torch, card, calls, label):
@@ -1989,6 +2020,334 @@ def recurrent_serving(torch, np, dev, card, cfg, *, tag, label, phase):
     phase_s = time.perf_counter() - t_phase
     print(f"[{tag}] phase {phase} took {phase_s:.1f} s")
     out["scaled"][f"phase{phase}_s"] = phase_s
+    return out
+
+
+def whisper_launches(cfg) -> tuple[int, int, int]:
+    """Scaled-kernel launches of Whisper's serving path: the encoder (six
+    linears per layer: q/k/v/o and the MLP's up and down), the cross K/V
+    projection (k and v of every decoder layer) and one decode call (eight
+    per decoder layer: self-attention q/k/v/o, cross-attention q/o, the MLP;
+    the head is the tied embedding, a bf16 product)."""
+    return 6 * (cfg.enc_layers or cfg.n_layers), 2 * cfg.n_layers, 8 * cfg.n_layers
+
+
+def whisper_shapes(cfg):
+    """(name, K, N) of every distinct scaled linear of Whisper (no head: it
+    is the tied embedding)."""
+    d, q, kv = cfg.d_model, cfg.n_heads * cfg.hd, cfg.n_kv_heads * cfg.hd
+    return distinct_shapes([("wq", d, q), ("wk", d, kv), ("wv", d, kv), ("wo", q, d),
+                            ("w_up", d, cfg.d_ff), ("w_down", cfg.d_ff, d)])
+
+
+def device_idle(torch, fn):
+    """``fn`` run once under ``torch.profiler`` (device activity only):
+    (host wall ms, device busy ms: the union of kernel and copy intervals,
+    idle share)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.bench.table1 import busy_us
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    intervals = [(e.time_range.start, e.time_range.end) for e in prof.events()
+                 if e.device_type == DeviceType.CUDA]
+    check(bool(intervals), "the profiler recorded no device activity")
+    busy_ms = busy_us(intervals) / 1e3
+    return wall_ms, busy_ms, 1 - busy_ms / wall_ms
+
+
+def wide_calls_times(torch, card, calls, label):
+    """The scaled kernel over recorded calls at prefill-sized M, replayed as
+    one CUDA graph (w of every call distinct: cold), against ``torch._int_mm``
+    + scale (the first call's output checked equal to the kernel's first),
+    the bound and the plane-work floor (planes x 2MKN int8 operations at the
+    tensor-core peak)."""
+    from repro_torch.bench.table1 import graph_ms
+    from repro_torch.kernels import mma_matmul as mk
+
+    cs = [(x, w, xs, ws, p) for x, w, xs, ws, p, _ in calls]
+    libs = [scaled_library(torch, *c) for c in cs]
+    check(torch.equal(libs[0](), mk.mma_matmul_scaled_kernel(*cs[0][:4], planes=cs[0][4])),
+          f"{label}: library yardstick disagrees with the scaled kernel")
+
+    def kernel_pass():
+        for x, w, xs, ws, p in cs:
+            mk.mma_matmul_scaled_kernel(x, w, xs, ws, planes=p)
+
+    def library_pass():
+        for f in libs:
+            f()
+
+    ms = graph_ms(torch, kernel_pass, calls=1, reps=3)
+    lib_ms = graph_ms(torch, library_pass, calls=1, reps=3)
+    shapes = [(x.shape[0], w.shape[0], w.shape[1]) for x, w, *_ in cs]
+    b_ms, b_by, nbytes, nops = scaled_bound(shapes)
+    floor_ms = cs[0][4] * nops / INT8_OPS_PER_S * 1e3
+    print(f"[time] {card} | mma_matmul_scaled {label} ({len(cs)} linears at M={shapes[0][0]}, "
+          f"planes {cs[0][4]}, one CUDA graph; {sum(k * n for _, k, n in shapes) / 1e9:.3f} GB "
+          f"of distinct w): kernel {ms:.4f} ms, torch._int_mm+scale {lib_ms:.4f} ms, bound "
+          f"{b_ms:.4f} ms ({b_by}; {nops / 1e12:.2f} T int8 ops, {nbytes / 1e9:.3f} GB), "
+          f"plane-work floor {floor_ms:.4f} ms, {nops / ms / 1e9:.1f} T int8 ops/s "
+          f"({cs[0][4] * nops / ms / 1e9:.1f} T of plane work)")
+    return dict(ms=ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by, plane_floor_ms=floor_ms,
+                bytes=nbytes, ops=nops, linears=len(cs))
+
+
+def whisper_serving(torch, np, dev, card, cfg):
+    """Phase 14: Whisper-large-v3 at full width and depth on the kernel
+    route at ``WHISPER_PLANES``: the encoder over four rows of frames, the
+    engine's cross K/V projection, ``Engine.run`` of phase 5's requests,
+    the checks and the times.  Returns the scaled kernel's entries for this
+    path."""
+    from repro_torch.configs.base import QuantConfig
+    from repro_torch.kernels import mma_matmul as mk
+    from repro_torch.kernels import ops
+    from repro_torch.models import layers, whisper
+    from repro_torch.obs.events import RecordingSink
+    from repro_torch.serve import Engine, Request
+
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    params = whisper.init_params(0, cfg, device=dev, int8_min_dim=256)
+    torch.cuda.synchronize()
+    def leaves(tree, path=()):
+        if isinstance(tree, dict):
+            for k, v in tree.items():
+                yield from leaves(v, path + (k,))
+        else:
+            yield path, tree
+
+    check(not [p for p, _ in leaves(params) if p[-1] == "w"],
+          "a Whisper linear stayed in bf16 after quantize_params_int8")
+    n_enc, n_dec = (sum(t.numel() for _, t in leaves(params[part]) if t.dtype == torch.int8)
+                    for part in ("enc_blocks", "dec_blocks"))
+    n_bf16 = sum(t.numel() for _, t in leaves(params) if t.dtype == torch.bfloat16)
+    print(f"[whisper] Whisper-large-v3 params on the card in {time.perf_counter() - t0:.1f} s: "
+          f"{(n_enc + n_dec) / 1e9:.3f} G int8 weights (encoder {n_enc / 1e9:.3f}, decoder "
+          f"{n_dec / 1e9:.3f}), {n_bf16 / 1e6:.1f} M bf16 (embedding, positions, norms), "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    kcfg = cfg.replace(quant=QuantConfig(mode="mma_int8", impl="kernel", planes=WHISPER_PLANES))
+    frames = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        (LM_BATCH, cfg.enc_seq, cfg.d_model)).astype(np.float32)).to(dev).to(torch.bfloat16)
+    per_enc, per_kv, per_call = whisper_launches(cfg)
+    m_wide = LM_BATCH * cfg.enc_seq
+
+    scaled = ops.mma_matmul_scaled
+
+    def recording(into, keep):
+        """Record every scaled call (int8 x as the kernel got it, w, scales,
+        planes); the output of the first ``keep`` only."""
+        def call(x, w, xs, ws, **kw):
+            out = scaled(x, w, xs, ws, **kw)
+            k = w.shape[0]
+            into.append((x.reshape(-1, k), w, xs, ws, kw["planes"],
+                         out.reshape(-1, w.shape[1]) if len(into) < keep else None))
+            return out
+        return call
+
+    # the encoder, recorded (its first layer's outputs kept), then timed alone
+    enc_calls, kv_calls = [], []
+    mk.scaled_launches = 0
+    ops.mma_matmul_scaled = recording(enc_calls, 6)
+    try:
+        memory = whisper.encode(params, frames, kcfg, device=dev)
+        torch.cuda.synchronize()
+    finally:
+        ops.mma_matmul_scaled = scaled
+    launches_enc = mk.scaled_launches
+    check(launches_enc == per_enc == len(enc_calls)
+          and all(x.shape[0] == m_wide for x, *_ in enc_calls),
+          f"{launches_enc} scaled launches in the encoder ({len(enc_calls)} recorded), expected "
+          f"{per_enc} at M = {m_wide}")
+    check(memory.shape == (LM_BATCH, cfg.enc_seq, cfg.d_model) and memory.dtype == torch.bfloat16
+          and bool(torch.isfinite(memory.float()).all()),
+          f"encoder memory {tuple(memory.shape)} {memory.dtype} not finite or of the wrong shape")
+    t0 = time.perf_counter()
+    again = whisper.encode(params, frames, kcfg, device=dev)
+    torch.cuda.synchronize()
+    enc_wall_s = time.perf_counter() - t0
+    check(torch.equal(again, memory), "the encoder, run again on the same frames, differs")
+    del again
+
+    # the engine projects the cross K/V once
+    extras = {"memory": memory}
+    mk.scaled_launches = 0
+    ops.mma_matmul_scaled = recording(kv_calls, 2)
+    try:
+        t0 = time.perf_counter()
+        engine = Engine(kcfg, params, batch=LM_BATCH, max_seq=LM_MAX_SEQ, extras=extras,
+                        device=dev)
+        torch.cuda.synchronize()
+        kv_wall_s = time.perf_counter() - t0
+    finally:
+        ops.mma_matmul_scaled = scaled
+    launches_kv = mk.scaled_launches
+    ckv = extras["cross_kv"]
+    check(launches_kv == per_kv == len(kv_calls) and all(x.shape[0] == m_wide for x, *_ in kv_calls),
+          f"{launches_kv} scaled launches projecting the cross K/V, expected {per_kv}")
+    check(ckv["k"].shape == (cfg.n_layers, LM_BATCH, cfg.enc_seq, cfg.n_kv_heads, cfg.hd)
+          and ckv["v"].shape == ckv["k"].shape and ckv["k"].dtype == torch.bfloat16,
+          f"cross K/V {tuple(ckv['k'].shape)} {ckv['k'].dtype}")
+    print(f"[whisper] encoder: {launches_enc} scaled launches at M = {m_wide} "
+          f"({per_enc // (cfg.enc_layers or cfg.n_layers)} per layer), host wall "
+          f"{enc_wall_s * 1e3:.1f} ms | cross K/V: {launches_kv} launches at M = {m_wide}, "
+          f"{2 * ckv['k'].numel() * 2 / 1e9:.3f} GB bf16, host wall {kv_wall_s * 1e3:.1f} ms")
+
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab, int(n)).astype(np.int32)
+               for n in rng.integers(4, 9, LM_BATCH)]
+    engine.obs = RecordingSink()
+    # Record the first decode step (every slot active, all prompts in): its
+    # inputs, a copy of the cache before it, every scaled-kernel call, and
+    # the last decoder block's inputs (its cache rows copied before it
+    # writes them) and output.  Recording adds no launch.
+    record_at = sum(len(p) for p in prompts)
+    rec = {"calls": [], "n": 0}
+    decode, inner_block = engine.decode_fn, whisper.dec_block
+
+    def recording_block(blk, x, mem, c, *, cache=None, cache_index=None, cross_kv=None):
+        before = tuple(t.clone() for t in cache)
+        out = inner_block(blk, x, mem, c, cache=cache, cache_index=cache_index,
+                          cross_kv=cross_kv)
+        rec["block"] = (blk, x, before, cache_index, cross_kv, out)
+        return out
+
+    def counted_decode(p, toks, cache, idx, ex):
+        n = rec["n"]
+        rec["n"] = n + 1
+        if n != record_at:
+            return decode(p, toks, cache, idx, ex)
+        rec["args"] = (toks.copy(), layers.tree_map(torch.clone, cache), idx)
+        ops.mma_matmul_scaled = recording(rec["calls"], per_call)
+        whisper.dec_block = recording_block
+        try:
+            logits, cache = decode(p, toks, cache, idx, ex)
+        finally:
+            ops.mma_matmul_scaled, whisper.dec_block = scaled, inner_block
+        rec["logits"] = logits.clone()
+        return logits, cache
+
+    engine.decode_fn = counted_decode
+    mk.scaled_launches = 0
+    t0 = time.perf_counter()
+    done = engine.run([Request(i, p, max_new=LM_MAX_NEW) for i, p in enumerate(prompts)])
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches, calls = mk.scaled_launches, rec["n"]
+    check(launches == per_call * calls,
+          f"{launches} scaled launches for {calls} decode calls, expected {per_call} each")
+    check(len(done) == LM_BATCH and all(r.done and len(r.out) == LM_MAX_NEW for r in done),
+          "not every request finished with its token budget")
+    check(all(0 <= t < cfg.vocab for r in done for t in r.out), "a token outside the vocabulary")
+    steps = sum(1 for e in engine.obs.events if e.etype == "lm-step")
+    print(f"[whisper] Engine.run: {len(done)} requests, prompts {[len(p) for p in prompts]}, "
+          f"{calls} decode calls ({record_at} prefill + {calls - record_at} step; {steps} "
+          f"lm-step events), {launches} scaled launches ({per_call} per call), {wall_s:.2f} s "
+          f"host wall ({wall_s / calls * 1e3:.1f} ms per decode call)")
+    for r in sorted(done, key=lambda r: r.rid):
+        print(f"[whisper] request {r.rid}: prompt {r.prompt.tolist()} -> tokens {r.out}")
+    # the same requests again under the profiler: the card's idle share
+    prof_wall, prof_busy, idle = device_idle(torch, lambda: Engine(
+        kcfg, params, batch=LM_BATCH, max_seq=LM_MAX_SEQ, extras=extras, device=dev).run(
+        [Request(i, p, max_new=LM_MAX_NEW) for i, p in enumerate(prompts)]))
+    print(f"[whisper] Engine.run under the profiler: host wall {prof_wall:.1f} ms, device busy "
+          f"{prof_busy:.1f} ms, idle share {idle:.3f}")
+
+    # every checked kernel call bit for bit against the plain version: the
+    # recorded decode call's, the encoder's first layer (one activation scale
+    # over all 6000 rows), the first layer's cross K/V projections
+    check(len(rec["calls"]) == per_call, f"{len(rec['calls'])} scaled calls recorded")
+    checked = rec["calls"] + enc_calls[:6] + kv_calls[:2]
+    for x, w, xs, ws, planes, out in checked:
+        want = mk.mma_matmul_scaled_plain(x, w, xs, ws, planes=planes)
+        check(torch.equal(out, want),
+              f"scaled linear M={x.shape[0]} K={w.shape[0]} N={w.shape[1]} != plain")
+    # the recorded call's logits, kernel route vs Horner route from the same
+    # cache and cross K/V: at the served planes printed, at 8 gated
+    toks, cache, idx = rec["args"]
+    lk = rec["logits"]
+    check(lk.shape == (LM_BATCH, 1, cfg.vocab) and bool(torch.isfinite(lk.float()).all()),
+          f"recorded call: logits {tuple(lk.shape)} not finite or of the wrong shape")
+    gaps = {}
+    for planes in (WHISPER_PLANES, 8):
+        q = dataclasses.replace(kcfg.quant, planes=planes)
+        if planes != WHISPER_PLANES:
+            lk, _ = whisper.decode_step(params, toks, layers.tree_map(torch.clone, cache), idx,
+                                        kcfg.replace(quant=q), memory=memory, cross_kv=ckv,
+                                        device=dev)
+        lh, _ = whisper.decode_step(params, toks, layers.tree_map(torch.clone, cache), idx,
+                                    kcfg.replace(quant=dataclasses.replace(q, impl="horner")),
+                                    memory=memory, cross_kv=ckv, device=dev)
+        gaps[planes] = (_rel(lk, lh), float((lk.argmax(-1) == lh.argmax(-1)).float().mean()))
+    check(gaps[8][0] <= LM_LOGIT_REL,
+          f"recorded call at 8 planes: logits kernel vs Horner differ by {gaps[8][0]} (rel)")
+    # the last decoder block (card again bit for bit; the CPU within
+    # RECURRENT_BLOCK_REL) and the first encoder block on one row of frames
+    blk, x, (ck, cv), ci, xkv, out = rec["block"]
+    again = inner_block(blk, x, memory, kcfg, cache=(ck.clone(), cv.clone()), cache_index=ci,
+                        cross_kv=xkv)
+    check(torch.equal(again, out), "the last decoder block, repeated on its inputs, differs")
+    cpu = layers.params_to
+    dec_c = inner_block(cpu(blk, "cpu"), x.cpu(), memory.cpu(), kcfg,
+                        cache=(ck.cpu(), cv.cpu()), cache_index=ci,
+                        cross_kv=tuple(t.cpu() for t in xkv))
+    blk0 = layers.layer_params(params["enc_blocks"], 0)
+    x0 = frames[:1] + params["enc_pos"][None]
+    enc_g = whisper.enc_block(blk0, x0, kcfg)
+    enc_c = whisper.enc_block(cpu(blk0, "cpu"), x0.cpu(), kcfg)
+    blk_rel = {"decoder": _rel(out.cpu(), dec_c), "encoder": _rel(enc_g.cpu(), enc_c)}
+    check(all(r <= RECURRENT_BLOCK_REL for r in blk_rel.values()),
+          f"blocks card vs CPU: max rel {blk_rel} (limit {RECURRENT_BLOCK_REL})")
+    print(f"[whisper] bit-exact against the plain version: the recorded decode call's "
+          f"{per_call} scaled linears, encoder layer 0's 6 at M = {m_wide}, layer 0's cross k/v; "
+          f"logits vs Horner route from its cache, max rel (top-1 agreement): at "
+          f"{WHISPER_PLANES} planes {gaps[WHISPER_PLANES][0]:.4f} ({gaps[WHISPER_PLANES][1]:.2f}, "
+          f"not gated), at 8 planes {gaps[8][0]:.4f} ({gaps[8][1]:.2f}; limit {LM_LOGIT_REL}); "
+          f"card vs CPU max rel: last decoder block {blk_rel['decoder']:.3g}, encoder block 0 on "
+          f"one row of {cfg.enc_seq} frames {blk_rel['encoder']:.3g} (limit {RECURRENT_BLOCK_REL})")
+
+    # times: the decode call's linears and each shape at M = 4 (w cold), each
+    # shape at M = 6000, the encoder's and the cross K/V pass's linears
+    lm = dict(calls=rec["calls"], launches=launches, wall_s=wall_s, decode_calls=calls)
+    times = lm_times(torch, dev, card, lm, whisper_shapes(cfg), label="Whisper-large-v3")
+    g = torch.Generator(device=dev).manual_seed(2)
+    wide_shapes = []
+    for name, k, n in whisper_shapes(cfg):
+        ms_planes, lib_ms, plain_ms, copies, n_calls = cold_shape_times(
+            torch, dev, g, m_wide, k, n, (WHISPER_PLANES, 8))
+        b_ms, b_by, nbytes, nops = scaled_bound([(m_wide, k, n)])
+        floor_ms = WHISPER_PLANES * nops / INT8_OPS_PER_S * 1e3
+        wide_shapes.append(dict(name=name, M=m_wide, K=k, N=n, ms=ms_planes[WHISPER_PLANES],
+                                ms_planes=ms_planes, plain_ms=plain_ms, library_ms=lib_ms,
+                                bound_ms=b_ms, bound_by=b_by, plane_floor_ms=floor_ms))
+        print(f"[time] {card} | mma_matmul_scaled Whisper-large-v3 {name} M={m_wide} K={k} N={n} "
+              f"(graph of {n_calls} calls over {copies} copies of w) planes {WHISPER_PLANES}: "
+              f"kernel {ms_planes[WHISPER_PLANES]:.4f} ms, plain {plain_ms:.3f} ms, "
+              f"torch._int_mm+scale {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}), plane-work "
+              f"floor {floor_ms:.4f} ms | planes 8: {ms_planes[8]:.4f} ms")
+    enc_t = wide_calls_times(torch, card, enc_calls, "Whisper-large-v3 encoder")
+    kv_t = wide_calls_times(torch, card, kv_calls, "Whisper-large-v3 cross K/V pass")
+    print(f"[time] {card} | Whisper-large-v3: encoder host wall {enc_wall_s * 1e3:.1f} ms, cross "
+          f"K/V host wall {kv_wall_s * 1e3:.1f} ms, Engine.run host wall {wall_s:.2f} s "
+          f"({wall_s / calls * 1e3:.1f} ms per decode call), idle share {idle:.3f}")
+    phase_s = time.perf_counter() - t_phase
+    print(f"[whisper] phase 14 took {phase_s:.1f} s")
+    out = {f"whisper_{k}": times[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms",
+                                               "per_shape")}
+    out.update(
+        launches_whisper=launches, launches_whisper_encoder=launches_enc,
+        launches_whisper_cross_kv=launches_kv, whisper_decode_calls=calls, whisper_wall_s=wall_s,
+        whisper_host_ms_per_call=wall_s / calls * 1e3, whisper_idle_share=idle,
+        whisper_encoder_wall_s=enc_wall_s, whisper_cross_kv_wall_s=kv_wall_s,
+        whisper_logits_rel={p: gv[0] for p, gv in gaps.items()}, whisper_block_rel=blk_rel,
+        whisper_wide_per_shape=wide_shapes, whisper_encoder=enc_t, whisper_cross_kv=kv_t,
+        phase14_s=phase_s,
+    )
     return out
 
 
@@ -2379,6 +2738,14 @@ def main() -> int:
         summary.update(got["unscaled"])
         torch.cuda.empty_cache()
         lap(phase)
+
+    # ----------------------------------- 14. encoder-decoder serving
+    mk.launches = 0
+    scaled_summary.update(whisper_serving(torch, np, dev, card, get_config("whisper_large_v3")))
+    check(mk.launches == 0, f"phase 14 launched the unscaled kernel {mk.launches} times")
+    summary["launches_whisper"] = mk.launches
+    torch.cuda.empty_cache()
+    lap(14)
     print(f"[done] every phase passed in {time.perf_counter() - t_start:.1f} s, the build included")
     print(json.dumps({"kernels": [summary, scaled_summary]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

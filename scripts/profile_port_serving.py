@@ -9,6 +9,7 @@
     python3 scripts/profile_port_serving.py --moe      # MoE decode (OLMoE-1B-7B)
     python3 scripts/profile_port_serving.py --rwkv6    # recurrent decode (RWKV6-3B)
     python3 scripts/profile_port_serving.py --zamba2   # hybrid decode (Zamba2-7B)
+    python3 scripts/profile_port_serving.py --whisper  # encoder-decoder (Whisper-large-v3)
 
 Default: serves the four phantom images of ``chip_smoke.py`` through the
 full-width ``SegEngine`` (calibrated U-Net, ``from_weights(0.05)``
@@ -39,7 +40,14 @@ through ``Engine.run`` on RWKV6-3B and Zamba2-7B at full width (random int8
 weights from seed 0, 5 planes, batch 4), the recurrence's stock ops inside
 profiler ranges (``wkv``: the WKV loop; ``ssd_step``: the SSD state
 update; ``_short_conv``: the short conv), whose device time is reported
-beside the kernels'.  Each other
+beside the kernels'.  ``--whisper``: ``chip_smoke.py`` phase 14, Whisper-large-v3
+at full width (random int8 weights from seed 0, 5 planes): the encoder over
+four rows of 1500 frames, an ``Engine`` (batch 4) that projects the cross
+K/V once, and the four requests through ``Engine.run``; ``encode``,
+``precompute_cross_kv``, ``Engine.run`` and each cross-attention
+(``_cross_attend``: its q/o projections and the attention over 1500 keys)
+in profiler ranges, each range's host wall and device time reported.
+Each other
 mode runs its serving pass once to warm up.  Then the pass runs once under
 ``torch.profiler``, and the script prints: host wall time, device busy time
 (the union of kernel and copy intervals on the card) and idle share, device
@@ -57,21 +65,6 @@ from collections import defaultdict
 from pathlib import Path
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "src"))
-
-
-def _busy_us(intervals) -> float:
-    """Length of the union of (start, end) intervals."""
-    total, cur_s, cur_e = 0.0, None, None
-    for s, e in sorted(intervals):
-        if cur_e is None or s > cur_e:
-            if cur_e is not None:
-                total += cur_e - cur_s
-            cur_s, cur_e = s, e
-        else:
-            cur_e = max(cur_e, e)
-    if cur_e is not None:
-        total += cur_e - cur_s
-    return total
 
 
 def _unet_run():
@@ -155,9 +148,43 @@ def _recurrent_run(name, label):
     return serve, f"Engine.run() of 4 {label} requests ({calls} decode calls)"
 
 
+def _whisper_run():
+    """Encoder-decoder serving (``chip_smoke.py`` phase 14): a callable and
+    its description."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import QuantConfig
+    from repro_torch.models import whisper
+    from repro_torch.serve import Engine, Request
+
+    cfg = get_config("whisper_large_v3")
+    params = whisper.init_params(0, cfg, int8_min_dim=256)
+    kcfg = cfg.replace(quant=QuantConfig(mode="mma_int8", impl="kernel", planes=5))
+    frames = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        (4, cfg.enc_seq, cfg.d_model)).astype(np.float32)).cuda().to(torch.bfloat16)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab, int(n)).astype(np.int32) for n in rng.integers(4, 9, 4)]
+
+    def serve():
+        memory = whisper.encode(params, frames, kcfg)
+        engine = Engine(kcfg, params, batch=4, max_seq=64, extras={"memory": memory})
+        with torch.profiler.record_function("Engine.run"):
+            return engine.run([Request(i, p, max_new=4) for i, p in enumerate(prompts)])
+
+    calls = sum(len(p) for p in prompts) + 4
+    return serve, (f"Whisper-large-v3: encode 4 x {cfg.enc_seq} frames, project the cross K/V, "
+                   f"Engine.run() of 4 requests ({calls} decode calls)")
+
+
 #: The profiler ranges of each mode: (module, function) pairs.
 RANGES = {"moe": [("moe", "moe_ffn")], "rwkv6": [("rwkv6", "wkv")],
-          "zamba2": [("mamba2", "ssd_step"), ("mamba2", "_short_conv")]}
+          "zamba2": [("mamba2", "ssd_step"), ("mamba2", "_short_conv")],
+          "whisper": [("whisper", "encode"), ("whisper", "precompute_cross_kv"),
+                      ("whisper", "_cross_attend")]}
+#: Ranges a mode's serving callable opens itself.
+OWN_RANGES = {"whisper": ["Engine.run"]}
 
 
 def _ranged(module, name: str) -> None:
@@ -173,9 +200,9 @@ def _ranged(module, name: str) -> None:
     setattr(module, name, ranged)
 
 
-def _range_kernels(events, name: str) -> dict[str, list[float]]:
+def _range_kernels(events, name: str) -> tuple[dict[str, list[float]], float]:
     """Device kernels launched inside every ``name`` range: (count, ms) by
-    kernel name."""
+    kernel name, and the ranges' host wall in ms."""
     from torch.autograd import DeviceType
 
     out: dict[str, list[float]] = defaultdict(lambda: [0, 0.0])
@@ -187,10 +214,12 @@ def _range_kernels(events, name: str) -> dict[str, list[float]]:
         for ch in evt.cpu_children:
             walk(ch)
 
+    wall_ms = 0.0
     for evt in events:
         if evt.name == name and evt.device_type == DeviceType.CPU:
             walk(evt)
-    return out
+            wall_ms += (evt.time_range.end - evt.time_range.start) / 1e3
+    return out, wall_ms
 
 
 def _gateway_run():
@@ -269,19 +298,20 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("profile_port_serving: no CUDA card", file=sys.stderr)
         return 1
-    from repro_torch.bench.table1 import card_line
+    from repro_torch.bench.table1 import busy_us, card_line
     from repro_torch.kernels import mma_matmul as mk
 
     card = card_line()
     args = sys.argv[1:]
-    mode = next((m for m in ("lm", "plan", "gateway", "fabric", "moe", "rwkv6", "zamba2")
-                 if f"--{m}" in args), "unet")
+    mode = next((m for m in ("lm", "plan", "gateway", "fabric", "moe", "rwkv6", "zamba2",
+                             "whisper") if f"--{m}" in args), "unet")
     serve, what, *warm = {"lm": _lm_run, "plan": _plan_run, "unet": _unet_run,
                           "gateway": _gateway_run, "fabric": _fabric_run,
                           "moe": lambda: _lm_run("olmoe_1b_7b", "OLMoE-1B-7B"),
                           "rwkv6": lambda: _recurrent_run("rwkv6_3b", "RWKV6-3B"),
-                          "zamba2": lambda: _recurrent_run("zamba2_7b", "Zamba2-7B")}[mode]()
-    ranges = [r for _, r in RANGES.get(mode, [])]
+                          "zamba2": lambda: _recurrent_run("zamba2_7b", "Zamba2-7B"),
+                          "whisper": _whisper_run}[mode]()
+    ranges = [r for _, r in RANGES.get(mode, [])] + OWN_RANGES.get(mode, [])
     for mod_name, fn in RANGES.get(mode, []):
         _ranged(importlib.import_module(f"repro_torch.models.{mod_name}"), fn)
     (warm[0] if warm else serve)()  # warm-up: build, allocator, cuBLAS handles
@@ -309,7 +339,7 @@ def main() -> int:
         by_name[evt.name][1] += (e - s) / 1e3
     if not intervals:
         raise RuntimeError("the profiler recorded no device activity")
-    busy_ms = _busy_us(intervals) / 1e3
+    busy_ms = busy_us(intervals) / 1e3
     # the unscaled kernel and the scaled one, both on the tensor cores
     kernel_ms = {k: sum(ms for name, (_, ms) in by_name.items() if k in name)
                  for k in ("mma_tc_horner_kernel", "mma_tc_scaled_kernel")}
@@ -324,14 +354,15 @@ def main() -> int:
         print(f"[profile] {ms:9.3f} ms {n:6d}x  {name[:110]}")
     extra = {}
     for rng_name in ranges:
-        inside = _range_kernels(prof.events(), rng_name)
+        inside, r_wall = _range_kernels(prof.events(), rng_name)
         r_ms = sum(ms for _, ms in inside.values())
         print(f"[profile] {card} | kernels inside {rng_name} ranges: {r_ms:.2f} ms over "
-              f"{sum(n for n, _ in inside.values())} kernels, {r_ms / busy_ms:.3f} of device busy")
+              f"{sum(n for n, _ in inside.values())} kernels, {r_ms / busy_ms:.3f} of device busy; "
+              f"the ranges' host wall {r_wall:.2f} ms")
         top = sorted(inside.items(), key=lambda kv: -kv[1][1])[:10]
         for name, (n, ms) in top:
             print(f"[profile] {rng_name} {ms:9.3f} ms {n:6d}x  {name[:100]}")
-        extra[rng_name] = dict(ms=r_ms, share=r_ms / busy_ms, top=dict(top))
+        extra[rng_name] = dict(ms=r_ms, share=r_ms / busy_ms, wall_ms=r_wall, top=dict(top))
     print(json.dumps(dict(card=card, mode=mode, wall_ms=wall_ms, busy_ms=busy_ms,
                           idle_share=1 - busy_ms / wall_ms, mma_kernel_ms=mma_ms,
                           mma_kernel_ms_by_name=kernel_ms, scaled_share=kernel_ms[

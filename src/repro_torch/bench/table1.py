@@ -70,6 +70,22 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def busy_us(intervals) -> float:
+    """Length of the union of (start, end) intervals: a profiler's device
+    events, busy time without double counting overlaps."""
+    total, cur_s, cur_e = 0.0, None, None
+    for s, e in sorted(intervals):
+        if cur_e is None or s > cur_e:
+            if cur_e is not None:
+                total += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    if cur_e is not None:
+        total += cur_e - cur_s
+    return total
+
+
 def graph_ms(torch, fn, calls: int = 20, reps: int = 7) -> float:
     """Device time of one ``fn`` call: ``calls`` calls captured in one CUDA
     graph, each replay timed by CUDA events, the median replay over

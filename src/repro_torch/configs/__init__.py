@@ -1,6 +1,8 @@
-"""Architecture configs of the port (so far: Yi-6B and Minitron-4B, the dense
-family; OLMoE-1B-7B and DBRX-132B, the moe family; RWKV6-3B, the ssm family;
-Zamba2-7B, the hybrid family).
+"""Architecture configs of the port: Yi-6B, Minitron-4B, H2O-Danube3-4B
+(sliding-window attention) and Granite-20B (MQA), the dense family;
+OLMoE-1B-7B and DBRX-132B, the moe family; RWKV6-3B, the ssm family;
+Zamba2-7B, the hybrid family; Whisper-large-v3, the encdec family;
+InternVL2-76B, the vlm family; and the U-Net.
 
 ``get_config(name)`` returns the full-size config; ``get_smoke_config(name)``
 a reduced same-family config for CPU smoke tests.

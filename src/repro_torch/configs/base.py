@@ -5,8 +5,7 @@ A framework-free copy of the reference's schema.  Families: 'dense'
 mixture-of-experts FFN), 'hybrid' (Mamba2 backbone with a shared attention
 block — Zamba2), 'ssm' (attention-free RWKV6), 'encdec' (Whisper), 'vlm'
 (dense LM + stub patch-embedding prefix), 'unet' (the paper's target
-application).  The port serves the 'dense', 'moe', 'ssm' and 'hybrid'
-families so far.
+application).  The port serves every family.
 """
 from __future__ import annotations
 

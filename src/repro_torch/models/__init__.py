@@ -1,9 +1,8 @@
-"""Model zoo of the port: the U-Net, the transformer LM (the dense and moe
-families), RWKV6 (ssm) and Zamba2 (hybrid) so far.
+"""Model zoo of the port: the U-Net, the transformer LM (the dense, moe and
+vlm families), RWKV6 (ssm), Zamba2 (hybrid) and Whisper (encdec).
 
 ``build(cfg)`` returns the module that serves a config (init / forward /
-decode API), as the reference's ``models.build`` does; families not yet
-ported raise ``NotImplementedError``.
+decode API), as the reference's ``models.build`` does.
 """
 
 # Families whose forward consumes cfg.quant.plane_schedule (the per-layer
@@ -14,7 +13,7 @@ PLANE_SCHEDULE_FAMILIES = ("dense", "moe", "vlm")
 
 def build(cfg):
     """Return the model module for a config (forward/init/decode API)."""
-    from . import rwkv6, transformer, unet, zamba2
+    from . import rwkv6, transformer, unet, whisper, zamba2
 
     quant = getattr(cfg, "quant", None)
     if (quant is not None and getattr(quant, "plane_schedule", None) is not None
@@ -26,10 +25,5 @@ def build(cfg):
             f"UNetConfig.plane_schedule)"
         )
     mods = {"dense": transformer, "moe": transformer, "vlm": transformer, "hybrid": zamba2,
-            "ssm": rwkv6, "unet": unet}
-    if cfg.family not in mods:
-        raise NotImplementedError(
-            f"family {cfg.family!r} (whisper) is a later slice of the port (the "
-            f"other families)"
-        )
+            "ssm": rwkv6, "encdec": whisper, "unet": unet}
     return mods[cfg.family]

@@ -1,5 +1,6 @@
-"""Decoder-only transformer LM, the 'dense' and 'moe' families ('vlm'
-raises until its slice is ported).
+"""Decoder-only transformer LM, the 'dense', 'moe' and 'vlm' families (vlm:
+the dense LM behind a stub frontend's patch embeddings, prepended to the
+token stream as ``prefix_embeds``).
 
 The parameter tree is the reference's: every block leaf is stacked
 ``(L, ...)`` under ``params["blocks"]``.  The reference scans over that
@@ -22,15 +23,8 @@ from repro_torch.device import resolve_device
 from . import layers
 from . import moe as moe_lib
 
-_LATER = {
-    "vlm": "the vlm patch-embedding prefix is a later slice of the port (the other families)",
-}
-
-
 def _check_family(cfg) -> None:
-    if cfg.family in _LATER:
-        raise NotImplementedError(_LATER[cfg.family])
-    if cfg.family not in ("dense", "moe"):
+    if cfg.family not in ("dense", "moe", "vlm"):
         raise ValueError(f"not a transformer LM family: {cfg.family!r}")
 
 
@@ -135,8 +129,10 @@ def forward(
     return_aux: bool = False,
     device=None,
 ):
-    """tokens: (B, S) int -> logits (B, S, vocab), on ``device`` (the CUDA
-    card unless ``device='cpu'``).
+    """tokens: (B, S) int -> logits (B, P + S, vocab), on ``device`` (the
+    CUDA card unless ``device='cpu'``).  ``prefix_embeds`` (B, P, D): the
+    vlm stub frontend's patch embeddings, placed before the token
+    embeddings; positions run over all P + S.
 
     With ``cache`` (decode / prefill into the cache): returns (logits,
     cache), the cache ``{"k": (L, B, S_max, KV, hd), "v": ...}`` updated in
@@ -146,12 +142,13 @@ def forward(
     reference takes it, on ``rmsnorm(ln2, h)`` of the block's input ``h``.
     """
     _check_family(cfg)
-    if prefix_embeds is not None:
-        raise NotImplementedError(_LATER["vlm"])
     dev = resolve_device(device)
     params = params_to(params, dev)
     tokens = torch.as_tensor(tokens, dtype=torch.int64, device=dev)
     x = layers.embed(params["embed"], tokens)
+    if prefix_embeds is not None:  # the vlm stub frontend
+        prefix = torch.as_tensor(prefix_embeds, device=dev).to(x.dtype)
+        x = torch.cat([prefix, x], dim=1)
     b, s, _ = x.shape
     base = torch.as_tensor(0 if cache_index is None else cache_index, device=dev)
     ar = torch.arange(s, device=dev)
@@ -188,12 +185,15 @@ def forward(
 
 
 def loss_fn(params, batch, cfg, *, device=None):
-    """Next-token cross-entropy (forward only); batch = {"tokens": (B, S+1)}.
+    """Next-token cross-entropy (forward only); batch = {"tokens": (B, S+1)}
+    (+ "patches" (B, P, D) for vlm: the prefix's logits are dropped).
     Returns (loss, metrics)."""
-    if batch.get("patches") is not None:
-        raise NotImplementedError(_LATER["vlm"])
     tok = torch.as_tensor(batch["tokens"], dtype=torch.int64)
-    logits, aux = forward(params, tok[:, :-1], cfg, return_aux=True, device=device)
+    prefix = batch.get("patches")
+    logits, aux = forward(params, tok[:, :-1], cfg, prefix_embeds=prefix, return_aux=True,
+                          device=device)
+    if prefix is not None:
+        logits = logits[:, prefix.shape[1]:, :]
     nll = layers.next_token_nll(logits, tok[:, 1:])
     loss = nll + 0.01 * aux
     return loss, {"nll": nll, "aux": aux}

@@ -18,10 +18,12 @@ quantizes activations with one scale per tensor, so a slot's numerics
 depend on the other rows of its batch; the engine's cache is bf16
 whatever ``quant.kv_int8`` says (only direct ``decode_step`` callers with
 an int8 cache take the int8-KV branch); and the recurrent families (RWKV6,
-Zamba2) share one scalar index across rows: a prefill call runs every
-row, so every slot's state advances on its pad token, and a slot's new
-occupant inherits its predecessor's state and length.  There a request's
-stream depends on its batch mates.
+Zamba2) and Whisper share one scalar index across rows: a prefill call
+runs every row, so every slot's state advances on its pad token (Whisper:
+every row's pad-token K/V lands at the prefilling slot's length), a step
+indexes every row at the largest active length, and a slot's new occupant
+inherits its predecessor's state and length.  There a request's stream
+depends on its batch mates.
 """
 from __future__ import annotations
 
@@ -140,7 +142,18 @@ class Engine:
         self.params = self.mod.params_to(params, self.device)
         self.batch = batch
         self.max_seq = max_seq
-        self.extras = extras or {}
+        self.extras = extras or {}  # encdec: {"memory": (B, T_enc, D)}
+        if cfg.family == "encdec" and "memory" in self.extras:
+            # the caller's dict, as the reference's engine fills it: the
+            # memory moved to the engine's device, the cross K/V projected
+            # once for every decode call
+            ex = self.extras
+            ex["memory"] = torch.as_tensor(ex["memory"], device=self.device)
+            if "cross_kv" in ex:
+                ex["cross_kv"] = self.mod.params_to(ex["cross_kv"], self.device)
+            else:
+                ex["cross_kv"] = self.mod.precompute_cross_kv(self.params, ex["memory"], cfg,
+                                                              device=self.device)
         self.decode_fn = shared_decode(cfg, batch, max_seq, self.device)
         # bf16, as the reference's engine builds it (quant.kv_int8 unread)
         self.cache = ss.init_serving_cache(cfg, batch, max_seq, device=self.device)

@@ -1,7 +1,8 @@
 """Serving steps: prefill (prompt -> logits) and decode (one token against a
 KV cache of ``max_seq``, or an O(1) recurrent state) for the LM families
 the port serves: the transformer families (dense, moe, vlm), Zamba2
-(hybrid) and RWKV6 (ssm).
+(hybrid), RWKV6 (ssm) and Whisper (encdec: the encoder runs once per
+request, outside the decode step, which reads its memory from ``extras``).
 
 The MMA quantized datapath (cfg.quant.mode='mma_int8') applies here — this
 is where the paper's early-termination knob (quant.planes) meets LM serving.
@@ -17,8 +18,8 @@ RECURRENT_FAMILIES = ("hybrid", "ssm")
 
 
 def _lm_module(cfg):
-    mod = models.build(cfg)  # raises for the families not ported yet
-    if cfg.family not in models.PLANE_SCHEDULE_FAMILIES + RECURRENT_FAMILIES:
+    mod = models.build(cfg)
+    if cfg.family not in models.PLANE_SCHEDULE_FAMILIES + RECURRENT_FAMILIES + ("encdec",):
         raise ValueError(f"no LM serving step for family {cfg.family!r}")
     return mod
 
@@ -30,15 +31,18 @@ def make_prefill(cfg, *, device=None):
     def prefill(params, tokens, extras):
         if cfg.family in RECURRENT_FAMILIES:
             return mod.forward(params, tokens, cfg, device=dev)
+        if cfg.family == "encdec":
+            memory = mod.encode(params, extras["frames"], cfg, device=dev)
+            return mod.decode(params, tokens, memory, cfg, device=dev)
         return mod.forward(params, tokens, cfg, prefix_embeds=extras.get("patches"), device=dev)
 
     return prefill
 
 
 def init_serving_cache(cfg, batch: int, max_seq: int, *, dtype=torch.bfloat16, device=None):
-    """The decode cache a family serves from: the transformer's KV cache (of
-    ``dtype``), Zamba2's state of ``max_seq`` (its shared block's KV caches
-    are bf16) or RWKV6's (no sequence dim)."""
+    """The decode cache a family serves from: the transformer's or Whisper's
+    decoder KV cache (of ``dtype``), Zamba2's state of ``max_seq`` (its
+    shared block's KV caches are bf16) or RWKV6's (no sequence dim)."""
     mod = _lm_module(cfg)
     if cfg.family == "hybrid":
         return mod.init_state(cfg, batch, max_seq, device=device)
@@ -56,7 +60,12 @@ def make_decode(cfg, batch: int, max_seq: int, *, device=None):
     cache_dtype = torch.int8 if cfg.quant.kv_int8 else torch.bfloat16
     spec = init_serving_cache(cfg, batch, max_seq, dtype=cache_dtype, device="meta")
 
-    def decode(params, tokens, cache, index, extras):
-        return mod.decode_step(params, tokens, cache, index, cfg, device=dev)
+    if cfg.family == "encdec":
+        def decode(params, tokens, cache, index, extras):
+            return mod.decode_step(params, tokens, cache, index, cfg, memory=extras["memory"],
+                                   cross_kv=extras.get("cross_kv"), device=dev)
+    else:
+        def decode(params, tokens, cache, index, extras):
+            return mod.decode_step(params, tokens, cache, index, cfg, device=dev)
 
     return decode, spec

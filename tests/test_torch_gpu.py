@@ -58,6 +58,10 @@ RWKV6_SHAPES = [(2560, 2560), (2560, 8960), (8960, 2560), (2560, 65536)]
 # and proj, the head.  dt_proj (3584 x 112) takes the unscaled kernel.
 ZAMBA2_SHAPES = [(3584, 7168), (3584, 7296), (7168, 3584), (7168, 7168), (3584, 32000)]
 DT_PROJ = (3584, 112)
+# Whisper-large-v3's linears (K, N): the attention projections (self and
+# cross), the MLP's up and down.  The decoder runs them at M = 4 (batch 4),
+# the encoder and the cross K/V projection at M = 6000 (4 x 1500 frames).
+WHISPER_SHAPES = [(1280, 1280), (1280, 5120), (5120, 1280)]
 
 # Bf16 logits of the small LM, card against CPU, relative to the call's
 # largest logit.  The integer products and the scaled epilogue are equal and
@@ -981,3 +985,99 @@ def test_gpu_zamba2_decode_graph_replayed_twice(cuda):
         outs.append(got.clone())
     assert torch.equal(outs[0], outs[1]) and torch.equal(outs[0], want)
 
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", [4, 6000])
+@pytest.mark.parametrize("k,n", WHISPER_SHAPES)
+def test_gpu_scaled_kernel_vs_plain_whisper_shapes(cuda, m, k, n):
+    """The scaled kernel at Whisper's shapes, at the served 5 planes and at
+    8: bit for bit against the plain version (tolerance 0: the same int32
+    product and the same two float32 roundings of the epilogue)."""
+    for planes in (5, 8):
+        _kernel_vs_plain(cuda, m, k, n, planes, scaled=True, seed=planes)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", [4, 6000])
+def test_gpu_whisper_scaled_graph_replayed_twice(cuda, m):
+    """Whisper's MLP down projection (K 5120, N 1280) at M = 4 (split K)
+    and M = 6000 (188 row tiles) captured in one CUDA graph: two replays
+    give outputs equal to each other and to the plain version (tolerance
+    0)."""
+    k, n = 5120, 1280
+    g = torch.Generator(device=cuda).manual_seed(5)
+    x = torch.randint(-128, 128, (m, k), dtype=torch.int8, device=cuda, generator=g)
+    w = torch.randint(-128, 128, (k, n), dtype=torch.int8, device=cuda, generator=g)
+    xs = torch.rand(1, device=cuda, generator=g) * 0.1 + 1e-3
+    ws = torch.rand(n, device=cuda, generator=g) * 0.01 + 1e-4
+    mk.mma_matmul_scaled_kernel(x, w, xs, ws, planes=5)  # build, load and prepare first
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = mk.mma_matmul_scaled_kernel(x, w, xs, ws, planes=5)
+    outs = []
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        outs.append(out.clone())
+    assert torch.equal(outs[0], outs[1])
+    assert torch.equal(outs[0], mk.mma_matmul_scaled_plain(x, w, xs, ws, planes=5))
+
+
+@pytest.mark.gpu
+def test_gpu_whisper_engine_equals_cpu_engine(cuda):
+    """Whisper's smoke model (every linear int8 at ``min_dim=128``) on the
+    kernel route at 8 planes (the basis of ``LM_LOGIT_REL``): the encoder on
+    the card within ``LM_LOGIT_REL`` of the CPU's; then both engines serve
+    from the same memory (the CPU's: a memory that differs by an ulp moves
+    int8 levels of the cross K/V's per-tensor grid), with 2 x 2 scaled
+    launches for the cross K/V and 2 x 8 per decode call on the card (none
+    unscaled), three requests at batch 2 (one slot reused) with logits within
+    ``LM_LOGIT_REL`` of the CPU's at every call up to the first whose argmax
+    differs, and equal tokens if none does."""
+    from repro_torch.models import whisper
+
+    cfg = get_smoke_config("whisper_large_v3").replace(
+        quant=QuantConfig(mode="mma_int8", impl="kernel", planes=8))
+    params = whisper.init_params(0, cfg, device="cpu", int8_min_dim=128, max_dec_pos=64)
+    frames = np.random.default_rng(0).standard_normal((2, cfg.enc_seq, cfg.d_model)).astype(
+        np.float32)
+    before = (mk.launches, mk.scaled_launches)
+    mem_g = whisper.encode(params, frames, cfg, device=cuda)
+    assert (mk.launches - before[0], mk.scaled_launches - before[1]) == (0, 2 * 6)
+    mem_c = whisper.encode(params, frames, cfg, device="cpu")
+    rel = float((mem_g.float().cpu() - mem_c.float()).abs().max() / mem_c.float().abs().max())
+    assert rel <= LM_LOGIT_REL, f"encoder memory differs by {rel} of the largest"
+    runs = []
+    for dev in (cuda, "cpu"):
+        rng = np.random.default_rng(1)
+        reqs = [Request(i, rng.integers(0, 512, n).astype(np.int32), max_new=4)
+                for i, n in enumerate((3, 5, 2))]
+        before = (mk.launches, mk.scaled_launches)
+        eng = Engine(cfg, params, batch=2, max_seq=32, extras={"memory": mem_c.clone()},
+                     device=dev)
+        launched_kv = (mk.launches - before[0], mk.scaled_launches - before[1])
+        logits, inner = [], eng.decode_fn
+
+        def decode(*a, inner=inner, logits=logits):
+            out = inner(*a)
+            logits.append(out[0][:, -1].to(torch.float32).cpu())
+            return out
+
+        eng.decode_fn = decode
+        before = (mk.launches, mk.scaled_launches)
+        done = eng.run(reqs)
+        torch.cuda.synchronize()
+        runs.append(([r.out for r in done], logits, launched_kv,
+                     (mk.launches - before[0], mk.scaled_launches - before[1])))
+    (tok_g, lg_g, kv_g, dec_g), (tok_c, lg_c, kv_c, dec_c) = runs
+    assert kv_g == (0, 2 * 2) and dec_g == (0, 16 * len(lg_g))
+    assert kv_c == dec_c == (0, 0) and len(lg_g) == len(lg_c)
+    for i, (a, b) in enumerate(zip(lg_g, lg_c)):
+        rel = float((a - b).abs().max() / b.abs().max())
+        assert rel <= LM_LOGIT_REL, f"decode call {i}: logits differ by {rel} of the largest"
+        if not torch.equal(a.argmax(-1), b.argmax(-1)):
+            break
+    else:
+        assert tok_g == tok_c

@@ -341,13 +341,17 @@ def test_loss_fn_equals_the_reference():
 
 
 def test_build_dispatches_and_refuses():
-    from repro_torch.models import zamba2
+    from repro_torch.models import whisper, zamba2
 
     _, tcfg = _cfgs("smoke", "kernel")
     assert models.build(tcfg) is rwkv6
     assert models.build(get_smoke_config("zamba2_7b")) is zamba2
-    with pytest.raises(NotImplementedError, match="later slice"):
-        models.build(tcfg.replace(family="encdec", quant=QuantConfig()))
+    # 'encdec' builds Whisper, and its decode step serves from the same
+    # kind of cache spec as the other families
+    wcfg = get_smoke_config("whisper_large_v3")
+    assert models.build(tcfg.replace(family="encdec", quant=QuantConfig())) is whisper
+    _, spec = serve_step.make_decode(wcfg, 2, 8, device="cpu")
+    assert spec["k"].shape == (wcfg.n_layers, 2, 8, wcfg.n_kv_heads, wcfg.hd)
     for name in ("rwkv6_3b", "zamba2_7b"):
         sched = get_smoke_config(name).replace(
             quant=QuantConfig(mode="mma_int8", impl="kernel", plane_schedule=(6, 5)))
