@@ -209,6 +209,32 @@ with a non-zero exit:
    plane-work floor; the encoder's and cross K/V pass's host walls, the
    host wall per decode call and the card's idle share over a second
    ``Engine.run`` under ``torch.profiler``.
+15. Quantization-aware training (main path 10): Yi-6B at full width with its
+   depth cut to 8 of 32 layers (1.908 G params, random bf16 weights from
+   seed 0 on the card), ``QuantConfig(mode="mma_int8", impl="kernel",
+   planes=8)``, Yi-6B's own ``microbatches=4`` and ``remat="full"``, TF32
+   off; the data pipeline's synthetic batches (seed 0) of 8 x 512 tokens,
+   so every unscaled-kernel call has M = 1024 rows; after phase 14's
+   weights are released.  First one microbatch: every one of its 113
+   unscaled calls bit-exact against the plain version, and its loss and
+   every gradient leaf bit-equal to the same microbatch on the Horner
+   route.  Then ``trainer.train`` for 4 steps with checkpoints every 2
+   (into ``chip_scratch/train``): 452 unscaled launches per step (per
+   microbatch 56 block linears, 56 again in remat's recompute, the head),
+   0 scaled, finite losses, the master params moved; peak memory printed.
+   Then the restart: the run killed after its step-2 checkpoint (that step
+   directory, ``LATEST`` naming it), ``trainer.resume``, 2 more steps,
+   every final param bit-equal to the uninterrupted run's; beside it,
+   ``python -m repro_torch.launch.train --arch yi_6b --smoke --steps 4
+   --ckpt-every 2 --resume`` once as a subprocess (exit 0).  Then one more
+   step under ``torch.profiler`` (host wall, device busy, idle share, the
+   unscaled kernel's and the stock matmuls' device time) and the optimizer
+   update alone.
+   Times (CUDA graphs): the unscaled kernel at each training shape against
+   ``torch._int_mm``, the bound and the plane-work floor, and the
+   straight-through estimator's float32 products (forward ``x @ w``, the
+   backward's ``g @ w.T`` and ``x.T @ g``) at the same shapes, each
+   summed over a step's calls.
 
 The line before the last is a JSON object naming every kernel with its
 launches on its main path and its times; the last line is
@@ -219,7 +245,9 @@ from __future__ import annotations
 import dataclasses
 import itertools
 import json
+import os
 import re
+import statistics
 import subprocess
 import sys
 import time
@@ -301,6 +329,15 @@ RECURRENT_BLOCK_REL = 5e-2
 # Phase 14 (Whisper, the encdec family) serves at the global plane knob too:
 # plane schedules are refused for it, as in the reference.
 WHISPER_PLANES = 5
+# Phase 15 trains Yi-6B at full width with its depth cut to 8 of 32 layers:
+# 1.908 G params, ~27 GB of bf16 params and float32 master, m and v (all 32
+# layers would need ~121 GB of state alone); 8 sequences of 512 tokens in
+# Yi-6B's 4 microbatches, so every kernel call has 2 x 512 rows.
+TRAIN_LAYERS, TRAIN_SEQ, TRAIN_BATCH = 8, 512, 8
+TRAIN_STEPS, TRAIN_CKPT_EVERY = 4, 2
+F32_OPS_PER_S = 67e12  # the H100 SXM's float32 peak outside the tensor cores
+# substrings of stock matmul kernel names (cuBLAS, CUTLASS) in a profile
+GEMM_NAMES = ("gemm", "nvjet", "xmma", "cutlass")
 
 
 def check(cond: bool, msg: str) -> None:
@@ -2043,7 +2080,9 @@ def whisper_shapes(cfg):
 def device_idle(torch, fn):
     """``fn`` run once under ``torch.profiler`` (device activity only):
     (host wall ms, device busy ms: the union of kernel and copy intervals,
-    idle share)."""
+    idle share, {kernel name: [count, device ms]})."""
+    from collections import defaultdict
+
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -2054,11 +2093,18 @@ def device_idle(torch, fn):
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    intervals = [(e.time_range.start, e.time_range.end) for e in prof.events()
-                 if e.device_type == DeviceType.CUDA]
+    by_name = defaultdict(lambda: [0, 0.0])
+    intervals = []
+    for evt in prof.events():
+        if evt.device_type != DeviceType.CUDA:
+            continue
+        s, e = evt.time_range.start, evt.time_range.end
+        intervals.append((s, e))
+        by_name[evt.name][0] += 1
+        by_name[evt.name][1] += (e - s) / 1e3
     check(bool(intervals), "the profiler recorded no device activity")
     busy_ms = busy_us(intervals) / 1e3
-    return wall_ms, busy_ms, 1 - busy_ms / wall_ms
+    return wall_ms, busy_ms, 1 - busy_ms / wall_ms, dict(by_name)
 
 
 def wide_calls_times(torch, card, calls, label):
@@ -2252,7 +2298,7 @@ def whisper_serving(torch, np, dev, card, cfg):
     for r in sorted(done, key=lambda r: r.rid):
         print(f"[whisper] request {r.rid}: prompt {r.prompt.tolist()} -> tokens {r.out}")
     # the same requests again under the profiler: the card's idle share
-    prof_wall, prof_busy, idle = device_idle(torch, lambda: Engine(
+    prof_wall, prof_busy, idle, _ = device_idle(torch, lambda: Engine(
         kcfg, params, batch=LM_BATCH, max_seq=LM_MAX_SEQ, extras=extras, device=dev).run(
         [Request(i, p, max_new=LM_MAX_NEW) for i, p in enumerate(prompts)]))
     print(f"[whisper] Engine.run under the profiler: host wall {prof_wall:.1f} ms, device busy "
@@ -2349,6 +2395,364 @@ def whisper_serving(torch, np, dev, card, cfg):
         phase14_s=phase_s,
     )
     return out
+
+
+def train_shapes(cfg):
+    """The linears of one training microbatch, by shape: ``(name, K, N,
+    linears, calls)``.  Each linear's forward is one unscaled-kernel call and
+    a block linear's runs again in remat's recompute, so a block shape has
+    twice as many calls as linears; each linear's backward is one pair of
+    float32 products."""
+    d, kv, ff, n = cfg.d_model, cfg.n_kv_heads * cfg.hd, cfg.d_ff, cfg.n_layers
+    return [(name, k, nn, lin, 2 * lin if name != "head" else lin)
+            for name, k, nn, lin in (("wq/wo", d, d, 2 * n), ("wk/wv", d, kv, 2 * n),
+                                     ("w_gate/w_up", d, ff, 2 * n), ("w_down", ff, d, n),
+                                     ("head", d, cfg.vocab, 1))]
+
+
+def train_times(torch, dev, card, m, shapes, recorded):
+    """Graph-timed products of a training step at M = ``m`` rows, by shape:
+    the unscaled kernel at 8 planes (on the recorded call of that shape)
+    against ``torch._int_mm``, the bound and the plane-work floor; and the
+    straight-through estimator's float32 products, forward ``x @ w`` and the
+    backward's ``g @ w.T`` and ``x.T @ g`` (TF32 off), against the card's
+    float32 peak outside the tensor cores."""
+    from repro_torch.bench.table1 import graph_ms
+    from repro_torch.kernels import mma_matmul as mk
+
+    g = torch.Generator(device=dev).manual_seed(5)
+    rows = []
+    for name, k, n, linears, calls in shapes:
+        x8, w8 = recorded[(k, n)]
+        ms = graph_ms(torch, lambda: mk.mma_matmul_kernel(x8, w8, planes=8), calls=5, reps=5)
+        check(torch.equal(torch._int_mm(x8, w8), mk.mma_matmul_kernel(x8, w8)),
+              f"training {name}: library yardstick disagrees with the kernel")
+        lib_ms = graph_ms(torch, lambda: torch._int_mm(x8, w8), calls=5, reps=5)
+        plain_ms = time_ms(torch, lambda: mk.mma_matmul_plain(x8, w8, planes=8), reps=1,
+                           warmup=1)
+        x32 = torch.randn((m, k), device=dev, generator=g)
+        w32 = torch.randn((k, n), device=dev, generator=g)
+        g32 = torch.randn((m, n), device=dev, generator=g)
+        fwd_ms = graph_ms(torch, lambda: x32 @ w32, calls=5, reps=5)
+        bwd_ms = graph_ms(torch, lambda: (g32 @ w32.T, x32.T @ g32), calls=5, reps=5)
+        del x32, w32, g32
+        nbytes, nops = m * k + k * n + 4 * m * n, 2 * m * k * n
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, nops / INT8_OPS_PER_S * 1e3
+        row = dict(name=name, M=m, K=k, N=n, linears=linears, calls=calls, ms=ms, plain_ms=plain_ms,
+                   library_ms=lib_ms, bound_ms=max(t_bytes, t_ops),
+                   bound_by="bytes" if t_bytes >= t_ops else "operations",
+                   plane_floor_ms=8 * t_ops, ste_fwd_ms=fwd_ms, ste_bwd_ms=bwd_ms,
+                   ste_floor_ms=nops / F32_OPS_PER_S * 1e3, ops=nops, bytes=nbytes)
+        rows.append(row)
+        print(f"[train] {card} | mma_matmul training {name} M={m} K={k} N={n} ({calls} per "
+              f"microbatch), planes 8: kernel {ms:.4f} ms ({8 * nops / ms / 1e9:.1f} T plane "
+              f"ops/s), plain {plain_ms:.3f} ms, torch._int_mm {lib_ms:.4f} ms, bound "
+              f"{row['bound_ms']:.5f} ms ({row['bound_by']}), plane-work floor "
+              f"{row['plane_floor_ms']:.5f} ms | STE float32 products: x @ w {fwd_ms:.4f} ms, "
+              f"backward pair {bwd_ms:.4f} ms ({3 * nops / (fwd_ms + bwd_ms) / 1e9:.1f} TFLOP/s)")
+    return rows
+
+
+def train_microbatch(torch, dev, cfg, hcfg, dcfg, shapes):
+    """Phase 15's first check: Yi-6B's training params drawn on the card, and
+    one microbatch's loss and gradients on the kernel route (``cfg``), every
+    unscaled call held against the plain version bit for bit as it is made,
+    then on the Horner route (``hcfg``): loss and every gradient leaf
+    bit-equal.  Returns the params and the record (calls, max error, one
+    ``(x, w)`` per shape)."""
+    from repro_torch.checkpoint.ckpt import tree_leaves
+    from repro_torch.data.pipeline import get_batch
+    from repro_torch.kernels import mma_matmul as mk
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer
+    from repro_torch.train import train_step as ts
+
+    m = dcfg.global_batch // cfg.microbatches * dcfg.seq_len
+    per_mb = sum(c for *_, c in shapes)
+    t0 = time.perf_counter()
+    params = transformer.init_params(0, cfg, device=dev)
+    n_params = sum(p.numel() for p in tree_leaves(params))
+    n_embed = params["embed"]["table"].numel() + params["head"]["w"].numel()
+    torch.cuda.synchronize()
+    print(f"[train] Yi-6B at full width, {cfg.n_layers} of 32 layers: {n_params / 1e9:.3f} G "
+          f"params ({n_embed / 1e9:.3f} G embedding + head, "
+          f"{(n_params - n_embed) / cfg.n_layers / 1e9:.3f} G per layer), bf16 on the card in "
+          f"{time.perf_counter() - t0:.1f} s")
+    mb = {k: v[0] for k, v in get_batch(dcfg, 0).items()}
+    inner = ops.mma_matmul
+    rec = {"n": 0, "err": 0, "shapes": {}}
+
+    def recording(x, w, **kw):
+        out = inner(x, w, **kw)
+        x2 = x.reshape(-1, x.shape[-1])
+        want = mk.mma_matmul_plain(x2, w, planes=kw["planes"])
+        rec["err"] = max(rec["err"], int((out.reshape(want.shape).to(torch.int64)
+                                          - want.to(torch.int64)).abs().max()))
+        check(torch.equal(out.reshape(want.shape), want),
+              f"training call {rec['n']}: kernel != plain at {tuple(x2.shape)} @ {tuple(w.shape)}")
+        rec["n"] += 1
+        if tuple(w.shape) not in rec["shapes"]:
+            rec["shapes"][tuple(w.shape)] = (x2.clone(), w.clone())
+        return out
+
+    mk.launches = mk.scaled_launches = 0
+    ops.mma_matmul = recording
+    t0 = time.perf_counter()
+    try:
+        (loss_k, _), grads_k = ts.value_and_grad(ts.make_loss_fn(cfg, device=dev), params, mb)
+    finally:
+        ops.mma_matmul = inner
+    torch.cuda.synchronize()
+    mb_kernel_s = time.perf_counter() - t0
+    check(mk.launches == per_mb == rec["n"] and mk.scaled_launches == 0,
+          f"one microbatch: {mk.launches} unscaled launches ({rec['n']} recorded), "
+          f"{mk.scaled_launches} scaled, expected {per_mb} and 0")
+    check(sorted(rec["shapes"]) == sorted((k, n) for _, k, n, _, _ in shapes),
+          f"recorded shapes {sorted(rec['shapes'])}")
+    t0 = time.perf_counter()
+    (loss_h, _), grads_h = ts.value_and_grad(ts.make_loss_fn(hcfg, device=dev), params, mb)
+    torch.cuda.synchronize()
+    mb_horner_s = time.perf_counter() - t0
+    check(mk.launches == per_mb, "the Horner route launched the kernel")
+    check(bool(torch.isfinite(loss_k)) and torch.equal(loss_k, loss_h),
+          f"one microbatch: loss kernel route {float(loss_k)} vs Horner route {float(loss_h)}")
+    leaves_k, leaves_h = tree_leaves(grads_k), tree_leaves(grads_h)
+    for i, (a, b) in enumerate(zip(leaves_k, leaves_h)):
+        check(a.dtype == torch.bfloat16 and bool(torch.isfinite(a).all()) and torch.equal(a, b),
+              f"one microbatch: gradient leaf {i} {tuple(a.shape)}: kernel route != Horner route")
+    print(f"[train] one microbatch (M = {m}): {rec['n']} unscaled calls, every one bit-exact "
+          f"against the plain version (max_abs_err {rec['err']}); loss {float(loss_k):.6f} and "
+          f"all {len(leaves_k)} gradient leaves bit-equal on the kernel and Horner routes | host "
+          f"wall {mb_kernel_s:.2f} s with the checks, Horner route {mb_horner_s:.2f} s")
+    return params, rec
+
+
+def training(torch, np, dev, card):
+    """Phase 15: quantization-aware training at Yi-6B's full width (depth cut
+    to ``TRAIN_LAYERS``) through the trainer, every linear's forward on the
+    unscaled kernel.  Checks and times as the module's docstring says;
+    returns kernel 1's training entries."""
+    import shutil
+
+    from repro_torch.checkpoint.ckpt import tree_leaves, tree_unflatten
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import QuantConfig
+    from repro_torch.data.pipeline import DataConfig, get_batch
+    from repro_torch.kernels import mma_matmul as mk
+    from repro_torch.optim import adamw
+    from repro_torch.train import train_step as ts
+    from repro_torch.train import trainer
+
+    t_phase = time.perf_counter()
+    # the straight-through estimator's float32 products in float32, as written
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    check(torch.get_float32_matmul_precision() == "highest", "float32 matmuls are not float32")
+    cfg = get_config("yi_6b").replace(n_layers=TRAIN_LAYERS,
+                                      quant=QuantConfig(mode="mma_int8", impl="kernel", planes=8))
+    hcfg = cfg.replace(quant=dataclasses.replace(cfg.quant, impl="horner"))
+    check(cfg.microbatches == 4 and cfg.remat == "full",
+          f"Yi-6B trains at microbatches {cfg.microbatches}, remat {cfg.remat!r}")
+    dcfg = DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH,
+                      microbatches=cfg.microbatches, seed=0)
+    m = TRAIN_BATCH // cfg.microbatches * TRAIN_SEQ  # rows of every kernel call
+    shapes = train_shapes(cfg)
+    per_mb = sum(c for *_, c in shapes)
+    per_step = cfg.microbatches * per_mb
+    check(per_mb == 2 * cfg.n_layers * 7 + 1 and per_step == 452,
+          f"{per_step} unscaled calls per step")
+    ckpt_root = SRC.parent / "chip_scratch" / "train"
+    shutil.rmtree(ckpt_root, ignore_errors=True)
+    torch.cuda.reset_peak_memory_stats()
+
+    sections = {}  # seconds of host wall by part of the phase
+
+    # ---- 1. one microbatch: every kernel call against the plain version,
+    # the kernel route's loss and gradients against the Horner route's
+    params, rec = train_microbatch(torch, dev, cfg, hcfg, dcfg, shapes)
+    n_params = sum(p.numel() for p in tree_leaves(params))
+    sections["microbatch"] = time.perf_counter() - t_phase
+
+    # ---- 2. the main path: trainer.train, TRAIN_STEPS steps, checkpoints
+    step_s, step_launches = [], []
+
+    def step_fn(st, b):
+        n0 = mk.launches
+        t0 = time.perf_counter()
+        out = ts.train_step(st, b, cfg, device=dev)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        step_launches.append(mk.launches - n0)
+        return out
+
+    def tcfg(name, steps):
+        return trainer.TrainerConfig(total_steps=steps, ckpt_every=TRAIN_CKPT_EVERY, log_every=1,
+                                     ckpt_dir=str(ckpt_root / name))
+
+    def log(line):
+        print(f"[train] {line}")
+
+    state = {"params": params, "opt": adamw.init(params)}
+    mk.launches = mk.scaled_launches = 0
+    t0 = time.perf_counter()
+    state_a, m_a = trainer.train(state, step_fn, dcfg, tcfg("a", TRAIN_STEPS), log=log)
+    train_s = time.perf_counter() - t0
+    host_s = list(step_s)  # the main run's steps (the restart's run beside the launcher)
+    launches, scaled = mk.launches, mk.scaled_launches
+    peak = torch.cuda.max_memory_allocated()
+    del state
+    check(step_launches == [per_step] * TRAIN_STEPS and launches == per_step * TRAIN_STEPS,
+          f"unscaled launches per step {step_launches}, expected {per_step}")
+    check(scaled == 0, f"{scaled} scaled-kernel launches in training")
+    check(len(m_a["losses"]) == TRAIN_STEPS and all(np.isfinite(m_a["losses"])),
+          f"losses {m_a['losses']}")
+    moved = max(float((a - b.to(torch.float32)).abs().max())
+                for a, b in zip(tree_leaves(state_a["opt"].master), tree_leaves(params)))
+    check(moved > 0, "the master params did not move")
+    check(int(state_a["opt"].step) == TRAIN_STEPS, f"optimizer step {int(state_a['opt'].step)}")
+    saved = sorted(p.name for p in (ckpt_root / "a").iterdir())
+    check(saved == ["LATEST"] + [f"step_{s:09d}" for s in range(TRAIN_CKPT_EVERY, TRAIN_STEPS + 1,
+                                                               TRAIN_CKPT_EVERY)],
+          f"checkpoints written: {saved}")
+    state_bytes = sum(t.numel() * t.element_size() for t in tree_leaves(state_a))
+    print(f"[train] {card} | trainer.train: {TRAIN_STEPS} steps of {TRAIN_BATCH} x {TRAIN_SEQ} "
+          f"tokens in {cfg.microbatches} microbatches, losses "
+          f"{[round(x, 4) for x in m_a['losses']]}, {launches} unscaled launches ({per_step} per "
+          f"step), 0 scaled; host wall per step {[round(s, 3) for s in step_s]} s; "
+          f"{train_s:.1f} s in all with {len(saved) - 1} checkpoints of "
+          f"{state_bytes / 2**30:.2f} GiB; master moved by up to {moved:.3g}; peak "
+          f"{peak / 2**30:.2f} GiB allocated (torch.cuda.max_memory_allocated)")
+    sections["train"] = train_s
+
+    # ---- 3. restart: kill the run after its step-`half` checkpoint (what it
+    # had committed then: that step directory, LATEST naming it), resume,
+    # run the rest again; every final param bit-equal
+    half = TRAIN_CKPT_EVERY
+    t0 = time.perf_counter()
+    final_a = [p.clone() for p in tree_leaves(state_a["params"])]
+    like = tree_unflatten(state_a, [t.new_empty(()).expand(t.shape) for t in tree_leaves(state_a)])
+    del state_a, params
+    torch.cuda.empty_cache()
+    for later in range(half + TRAIN_CKPT_EVERY, TRAIN_STEPS + 1, TRAIN_CKPT_EVERY):
+        shutil.rmtree(ckpt_root / "a" / f"step_{later:09d}")
+    (ckpt_root / "a" / "LATEST").write_text(f"step_{half:09d}")
+    # beside the restart, the launcher once, as a user runs it: a process of
+    # its own on the card (its smoke model is small), its own checkpoints
+    launch_dir = ckpt_root / "launch"
+    cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch", "yi_6b", "--smoke",
+           "--steps", "4", "--ckpt-every", "2", "--resume", "--ckpt-dir", str(launch_dir)]
+    proc = subprocess.Popen(cmd, env=dict(os.environ, PYTHONPATH=str(SRC)), text=True,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+    try:
+        t1 = time.perf_counter()
+        resumed, start = trainer.resume(like, tcfg("a", TRAIN_STEPS))
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t1
+        check(start == half and int(resumed["opt"].step) == half,
+              f"resumed at step {start}, optimizer step {int(resumed['opt'].step)}")
+        state_b, m_b = trainer.train(resumed, step_fn, dcfg, tcfg("a", TRAIN_STEPS),
+                                     start_step=start, log=log)
+        del resumed
+        out, err = proc.communicate(timeout=600)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    restart_s = time.perf_counter() - t0
+    check(proc.returncode == 0, f"{' '.join(cmd[1:])} exited with {proc.returncode}:\n"
+          f"{out[-2000:]}{err[-2000:]}")
+    check("final loss" in out and (launch_dir / "LATEST").read_text() == "step_000000004",
+          f"the launcher's output: {out[-2000:]}")
+    print(f"[train] {' '.join(cmd[1:])}: exit 0 | " + " | ".join(out.strip().splitlines()[-2:]))
+    check(m_b["losses"] == m_a["losses"][half:],
+          f"resumed losses {m_b['losses']} vs uninterrupted {m_a['losses'][half:]}")
+    for i, (a, b) in enumerate(zip(final_a, tree_leaves(state_b["params"]))):
+        check(torch.equal(a, b), f"restart: final param leaf {i} differs from the uninterrupted "
+              "run's")
+    sections["restart"] = restart_s
+    print(f"[train] restart: killed after the step-{half} checkpoint, resumed ({restore_s:.1f} s "
+          f"to restore {state_bytes / 2**30:.2f} GiB), {TRAIN_STEPS - half} more steps: every "
+          f"final param bit-equal to the uninterrupted run's, losses equal | {restart_s:.1f} s "
+          f"with the launcher beside it")
+    shutil.rmtree(ckpt_root / "a")
+    del final_a, like
+
+    # ---- 4. where a step's time goes: one more step under the profiler
+    batch = get_batch(dcfg, TRAIN_STEPS)
+    holder = {}
+
+    def one_step():
+        holder["out"] = ts.train_step(state_b, batch, cfg, device=dev)
+
+    t0 = time.perf_counter()
+    wall_ms, busy_ms, idle, by_name = device_idle(torch, one_step)
+    sections["profile"] = time.perf_counter() - t0
+    state_b = holder.pop("out")[0]
+    kernel_ms = sum(ms for name, (_, ms) in by_name.items() if "mma_tc_horner_kernel" in name)
+    kernel_n = sum(n for name, (n, _) in by_name.items() if "mma_tc_horner_kernel" in name)
+    check(kernel_n == per_step, f"profiled step: {kernel_n} unscaled kernels")
+    gemm = {name: v for name, v in by_name.items()
+            if "mma_tc" not in name and any(s in name.lower() for s in GEMM_NAMES)}
+    gemm_ms = sum(ms for _, ms in gemm.values())
+    print(f"[train] {card} | one step under the profiler: host wall {wall_ms:.1f} ms, device "
+          f"busy {busy_ms:.1f} ms, idle share {idle:.3f}; unscaled kernel "
+          f"{kernel_ms:.1f} ms ({kernel_n} launches, {kernel_ms / busy_ms:.3f} of device busy); "
+          f"stock matmul kernels {gemm_ms:.1f} ms ({gemm_ms / busy_ms:.3f})")
+    for name, (n, ms) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:12]:
+        print(f"[train] {ms:10.3f} ms {n:6d}x  {name[:110]}")
+
+    # the optimizer update alone, on float32 gradients as the step hands them over
+    grads = tree_unflatten(state_b["params"], [torch.zeros(p.shape, dtype=torch.float32,
+                                                           device=dev)
+                                               for p in tree_leaves(state_b["params"])])
+    lr = torch.tensor(3e-4, device=dev)
+    t0 = time.perf_counter()
+    opt_ms = time_ms(torch, lambda: adamw.update(state_b["params"], grads, state_b["opt"], lr=lr),
+                     reps=2, warmup=1)
+    sections["optimizer"] = time.perf_counter() - t0
+    opt_bytes = n_params * (4 * 4 + 3 * 4 + 2)  # read master, m, v, g; write them and params
+    del grads, state_b
+    torch.cuda.empty_cache()
+
+    shutil.rmtree(ckpt_root, ignore_errors=True)
+
+    # ---- 5. the step's products timed alone (CUDA graphs)
+    t0 = time.perf_counter()
+    rows = train_times(torch, dev, card, m, shapes, rec["shapes"])
+    sections["times"] = time.perf_counter() - t0
+    mbs = cfg.microbatches
+    kernel_step = mbs * sum(r["calls"] * r["ms"] for r in rows)
+    lib_step = mbs * sum(r["calls"] * r["library_ms"] for r in rows)
+    plain_step = mbs * sum(r["calls"] * r["plain_ms"] for r in rows)
+    bound_step = mbs * sum(r["calls"] * r["bound_ms"] for r in rows)
+    floor_step = mbs * sum(r["calls"] * r["plane_floor_ms"] for r in rows)
+    # every call's forward x @ w; the backward's pair once per linear
+    fwd_step = mbs * sum(r["calls"] * r["ste_fwd_ms"] for r in rows)
+    bwd_step = mbs * sum(r["linears"] * r["ste_bwd_ms"] for r in rows)
+    ste_floor = mbs * sum((r["calls"] + 2 * r["linears"]) * r["ste_floor_ms"] for r in rows)
+    phase_s = time.perf_counter() - t_phase
+    print(f"[train] {card} | per step (from the graph-timed shapes x their calls): unscaled "
+          f"kernel {kernel_step:.1f} ms (torch._int_mm {lib_step:.1f}, bound {bound_step:.2f}, "
+          f"plane-work floor {floor_step:.1f}, plain {plain_step:.0f}); STE float32 products: "
+          f"forward {fwd_step:.1f} ms, backward {bwd_step:.1f} ms (float32 floor {ste_floor:.1f}); "
+          f"optimizer update "
+          f"{opt_ms:.1f} ms (bytes bound {opt_bytes / HBM_BYTES_PER_S * 1e3:.1f} ms); host wall "
+          f"per step {statistics.median(host_s) * 1e3:.0f} ms (median of {len(host_s)}), device "
+          f"busy {busy_ms:.0f} ms (profiled step)")
+    print(f"[train] phase 15 took {phase_s:.1f} s: "
+          + ", ".join(f"{k} {v:.1f}" for k, v in sections.items()))
+    return dict(
+        launches_train=launches, launches_train_per_step=per_step, train_max_abs_err=rec["err"],
+        train_per_shape=rows, train_step=dict(
+            layers=cfg.n_layers, params=n_params, tokens=TRAIN_BATCH * TRAIN_SEQ, m=m,
+            losses=m_a["losses"], host_s=host_s, busy_ms=busy_ms, profiled_wall_ms=wall_ms,
+            kernel_ms_profiled=kernel_ms, gemm_ms_profiled=gemm_ms, kernel_ms=kernel_step,
+            library_ms=lib_step, bound_ms=bound_step, plane_floor_ms=floor_step,
+            plain_ms=plain_step, ste_fwd_ms=fwd_step, ste_bwd_ms=bwd_step,
+            ste_floor_ms=ste_floor, optimizer_ms=opt_ms,
+            optimizer_bound_ms=opt_bytes / HBM_BYTES_PER_S * 1e3, peak_bytes=peak,
+            state_bytes=state_bytes, restore_s=restore_s, sections_s=sections),
+        phase15_s=phase_s)
 
 
 def main() -> int:
@@ -2746,6 +3150,11 @@ def main() -> int:
     summary["launches_whisper"] = mk.launches
     torch.cuda.empty_cache()
     lap(14)
+
+    # ----------------------------- 15. quantization-aware training
+    summary.update(training(torch, np, dev, card))
+    torch.cuda.empty_cache()
+    lap(15)
     print(f"[done] every phase passed in {time.perf_counter() - t_start:.1f} s, the build included")
     print(json.dumps({"kernels": [summary, scaled_summary]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

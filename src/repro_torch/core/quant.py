@@ -1,9 +1,11 @@
 """Int8 quantization (FBGEMM-style symmetric) used by the MMA datapath.
 
 Symmetric int8, per-output-channel scales for weights, a per-tensor (or
-per-row) dynamic scale for activations.  The order of operations matches the
-reference exactly — ``x / scale``, round half to even, clip, int8 — so the
-same float input gives the same int8 values and the same scale bits.
+per-row) dynamic scale for activations; ``fake_quant`` is the
+straight-through estimator for quantization-aware training.  The order of
+operations matches the reference exactly — ``x / scale``, round half to
+even, clip, int8 — so the same float input gives the same int8 values and
+the same scale bits.
 """
 from __future__ import annotations
 
@@ -50,6 +52,20 @@ def quantize_acts(x: torch.Tensor, *, batch_axis: int | None = None) -> QTensor:
 
 def dequantize(q: QTensor) -> torch.Tensor:
     return q.values.to(torch.float32) * q.scale
+
+
+def fake_quant(x: torch.Tensor, *, channel_axis: int | None = None) -> torch.Tensor:
+    """Straight-through-estimator fake quantization for QAT: the forward is
+    ``x`` quantized to int8 and back (per tensor, or per index along
+    ``channel_axis``), the gradient passes through as the identity."""
+    if channel_axis is None:
+        amax = torch.amax(torch.abs(x))
+    else:
+        reduce_axes = tuple(a for a in range(x.ndim) if a != channel_axis % x.ndim)
+        amax = torch.amax(torch.abs(x), dim=reduce_axes, keepdim=True)
+    scale = torch.clamp(amax, min=1e-8) / INT8_MAX
+    q = torch.clamp(torch.round(x / scale), -127, 127) * scale
+    return x + (q - x).detach()
 
 
 def quantized_matmul_scale(x_scale: torch.Tensor, w_scale: torch.Tensor) -> torch.Tensor:

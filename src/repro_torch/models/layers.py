@@ -213,7 +213,7 @@ def flash_attention(
             ok = ok & (k_pos[None, :, :] > q_pos[..., None] - window)
         scores = torch.where(ok[:, None, None, :, :], scores, -torch.inf)
         m = scores.amax(dim=-1, keepdim=True)
-        p = torch.exp(scores - m)
+        p = torch.exp(scores - m.detach())  # the reference's stop_gradient
         out = torch.einsum("bkgst,btkd->bskgd", p.to(q.dtype), v).to(torch.float32)
         out = out / torch.clamp(p.sum(-1), min=1e-20).permute(0, 3, 1, 2)[..., None]
         return out.reshape(b, s, h, d).to(q.dtype)

@@ -228,7 +228,8 @@ def init_state(cfg, batch: int, *, device=None) -> dict:
 
 
 def loss_fn(params, batch, cfg, *, device=None):
-    """Next-token cross-entropy (forward only); batch = {"tokens": (B, S+1)}."""
+    """Next-token cross-entropy; batch = {"tokens": (B, S+1)}.  Returns (loss,
+    metrics); differentiable in ``params``."""
     tok = torch.as_tensor(batch["tokens"], dtype=torch.int64)
     nll = layers.next_token_nll(forward(params, tok[:, :-1], cfg, device=device), tok[:, 1:])
     return nll, {"nll": nll}

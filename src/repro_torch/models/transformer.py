@@ -15,7 +15,9 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
+from repro_torch.checkpoint.ckpt import tree_leaves
 from repro_torch.core import quant
 from repro_torch.core.plane_schedule import PlaneSchedule
 from repro_torch.device import resolve_device
@@ -105,6 +107,16 @@ def _block(p, x, cfg, *, positions, cache=None, cache_index=None):
     return x + h2, new_cache
 
 
+def _layer(blk, x, aux, cfg, positions, moe_aux: bool):
+    """One layer of the cacheless forward: the MoE load-balance aux, taken on
+    the block's input as the reference takes it, then the block."""
+    if moe_aux:
+        aux = aux + moe_lib.load_balance_loss(
+            blk["moe"], layers.rmsnorm(blk["ln2"], x, cfg.norm_eps), cfg)
+    x, _ = _block(blk, x, cfg, positions=positions)
+    return x, aux
+
+
 def _layer_cfgs(cfg) -> list:
     """Each layer's config: under a plane schedule, layer ``l`` carries its
     static budget as ``quant.planes`` (the head keeps the global one)."""
@@ -158,13 +170,19 @@ def forward(
         positions = base + ar[None, :]
 
     aux = torch.zeros((), dtype=torch.float32, device=dev) if return_aux else None
+    moe_aux = return_aux and bool(cfg.moe.n_experts)
+    # remat as the reference's jax.checkpoint of its scan body: only where a
+    # gradient is being taken (serving keeps one forward per block)
+    remat = (cache is None and cfg.remat == "full" and torch.is_grad_enabled()
+             and any(t.requires_grad for t in tree_leaves(params["blocks"])))
     for l, lcfg in enumerate(_layer_cfgs(cfg)):
         blk = layer_params(params["blocks"], l)
         if cache is None:
-            if return_aux and cfg.moe.n_experts:
-                aux = aux + moe_lib.load_balance_loss(
-                    blk["moe"], layers.rmsnorm(blk["ln2"], x, cfg.norm_eps), lcfg)
-            x, _ = _block(blk, x, lcfg, positions=positions)
+            if remat:
+                x, aux = checkpoint(_layer, blk, x, aux, lcfg, positions, moe_aux,
+                                    use_reentrant=False)
+            else:
+                x, aux = _layer(blk, x, aux, lcfg, positions, moe_aux)
         else:
             x, _ = _block(blk, x, lcfg, positions=positions,
                           cache=(cache["k"][l], cache["v"][l]), cache_index=base)
@@ -185,9 +203,10 @@ def forward(
 
 
 def loss_fn(params, batch, cfg, *, device=None):
-    """Next-token cross-entropy (forward only); batch = {"tokens": (B, S+1)}
-    (+ "patches" (B, P, D) for vlm: the prefix's logits are dropped).
-    Returns (loss, metrics)."""
+    """Next-token cross-entropy; batch = {"tokens": (B, S+1)} (+ "patches"
+    (B, P, D) for vlm: the prefix's logits are dropped).  Returns (loss,
+    metrics); differentiable in ``params`` (``train.train_step`` takes its
+    gradient)."""
     tok = torch.as_tensor(batch["tokens"], dtype=torch.int64)
     prefix = batch.get("patches")
     logits, aux = forward(params, tok[:, :-1], cfg, prefix_embeds=prefix, return_aux=True,

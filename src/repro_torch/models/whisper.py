@@ -205,8 +205,8 @@ def forward(params, batch, cfg, *, device=None):
 
 
 def loss_fn(params, batch, cfg, *, device=None):
-    """Next-token cross-entropy (forward only); batch = {"frames": (B, T, D),
-    "tokens": (B, S+1)}.  Returns (loss, metrics)."""
+    """Next-token cross-entropy; batch = {"frames": (B, T, D), "tokens": (B,
+    S+1)}.  Returns (loss, metrics); differentiable in ``params``."""
     tok = torch.as_tensor(batch["tokens"], dtype=torch.int64)
     memory = encode(params, batch["frames"], cfg, device=device)
     nll = layers.next_token_nll(decode(params, tok[:, :-1], memory, cfg, device=device),

@@ -1,0 +1,50 @@
+"""Gradient compression for the data-parallel sync: error-feedback int8.
+
+Int8 compression cuts the all-reduce's bytes 4x against float32, and the
+error-feedback trick (Seide et al.; the 1-bit SGD lineage) keeps
+convergence:
+
+    e'   <- g + e                (add the residual carried from last step)
+    q    <- int8(e' / s),  s = max|e'| / 127     (per-leaf scale)
+    g~   <- allreduce_mean(q * s)                (the only cross-node bytes)
+    e    <- e' - q * s           (the new residual, kept local)
+
+Here: the ``compress``/``decompress`` and error-feedback functions, on
+tensors and trees.  The collective that exchanges ``(q, s)`` across the
+data-parallel ranks waits for the port's parallel layer.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.checkpoint.ckpt import tree_leaves, tree_unflatten
+
+
+def compress(e: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """float32 -> (int8 q, float32 scale) with q * s ~= e."""
+    amax = torch.amax(torch.abs(e))
+    s = torch.clamp(amax, min=1e-30) / 127.0
+    q = torch.clamp(torch.round(e / s), -127, 127).to(torch.int8)
+    return q, s
+
+
+def decompress(q: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    return q.to(torch.float32) * s
+
+
+def ef_step(g: torch.Tensor, err: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One error-feedback compression step on a local gradient leaf.
+
+    Returns ``(q, scale, new_err)``; the caller exchanges ``(q, scale)``.
+    """
+    e = g.to(torch.float32) + err
+    q, s = compress(e)
+    new_err = e - decompress(q, s)
+    return q, s, new_err
+
+
+def ef_tree_step(grads, err_tree):
+    """:func:`ef_step` on every leaf: three trees ``(q, scale, new_err)`` of
+    ``grads``' structure."""
+    out = [ef_step(g, e) for g, e in zip(tree_leaves(grads), tree_leaves(err_tree))]
+    return tuple(tree_unflatten(grads, [o[i] for o in out]) for i in range(3))

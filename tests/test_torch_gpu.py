@@ -1081,3 +1081,90 @@ def test_gpu_whisper_engine_equals_cpu_engine(cuda):
             break
     else:
         assert tok_g == tok_c
+
+
+# Yi-6B's linears at training shapes (M = 2 x 512 rows: one of Yi-6B's 4
+# microbatches of 8 x 512 tokens): wq/wo, wk/wv, w_gate/w_up, w_down, the
+# head.
+TRAIN_SHAPES = [(1024, 4096, 4096), (1024, 4096, 512), (1024, 4096, 11008),
+                (1024, 11008, 4096), (1024, 4096, 64000)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,k,n", TRAIN_SHAPES)
+def test_gpu_kernel_vs_plain_training_shapes(cuda, m, k, n):
+    _kernel_vs_plain(cuda, m, k, n, 8)
+
+
+def _train_cfg(impl: str, microbatches: int = 2):
+    """The widened Yi-6B smoke config of ``test_torch_train.py``, QAT on the
+    given route."""
+    return get_smoke_config("yi_6b").replace(
+        d_model=256, d_ff=512, n_heads=4, n_kv_heads=2, head_dim=64, vocab=512,
+        microbatches=microbatches, quant=QuantConfig(mode="mma_int8", impl=impl))
+
+
+@pytest.mark.gpu
+def test_gpu_train_step_kernel_route_equals_horner_route(cuda):
+    """One train step (two microbatches) on the card: both routes produce
+    the same int32 products and the backward is the float product's, so the
+    loss, grad norm, new params and optimizer state are bit-equal."""
+    from repro_torch.checkpoint.ckpt import tree_leaves
+    from repro_torch.data.pipeline import DataConfig, get_batch
+    from repro_torch.optim import adamw
+    from repro_torch.train import train_step as ts
+
+    batch = get_batch(DataConfig(vocab=512, seq_len=64, global_batch=4, microbatches=2, seed=0), 0)
+    runs = []
+    for impl in ("kernel", "horner"):
+        cfg = _train_cfg(impl)
+        params = transformer.init_params(0, cfg, device=cuda)
+        before = mk.launches
+        new, metrics = ts.train_step({"params": params, "opt": adamw.init(params)}, batch, cfg,
+                                     device=cuda)
+        torch.cuda.synchronize()
+        runs.append((new, metrics, mk.launches - before))
+    (new_k, m_k, n_k), (new_h, m_h, n_h) = runs
+    assert n_k == 2 * (2 * 2 * 7 + 1) and n_h == 0
+    assert bool(torch.isfinite(m_k["loss"])) and torch.equal(m_k["loss"], m_h["loss"])
+    assert torch.equal(m_k["grad_norm"], m_h["grad_norm"])
+    for a, b in zip(tree_leaves(new_k), tree_leaves(new_h)):
+        assert a.device.type == "cuda" and torch.equal(a, b)
+
+
+@pytest.mark.gpu
+def test_gpu_trainer_restart_is_bit_deterministic(cuda, tmp_path):
+    """As ``tests/test_checkpoint.py`` holds the reference's, on the card and
+    the kernel route: 4 uninterrupted steps against 2, a resume, 2 more."""
+    import shutil
+
+    from repro_torch.checkpoint.ckpt import tree_leaves
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.optim import adamw
+    from repro_torch.train import train_step as ts
+    from repro_torch.train import trainer
+
+    cfg = _train_cfg("kernel")
+    dcfg = DataConfig(vocab=512, seq_len=64, global_batch=4, microbatches=2, seed=11)
+
+    def fresh():
+        params = transformer.init_params(0, cfg, device=cuda)
+        return {"params": params, "opt": adamw.init(params)}
+
+    def step_fn(st, b):
+        return ts.train_step(st, b, cfg, device=cuda)
+
+    def tc(steps):
+        return trainer.TrainerConfig(total_steps=steps, ckpt_every=2, log_every=100,
+                                     ckpt_dir=str(tmp_path / "ck"))
+
+    final_a, ma = trainer.train(fresh(), step_fn, dcfg, tc(4), log=lambda *a: None)
+    shutil.rmtree(tmp_path / "ck")
+    half, _ = trainer.train(fresh(), step_fn, dcfg, tc(2), log=lambda *a: None)
+    resumed, start = trainer.resume(half, tc(4))
+    assert start == 2 and all(t.device.type == "cuda" for t in tree_leaves(resumed))
+    final_b, mb = trainer.train(resumed, step_fn, dcfg, tc(4), start_step=start,
+                                log=lambda *a: None)
+    assert ma["losses"][2:] == mb["losses"]
+    for a, b in zip(tree_leaves(final_a), tree_leaves(final_b)):
+        assert torch.equal(a, b)
