@@ -3,11 +3,13 @@
 
     python3 chip_smoke.py
 
-Phases, in one process, each printing its seconds; any failure ends the run
-with a non-zero exit:
+Phases, in one process (phase 16 adds four rank processes of its own), each
+printing its seconds; any failure ends the run with a non-zero exit:
 
 1. Device: the card's name and power limit (``nvidia-smi``), then the build
-   of every kernel from the checkout's sources, with ``-Xptxas -v``.
+   of every kernel from the checkout's sources, with ``-Xptxas -v``: nine
+   ``nvcc`` runs at once (one per plane count and the C interface), then
+   one link.
 2. Kernels vs plain versions: both CUDA MMA kernels (unscaled, on the
    tensor cores, int32 out; scaled, with the fused dequant epilogue, float32
    out, on the tensor cores at every M) against
@@ -235,6 +237,35 @@ with a non-zero exit:
    straight-through estimator's float32 products (forward ``x @ w``, the
    backward's ``g @ w.T`` and ``x.T @ g``) at the same shapes, each
    summed over a step's calls.
+16. Parallel training (main path 11): Yi-6B at full width with its depth cut
+   to 2 of 32 layers (0.870 G params, 12.2 GB of bf16 params and float32
+   master, m and v), phase 15's settings (``mma_int8`` on the kernel, 8
+   planes, 4 microbatches, full remat, TF32 off, 8 x 512 tokens per step).
+   First one unsharded step in this process, the yardstick (its microbatch
+   0's int32 products and its new params kept on the host, its weights
+   freed).  Then 4 ranks in 4 processes on the one card
+   (``torch.multiprocessing`` spawn, gloo: NCCL refuses two ranks on one
+   device; the port's collectives stage CUDA tensors through pinned host
+   memory), mesh (data 2, model 2), each loading phase 1's library, each
+   printing its state bytes (together under ``PAR_STATE_LIMIT``).  Gates:
+   microbatch 0's unscaled calls on each rank bit-exact against the plain
+   version at the sharded shapes, and its int32 products (column-parallel:
+   the rank's columns; row-parallel: after the all-reduce) equal to the
+   yardstick's bit for bit; loss and grad_norm within ``PAR_LOSS_REL`` and
+   ``PAR_NORM_REL``, the gathered params within one bf16 ulp of the
+   yardstick's; ``par_launches`` unscaled launches per step per rank (116:
+   every linear split, one call each); the state gathered and saved under
+   (2, 2), restored under (1, 4) bit-equal and one step from it against the
+   (2, 2) run's second step; GPipe PP 2 x DP 2 (one layer per stage) against
+   the yardstick's loss; ``compressed_psum_shardmap`` over the two data
+   ranks once on one microbatch's gradients (within the int8 step); one
+   OLMoE-1B-7B MoE layer at full width through ``moe_ffn_ep`` over model = 4
+   (16 experts per rank, T = ``MOE_T``, dropless): routing card = CPU,
+   output within ``MOE_REL`` of ``moe_ffn``.  Prints the host wall per
+   sharded step, the collectives by kind per step (gloo over host memory,
+   not NVLink: no claim is made from them) and their share of the step, and
+   the unscaled kernel graph-timed at each sharded shape against
+   ``torch._int_mm`` and the bound.
 
 The line before the last is a JSON object naming every kernel with its
 launches on its main path and its times; the last line is
@@ -247,6 +278,7 @@ import itertools
 import json
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -336,6 +368,19 @@ WHISPER_PLANES = 5
 TRAIN_LAYERS, TRAIN_SEQ, TRAIN_BATCH = 8, 512, 8
 TRAIN_STEPS, TRAIN_CKPT_EVERY = 4, 2
 F32_OPS_PER_S = 67e12  # the H100 SXM's float32 peak outside the tensor cores
+# Phase 16 trains Yi-6B at full width, 2 of 32 layers (0.870 G params, 12.2 GB
+# of state), sharded over 4 ranks on the one card: mesh (data 2, model 2).
+PAR_LAYERS, PAR_WORLD, PAR_JOIN_S = 2, 4, 400
+PAR_STATE_LIMIT = 60e9  # bytes of state of the four ranks together
+# The sharded step against the unsharded one.  The int32 products are equal
+# (gated bit for bit); the float paths differ by a row-parallel linear's
+# float32 all-reduce and the vocab-parallel logsumexp's two partial sums,
+# and a bf16 rounding that lands the other way moves one int8 level of the
+# next linear.  Params after one step: each within two lr-sized steps and
+# one bf16 ulp (AdamW's first step moves a param by about lr whatever its
+# gradient's size, so a gradient near 0 whose sign the rounding flips moves
+# it the other way), and at most PAR_PARAM_DIFFER of them differing at all.
+PAR_LOSS_REL, PAR_NORM_REL, PAR_PARAM_DIFFER = 1e-3, 5e-3, 0.01
 # substrings of stock matmul kernel names (cuBLAS, CUTLASS) in a profile
 GEMM_NAMES = ("gemm", "nvjet", "xmma", "cutlass")
 
@@ -2755,6 +2800,511 @@ def training(torch, np, dev, card):
         phase15_s=phase_s)
 
 
+def parallel_cfgs():
+    """Phase 16's model and data: Yi-6B at full width, ``PAR_LAYERS`` layers,
+    QAT through the unscaled kernel at 8 planes, Yi-6B's 4 microbatches and
+    full remat; 8 x 512 synthetic tokens per step (seed 0)."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import QuantConfig
+    from repro_torch.data.pipeline import DataConfig
+
+    cfg = get_config("yi_6b").replace(n_layers=PAR_LAYERS,
+                                      quant=QuantConfig(mode="mma_int8", impl="kernel", planes=8))
+    dcfg = DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH,
+                      microbatches=cfg.microbatches, seed=0)
+    return cfg, dcfg
+
+
+def par_launches(cfg) -> int:
+    """Unscaled launches per step on one rank, from the layout: every block
+    linear and the head is split over 'model' (column- or row-parallel), so
+    each of a microbatch's 7 * layers block linears (twice: remat's
+    recompute) and the head is one kernel call on each rank."""
+    return cfg.microbatches * (2 * 7 * cfg.n_layers + 1)
+
+
+def par_shapes(cfg, m: int) -> list:
+    """The unscaled kernel's shapes on one rank of the (2, 2) mesh at M =
+    ``m`` rows: ``(name, M, K, N, calls per step)``."""
+    d, kv, ff, v, n, mb = (cfg.d_model, cfg.n_kv_heads * cfg.hd, cfg.d_ff, cfg.vocab,
+                           cfg.n_layers, cfg.microbatches)
+    return [("wq", m, d, d // 2, 2 * n * mb), ("wk/wv", m, d, kv // 2, 4 * n * mb),
+            ("wo", m, d // 2, d, 2 * n * mb), ("w_gate/w_up", m, d, ff // 2, 4 * n * mb),
+            ("w_down", m, ff // 2, d, 2 * n * mb), ("head", m, d, v // 2, mb)]
+
+
+def parallel_rank(rank: int, world: int, root: str) -> None:
+    """Phase 16's ranks: one process each on the card, gloo between them
+    (NCCL refuses two ranks on one device).  Writes ``root/rank{r}.json``."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    if str(SRC) not in sys.path:
+        sys.path.insert(0, str(SRC))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"file://{root}/pg", rank=rank,
+                            world_size=world)
+    try:
+        out = _parallel_rank(torch, np, dist, Path(root))
+        (Path(root) / f"rank{rank}.json").write_text(json.dumps(out))
+    finally:
+        dist.destroy_process_group()
+
+
+def _parallel_rank(torch, np, dist, root: Path) -> dict:
+    from functools import partial
+
+    from repro_torch.bench.table1 import graph_ms
+    from repro_torch.checkpoint.ckpt import Checkpointer, tree_leaves, tree_unflatten
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import get_batch
+    from repro_torch.kernels import mma_matmul as mk
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import moe as moe_lib
+    from repro_torch.models import transformer
+    from repro_torch.optim import adamw
+    from repro_torch.optim import grad_compress as gc
+    from repro_torch.parallel import collectives as coll
+    from repro_torch.parallel import pipeline as pp
+    from repro_torch.parallel import sharded_lm
+    from repro_torch.parallel import sharding as shd
+    from repro_torch.parallel.sharding import Mesh, NamedSharding, P
+    from repro_torch.train import train_step as ts
+    from repro_torch.train import trainer
+
+    dev = torch.device("cuda")
+    rank = dist.get_rank()
+    out, secs = {"rank": rank}, {}
+    t_all = time.perf_counter()
+    t0 = time.perf_counter()
+    lib, _ = mk.build()  # phase 1's library, found by its hash: not rebuilt
+    out["library"] = lib.name
+    cfg, dcfg = parallel_cfgs()
+    mesh = make_host_mesh(model=2)  # (data 2, model 2)
+    di, ri = mesh.index("data"), mesh.index("model")
+    ab = ts.abstract_state(cfg)
+    st_sh = ts.state_shardings(ab, cfg, mesh)
+    abatch = {"tokens": torch.empty((cfg.microbatches, TRAIN_BATCH // cfg.microbatches,
+                                     TRAIN_SEQ + 1), dtype=torch.int32, device="meta")}
+    step = ts.build_jitted_train_step(cfg, mesh, ab, abatch)
+    params = transformer.init_params(0, cfg, device=dev)
+    local = shd.shard_tree(params, st_sh["params"])
+    del params
+    state = {"params": local, "opt": adamw.init(local)}
+    torch.cuda.synchronize()
+    out["state_bytes"] = sum(t.numel() * t.element_size() for t in tree_leaves(state))
+    secs["setup"] = time.perf_counter() - t0
+    yard = torch.load(root / "yard.pt", mmap=True, weights_only=True)
+    m = TRAIN_BATCH // cfg.microbatches // mesh.size("data") * TRAIN_SEQ  # rows per call
+    per_mb = 2 * 7 * cfg.n_layers + 1
+
+    # ---- step 1: microbatch 0's kernel calls against the plain version, its
+    # int32 products against the unsharded step's, then the whole step
+    calls, products, shapes = [], [], {}
+    inner_mm, inner_prod = ops.mma_matmul, sharded_lm.mma_product
+
+    def recording_mm(x, w, **kw):
+        o = inner_mm(x, w, **kw)
+        if len(calls) < per_mb:
+            x2 = x.reshape(-1, x.shape[-1])
+            want = mk.mma_matmul_plain(x2, w, planes=kw["planes"])
+            calls.append(bool(torch.equal(o.reshape(want.shape), want)))
+            shapes.setdefault((x2.shape[0], x2.shape[1], w.shape[1]), (x2.clone(), w.clone()))
+        return o
+
+    def recording_prod(*a, **kw):
+        acc = inner_prod(*a, **kw)
+        if len(products) < len(yard["int32"]):
+            products.append(acc)
+        return acc
+
+    mk.launches = 0
+    ops.mma_matmul, sharded_lm.mma_product = recording_mm, recording_prod
+    t0 = time.perf_counter()
+    try:
+        state, m1 = step(state, get_batch(dcfg, 0))
+        torch.cuda.synchronize()
+    finally:
+        ops.mma_matmul, sharded_lm.mma_product = inner_mm, inner_prod
+    secs["step1"] = time.perf_counter() - t0
+    out["launches_step1"] = mk.launches
+    out["calls_exact"] = [sum(calls), len(calls)]
+    names = ["wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down"] * cfg.n_layers + ["head"]
+    equal = []
+    for name, got, want in zip(names, products, yard["int32"]):
+        want = want[di:di + 1]  # microbatch 0's rows of this data rank
+        if name not in ("wo", "w_down"):  # column-parallel: this rank's columns
+            want = want[..., ri * got.shape[-1]:(ri + 1) * got.shape[-1]]
+        equal.append(bool(torch.equal(got.cpu(), want)))
+    out["int32_equal"] = [sum(equal), len(equal), len(yard["int32"])]
+    del products
+    out["loss1"], out["grad_norm1"] = float(m1["loss"]), float(m1["grad_norm"])
+    t0 = time.perf_counter()
+    worst, differ, n_el = 0.0, 0, 0
+    lr = float(m1["lr"])
+    for got, want, sh in zip(tree_leaves(state["params"]), tree_leaves(yard["params"]),
+                             tree_leaves(st_sh["params"])):
+        full = shd.gather(got, sh)
+        if rank == 0:  # in units of (two lr-sized steps + one bf16 ulp of the value)
+            g, w = full.float().cpu(), want.float()
+            diff = (g - w).abs()
+            allowed = 2 * lr + torch.finfo(torch.bfloat16).eps * w.abs()
+            worst = max(worst, float((diff / allowed).max()))
+            differ += int((diff > 0).sum())
+            n_el += g.numel()
+        del full
+    out["param_worst"], out["param_differ"], out["param_n"] = worst, differ, n_el
+    secs["check1"] = time.perf_counter() - t0
+
+    # ---- the checkpoint: the state gathered to rank 0's host and saved; each
+    # rank keeps the slices the (1, 4) mesh will hold, for the restore's check
+    t0 = time.perf_counter()
+    mesh_b = Mesh.from_world((1, 4), ("data", "model"), device=dev)
+    st_b = ts.state_shardings(ab, cfg, mesh_b)
+    host, expect = [], []
+    for t, sh, sh_b in zip(tree_leaves(state), tree_leaves(st_sh), tree_leaves(st_b)):
+        full = shd.gather(t, sh)
+        expect.append(shd.shard(full, sh_b).to("cpu", copy=True))
+        if rank == 0:
+            host.append(full.to("cpu", copy=True))
+        del full
+    ckpt_dir = root / "ckpt"
+    if rank == 0:
+        Checkpointer(ckpt_dir).save(1, {"state": tree_unflatten(state, host)})
+    del host
+    dist.barrier()
+    secs["save"] = time.perf_counter() - t0
+
+    # ---- step 2, the timed one: launches, collectives, host wall
+    batch1 = get_batch(dcfg, 1)
+    coll.reset_stats(mesh)
+    mk.launches = 0
+    dist.barrier()
+    t0 = time.perf_counter()
+    state, m2 = step(state, batch1)
+    torch.cuda.synchronize()
+    out["step2_s"] = time.perf_counter() - t0
+    out["launches_step2"] = mk.launches
+    out["collectives"] = coll.collective_stats(mesh)
+    out["collective_s"] = coll.collective_seconds(mesh)
+    out["loss2"], out["grad_norm2"] = float(m2["loss"]), float(m2["grad_norm"])
+
+    # ---- compressed gradient sync across the two data ranks, once, on one
+    # microbatch's gradients of this rank
+    t0 = time.perf_counter()
+    mb = {"tokens": torch.as_tensor(batch1["tokens"][0])[di:di + 1]}
+    with shd.use_mesh(mesh):
+        _, grads = ts.value_and_grad(partial(sharded_lm.loss_fn, cfg=cfg, mesh=mesh, device=dev),
+                                     state["params"], mb)
+    f = gc.compressed_psum_shardmap(mesh, ("data",))
+    err0 = tree_unflatten(grads, [torch.zeros(g.shape, dtype=torch.float32, device=dev)
+                                  for g in tree_leaves(grads)])
+    coll.reset_stats(mesh)
+    synced, _ = f(grads, err0)
+    gc_stats = coll.collective_stats(mesh)
+    ratio = 0.0
+    for g, s in zip(tree_leaves(grads), tree_leaves(synced)):
+        exact = coll.all_reduce(g.float(), mesh, "data") / 2
+        bound = coll.all_reduce(g.float().abs().amax(), mesh, "data", "max") / 127
+        ratio = max(ratio, float((s - exact).abs().max() / bound))
+    out["gc"] = {"ratio": ratio, "leaves": len(tree_leaves(grads)), "stats": gc_stats}
+    del grads, synced, err0, state
+    torch.cuda.empty_cache()
+    secs["gc"] = time.perf_counter() - t0
+
+    # ---- restore under (1, 4): bit-equal; then one step from it
+    t0 = time.perf_counter()
+    resumed, start = trainer.resume(ab, trainer.TrainerConfig(ckpt_dir=str(ckpt_dir)),
+                                    shardings=st_b)
+    torch.cuda.synchronize()
+    out["restore_s"] = time.perf_counter() - t0
+    out["restored_equal"] = start == 1 and all(
+        torch.equal(a.cpu(), b) for a, b in zip(tree_leaves(resumed), expect))
+    del expect
+    step_b = ts.build_jitted_train_step(cfg, mesh_b, ab, abatch)
+    resumed, mb2 = step_b(resumed, batch1)
+    torch.cuda.synchronize()
+    out["loss2_b"], out["grad_norm2_b"] = float(mb2["loss"]), float(mb2["grad_norm"])
+    out["state_bytes_b"] = sum(t.numel() * t.element_size() for t in tree_leaves(resumed))
+    del resumed
+    torch.cuda.empty_cache()
+    secs["restore"] = time.perf_counter() - t0
+
+    # ---- GPipe: PP 2 (one layer per stage) x DP 2, the forward on step 1's batch
+    t0 = time.perf_counter()
+    params = transformer.init_params(0, cfg, device=dev)
+    stage = shd.shard_tree(params, pp.stage_shardings(params, mesh))
+    del params
+    tokens = get_batch(dcfg, 0)["tokens"].reshape(TRAIN_BATCH, TRAIN_SEQ + 1)
+    with torch.no_grad(), shd.use_mesh(mesh):
+        loss_pp, _ = pp.pipelined_loss_fn(stage, {"tokens": tokens}, cfg,
+                                          n_micro=cfg.microbatches, device=dev)
+    out["loss_pp"] = float(loss_pp)
+    del stage
+    torch.cuda.empty_cache()
+    secs["pipeline"] = time.perf_counter() - t0
+
+    # ---- expert parallelism: one OLMoE-1B-7B MoE layer at full width over
+    # model = 4 (16 experts per rank), T = MOE_T tokens, dropless
+    t0 = time.perf_counter()
+    mcfg = get_config("olmoe_1b_7b")
+    mcfg = mcfg.replace(moe=dataclasses.replace(mcfg.moe, capacity_factor=64.0))
+    g = torch.Generator(device=dev).manual_seed(11)
+    mp_full = moe_lib.init_moe(g, mcfg, device=dev)
+    x = (torch.randn((1, MOE_T, mcfg.d_model), generator=g, device=dev) * 0.5).to(torch.bfloat16)
+    ex = NamedSharding(mesh_b, P("model", None, None))
+    mp_local = {**mp_full, **{k: shd.shard(mp_full[k], ex) for k in ("w_gate", "w_up", "w_down")}}
+    coll.reset_stats(mesh_b)
+    with torch.no_grad(), shd.use_mesh(mesh_b):
+        y_ep = moe_lib.moe_ffn_ep(mp_local, x, mcfg)
+    ep_stats = coll.collective_stats(mesh_b)
+    m_cfg = mcfg.moe
+    sl = MOE_T // mesh_b.size("model")
+    cap = moe_lib.capacity(sl, m_cfg)
+    with torch.no_grad():
+        # the plain version: moe_ffn's dispatch, experts and combine on every
+        # slab with the router logits the EP body takes (float32), every
+        # expert on this rank; and moe_ffn itself (its router is bf16)
+        y_plain, sets_differ = [], 0
+        for j in range(mesh_b.size("model")):
+            xf = x[0, j * sl:(j + 1) * sl]
+            logits = xf.float() @ mp_full["router"]["w"].float()
+            xe, meta = moe_lib._local_dispatch(xf, logits, m_cfg.n_experts, m_cfg.top_k, cap,
+                                               xf.dtype)
+            y_plain.append(moe_lib._local_combine(moe_lib.expert_ffn(mp_full, xe), meta, sl, cap,
+                                                  xf.dtype))
+            top_bf16 = moe_lib._top_k(torch.softmax(moe_lib.router_logits(mp_full, xf), -1),
+                                      m_cfg.top_k)[1]
+            top_f32 = moe_lib._top_k(torch.softmax(logits, -1), m_cfg.top_k)[1]
+            sets_differ += int((top_bf16.sort(-1)[0] != top_f32.sort(-1)[0]).any(-1).sum())
+            if j == mesh_b.index("model"):  # this rank's slab: its routing, card vs CPU
+                _, meta_cpu = moe_lib._local_dispatch(xf.cpu(), logits.cpu(), m_cfg.n_experts,
+                                                      m_cfg.top_k, cap, xf.dtype)
+                routing_equal = all(torch.equal(a.cpu(), b) for i, (a, b) in
+                                    enumerate(zip(meta, meta_cpu)) if i != 3)
+                kept = int(meta[4].sum())
+        y_plain = torch.cat(y_plain)[None]
+        y_ffn = moe_lib.moe_ffn(mp_full, x, mcfg)
+    torch.cuda.synchronize()
+    scale = y_plain.float().abs().max()
+    out["moe"] = {
+        "routing_equal": routing_equal,
+        "rel": float((y_ep.float() - y_plain.float()).abs().max() / scale),
+        "rel_moe_ffn": float((y_ep.float() - y_ffn.float()).abs().max() / scale),
+        "sets_differ": sets_differ, "kept": kept, "assignments": sl * m_cfg.top_k, "cap": cap,
+        "experts_local": int(mp_local["w_gate"].shape[0]), "stats": ep_stats}
+    del mp_full, mp_local
+    torch.cuda.empty_cache()
+    secs["moe"] = time.perf_counter() - t0
+
+    # ---- the unscaled kernel at this rank's shapes (rank 0, the others wait)
+    t0 = time.perf_counter()
+    rows = []
+    dist.barrier()
+    if rank == 0:
+        for name, mm, k, n, per_step in par_shapes(cfg, m):
+            x8, w8 = shapes[(mm, k, n)]
+            ms = graph_ms(torch, lambda: mk.mma_matmul_kernel(x8, w8, planes=8), calls=5, reps=5)
+            check(torch.equal(torch._int_mm(x8, w8), mk.mma_matmul_kernel(x8, w8)),
+                  f"parallel {name}: library yardstick disagrees with the kernel")
+            lib_ms = graph_ms(torch, lambda: torch._int_mm(x8, w8), calls=5, reps=5)
+            nbytes, nops = mm * k + k * n + 4 * mm * n, 2 * mm * k * n
+            t_b, t_o = nbytes / HBM_BYTES_PER_S * 1e3, nops / INT8_OPS_PER_S * 1e3
+            rows.append(dict(name=name, M=mm, K=k, N=n, calls=per_step, ms=ms, library_ms=lib_ms,
+                             bound_ms=max(t_b, t_o), bound_by="bytes" if t_b >= t_o else "operations",
+                             plane_floor_ms=8 * t_o))
+    dist.barrier()
+    out["times"] = rows
+    secs["times"] = time.perf_counter() - t0
+    secs["all"] = time.perf_counter() - t_all
+    out["secs"] = secs
+    out["peak_bytes"] = torch.cuda.max_memory_allocated()
+    if rank == 0:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    return out
+
+
+def parallel_training(torch, np, dev, card):
+    """Phase 16: parallel training (main path 11).  The unsharded step in
+    this process first (the yardstick), its weights freed; then 4 ranks in 4
+    processes on the card (``parallel_rank``), their gates checked here.
+    Returns kernel 1's phase-16 entries."""
+    import torch.multiprocessing as mp
+
+    from repro_torch.checkpoint.ckpt import tree_leaves
+    from repro_torch.core import mma
+    from repro_torch.data.pipeline import get_batch
+    from repro_torch.kernels import mma_matmul as mk
+    from repro_torch.models import transformer
+    from repro_torch.optim import adamw
+    from repro_torch.train import train_step as ts
+
+    t_phase = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg, dcfg = parallel_cfgs()
+    root = SRC.parent / "chip_scratch" / "parallel"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    per_step = par_launches(cfg)
+
+    # ---- the yardstick: one unsharded step, microbatch 0's int32 products kept
+    params = transformer.init_params(0, cfg, device=dev)
+    n_params = sum(p.numel() for p in tree_leaves(params))
+    state = {"params": params, "opt": adamw.init(params)}
+    state_bytes = sum(t.numel() * t.element_size() for t in tree_leaves(state))
+    rec = []
+    inner = mma.mma_dot
+
+    def recording(*a, **kw):
+        acc = inner(*a, **kw)
+        if len(rec) < 7 * cfg.n_layers + 1:
+            rec.append(acc.cpu())
+        return acc
+
+    mk.launches = 0
+    mma.mma_dot = recording
+    t0 = time.perf_counter()
+    try:
+        new, m1 = ts.train_step(state, get_batch(dcfg, 0), cfg, device=dev)
+        torch.cuda.synchronize()
+    finally:
+        mma.mma_dot = inner
+    yard_s = time.perf_counter() - t0
+    check(mk.launches == per_step, f"unsharded step: {mk.launches} unscaled launches")
+    yard = {"int32": rec, "params": [p.cpu() for p in tree_leaves(new["params"])]}
+    loss1, norm1 = float(m1["loss"]), float(m1["grad_norm"])
+    del state, new, params
+    torch.save(yard, root / "yard.pt")
+    del yard, rec
+    torch.cuda.empty_cache()
+    print(f"[parallel] {card} | Yi-6B at full width, {cfg.n_layers} of 32 layers: "
+          f"{n_params / 1e9:.3f} G params, {state_bytes / 1e9:.2f} GB of state; the unsharded "
+          f"step (the yardstick): loss {loss1:.6f}, grad_norm {norm1:.6f}, {per_step} unscaled "
+          f"launches, host wall {yard_s:.2f} s")
+
+    # ---- the ranks
+    t0 = time.perf_counter()
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=parallel_rank, args=(r, PAR_WORLD, str(root)))
+             for r in range(PAR_WORLD)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + PAR_JOIN_S
+    try:
+        for p in procs:
+            p.join(max(0.0, deadline - time.monotonic()))
+        alive = [r for r, p in enumerate(procs) if p.is_alive()]
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join(10)
+    ranks_s = time.perf_counter() - t0
+    check(not alive, f"ranks {alive} still running after {PAR_JOIN_S} s")
+    check([p.exitcode for p in procs] == [0] * PAR_WORLD,
+          f"rank exit codes {[p.exitcode for p in procs]}")
+    outs = [json.loads((root / f"rank{r}.json").read_text()) for r in range(PAR_WORLD)]
+    shutil.rmtree(root, ignore_errors=True)
+
+    # ---- gates
+    total_state = sum(o["state_bytes"] for o in outs)
+    print(f"[parallel] 4 ranks on the card, mesh (data 2, model 2), gloo over host memory: "
+          f"state bytes per rank {[o['state_bytes'] for o in outs]} "
+          f"({total_state / 1e9:.2f} GB together), peak allocated per rank "
+          f"{[round(o['peak_bytes'] / 1e9, 2) for o in outs]} GB; library {outs[0]['library']} "
+          f"(phase 1's, not rebuilt)")
+    check(total_state < PAR_STATE_LIMIT, f"the ranks' state is {total_state / 1e9:.2f} GB")
+    for o in outs:
+        r = o["rank"]
+        check(o["calls_exact"][0] == o["calls_exact"][1] == 2 * 7 * cfg.n_layers + 1,
+              f"rank {r}: microbatch 0's kernel calls bit-exact {o['calls_exact']}")
+        check(o["int32_equal"][0] == o["int32_equal"][1] == o["int32_equal"][2] == 7 * cfg.n_layers + 1,
+              f"rank {r}: int32 products equal to the unsharded step's {o['int32_equal']}")
+        check(o["launches_step1"] == o["launches_step2"] == per_step,
+              f"rank {r}: launches per step {o['launches_step1']}, {o['launches_step2']}, "
+              f"expected {per_step}")
+        for k, want, tol in (("loss1", loss1, PAR_LOSS_REL), ("grad_norm1", norm1, PAR_NORM_REL),
+                             ("loss_pp", loss1, PAR_LOSS_REL),
+                             ("loss2_b", o["loss2"], PAR_LOSS_REL),
+                             ("grad_norm2_b", o["grad_norm2"], PAR_NORM_REL)):
+            check(np.isfinite(o[k]) and abs(o[k] - want) <= tol * abs(want),
+                  f"rank {r}: {k} {o[k]} against {want} (rel tolerance {tol})")
+        check(o["restored_equal"], f"rank {r}: the (1, 4) restore differs from the saved state")
+        check(o["gc"]["ratio"] <= 1.01, f"rank {r}: compressed sync error {o['gc']['ratio']} of "
+              "the int8 step")
+        check(o["moe"]["routing_equal"] and o["moe"]["rel"] <= MOE_REL
+              and o["moe"]["kept"] == o["moe"]["assignments"] and o["moe"]["experts_local"] == 16,
+              f"rank {r}: moe_ffn_ep {o['moe']}")
+    o0 = outs[0]
+    check(o0["param_worst"] <= 1.0 and o0["param_differ"] <= PAR_PARAM_DIFFER * o0["param_n"],
+          f"params after one step: {o0['param_differ']} of {o0['param_n']} differ, the worst by "
+          f"{o0['param_worst']} of two lr steps + one bf16 ulp")
+    print(f"[parallel] microbatch 0 on each rank: {o0['calls_exact'][1]} unscaled calls bit-exact "
+          f"against the plain version at the sharded shapes; {o0['int32_equal'][1]} int32 "
+          f"products (column-parallel: the rank's columns; row-parallel: all-reduced) equal to "
+          f"the unsharded step's, bit for bit")
+    print(f"[parallel] step 1: loss {[o['loss1'] for o in outs]} vs {loss1} unsharded; grad_norm "
+          f"{[o['grad_norm1'] for o in outs]} vs {norm1}; gathered params: "
+          f"{o0['param_differ']} of {o0['param_n']} elements differ, the worst by "
+          f"{o0['param_worst']:.3f} of (two lr steps + one bf16 ulp)")
+    print(f"[parallel] {card} | {per_step} unscaled launches per step per rank (as the layout "
+          f"gives); host wall per sharded step {[round(o['step2_s'], 3) for o in outs]} s "
+          f"(step 2; step 1 with its checks {[round(o['secs']['step1'], 3) for o in outs]} s)")
+    for o in outs[:1]:
+        cs = o["collectives"]
+        share = sum(o["collective_s"].values()) / o["step2_s"]
+        print(f"[parallel] rank 0, step 2, collectives (gloo over host memory, not NVLink: "
+              f"nothing is claimed from their times): counts {cs['counts_by_kind']}, bytes "
+              f"{cs['bytes_by_kind']} ({cs['total_bytes'] / 1e9:.3f} GB); host seconds in the "
+              f"transport {({k: round(v, 3) for k, v in o['collective_s'].items()})}, "
+              f"{share:.3f} of the step")
+    print(f"[parallel] checkpoint saved under (2, 2), restored under (1, 4) in "
+          f"{[round(o['restore_s'], 1) for o in outs]} s: every rank's slices bit-equal; one "
+          f"step from it: loss {o0['loss2_b']} vs {o0['loss2']} under (2, 2), grad_norm "
+          f"{o0['grad_norm2_b']} vs {o0['grad_norm2']}; state per rank under (1, 4) "
+          f"{[o['state_bytes_b'] for o in outs]}")
+    print(f"[parallel] GPipe PP 2 x DP 2 (one layer per stage, {cfg.microbatches} microbatches): "
+          f"loss {[o['loss_pp'] for o in outs]} vs {loss1} unsharded")
+    print(f"[parallel] compressed_psum_shardmap over 'data', {o0['gc']['leaves']} gradient "
+          f"leaves: error at most {max(o['gc']['ratio'] for o in outs):.3f} of the int8 step; "
+          f"{o0['gc']['stats']['counts_by_kind']}, {o0['gc']['stats']['total_bytes'] / 1e6:.1f} "
+          f"MB crossed per rank")
+    mo = o0["moe"]
+    print(f"[parallel] moe_ffn_ep, OLMoE-1B-7B layer, mesh (1, 4), {mo['experts_local']} experts "
+          f"per rank, T = {MOE_T}: routing card = CPU on every slab, {mo['kept']} of "
+          f"{mo['assignments']} assignments kept (cap {mo['cap']}), output within "
+          f"{max(o['moe']['rel'] for o in outs):.2e} of moe_ffn's dispatch on the same float32 "
+          f"router logits (MOE_REL {MOE_REL}); {mo['stats']['counts_by_kind']} | moe_ffn itself "
+          f"(bf16 router): {mo['sets_differ']} of {MOE_T} tokens pick another expert set, "
+          f"output {mo['rel_moe_ffn']:.3f} of the largest away (not gated)")
+    rows = o0["times"]
+    for row in rows:
+        print(f"[parallel] {card} | mma_matmul sharded {row['name']} M={row['M']} K={row['K']} "
+              f"N={row['N']} ({row['calls']} per step per rank), planes 8: kernel "
+              f"{row['ms']:.4f} ms, torch._int_mm {row['library_ms']:.4f} ms, bound "
+              f"{row['bound_ms']:.5f} ms ({row['bound_by']}), plane-work floor "
+              f"{row['plane_floor_ms']:.5f} ms")
+    step_ms = sum(r["calls"] * r["ms"] for r in rows)
+    lib_ms = sum(r["calls"] * r["library_ms"] for r in rows)
+    bound_ms = sum(r["calls"] * r["bound_ms"] for r in rows)
+    phase_s = time.perf_counter() - t_phase
+    print(f"[parallel] {card} | per step per rank (graph-timed shapes x calls): kernel "
+          f"{step_ms:.1f} ms, torch._int_mm {lib_ms:.1f} ms, bound {bound_ms:.2f} ms")
+    print(f"[parallel] phase 16 took {phase_s:.1f} s (ranks {ranks_s:.1f} s; rank 0: "
+          + ", ".join(f"{k} {v:.1f}" for k, v in o0["secs"].items()) + ")")
+    return dict(launches_parallel=sum(o["launches_step1"] + o["launches_step2"] for o in outs),
+                launches_parallel_per_step_per_rank=per_step, parallel_per_shape=rows,
+                parallel_step=dict(kernel_ms=step_ms, library_ms=lib_ms, bound_ms=bound_ms,
+                                   host_s=[o["step2_s"] for o in outs],
+                                   collectives=o0["collectives"],
+                                   collective_s=o0["collective_s"]),
+                phase16_s=phase_s)
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -3155,6 +3705,11 @@ def main() -> int:
     summary.update(training(torch, np, dev, card))
     torch.cuda.empty_cache()
     lap(15)
+
+    # ------------------------------------------ 16. parallel training
+    summary.update(parallel_training(torch, np, dev, card))
+    torch.cuda.empty_cache()
+    lap(16)
     print(f"[done] every phase passed in {time.perf_counter() - t_start:.1f} s, the build included")
     print(json.dumps({"kernels": [summary, scaled_summary]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -22,9 +22,11 @@ either package restores in the other:
   dtype — numpy never needs to know it.
 
 Trees are nested dicts, lists and tuples of torch tensors or numpy arrays;
-dict keys are walked sorted, as ``jax.tree.leaves`` walks them.  Re-sharding
-a restored tree onto a device mesh (``shardings=``) waits for the port's
-parallel layer.
+dict keys are walked sorted, as ``jax.tree.leaves`` walks them.  A step
+holds global arrays: a sharded state is gathered before it is saved
+(``parallel.sharding.gather_tree``), and ``restore(shardings=)`` cuts each
+restored leaf to this rank's slice on any mesh — the one it was saved
+under or another (elastic restart).
 """
 from __future__ import annotations
 
@@ -144,9 +146,14 @@ def _from_storable(a: np.ndarray, dtype_str: str) -> torch.Tensor:
     return torch.from_numpy(a.view(np.dtype(str(t_view).removeprefix("torch.")))).view(dt)
 
 
-def _like(t: torch.Tensor, ll):
-    """The restored leaf ``t`` as ``ll`` is: its dtype and device (a tensor)
-    or its dtype (a numpy array)."""
+def _like(t: torch.Tensor, ll, sharding=None):
+    """The restored leaf ``t`` as ``ll`` is: its dtype and device (a tensor;
+    with ``sharding``, this rank's slice on the sharding mesh's device) or
+    its dtype (a numpy array)."""
+    if sharding is not None:
+        from repro_torch.parallel.sharding import shard
+
+        return shard(t, sharding).to(device=sharding.mesh.device, dtype=ll.dtype)
     if isinstance(ll, torch.Tensor):
         return t.to(device=ll.device, dtype=ll.dtype)
     want = np.asarray(ll).dtype
@@ -239,12 +246,13 @@ class Checkpointer:
 
     def restore(self, like, step: int | None = None, shardings=None):
         """Restore into the structure of ``like`` (a tree of tensors or numpy
-        arrays): each leaf takes its ``like`` leaf's dtype, and a tensor its
-        device (a CUDA tensor comes back on the card).  Returns
-        ``(tree, step)``."""
-        if shardings is not None:
-            raise NotImplementedError(
-                "restoring onto a device mesh (shardings=) waits for the port's parallel layer")
+        arrays of the global shapes; meta tensors will do): each leaf takes
+        its ``like`` leaf's dtype, and a tensor its device (a CUDA tensor
+        comes back on the card).  ``shardings``: a tree of NamedShardings of
+        the same structure; each leaf comes back as this rank's slice, on
+        its mesh's device.  Returns ``(tree, step)``."""
+        shard_leaves = [None] * len(tree_leaves(like)) if shardings is None \
+            else tree_leaves(shardings)
         if step is None:
             step = self.latest_step()
             if step is None:
@@ -258,12 +266,14 @@ class Checkpointer:
             raise ValueError(f"step {step} holds {len(manifest['leaves'])} leaves, "
                              f"the tree {len(like_leaves)}")
         leaves = []
-        for i, (ll, meta) in enumerate(zip(like_leaves, manifest["leaves"])):
+        if len(shard_leaves) != len(like_leaves):
+            raise ValueError(f"{len(shard_leaves)} shardings for {len(like_leaves)} leaves")
+        for i, (ll, meta, sh) in enumerate(zip(like_leaves, manifest["leaves"], shard_leaves)):
             t = _from_storable(np.load(d / f"leaf_{i:05d}.npy"), meta["dtype"])
             if tuple(t.shape) != tuple(np.shape(ll)):
                 raise ValueError(f"leaf {i}: stored shape {tuple(t.shape)}, the tree's "
                                  f"{tuple(np.shape(ll))}")
-            leaves.append(_like(t, ll))
+            leaves.append(_like(t, ll, sh))
         return tree_unflatten(like, leaves), step
 
 

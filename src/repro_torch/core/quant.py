@@ -23,7 +23,10 @@ class QTensor(NamedTuple):
     scale: torch.Tensor  # float32, broadcastable against values
 
 
-def _quantize(x: torch.Tensor, amax: torch.Tensor) -> QTensor:
+def quantize_amax(x: torch.Tensor, amax: torch.Tensor) -> QTensor:
+    """Symmetric int8 on the grid of a given ``amax`` (broadcastable against
+    ``x``): the step every quantizer here takes once its max is known — and
+    the one a sharded caller takes once it has reduced its max over ranks."""
     scale = torch.clamp(amax, min=1e-8) / INT8_MAX
     q = torch.clamp(torch.round(x / scale), -127, 127).to(torch.int8)
     return QTensor(q, scale.to(torch.float32))
@@ -32,7 +35,7 @@ def _quantize(x: torch.Tensor, amax: torch.Tensor) -> QTensor:
 def quantize_weights(w: torch.Tensor, *, channel_axis: int = -1) -> QTensor:
     """Symmetric per-channel int8 quantization (channel = output features)."""
     reduce_axes = tuple(a for a in range(w.ndim) if a != channel_axis % w.ndim)
-    return _quantize(w, torch.amax(torch.abs(w), dim=reduce_axes, keepdim=True))
+    return quantize_amax(w, torch.amax(torch.abs(w), dim=reduce_axes, keepdim=True))
 
 
 def quantize_acts(x: torch.Tensor, *, batch_axis: int | None = None) -> QTensor:
@@ -47,7 +50,7 @@ def quantize_acts(x: torch.Tensor, *, batch_axis: int | None = None) -> QTensor:
     else:
         reduce_axes = tuple(a for a in range(x.ndim) if a != batch_axis % x.ndim)
         amax = torch.amax(torch.abs(x), dim=reduce_axes, keepdim=True)
-    return _quantize(x, amax)
+    return quantize_amax(x, amax)
 
 
 def dequantize(q: QTensor) -> torch.Tensor:
@@ -87,7 +90,7 @@ def quantize_params_int8(params, *, min_dim: int = 256):
             if isinstance(w, torch.Tensor) and w.ndim >= 2 \
                     and w.shape[-1] >= min_dim and w.shape[-2] >= min_dim:
                 wf = w.to(torch.float32)
-                q = _quantize(wf, torch.amax(torch.abs(wf), dim=-2, keepdim=True))
+                q = quantize_amax(wf, torch.amax(torch.abs(wf), dim=-2, keepdim=True))
                 out = {k: v for k, v in node.items() if k != "w"}
                 out["w_q"] = q.values
                 out["w_scale"] = q.scale

@@ -385,8 +385,10 @@ void launch_tc(const int8_t* x, const int8_t* w, int32_t* out, int M, int K, int
 }
 
 // A copy width the loader may use: 16 or 4 bytes where the row stride and
-// the base pointer are multiples of it, or 1.
-bool copy_width_ok(int vec, int ld, const void* p) {
+// the base pointer are multiples of it, or 1.  (static: nvcc gives the
+// anonymous namespace external linkage, and the nine units are linked into
+// one library.)
+static bool copy_width_ok(int vec, int ld, const void* p) {
   return (vec == 1 || vec == 4 || vec == 16) && ld % vec == 0 &&
          reinterpret_cast<uintptr_t>(p) % vec == 0;
 }
@@ -671,6 +673,49 @@ void launch_scaled(const int8_t* x, const int8_t* w, const float* xs, const floa
 
 }  // namespace
 
+// The build compiles this file as nine translation units at once
+// (kernels/mma_matmul.py::build): with -DMMA_PLANES=P, the kernels of one
+// plane count and their launchers (mma_tc_launch_pP, mma_scaled_launch_pP);
+// without it, the plain C interface below, which checks its arguments and
+// calls the plane count's launcher.
+#define MMA_FOR_EACH_PLANES(X) X(1) X(2) X(3) X(4) X(5) X(6) X(7) X(8)
+
+#define MMA_DECLARE(P)                                                                      \
+  extern "C" void mma_tc_launch_p##P(const int8_t* x, const int8_t* w, int32_t* out, int M,   \
+                                     int K, int N, int is_signed, int bm, int x_vec,          \
+                                     int w_vec, cudaStream_t s);                              \
+  extern "C" void mma_scaled_launch_p##P(const int8_t* x, const int8_t* w, const float* xs,   \
+                                         const float* ws, float* out, int32_t* work, int M,   \
+                                         int K, int N, int is_signed, int splits, int x_vec,  \
+                                         int w_vec, cudaStream_t s);
+MMA_FOR_EACH_PLANES(MMA_DECLARE)
+#undef MMA_DECLARE
+
+#ifdef MMA_PLANES
+
+#define MMA_PLANE_UNIT(P)                                                                   \
+  extern "C" void mma_tc_launch_p##P(const int8_t* x, const int8_t* w, int32_t* out, int M,   \
+                                     int K, int N, int is_signed, int bm, int x_vec,          \
+                                     int w_vec, cudaStream_t s) {                             \
+    if (is_signed) launch_tc<P, true>(x, w, out, M, K, N, bm, x_vec, w_vec, s);               \
+    else launch_tc<P, false>(x, w, out, M, K, N, bm, x_vec, w_vec, s);                        \
+  }                                                                                         \
+  extern "C" void mma_scaled_launch_p##P(const int8_t* x, const int8_t* w, const float* xs,   \
+                                         const float* ws, float* out, int32_t* work, int M,   \
+                                         int K, int N, int is_signed, int splits, int x_vec,  \
+                                         int w_vec, cudaStream_t s) {                         \
+    if (is_signed)                                                                          \
+      launch_scaled<P, true>(x, w, xs, ws, out, work, M, K, N, splits, x_vec, w_vec, s);      \
+    else                                                                                    \
+      launch_scaled<P, false>(x, w, xs, ws, out, work, M, K, N, splits, x_vec, w_vec, s);     \
+  }
+#define MMA_PLANE_UNIT_OF(P) MMA_PLANE_UNIT(P)  // expands MMA_PLANES before ## pastes it
+MMA_PLANE_UNIT_OF(MMA_PLANES)
+#undef MMA_PLANE_UNIT_OF
+#undef MMA_PLANE_UNIT
+
+#else  // the C interface
+
 // Plain C interface, loaded with ctypes.  Each returns cudaGetLastError()
 // after the launch (0 on success); a refused launch is reported here, not at
 // the next synchronize.
@@ -688,20 +733,12 @@ extern "C" int mma_matmul_launch(const void* x, const void* w, void* out, int M,
   const auto* wp = static_cast<const int8_t*>(w);
   auto* op = static_cast<int32_t*>(out);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define MMA_CASE(P)                                                                   \
-  case P:                                                                             \
-    if (is_signed) launch_tc<P, true>(xp, wp, op, M, K, N, bm, x_vec, w_vec, s);      \
-    else launch_tc<P, false>(xp, wp, op, M, K, N, bm, x_vec, w_vec, s);               \
+#define MMA_CASE(P)                                                              \
+  case P:                                                                        \
+    mma_tc_launch_p##P(xp, wp, op, M, K, N, is_signed, bm, x_vec, w_vec, s);     \
     break;
   switch (planes) {
-    MMA_CASE(1)
-    MMA_CASE(2)
-    MMA_CASE(3)
-    MMA_CASE(4)
-    MMA_CASE(5)
-    MMA_CASE(6)
-    MMA_CASE(7)
-    MMA_CASE(8)
+    MMA_FOR_EACH_PLANES(MMA_CASE)
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -734,22 +771,13 @@ extern "C" int mma_matmul_scaled_launch(const void* x, const void* w,
   auto* op = static_cast<float*>(out);
   auto* wk = static_cast<int32_t*>(work);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define MMA_CASE(P)                                                                       \
-  case P:                                                                                 \
-    if (is_signed)                                                                        \
-      launch_scaled<P, true>(xp, wp, xsp, wsp, op, wk, M, K, N, splits, x_vec, w_vec, s); \
-    else                                                                                  \
-      launch_scaled<P, false>(xp, wp, xsp, wsp, op, wk, M, K, N, splits, x_vec, w_vec, s); \
+#define MMA_CASE(P)                                                                      \
+  case P:                                                                                \
+    mma_scaled_launch_p##P(xp, wp, xsp, wsp, op, wk, M, K, N, is_signed, splits, x_vec,  \
+                           w_vec, s);                                                    \
     break;
   switch (planes) {
-    MMA_CASE(1)
-    MMA_CASE(2)
-    MMA_CASE(3)
-    MMA_CASE(4)
-    MMA_CASE(5)
-    MMA_CASE(6)
-    MMA_CASE(7)
-    MMA_CASE(8)
+    MMA_FOR_EACH_PLANES(MMA_CASE)
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -760,3 +788,5 @@ extern "C" int mma_matmul_scaled_launch(const void* x, const void* w,
 extern "C" const char* mma_matmul_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
+
+#endif  // MMA_PLANES

@@ -20,8 +20,10 @@ would not fill the card's SMs once), the scaled kernel's K splits
 (:func:`copy_width`: 16 or 4 bytes where the row stride and the base
 pointer allow, else 1).
 
-Build: at first use, ``nvcc`` compiles the checkout's source into a shared
-library with a plain C interface under ``csrc/build/`` (named by a hash of
+Build: at first use, ``nvcc`` compiles the checkout's source as nine
+translation units at once (one per plane count, ``-DMMA_PLANES=P``, each
+with its 12 kernel instantiations, and the plain C interface) and links
+them into one shared library under ``csrc/build/`` (named by a hash of
 source and flags), which is loaded with ``ctypes``.
 
 Dispatch is by the tensor's device, nothing else: a CUDA tensor launches the
@@ -48,8 +50,12 @@ SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "mma_matmul.cu"
 BUILD_DIR = SOURCE.parent / "build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+#: The translation units of one build: ``(name, defines)``, compiled in
+#: parallel, one ``nvcc`` each.
+UNITS = (("interface", ()),) + tuple((f"p{p}", (f"-DMMA_PLANES={p}",))
+                                     for p in range(1, N_BITS + 1))
 
 #: Kernel launches since the last reset, one count per kernel — incremented
 #: where the CUDA kernel is launched and nowhere else, so a run can show its
@@ -77,25 +83,36 @@ def _nvcc() -> str:
 
 @functools.lru_cache(maxsize=None)
 def build() -> tuple[Path, str]:
-    """Compile the kernel library (once per source and flags); returns its
-    path and the compiler's ``-Xptxas -v`` report (registers, shared memory,
-    spills of every instantiation)."""
-    tag = hashlib.sha256(SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    """Compile the kernel library (once per source and flags): every unit of
+    :data:`UNITS` by its own ``nvcc``, all started together, then one link.
+    Returns the library's path and the compiler's ``-Xptxas -v`` report
+    (registers, shared memory, spills of every instantiation)."""
+    key = SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode() + repr(UNITS).encode()
+    tag = hashlib.sha256(key).hexdigest()[:16]
     lib = BUILD_DIR / f"libmma_matmul-{tag}.so"
     log = BUILD_DIR / f"libmma_matmul-{tag}.log"
     if not lib.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = BUILD_DIR / f"{lib.name}.{os.getpid()}.tmp"
-        proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-            capture_output=True, text=True,
-        )
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed with code {proc.returncode}:\n{proc.stdout}{proc.stderr}"
-            )
-        log.write_text(proc.stdout + proc.stderr)
+        work = BUILD_DIR / f"{lib.stem}.{os.getpid()}.d"
+        work.mkdir(parents=True, exist_ok=True)
+        objs = [work / f"{name}.o" for name, _ in UNITS]
+        procs = [subprocess.Popen([_nvcc(), *NVCC_FLAGS, *defines, "-c", "-o", str(obj),
+                                   str(SOURCE)], stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for (_, defines), obj in zip(UNITS, objs)]
+        reports = [proc.communicate()[0] for proc in procs]
+        for (name, _), proc, report in zip(UNITS, procs, reports):
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed on unit {name} with code {proc.returncode}:\n"
+                                   f"{report}")
+        tmp = work / lib.name
+        link = subprocess.run([_nvcc(), "-shared", "-o", str(tmp), *map(str, objs)],
+                              capture_output=True, text=True)
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc failed to link with code {link.returncode}:\n"
+                               f"{link.stdout}{link.stderr}")
+        log.write_text("".join(reports))
         os.replace(tmp, lib)  # atomic: a concurrent build never sees half a library
+        shutil.rmtree(work)
     return lib, log.read_text()
 
 

@@ -80,6 +80,15 @@ def params_from_numpy(tree, *, device, float32_keys=None) -> dict:
 # ---------------------------------------------------------------- init utils
 
 
+def generator(seed: int, device: torch.device) -> torch.Generator | None:
+    """The seeded generator the ``init_*`` functions draw from on
+    ``device``; none on the ``meta`` device, where a draw allocates nothing
+    (``train.train_step.abstract_state``)."""
+    if device.type == "meta":
+        return None
+    return torch.Generator(device=device).manual_seed(seed)
+
+
 def _dense_init(g: torch.Generator, shape, *, device) -> torch.Tensor:
     w = torch.empty(shape, dtype=torch.float32, device=device)
     torch.nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=g)

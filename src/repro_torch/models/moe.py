@@ -25,8 +25,9 @@ Kept from the reference, as it computes them:
   sorted assignments).  Here it is k ordered adds, not ``index_add_``,
   whose atomics on CUDA add in no fixed order.
 
-Expert parallelism (the reference's ``shard_map`` all-to-all) waits for the
-port's parallel layer; on one card ``moe_ffn_ep`` is ``moe_ffn``.
+Expert parallelism (``moe_ffn_ep``): the reference's explicit all-to-all
+over the mesh's ``model`` axis, on ``torch.distributed`` ranks; without a
+mesh it is ``moe_ffn``.
 """
 from __future__ import annotations
 
@@ -137,10 +138,64 @@ def moe_ffn(p: dict, x: torch.Tensor, cfg) -> torch.Tensor:
 
 
 def moe_ffn_ep(p: dict, x: torch.Tensor, cfg) -> torch.Tensor:
-    """The reference's expert-parallel FFN.  Without a device mesh, which is
-    always the case on one card, the reference computes ``moe_ffn``; the
-    all-to-all over a mesh waits for the port's parallel layer."""
-    return moe_ffn(p, x, cfg)
+    """Expert parallelism with an explicit all-to-all, as the reference's
+    ``shard_map`` computes it.  Under an active mesh with ranks, ``x`` is
+    the whole (B, S, D) on every rank and ``p``'s expert leaves
+    (``w_gate``, ``w_up``, ``w_down``) are the rank's ``E / |model|``
+    experts (``param_specs``: 'experts' over 'model').  Each rank routes its
+    (batch, seq) slab by the active rules (default: batch over the data
+    axes, seq over 'model'), packs an (M, E_loc, C, D) send buffer (M =
+    |model| expert shards), all-to-alls it over 'model', runs its experts,
+    all-to-alls back and combines; the slabs are summed into the whole
+    output on every rank.  The router's product is float32 (bf16 tokens
+    upcast), as the reference's body takes it.
+
+    Without a mesh, or where the reference falls back to its GSPMD path
+    (|model| 1, experts or slabs that do not divide, quantization on),
+    this is ``moe_ffn`` — which needs every expert on the rank."""
+    from repro_torch.parallel import collectives as coll
+    from repro_torch.parallel.sharding import axis_tuple, current_mesh, spec_for
+
+    mesh = current_mesh()
+    m = cfg.moe
+    b, s, d = x.shape
+    if mesh is None:
+        return moe_ffn(p, x, cfg)
+    msize = mesh.shape.get("model", 1)
+    x_spec = spec_for(("batch", "seq", None), x.shape)
+    b_fac, s_fac = mesh.size(x_spec[0]), mesh.size(x_spec[1])
+    if (msize == 1 or m.n_experts % msize or b % b_fac or s % s_fac
+            or cfg.quant.mode != "none"):
+        if p["w_gate"].shape[0] != m.n_experts:
+            raise NotImplementedError(
+                "moe_ffn_ep's moe_ffn fallback needs every expert, and this rank holds "
+                f"{p['w_gate'].shape[0]} of {m.n_experts}")
+        return moe_ffn(p, x, cfg)
+
+    e_loc = m.n_experts // msize
+    bl, sl = b // b_fac, s // s_fac
+    t_loc = bl * sl
+    cap = capacity(t_loc, m)
+    slab_axes = axis_tuple(x_spec[0]) + axis_tuple(x_spec[1])
+    # whole tensors in varying use: their gradients sum over the slab axes
+    xb = coll.pbroadcast(x, mesh, slab_axes)
+    router_w = coll.pbroadcast(p["router"]["w"], mesh, slab_axes)
+    w = {k: coll.pbroadcast(p[k], mesh, tuple(a for a in slab_axes if a != "model"))
+         for k in ("w_gate", "w_up", "w_down")}
+    b0, s0 = mesh.index(x_spec[0]) * bl, mesh.index(x_spec[1]) * sl
+    xf = xb[b0:b0 + bl, s0:s0 + sl].reshape(t_loc, d)
+    logits = xf.to(torch.float32) @ router_w.to(torch.float32)
+    xe, meta = _local_dispatch(xf, logits, m.n_experts, m.top_k, cap, x.dtype)
+    # (E, C, D) -> (M, E_loc, C, D): expert e = m' * E_loc + j lives on m'
+    recv = coll.all_to_all(xe.reshape(msize, e_loc, cap, d).contiguous(), mesh, "model")
+    xcat = recv.transpose(0, 1).reshape(e_loc, msize * cap, d)
+    oe = expert_ffn(w, xcat)
+    back = oe.reshape(e_loc, msize, cap, d).transpose(0, 1).contiguous()
+    oe_local = coll.all_to_all(back, mesh, "model").reshape(m.n_experts, cap, d)
+    y = _local_combine(oe_local, meta, t_loc, cap, x.dtype).reshape(bl, sl, d)
+    out = torch.zeros((b, s, d), dtype=torch.float32, device=x.device)
+    out[b0:b0 + bl, s0:s0 + sl] = y.to(torch.float32)
+    return coll.all_reduce(out, mesh, slab_axes).to(x.dtype)
 
 
 def load_balance_loss(p: dict, x: torch.Tensor, cfg) -> torch.Tensor:

@@ -62,7 +62,7 @@ def init_params(seed: int, cfg, *, device=None, int8_min_dim: int | None = None,
     ``quant.quantize_params_int8(min_dim=int8_min_dim)`` as soon as it is
     drawn, so no float copy of the whole model is ever held."""
     dev = resolve_device(device)
-    g = torch.Generator(device=dev).manual_seed(seed)
+    g = layers.generator(seed, dev)
 
     def made(tree):
         if int8_min_dim is None:

@@ -58,10 +58,13 @@ def update(
     eps: float = 1e-8,
     weight_decay: float = 0.1,
     clip_norm: float = 1.0,
+    grad_norm: torch.Tensor | None = None,
 ):
     """Returns ``(new_params, new_state, metrics)``; ``state``'s tensors are
-    updated in place (see the module's docstring)."""
-    gnorm = global_norm(grads)
+    updated in place (see the module's docstring).  ``grad_norm``: the
+    global gradient norm where ``grads`` are one rank's shards (the sharded
+    train step computes it across them); else :func:`global_norm`."""
+    gnorm = global_norm(grads) if grad_norm is None else grad_norm
     # a tensor numerator: ``number / tensor`` would be a reciprocal times the number
     scale = torch.clamp(gnorm.new_tensor(clip_norm) / torch.clamp(gnorm, min=1e-9), max=1.0)
     step = state.step + 1

@@ -9,15 +9,18 @@ convergence:
     g~   <- allreduce_mean(q * s)                (the only cross-node bytes)
     e    <- e' - q * s           (the new residual, kept local)
 
-Here: the ``compress``/``decompress`` and error-feedback functions, on
-tensors and trees.  The collective that exchanges ``(q, s)`` across the
-data-parallel ranks waits for the port's parallel layer.
+Exposed two ways: the ``compress``/``decompress`` and error-feedback
+functions, on tensors and trees; and :func:`compressed_psum_shardmap`, the
+exchange itself across the data-parallel ranks of a mesh (the reference's
+``shard_map``; the reference's trainer never calls it, nor does the
+port's).
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.checkpoint.ckpt import tree_leaves, tree_unflatten
+from repro_torch.parallel import collectives as coll
 
 
 def compress(e: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -48,3 +51,28 @@ def ef_tree_step(grads, err_tree):
     ``grads``' structure."""
     out = [ef_step(g, e) for g, e in zip(tree_leaves(grads), tree_leaves(err_tree))]
     return tuple(tree_unflatten(grads, [o[i] for o in out]) for i in range(3))
+
+
+def compressed_psum_shardmap(mesh, axis_names=("data",)):
+    """The compressed mean all-reduce over ``axis_names`` of ``mesh`` (a mesh
+    with ranks): ``f(local_grads, err) -> (synced, new_err)``, trees of this
+    rank's leaves.  Each rank runs :func:`ef_tree_step` on its own leaves;
+    the int8 ``q`` and the float32 scale of every leaf cross the axes (an
+    all-gather, the only bytes exchanged), and each rank takes the mean of
+    the dequantized leaves in rank order.  ``new_err`` stays local."""
+    n = mesh.size(axis_names)
+
+    def sync(q, s):
+        qs = coll.all_gather(q[None], mesh, axis_names, dim=0)
+        ss = coll.all_gather(s.reshape(1), mesh, axis_names, dim=0)
+        total = decompress(qs[0], ss[0])
+        for i in range(1, n):
+            total = total + decompress(qs[i], ss[i])
+        return total / n
+
+    def f(grads, err):
+        q, s, new_err = ef_tree_step(grads, err)
+        synced = [sync(a, b) for a, b in zip(tree_leaves(q), tree_leaves(s))]
+        return tree_unflatten(grads, synced), new_err
+
+    return f

@@ -9,6 +9,13 @@ through the MMA datapath (the unscaled CUDA kernel for ``impl='kernel'``
 on the card) and its gradient the float product's (the straight-through
 estimator of ``core.mma.mma_linear``); the backward's products are stock
 float32 matmuls, as the reference leaves them to XLA.
+
+Under a device mesh (:func:`build_jitted_train_step`) the step runs on one
+rank's shards: the loss is ``parallel.sharded_lm.loss_fn`` on the rank's
+rows, the gradients are averaged over the data-parallel axes
+(``('pod', 'data')``), and the clipping norm sums squares over every
+shard, a replicated leaf once.  The reference's donated jit becomes the
+in-place update the optimizer already makes.
 """
 from __future__ import annotations
 
@@ -21,6 +28,10 @@ from repro_torch import models
 from repro_torch.checkpoint.ckpt import tree_leaves, tree_unflatten
 from repro_torch.device import resolve_device
 from repro_torch.optim import adamw, schedule
+from repro_torch.parallel import collectives as coll
+from repro_torch.parallel import param_specs as pspecs
+from repro_torch.parallel import sharded_lm
+from repro_torch.parallel import sharding as shd
 
 
 def make_loss_fn(cfg, *, device=None) -> Callable:
@@ -46,7 +57,7 @@ def value_and_grad(loss_fn: Callable, params, batch):
 
 
 def train_step(state: dict, batch: dict, cfg, *, peak_lr=3e-4, warmup=100, total=10_000,
-               device=None):
+               device=None, shardings=None):
     """state = {"params", "opt": AdamWState}; batch leaves (numpy or
     tensors) have a leading microbatch axis (MB, ...) when
     ``cfg.microbatches`` > 1, as the data pipeline makes them.  Returns
@@ -56,8 +67,17 @@ def train_step(state: dict, batch: dict, cfg, *, peak_lr=3e-4, warmup=100, total
     zeros, then divided by the count, and the loss is averaged; with one
     the gradients keep the parameters' dtype.  ``state``'s optimizer
     tensors are updated in place (``optim.adamw``): pass a state once.
+
+    ``shardings`` (the params' NamedShardings on a mesh with ranks): the
+    state is this rank's shards and the batch its rows; see the module's
+    docstring.
     """
-    loss_fn = make_loss_fn(cfg, device=resolve_device(device))
+    dev = resolve_device(device)
+    mesh = None if shardings is None else tree_leaves(shardings)[0].mesh
+    if mesh is None:
+        loss_fn = make_loss_fn(cfg, device=dev)
+    else:
+        loss_fn = partial(sharded_lm.loss_fn, cfg=cfg, mesh=mesh, device=dev)
     params = state["params"]
     if cfg.microbatches > 1:
         acc = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
@@ -75,7 +95,91 @@ def train_step(state: dict, batch: dict, cfg, *, peak_lr=3e-4, warmup=100, total
     else:
         (loss, _), grads = value_and_grad(loss_fn, params, batch)
 
+    gnorm = None
+    if mesh is not None:
+        dp = sharded_lm.dp_axes(mesh)
+        n_dp = mesh.size(dp)
+        grads = tree_unflatten(params, [
+            (coll.all_reduce(g.to(torch.float32), mesh, dp) / n_dp).to(g.dtype)
+            for g in tree_leaves(grads)])
+        loss = coll.all_reduce(torch.as_tensor(loss, dtype=torch.float32, device=dev), mesh,
+                               dp) / n_dp
+        gnorm = global_norm(grads, shardings)
     lr = schedule.warmup_cosine(state["opt"].step + 1, peak_lr=peak_lr, warmup=warmup,
                                 total=total)
-    new_params, new_opt, om = adamw.update(params, grads, state["opt"], lr=lr)
+    new_params, new_opt, om = adamw.update(params, grads, state["opt"], lr=lr, grad_norm=gnorm)
     return {"params": new_params, "opt": new_opt}, {"loss": loss, **om}
+
+
+def global_norm(grads, shardings) -> torch.Tensor:
+    """The global L2 norm of a sharded gradient tree: each leaf's float32
+    sum of squares over its shard, summed over the axes it is split on, a
+    replicated leaf counted once."""
+    by_axes: dict[tuple, torch.Tensor] = {}
+    for g, sh in zip(tree_leaves(grads), tree_leaves(shardings)):
+        axes = tuple(a for e in sh.spec for a in shd.axis_tuple(e))
+        sq = torch.sum(torch.square(g.to(torch.float32)))
+        by_axes[axes] = by_axes[axes] + sq if axes in by_axes else sq
+    mesh = tree_leaves(shardings)[0].mesh
+    return torch.sqrt(sum(coll.all_reduce(sq, mesh, axes) for axes, sq in by_axes.items()))
+
+
+def abstract_state(cfg) -> dict:
+    """The whole train state on the ``meta`` device: shapes and dtypes, no
+    allocation (the reference's ``eval_shape``)."""
+    mod = models.build(cfg)
+    if cfg.family == "encdec":
+        p = mod.init_params(0, cfg, device="meta", max_dec_pos=4096)
+    else:
+        p = mod.init_params(0, cfg, device="meta")
+    return {"params": p, "opt": adamw.init(p)}
+
+
+def state_shardings(abstract: dict, cfg, mesh) -> dict:
+    """NamedShardings for the whole train state: the optimizer's master
+    copies and moments follow the params, the step is replicated."""
+    opt = abstract["opt"]
+    return {
+        "params": pspecs.named_shardings(abstract["params"], cfg, mesh),
+        "opt": type(opt)(
+            step=shd.NamedSharding(mesh, shd.P()),
+            master=pspecs.named_shardings(opt.master, cfg, mesh),
+            m=pspecs.named_shardings(opt.m, cfg, mesh),
+            v=pspecs.named_shardings(opt.v, cfg, mesh),
+        ),
+    }
+
+
+def batch_shardings(abstract_batch: dict, mesh, mb_leading: bool = False) -> dict:
+    """Each batch leaf's rows split by the active rule set's 'batch' mapping
+    (('pod', 'data') by default; every axis under 'ep_dp'); with
+    ``mb_leading`` the leading microbatch dim stays whole and dim 1 is
+    split.  Leaves are meta (or real) tensors."""
+
+    def one(t):
+        nd = t.ndim
+        if nd == 0:
+            return shd.NamedSharding(mesh, shd.P())
+        names: list = [None] * nd
+        names[1 if (mb_leading and nd > 1) else 0] = "batch"
+        with shd.use_mesh(mesh, shd.active_rules()):
+            return shd.named_sharding(*names, shape=tuple(t.shape))
+
+    return {k: one(v) for k, v in abstract_batch.items()}
+
+
+def build_jitted_train_step(cfg, mesh, abstract_st: dict, abstract_batch: dict):
+    """The train step on ``mesh`` (the reference's jit with shardings and
+    donation): ``step(state, batch) -> (state, metrics)`` where ``state`` is
+    this rank's shards (``sharding.shard_tree(state, state_shardings(...))``)
+    and ``batch`` the global batch, of which the step takes the rank's rows.
+    The state is updated in place."""
+    st_sh = state_shardings(abstract_st, cfg, mesh)
+    b_sh = batch_shardings(abstract_batch, mesh, mb_leading=cfg.microbatches > 1)
+
+    def step(state, batch):
+        local = shd.shard_tree({k: torch.as_tensor(v) for k, v in batch.items()}, b_sh)
+        with shd.use_mesh(mesh):
+            return train_step(state, local, cfg, shardings=st_sh["params"], device=mesh.device)
+
+    return step

@@ -94,14 +94,13 @@ def train(
 
 def resume(like_state, tcfg: TrainerConfig, shardings=None):
     """Restore the latest checkpoint into ``like_state``'s structure, dtypes
-    and devices; ``(None, 0)`` on a fresh start.  Re-sharding onto a device
-    mesh (``shardings``) waits for the port's parallel layer."""
-    if shardings is not None:
-        raise NotImplementedError(
-            "resuming onto a device mesh (shardings=) waits for the port's parallel layer")
+    and devices; ``(None, 0)`` on a fresh start.  ``shardings`` (the state's
+    NamedShardings, ``train_step.state_shardings``): ``like_state`` holds
+    the global shapes and this rank gets its slices, on whatever mesh."""
     ckpt = Checkpointer(tcfg.ckpt_dir, keep=tcfg.keep)
     step = ckpt.latest_step()
     if step is None:
         return None, 0
-    restored, step = ckpt.restore({"state": like_state})
+    restored, step = ckpt.restore({"state": like_state}, shardings=(
+        None if shardings is None else {"state": shardings}))
     return restored["state"], step

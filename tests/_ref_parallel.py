@@ -1,0 +1,135 @@
+"""The reference side of ``tests/test_torch_distributed.py``, run as a
+subprocess with 8 forced host devices:
+
+    JAX_PLATFORMS=cpu python tests/_ref_parallel.py DIR
+
+Reads ``DIR/inputs.npz`` (the port's weights and the test's data) and writes
+``DIR/ref.npz``.  Every mesh is built with Auto-typed axes: jax 0.9's
+``jax.make_mesh`` makes Explicit axes by default, under which the reference's
+sharded code raises ``ShardingTypeError``.  The reference package itself is
+used as it is.
+"""
+import os
+import sys
+
+os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=8"
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+import numpy as np  # noqa: E402
+from jax.sharding import AxisType  # noqa: E402
+
+from repro.configs import get_smoke_config  # noqa: E402
+from repro.configs.base import QuantConfig  # noqa: E402
+from repro.models import build, moe as moe_lib  # noqa: E402
+from repro.optim import adamw, grad_compress as gc  # noqa: E402
+from repro.parallel import sharding as shd  # noqa: E402
+from repro.parallel.pipeline import pipelined_loss_fn  # noqa: E402
+from repro.train import train_step as ts  # noqa: E402
+
+EXACT = {"xla_allow_excess_precision": False, "xla_disable_hlo_passes": "algsimp"}
+
+
+def auto_mesh(shape, names):
+    return jax.make_mesh(shape, names, axis_types=(AxisType.Auto,) * len(shape))
+
+
+def tree(inp, prefix):
+    out = {}
+    for k, v in inp.items():
+        if k.startswith(prefix):
+            *parents, leaf = k[len(prefix):].split("/")
+            node = out
+            for p in parents:
+                node = node.setdefault(p, {})
+            node[leaf] = jnp.asarray(v, jnp.bfloat16)
+    return out
+
+
+def flat(t, prefix=""):
+    if isinstance(t, dict):
+        return {k2: v2 for k, v in t.items() for k2, v2 in flat(v, f"{prefix}{k}/").items()}
+    return {prefix[:-1]: np.asarray(jnp.asarray(t, jnp.float32))}
+
+
+def exact(fn, *args, **jit_kw):
+    return jax.jit(fn, **jit_kw).lower(*args).compile(EXACT)(*args)
+
+
+def main(d):
+    inp = dict(np.load(os.path.join(d, "inputs.npz")))
+    out = {}
+    mesh = auto_mesh((4, 2), ("data", "model"))
+    params = tree(inp, "p/")
+    tok = jnp.asarray(inp["tokens"])
+
+    # the sharded train step on (4, 2)
+    for name, q in (("none", QuantConfig()), ("horner", QuantConfig(mode="mma_int8", impl="xla"))):
+        cfg = get_smoke_config("yi_6b").replace(quant=q)
+        ab = ts.abstract_state(cfg)
+        st_sh = ts.state_shardings(ab, cfg, mesh)
+        b_sh = ts.batch_shardings({"tokens": jax.ShapeDtypeStruct(tok.shape, jnp.int32)}, mesh)
+        state = jax.device_put({"params": params, "opt": adamw.init(params)}, st_sh)
+
+        def step_fn(st, b, cfg=cfg):
+            with shd.use_mesh(mesh):
+                return ts.train_step(st, b, cfg)
+
+        new, m = exact(step_fn, state, {"tokens": jax.device_put(tok, b_sh["tokens"])},
+                       in_shardings=(st_sh, b_sh), out_shardings=(st_sh, None))
+        out[f"{name}/loss"], out[f"{name}/grad_norm"] = np.asarray(m["loss"]), np.asarray(
+            m["grad_norm"])
+        out.update({f"{name}/p/{k}": v for k, v in flat(new["params"]).items()})
+
+    # compressed gradient sync: the reference test's 20 steps, compiled as
+    # the source reads (XLA's fusion would contract ``e - q * s`` into one
+    # FMA, an ulp of the residual per step)
+    mesh1 = auto_mesh((8,), ("data",))
+    g_local = jnp.asarray(inp["g_local"], jnp.float32)
+    err = jnp.zeros_like(g_local)
+    f = jax.jit(gc.compressed_psum_shardmap(mesh1, ("data",))).lower(g_local, err).compile(
+        {"xla_disable_hlo_passes": "algsimp,fusion"})
+    synced_all = []
+    for _ in range(20):
+        synced, err = f(g_local, err)
+        synced_all.append(np.asarray(synced))
+    out["gc/synced"], out["gc/err"] = np.stack(synced_all), np.asarray(err)
+
+    # expert-parallel MoE on (4, 2), dropless; each slab's routing
+    import dataclasses as dc
+
+    mcfg = get_smoke_config("olmoe_1b_7b")
+    mcfg = mcfg.replace(moe=dc.replace(mcfg.moe, capacity_factor=64.0, ep=True))
+    mp = tree(inp, "m/")
+    xm = jnp.asarray(inp["xm"], jnp.bfloat16)
+    with shd.use_mesh(mesh):
+        out["moe/plain"] = np.asarray(jax.jit(
+            lambda p_, x_: moe_lib.moe_ffn(p_, x_, mcfg))(mp, xm).astype(jnp.float32))
+        out["moe/ep"] = np.asarray(jax.jit(
+            lambda p_, x_: moe_lib.moe_ffn_ep(p_, x_, mcfg))(mp, xm).astype(jnp.float32))
+    b, s, dm = xm.shape
+    bl, sl = b // 4, s // 2
+    m = mcfg.moe
+    cap = min(bl * sl * m.top_k, max(int(bl * sl * m.top_k / m.n_experts * m.capacity_factor), 4))
+    for di in range(4):
+        for r in range(2):
+            xf = xm[di * bl:(di + 1) * bl, r * sl:(r + 1) * sl].reshape(bl * sl, dm)
+            logits = xf @ mp["router"]["w"].astype(jnp.float32)
+            _, (eid_s, pos, tok_s, _, keep) = moe_lib._local_dispatch(
+                xf, logits, m.n_experts, m.top_k, cap, xf.dtype)
+            for k, v in (("eid", eid_s), ("pos", pos), ("tok", tok_s), ("keep", keep)):
+                out[f"moe/{di}{r}/{k}"] = np.asarray(v)
+
+    # GPipe: PP 2 x DP 4
+    pcfg = get_smoke_config("yi_6b").replace(seq_shard=False)
+    batch = {"tokens": tok}
+    out["pp/ref"] = np.asarray(build(pcfg).loss_fn(params, batch, pcfg)[0])
+    with shd.use_mesh(mesh):
+        out["pp/loss"] = np.asarray(jax.jit(
+            lambda p_, b_: pipelined_loss_fn(p_, b_, pcfg, n_micro=2)[0])(params, batch))
+    np.savez(os.path.join(d, "ref.npz"), **out)
+    print("REF_OK")
+
+
+if __name__ == "__main__":
+    main(sys.argv[1])

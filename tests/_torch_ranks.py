@@ -1,0 +1,235 @@
+"""The port's side of ``tests/test_torch_distributed.py``: one function run
+on each of 8 CPU ranks (gloo, ``torch.multiprocessing`` spawn).  No jax
+here: each rank imports torch and the port only.
+
+:func:`rank_main` reads ``DIR/inputs.npz`` (the weights and data the
+reference subprocess reads too), runs every check's port side on the
+world's meshes and writes ``DIR/rank{r}.pt`` for the test to compare.
+"""
+import dataclasses
+import os
+import shutil
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from repro_torch.checkpoint.ckpt import Checkpointer, tree_leaves, tree_unflatten
+from repro_torch.configs import get_smoke_config
+from repro_torch.configs.base import QuantConfig
+from repro_torch.core import mma
+from repro_torch.launch.mesh import make_host_mesh
+from repro_torch.models import layers
+from repro_torch.models import moe as moe_lib
+from repro_torch.optim import adamw
+from repro_torch.optim import grad_compress as gc
+from repro_torch.parallel import collectives as coll
+from repro_torch.parallel import pipeline as pp
+from repro_torch.parallel import sharded_lm
+from repro_torch.parallel import sharding as shd
+from repro_torch.parallel.sharding import Mesh, NamedSharding, P
+from repro_torch.train import train_step as ts
+from repro_torch.train import trainer
+
+WORLD = 8
+# the order of one forward's quantized linears (2 layers, then the head)
+LINEARS = ["wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down"] * 2 + ["head"]
+ROW = ("wo", "w_down")
+
+
+def tree(inp: dict, prefix: str) -> dict:
+    out = {}
+    for k, v in inp.items():
+        if k.startswith(prefix):
+            *parents, leaf = k[len(prefix):].split("/")
+            node = out
+            for p in parents:
+                node = node.setdefault(p, {})
+            node[leaf] = torch.tensor(v).to(torch.bfloat16)
+    return out
+
+
+def _route(quant: str):
+    cfg = get_smoke_config("yi_6b")
+    if quant == "horner":
+        cfg = cfg.replace(quant=QuantConfig(mode="mma_int8", impl="horner"))
+    return cfg
+
+
+def _train_step(inp, mesh, quant, out):
+    """One sharded step; for the Horner route also every int32 product
+    (after its all-reduce) against the unsharded step's, bit for bit."""
+    cfg = _route(quant)
+    params = tree(inp, "p/")
+    tok = inp["tokens"]
+    ab = ts.abstract_state(cfg)
+    st_sh = ts.state_shardings(ab, cfg, mesh)
+    step = ts.build_jitted_train_step(
+        cfg, mesh, ab, {"tokens": torch.empty(tok.shape, dtype=torch.int32, device="meta")})
+    local = shd.shard_tree({"params": params, "opt": adamw.init(params)}, st_sh)
+
+    sharded_calls, plain_calls = [], []
+    inner_product, inner_dot = sharded_lm.mma_product, mma.mma_dot
+
+    def rec_product(*a, **kw):
+        acc = inner_product(*a, **kw)
+        sharded_calls.append(acc)
+        return acc
+
+    coll.reset_stats(mesh)
+    sharded_lm.mma_product = rec_product
+    try:
+        new, m = step(local, {"tokens": tok})
+    finally:
+        sharded_lm.mma_product = inner_product
+    out[f"{quant}/stats"] = coll.collective_stats(mesh)
+    out[f"{quant}/loss"], out[f"{quant}/grad_norm"] = float(m["loss"]), float(m["grad_norm"])
+    full = shd.gather_tree(new, st_sh)
+    out[f"{quant}/params"] = full["params"]
+    # the port's unsharded step on the whole batch
+    def rec_dot(*a, **kw):
+        acc = inner_dot(*a, **kw)
+        plain_calls.append(acc)
+        return acc
+
+    mma.mma_dot = rec_dot
+    try:
+        new1, m1 = ts.train_step({"params": params, "opt": adamw.init(params)},
+                                 {"tokens": tok}, cfg, device="cpu")
+    finally:
+        mma.mma_dot = inner_dot
+    out[f"{quant}/loss1"], out[f"{quant}/grad_norm1"] = float(m1["loss"]), float(m1["grad_norm"])
+    out[f"{quant}/params1"] = new1["params"]
+    if quant == "horner":
+        # forward, then the backward's recompute, layer by layer in reverse
+        names = LINEARS + LINEARS[7:14] + LINEARS[:7]
+        d, r = mesh.index("data"), mesh.index("model")
+        rows = slice(d * tok.shape[0] // mesh.size("data"), (d + 1) * tok.shape[0] // mesh.size("data"))
+        equal = []
+        for name, got, want in zip(names, sharded_calls, plain_calls):
+            want = want[rows]
+            if name not in ROW:
+                n = got.shape[-1]
+                want = want[..., r * n:(r + 1) * n]
+            equal.append(got.dtype == torch.int32 and torch.equal(got, want))
+        out["int32"] = {"n": (len(sharded_calls), len(plain_calls)), "equal": equal,
+                        "shapes": [tuple(c.shape) for c in sharded_calls]}
+    return full, st_sh
+
+
+def _elastic(d, state_a, st_a, mesh_b, out):
+    """Save under (4, 2), restore under (2, 4): equal bit for bit."""
+    rank = dist.get_rank()
+    ck_dir = os.path.join(d, "ckpt")
+    w = torch.arange(8 * 16, dtype=torch.float32).reshape(8, 16)
+    if rank == 0:
+        ck = Checkpointer(ck_dir)
+        ck.save(1, {"w": w})
+        ck.save(2, {"state": state_a})
+    dist.barrier()
+    ck = Checkpointer(ck_dir)
+    sh_b = NamedSharding(mesh_b, P("data", "model"))
+    got, step = ck.restore({"w": torch.empty(8, 16, device="meta")}, step=1,
+                           shardings={"w": sh_b})
+    out["elastic/w"] = bool(torch.equal(got["w"], shd.shard(w, sh_b))) and step == 1
+    cfg = _route("horner")
+    st_b = ts.state_shardings(ts.abstract_state(cfg), cfg, mesh_b)
+    like = tree_unflatten(state_a, [torch.empty(t.shape, dtype=t.dtype, device="meta")
+                                    for t in tree_leaves(state_a)])
+    resumed, start = trainer.resume(like, trainer.TrainerConfig(ckpt_dir=ck_dir), shardings=st_b)
+    back = shd.gather_tree(resumed, st_b)
+    out["elastic/state"] = start == 2 and all(
+        a.dtype == b.dtype and torch.equal(a, b)
+        for a, b in zip(tree_leaves(back), tree_leaves(state_a)))
+    out["elastic/local_shapes"] = [tuple(t.shape) for t in tree_leaves(resumed["params"])]
+
+
+def _compressed(inp, out):
+    mesh1 = Mesh.from_world((WORLD,), ("data",), device="cpu")
+    f = gc.compressed_psum_shardmap(mesh1, ("data",))
+    r = dist.get_rank()
+    g = torch.tensor(inp["g_local"][r:r + 1])
+    err = torch.zeros_like(g)
+    synced_all = []
+    for _ in range(20):
+        synced, err = f(g, err)
+        synced_all.append(synced)
+    out["gc/synced"], out["gc/err"] = torch.cat(synced_all), err
+    out["gc/stats"] = coll.collective_stats(mesh1)
+
+
+def _moe(inp, mesh, out):
+    mcfg = get_smoke_config("olmoe_1b_7b")
+    mcfg = mcfg.replace(moe=dataclasses.replace(mcfg.moe, capacity_factor=64.0, ep=True))
+    mp = tree(inp, "m/")
+    ex = NamedSharding(mesh, P("model", None, None))
+    local = {**mp, **{k: shd.shard(mp[k], ex) for k in ("w_gate", "w_up", "w_down")}}
+    local = layers.tree_map(lambda t: t.detach().requires_grad_(), local)
+    x = torch.tensor(inp["xm"]).to(torch.bfloat16).requires_grad_()
+    wts = torch.tensor(np.random.default_rng(5).standard_normal(x.shape), dtype=torch.float32)
+    coll.reset_stats(mesh)
+    with shd.use_mesh(mesh):
+        y = moe_lib.moe_ffn_ep(local, x, mcfg)
+    out["moe/stats"] = coll.collective_stats(mesh)
+    gx, gw = torch.autograd.grad((y.float() * wts).sum(), [x, local["w_gate"]])
+    full = layers.tree_map(lambda t: t.detach().requires_grad_(), mp)
+    x1 = x.detach().requires_grad_()
+    y1 = moe_lib.moe_ffn(full, x1, mcfg)
+    gx1, gw1 = torch.autograd.grad((y1.float() * wts).sum(), [x1, full["w_gate"]])
+    out["moe/ep"], out["moe/plain"] = y.detach().float(), y1.detach().float()
+    out["moe/grads"] = (gx.float(), gx1.float(), gw.float(), shd.shard(gw1, ex).float())
+    # this rank's slab routed as the reference's body routes it
+    b, s, d = x.shape
+    bl, sl = b // mesh.size("data"), s // mesh.size("model")
+    di, r = mesh.index("data"), mesh.index("model")
+    xf = x.detach()[di * bl:(di + 1) * bl, r * sl:(r + 1) * sl].reshape(bl * sl, d)
+    logits = xf.float() @ mp["router"]["w"].float()
+    _, (eid_s, pos, tok_s, _, keep) = moe_lib._local_dispatch(
+        xf, logits, mcfg.moe.n_experts, mcfg.moe.top_k, moe_lib.capacity(bl * sl, mcfg.moe),
+        xf.dtype)
+    out["moe/slab"] = (di, r)
+    out["moe/route"] = {"eid": eid_s, "pos": pos, "tok": tok_s, "keep": keep}
+
+
+def _pipeline(inp, mesh, out):
+    cfg = get_smoke_config("yi_6b").replace(seq_shard=False)
+    params = tree(inp, "p/")
+    local = shd.shard_tree(params, pp.stage_shardings(params, mesh))
+    local = layers.tree_map(lambda t: t.detach().requires_grad_(), local)
+    coll.reset_stats(mesh)
+    with shd.use_mesh(mesh):
+        loss, _ = pp.pipelined_loss_fn(local, {"tokens": inp["tokens"]}, cfg, n_micro=2,
+                                       device="cpu")
+    grads = torch.autograd.grad(loss, tree_leaves(local))
+    out["pp/stats"] = coll.collective_stats(mesh)
+    out["pp/loss"] = float(loss)
+    out["pp/grads"] = tree_unflatten(local, list(grads))
+    from repro_torch.models import transformer
+    full = layers.tree_map(lambda t: t.detach().requires_grad_(), params)
+    loss1, _ = transformer.loss_fn(full, {"tokens": inp["tokens"]}, cfg, device="cpu")
+    out["pp/loss1"] = float(loss1)
+    out["pp/grads1"] = tree_unflatten(full, list(torch.autograd.grad(loss1, tree_leaves(full))))
+    out["pp/stage"] = mesh.index("model")
+
+
+def rank_main(rank: int, d: str) -> None:
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"file://{os.path.join(d, 'pg')}", rank=rank,
+                            world_size=WORLD)
+    try:
+        inp = dict(np.load(os.path.join(d, "inputs.npz")))
+        mesh = make_host_mesh(2, device="cpu")  # (4, 2)
+        mesh_b = Mesh.from_world((2, 4), ("data", "model"), device="cpu")
+        out = {"mesh": (mesh.shape, mesh.index("data"), mesh.index("model"))}
+        _train_step(inp, mesh, "none", out)
+        state_a, st_a = _train_step(inp, mesh, "horner", out)
+        _elastic(d, state_a, st_a, mesh_b, out)
+        _compressed(inp, out)
+        _moe(inp, mesh, out)
+        _pipeline(inp, mesh, out)
+        torch.save(out, os.path.join(d, f"rank{rank}.pt"))
+        dist.barrier()
+        if rank == 0:
+            shutil.rmtree(os.path.join(d, "ckpt"), ignore_errors=True)
+    finally:
+        dist.destroy_process_group()

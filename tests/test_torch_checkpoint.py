@@ -157,10 +157,23 @@ def test_missing_checkpoint_and_mismatches_raise(tmp_path):
 
 
 def test_shardings_raise(tmp_path):
+    """``restore(shardings=)`` takes one NamedSharding per leaf and raises on
+    any other count; on a mesh of one rank every leaf comes back whole, on
+    the mesh's device, from meta ``like`` leaves.  (Meshes of several ranks:
+    ``test_torch_distributed.py``.)"""
+    from repro_torch.parallel.sharding import Mesh, NamedSharding, P
+
     ck = Checkpointer(tmp_path)
     ck.save(1, _state(1))
-    with pytest.raises(NotImplementedError, match="shardings"):
+    with pytest.raises(ValueError, match="shardings"):
         ck.restore(_state(0), shardings={"params": None})
+    one = NamedSharding(Mesh({"data": 1, "model": 1}, device="cpu"), P("data", "model"))
+    like = tree_unflatten(_state(0), [torch.empty(t.shape, dtype=t.dtype, device="meta")
+                                      for t in tree_leaves(_state(0))])
+    got, step = ck.restore(like, shardings=tree_unflatten(like, [one] * 3))
+    assert step == 1
+    for a, b in zip(tree_leaves(got), tree_leaves(_state(1))):
+        assert a.device.type == "cpu" and a.dtype == b.dtype and torch.equal(a, b)
 
 
 def test_manifest_matches_the_reference(tmp_path):

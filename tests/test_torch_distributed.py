@@ -1,0 +1,262 @@
+"""The port's parallel layer on 8 CPU ranks against the reference's own
+sharded runs.
+
+Ranks: 8 processes (``torch.multiprocessing`` spawn, gloo, a ``file://``
+rendezvous in the test's directory), each running ``_torch_ranks.rank_main``
+once for the whole module; every join has a time limit, and a rank still
+alive at it is killed and fails the module.  The reference side is one
+subprocess (``_ref_parallel.py``: 8 forced host devices, Auto-typed meshes,
+``JAX_PLATFORMS=cpu``), run beside the ranks.  Both read the same inputs:
+Yi-6B's and OLMoE's smoke weights drawn by the port (seed 0), the tokens and
+the gradients of the reference's own ``test_distributed.py``, drawn with
+numpy.
+
+Tolerances, each against what it compares:
+
+- the train step (mesh (4, 2)): loss within ``LOSS_REL`` and ``grad_norm``
+  within ``NORM_REL`` of the reference's sharded step and of the port's
+  unsharded step; every new param within ``PARAM_ATOL`` (one step at the
+  schedule's first learning rate, 3e-6: a param moves by at most ~3e-6, so a
+  wrong update shows);
+- every int32 product of the sharded step (a row-parallel one after its
+  all-reduce) equal bit for bit to the unsharded step's rows and columns;
+- compressed sync: ``synced`` and ``err`` within 1e-6 of the reference's,
+  and the reference test's two bounds;
+- elastic restore (4, 2) -> (2, 4): bit-equal;
+- ``moe_ffn_ep``: routing exact per slab, output within ``MOE_REL`` of the
+  reference's ``moe_ffn_ep`` and the port's ``moe_ffn``;
+- the pipeline (PP 2 x DP 4): loss within ``LOSS_REL`` of the reference's
+  ``pipelined_loss_fn`` and of the port's unsharded ``loss_fn``.
+"""
+import os
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+import torch.multiprocessing as mp
+
+from repro_torch.checkpoint.ckpt import tree_leaves
+from repro_torch.configs import get_smoke_config
+from repro_torch.models import moe as moe_lib
+from repro_torch.models import transformer
+
+TESTS = Path(__file__).resolve().parent
+SRC = TESTS.parent / "src"
+WORLD = 8
+JOIN_S = 300  # each rank and the reference subprocess: a guard against a hang (a run takes ~35 s)
+LOSS_REL = 1e-3
+NORM_REL = 1e-3
+PARAM_ATOL = 1e-5
+MOE_REL = 1e-2
+
+
+def _flat(t, prefix=""):
+    if isinstance(t, dict):
+        return {k2: v2 for k, v in t.items() for k2, v2 in _flat(v, f"{prefix}{k}/").items()}
+    return {prefix[:-1]: t.float().numpy()}
+
+
+def _inputs(d: Path) -> None:
+    cfg = get_smoke_config("yi_6b")
+    mcfg = get_smoke_config("olmoe_1b_7b")
+    params = transformer.init_params(0, cfg, device="cpu")
+    mparams = moe_lib.init_moe(torch.Generator().manual_seed(3), mcfg, device="cpu")
+    rng = np.random.default_rng(0)  # the reference test's draws, in its order
+    inp = {**{f"p/{k}": v for k, v in _flat(params).items()},
+           **{f"m/{k}": v for k, v in _flat(mparams).items()}}
+    inp["g_local"] = rng.standard_normal((8, 128)).astype(np.float32)
+    inp["tokens"] = rng.integers(0, cfg.vocab, (8, 33)).astype(np.int32)
+    xm = torch.tensor(rng.standard_normal((4, 16, mcfg.d_model)) * 0.1, dtype=torch.float32)
+    inp["xm"] = xm.to(torch.bfloat16).float().numpy()
+    np.savez(d / "inputs.npz", **inp)
+
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    d = tmp_path_factory.mktemp("parallel")
+    _inputs(d)
+    env = {"PYTHONPATH": str(SRC), "PATH": os.environ.get("PATH", "/usr/bin:/bin"),
+           "HOME": os.environ.get("HOME", str(d)), "JAX_PLATFORMS": "cpu"}
+    ref = subprocess.Popen([sys.executable, str(TESTS / "_ref_parallel.py"), str(d)], env=env,
+                           stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    sys.path.insert(0, str(TESTS))
+    import _torch_ranks
+
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=_torch_ranks.rank_main, args=(r, str(d))) for r in range(WORLD)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + JOIN_S
+    try:
+        for p in procs:
+            p.join(max(0.0, deadline - time.monotonic()))
+        hung = [r for r, p in enumerate(procs) if p.is_alive()]
+        out, err = ref.communicate(timeout=max(1.0, deadline - time.monotonic()))
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join(5)
+        if ref.poll() is None:
+            ref.kill()
+            ref.communicate()
+    assert not hung, f"ranks {hung} still running after {JOIN_S} s"
+    assert [p.exitcode for p in procs] == [0] * WORLD, [p.exitcode for p in procs]
+    assert "REF_OK" in out, out[-2000:] + err[-4000:]
+    return (dict(np.load(d / "ref.npz")),
+            [torch.load(d / f"rank{r}.pt", weights_only=False) for r in range(WORLD)],
+            dict(np.load(d / "inputs.npz")))
+
+
+def _rel(a, b) -> float:
+    return abs(float(a) - float(b)) / abs(float(b))
+
+
+def test_meshes_lay_ranks_out_row_major(runs):
+    _, ranks, _ = runs
+    for r, out in enumerate(ranks):
+        shape, d, m = out["mesh"]
+        assert shape == {"data": 4, "model": 2} and (d, m) == divmod(r, 2)
+
+
+@pytest.mark.parametrize("quant", ["none", "horner"])
+def test_sharded_step_loss_and_norm_equal_the_reference(runs, quant):
+    ref, ranks, _ = runs
+    for out in ranks:
+        assert _rel(out[f"{quant}/loss"], ref[f"{quant}/loss"]) < LOSS_REL
+        assert _rel(out[f"{quant}/loss"], out[f"{quant}/loss1"]) < LOSS_REL
+        assert _rel(out[f"{quant}/grad_norm"], ref[f"{quant}/grad_norm"]) < NORM_REL
+        assert _rel(out[f"{quant}/grad_norm"], out[f"{quant}/grad_norm1"]) < NORM_REL
+    # the step's metrics are equal on every rank
+    assert len({out[f"{quant}/loss"] for out in ranks}) == 1
+    assert len({out[f"{quant}/grad_norm"] for out in ranks}) == 1
+
+
+@pytest.mark.parametrize("quant", ["none", "horner"])
+def test_sharded_step_params_equal_the_reference(runs, quant):
+    ref, ranks, _ = runs
+    got = _flat(ranks[0][f"{quant}/params"])
+    unsharded = _flat(ranks[0][f"{quant}/params1"])
+    assert sorted(got) == sorted(k[len(quant) + 3:] for k in ref if k.startswith(f"{quant}/p/"))
+    for k, v in got.items():
+        assert np.abs(v - ref[f"{quant}/p/{k}"]).max() <= PARAM_ATOL, k
+        assert np.abs(v - unsharded[k]).max() <= PARAM_ATOL, k
+    for out in ranks[1:]:  # gathered, every rank holds the same params
+        for a, b in zip(tree_leaves(out[f"{quant}/params"]), tree_leaves(ranks[0][f"{quant}/params"])):
+            assert torch.equal(a, b)
+
+
+def test_sharded_int32_products_are_bit_equal_to_unsharded(runs):
+    _, ranks, _ = runs
+    for out in ranks:
+        rec = out["int32"]
+        # 15 forward products (2 x 7 linears, the head), 14 again in remat
+        assert rec["n"] == (29, 29)
+        assert all(rec["equal"]), rec["equal"]
+    # column-parallel outputs are the rank's columns; row-parallel ones whole
+    shapes = ranks[0]["int32"]["shapes"]
+    assert shapes[0] == (2, 32, 64) and shapes[3] == (2, 32, 128) and shapes[14] == (2, 32, 256)
+
+
+@pytest.mark.parametrize("quant", ["none", "horner"])
+def test_sharded_step_collectives(runs, quant):
+    _, ranks, _ = runs
+    stats = ranks[0][f"{quant}/stats"]
+    assert sorted(stats) == ["bytes_by_kind", "counts_by_kind", "total_bytes", "total_count"]
+    assert stats["total_count"] == sum(stats["counts_by_kind"].values())
+    assert stats["total_bytes"] == sum(stats["bytes_by_kind"].values())
+    assert set(stats["counts_by_kind"]) <= {"all-reduce", "all-gather"}
+    assert stats["counts_by_kind"]["all-reduce"] > 0
+    # every rank issued the same collectives
+    assert all(out[f"{quant}/stats"] == stats for out in ranks)
+
+
+def test_elastic_restore_is_bit_equal(runs):
+    _, ranks, _ = runs
+    for out in ranks:
+        assert out["elastic/w"] and out["elastic/state"]
+    # under (2, 4) the model-split leaves are a quarter wide: wq (2, 128, 32)
+    assert (2, 128, 32) in ranks[0]["elastic/local_shapes"]
+
+
+def test_compressed_sync_equals_the_reference(runs):
+    ref, ranks, inp = runs
+    synced = np.stack([out["gc/synced"].numpy() for out in ranks], axis=1)  # (20, 8, 128)
+    err = np.concatenate([out["gc/err"].numpy() for out in ranks])
+    np.testing.assert_allclose(synced, ref["gc/synced"], rtol=0, atol=1e-6)
+    np.testing.assert_allclose(err, ref["gc/err"], rtol=0, atol=1e-6)
+    # every rank holds the same mean
+    assert all(np.array_equal(synced[:, r], synced[:, 0]) for r in range(WORLD))
+    # the reference test's bounds, on the port's run
+    g_local = inp["g_local"]
+    exact_mean = g_local.mean(axis=0)
+    bound = float(np.abs(g_local).max()) / 127
+    assert float(np.abs(synced[0, 0] - exact_mean).max()) < bound * 1.01 + 1e-6
+    drift = float(np.abs(synced[:, 0].sum(axis=0) - 20 * exact_mean).max())
+    assert drift < bound * 2.5, drift
+    # only the int8 payload and the scales cross the ranks
+    stats = ranks[0]["gc/stats"]
+    assert stats["counts_by_kind"] == {"all-gather": 40}
+    assert stats["bytes_by_kind"] == {"all-gather": 20 * (128 + 4)}
+
+
+def test_moe_ep_routing_and_output_equal_the_reference(runs):
+    ref, ranks, _ = runs
+    slabs = set()
+    for out in ranks:
+        di, r = out["moe/slab"]
+        slabs.add((di, r))
+        for k, v in out["moe/route"].items():
+            assert np.array_equal(v.numpy(), ref[f"moe/{di}{r}/{k}"]), (di, r, k)
+        y = out["moe/ep"].numpy()
+        scale = float(np.abs(ref["moe/ep"]).max())
+        assert float(np.abs(y - ref["moe/ep"]).max()) <= MOE_REL * scale
+        assert float(np.abs(y - ref["moe/plain"]).max()) <= MOE_REL * scale
+        assert float(np.abs(y - out["moe/plain"].numpy()).max()) <= MOE_REL * scale
+    assert len(slabs) == WORLD
+    stats = ranks[0]["moe/stats"]
+    assert stats["counts_by_kind"] == {"all-to-all": 2, "all-reduce": 1}
+
+
+def test_moe_ep_gradients_equal_moe_ffn(runs):
+    _, ranks, _ = runs
+    for out in ranks:
+        gx, gx1, gw, gw1 = (t.numpy() for t in out["moe/grads"])
+        assert float(np.abs(gx - gx1).max()) <= MOE_REL * float(np.abs(gx1).max())
+        assert float(np.abs(gw - gw1).max()) <= MOE_REL * float(np.abs(gw1).max())
+
+
+def test_pipeline_loss_equals_the_reference(runs):
+    ref, ranks, _ = runs
+    for out in ranks:
+        assert _rel(out["pp/loss"], ref["pp/loss"]) < LOSS_REL
+        assert _rel(out["pp/loss"], ref["pp/ref"]) < 2e-2  # the reference's own bound
+        assert _rel(out["pp/loss"], out["pp/loss1"]) < LOSS_REL
+    stats = ranks[0]["pp/stats"]
+    # 3 ticks of forward ring permutes; the transposes of the first 2 (the
+    # last tick's output is not used)
+    assert stats["counts_by_kind"]["collective-permute"] == 5
+
+
+def test_pipeline_gradients_reach_both_stages(runs):
+    _, ranks, _ = runs
+    by_stage = {}
+    for out in ranks:
+        by_stage.setdefault(out["pp/stage"], out)
+    assert sorted(by_stage) == [0, 1]
+    for stage, out in by_stage.items():
+        g = out["pp/grads"]["blocks"]["attn"]["wq"]["w"]  # this stage's one layer
+        g1 = out["pp/grads1"]["blocks"]["attn"]["wq"]["w"][stage:stage + 1]
+        assert float(g.abs().max()) > 0
+        assert float((g.float() - g1.float()).abs().max()) <= 2e-2 * float(g1.abs().max())
+        # the replicated leaves' gradients are whole on every stage
+        for name in ("embed", "head", "ln_f"):
+            for a, b in zip(tree_leaves(out["pp/grads"][name]), tree_leaves(out["pp/grads1"][name])):
+                assert float((a.float() - b.float()).abs().max()) <= 2e-2 * float(b.abs().max())
+    from repro_torch.parallel.pipeline import bubble_fraction
+
+    assert abs(bubble_fraction(2, 2) - 1 / 3) < 1e-9

@@ -253,10 +253,19 @@ def test_trainer_restart_is_bit_deterministic(tmp_path, route):
 
 
 def test_resume_fresh_and_with_shardings(tmp_path):
+    """A fresh start, then a resume onto a mesh (of one rank here; several
+    ranks: ``test_torch_distributed.py``)."""
+    from repro_torch.checkpoint.ckpt import Checkpointer
+    from repro_torch.parallel.sharding import Mesh, NamedSharding, P
+
     tcfg = trainer.TrainerConfig(ckpt_dir=str(tmp_path / "none"))
     assert trainer.resume({"w": torch.zeros(2)}, tcfg) == (None, 0)
-    with pytest.raises(NotImplementedError, match="parallel layer"):
-        trainer.resume({"w": torch.zeros(2)}, tcfg, shardings={"w": None})
+    w = torch.arange(6, dtype=torch.float32).reshape(2, 3)
+    Checkpointer(tcfg.ckpt_dir).save(5, {"state": {"w": w}})
+    one = NamedSharding(Mesh({"data": 1, "model": 1}, device="cpu"), P("data", "model"))
+    got, step = trainer.resume({"w": torch.empty(2, 3, device="meta")}, tcfg,
+                               shardings={"w": one})
+    assert step == 5 and torch.equal(got["w"], w)
 
 
 def test_straggler_detection():
