@@ -265,7 +265,35 @@ printing its seconds; any failure ends the run with a non-zero exit:
    sharded step, the collectives by kind per step (gloo over host memory,
    not NVLink: no claim is made from them) and their share of the step, and
    the unscaled kernel graph-timed at each sharded shape against
-   ``torch._int_mm`` and the bound.
+   ``torch._int_mm`` and the bound.  ``moe_ffn_ep`` also takes a gradient
+   (of its output against random weights, for x and the rank's w_gate)
+   against the plain version's, within ``MOE_REL``.
+   (a) Before the ranks spawn, the dry run's own functions
+   (``dry_prediction``: ``specs.sharded_bytes`` of the state shardings and
+   the counting mode of the collectives on meta tensors over the
+   shape-only (data 2, model 2) mesh) predict each rank's state bytes and
+   one step's collectives; gated exactly against every rank's state bytes
+   and live ``mesh.stats`` (Yi-6B's step 2, OLMoE's step).  The roofline
+   bound of the step (H100 SXM data sheet's peaks) is printed beside the
+   measured wall, not gated.
+   (b) OLMoE-1B-7B at full width, 2 of 16 layers (1.045 G params, 14.63 GB
+   of state), phase 15's settings with its config's 2 microbatches, on the
+   same 4 ranks and mesh, experts over 'model' (32 per rank): one
+   unsharded step in the parent first (the yardstick, ``yard_moe.pt``),
+   then one sharded step on each rank: microbatch 0's 17 unscaled calls
+   bit-exact against the plain version, its 9 int32 products equal to the
+   yardstick's, loss and grad_norm within ``PAR_LOSS_REL`` /
+   ``PAR_NORM_REL``, ``par_launches`` (34) unscaled launches per step per
+   rank, state bytes and collectives equal to the dry run's; prints the
+   host wall per step, the collectives by kind and their share, and the
+   kernel graph-timed at OLMoE's sharded shapes against ``torch._int_mm``
+   and the bound.  Then the same model unquantized, where the reference's
+   ``moe_ffn_ep`` takes its expert-parallel body: one unsharded step in the
+   parent whose MoE routes the (data, model) slabs alone (``moe_ep_plain``)
+   and one sharded step on each rank (``sharded_lm._moe_ep``,
+   ``moe.ep_slab`` with a gradient, 512-token slabs): loss and grad_norm
+   within ``PAR_LOSS_REL`` / ``PAR_NORM_REL``, all-to-alls and no kernel
+   launch, state bytes and collectives equal to the dry run's.
 
 The line before the last is a JSON object naming every kernel with its
 launches on its main path and its times; the last line is
@@ -381,6 +409,17 @@ PAR_STATE_LIMIT = 60e9  # bytes of state of the four ranks together
 # gradient's size, so a gradient near 0 whose sign the rounding flips moves
 # it the other way), and at most PAR_PARAM_DIFFER of them differing at all.
 PAR_LOSS_REL, PAR_NORM_REL, PAR_PARAM_DIFFER = 1e-3, 5e-3, 0.01
+# Phase 16's second model: OLMoE-1B-7B at full width, 2 of 16 layers (1.045 G
+# params, 14.6 GB of state), on the same 4 ranks and mesh: experts over
+# 'model' (32 per rank).  Under mma_int8 the reference's moe_ffn_ep falls
+# back to moe_ffn (global routing, a bf16 router that no quant setting
+# reaches), which the unsharded yardstick runs too: the two route alike.
+PAR_MOE_LAYERS = 2
+# With quantization off the reference's moe_ffn_ep takes its expert-parallel
+# body instead (each (data, model) slab routed alone on float32 router
+# logits, two all-to-alls over 'model'): one more OLMoE step on the ranks
+# runs that path, against an unsharded step that routes the same slabs
+# alone (``moe_ep_plain``).
 # substrings of stock matmul kernel names (cuBLAS, CUTLASS) in a profile
 GEMM_NAMES = ("gemm", "nvjet", "xmma", "cutlass")
 
@@ -2815,12 +2854,103 @@ def parallel_cfgs():
     return cfg, dcfg
 
 
+def parallel_moe_cfgs():
+    """Phase 16's OLMoE-1B-7B: full width, ``PAR_MOE_LAYERS`` layers, QAT
+    through the unscaled kernel at 8 planes, its config's 2 microbatches and
+    ``moe.ep``, full remat; 8 x 512 synthetic tokens per step (seed 0)."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import QuantConfig
+    from repro_torch.data.pipeline import DataConfig
+
+    cfg = get_config("olmoe_1b_7b").replace(
+        n_layers=PAR_MOE_LAYERS, quant=QuantConfig(mode="mma_int8", impl="kernel", planes=8))
+    dcfg = DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH,
+                      microbatches=cfg.microbatches, seed=0)
+    return cfg, dcfg
+
+
+def parallel_moe_ep_cfgs():
+    """Phase 16's OLMoE-1B-7B with quantization off: the expert-parallel
+    path (``sharded_lm._moe_ep``, ``moe.ep_slab``) with a gradient."""
+    from repro_torch.configs.base import QuantConfig
+
+    cfg, dcfg = parallel_moe_cfgs()
+    return cfg.replace(quant=QuantConfig(mode="none")), dcfg
+
+
+def moe_ep_plain(torch, p: dict, x, cfg):
+    """The plain version of ``moe_ffn_ep`` over phase 16's (data 2, model
+    2) mesh, on one device with every expert: the microbatch's rows split
+    over 'data' and its sequence over 'model', each slab routed alone (its
+    own capacity, float32 router logits) through ``moe_ffn``'s dispatch,
+    experts and combine."""
+    from repro_torch.models import moe as moe_lib
+
+    m = cfg.moe
+    b, s, d = x.shape
+    bl, sl = b // 2, s // 2
+    cap = moe_lib.capacity(bl * sl, m)
+    rows = []
+    for i in range(2):
+        slabs = []
+        for j in range(2):
+            xf = x[i * bl:(i + 1) * bl, j * sl:(j + 1) * sl].reshape(bl * sl, d)
+            logits = xf.to(torch.float32) @ p["router"]["w"].to(torch.float32)
+            xe, meta = moe_lib._local_dispatch(xf, logits, m.n_experts, m.top_k, cap, x.dtype)
+            y = moe_lib._local_combine(moe_lib.expert_ffn(p, xe), meta, bl * sl, cap, x.dtype)
+            slabs.append(y.reshape(bl, sl, d))
+        rows.append(torch.cat(slabs, dim=1))
+    return torch.cat(rows, dim=0)
+
+
+def block_mma_linears(cfg) -> int:
+    """A block's quantized linears: attention's four, and the MLP's three
+    (an MoE block's experts and router are not quantized)."""
+    return 4 if cfg.moe.n_experts else 7
+
+
 def par_launches(cfg) -> int:
     """Unscaled launches per step on one rank, from the layout: every block
     linear and the head is split over 'model' (column- or row-parallel), so
-    each of a microbatch's 7 * layers block linears (twice: remat's
-    recompute) and the head is one kernel call on each rank."""
-    return cfg.microbatches * (2 * 7 * cfg.n_layers + 1)
+    each of a microbatch's block linears (twice: remat's recompute) and the
+    head is one kernel call on each rank.  Unquantized: none."""
+    if cfg.quant.mode == "none":
+        return 0
+    return cfg.microbatches * (2 * block_mma_linears(cfg) * cfg.n_layers + 1)
+
+
+def par_batch(torch, cfg) -> dict:
+    """Phase 16's batch as meta tensors: (microbatches, rows, 513) tokens."""
+    return {"tokens": torch.empty((cfg.microbatches, TRAIN_BATCH // cfg.microbatches,
+                                   TRAIN_SEQ + 1), dtype=torch.int32, device="meta")}
+
+
+def dry_prediction(torch, cfg) -> dict:
+    """What the dry run predicts for one rank of phase 16's (data 2, model
+    2) mesh: its state bytes (``specs.sharded_bytes``), the collectives of
+    one step (the counting mode on meta tensors) and the step's roofline
+    bound at the H100's data-sheet peaks (informative: the ranks share one
+    card and exchange over gloo and host memory)."""
+    from repro_torch.launch import dryrun, hlo_analysis, specs
+    from repro_torch.parallel.sharding import Mesh
+    from repro_torch.train import train_step as ts
+
+    t0 = time.perf_counter()
+    mesh = Mesh({"data": 2, "model": 2}, device="meta")
+    ab = ts.abstract_state(cfg)
+    st_sh = ts.state_shardings(ab, cfg, mesh)
+    counted = dryrun.count_train_step(cfg, mesh, par_batch(torch, cfg))
+    mem = hlo_analysis.analytic_hbm_bytes(
+        "train", **specs.train_mem_in(cfg, ab, st_sh, mesh, TRAIN_BATCH, TRAIN_SEQ))
+    coll = counted["collectives"]
+    roof = hlo_analysis.roofline(counted["census"]["flops"], mem["total"], coll["total_bytes"])
+    return dict(state_bytes=specs.sharded_bytes(ab, st_sh, mesh), collectives=coll,
+                census=counted["census"], hbm_bytes=mem["total"], roofline=roof,
+                seconds=time.perf_counter() - t0)
+
+
+def same_collectives(live: dict, predicted: dict) -> bool:
+    return all(live[k] == predicted[k] for k in ("counts_by_kind", "bytes_by_kind"))
 
 
 def par_shapes(cfg, m: int) -> list:
@@ -2828,9 +2958,11 @@ def par_shapes(cfg, m: int) -> list:
     ``m`` rows: ``(name, M, K, N, calls per step)``."""
     d, kv, ff, v, n, mb = (cfg.d_model, cfg.n_kv_heads * cfg.hd, cfg.d_ff, cfg.vocab,
                            cfg.n_layers, cfg.microbatches)
-    return [("wq", m, d, d // 2, 2 * n * mb), ("wk/wv", m, d, kv // 2, 4 * n * mb),
-            ("wo", m, d // 2, d, 2 * n * mb), ("w_gate/w_up", m, d, ff // 2, 4 * n * mb),
-            ("w_down", m, ff // 2, d, 2 * n * mb), ("head", m, d, v // 2, mb)]
+    shapes = [("wq", m, d, d // 2, 2 * n * mb), ("wk/wv", m, d, kv // 2, 4 * n * mb),
+              ("wo", m, d // 2, d, 2 * n * mb)]
+    if not cfg.moe.n_experts:
+        shapes += [("w_gate/w_up", m, d, ff // 2, 4 * n * mb), ("w_down", m, ff // 2, d, 2 * n * mb)]
+    return shapes + [("head", m, d, v // 2, mb)]
 
 
 def parallel_rank(rank: int, world: int, root: str) -> None:
@@ -3057,25 +3189,30 @@ def _parallel_rank(torch, np, dist, root: Path) -> dict:
     x = (torch.randn((1, MOE_T, mcfg.d_model), generator=g, device=dev) * 0.5).to(torch.bfloat16)
     ex = NamedSharding(mesh_b, P("model", None, None))
     mp_local = {**mp_full, **{k: shd.shard(mp_full[k], ex) for k in ("w_gate", "w_up", "w_down")}}
+    # with a gradient: of sum(y * wts) with respect to x and this rank's w_gate
+    xg, wg = x.detach().requires_grad_(), mp_local["w_gate"].detach().requires_grad_()
     coll.reset_stats(mesh_b)
-    with torch.no_grad(), shd.use_mesh(mesh_b):
-        y_ep = moe_lib.moe_ffn_ep(mp_local, x, mcfg)
+    with shd.use_mesh(mesh_b):
+        y_ep = moe_lib.moe_ffn_ep({**mp_local, "w_gate": wg}, xg, mcfg)
     ep_stats = coll.collective_stats(mesh_b)
+    wts = torch.randn(y_ep.shape, generator=g, device=dev)
+    gx_ep, gw_ep = torch.autograd.grad((y_ep.float() * wts).sum(), [xg, wg])
     m_cfg = mcfg.moe
     sl = MOE_T // mesh_b.size("model")
     cap = moe_lib.capacity(sl, m_cfg)
-    with torch.no_grad():
-        # the plain version: moe_ffn's dispatch, experts and combine on every
-        # slab with the router logits the EP body takes (float32), every
-        # expert on this rank; and moe_ffn itself (its router is bf16)
-        y_plain, sets_differ = [], 0
-        for j in range(mesh_b.size("model")):
-            xf = x[0, j * sl:(j + 1) * sl]
-            logits = xf.float() @ mp_full["router"]["w"].float()
-            xe, meta = moe_lib._local_dispatch(xf, logits, m_cfg.n_experts, m_cfg.top_k, cap,
-                                               xf.dtype)
-            y_plain.append(moe_lib._local_combine(moe_lib.expert_ffn(mp_full, xe), meta, sl, cap,
-                                                  xf.dtype))
+    # the plain version: moe_ffn's dispatch, experts and combine on every
+    # slab with the router logits the EP body takes (float32), every expert
+    # on this rank; and moe_ffn itself (its router is bf16)
+    xg1, wg1 = x.detach().requires_grad_(), mp_full["w_gate"].detach().requires_grad_()
+    y_plain, sets_differ = [], 0
+    for j in range(mesh_b.size("model")):
+        xf = xg1[0, j * sl:(j + 1) * sl]
+        logits = xf.float() @ mp_full["router"]["w"].float()
+        xe, meta = moe_lib._local_dispatch(xf, logits, m_cfg.n_experts, m_cfg.top_k, cap,
+                                           xf.dtype)
+        y_plain.append(moe_lib._local_combine(moe_lib.expert_ffn({**mp_full, "w_gate": wg1}, xe),
+                                              meta, sl, cap, xf.dtype))
+        with torch.no_grad():
             top_bf16 = moe_lib._top_k(torch.softmax(moe_lib.router_logits(mp_full, xf), -1),
                                       m_cfg.top_k)[1]
             top_f32 = moe_lib._top_k(torch.softmax(logits, -1), m_cfg.top_k)[1]
@@ -3086,38 +3223,42 @@ def _parallel_rank(torch, np, dist, root: Path) -> dict:
                 routing_equal = all(torch.equal(a.cpu(), b) for i, (a, b) in
                                     enumerate(zip(meta, meta_cpu)) if i != 3)
                 kept = int(meta[4].sum())
-        y_plain = torch.cat(y_plain)[None]
+    y_plain = torch.cat(y_plain)[None]
+    gx1, gw1 = torch.autograd.grad((y_plain.float() * wts).sum(), [xg1, wg1])
+    gw1 = shd.shard(gw1, ex)
+    with torch.no_grad():
         y_ffn = moe_lib.moe_ffn(mp_full, x, mcfg)
     torch.cuda.synchronize()
-    scale = y_plain.float().abs().max()
+    scale = y_plain.detach().float().abs().max()
     out["moe"] = {
         "routing_equal": routing_equal,
-        "rel": float((y_ep.float() - y_plain.float()).abs().max() / scale),
-        "rel_moe_ffn": float((y_ep.float() - y_ffn.float()).abs().max() / scale),
+        "rel": float((y_ep.detach().float() - y_plain.detach().float()).abs().max() / scale),
+        "rel_moe_ffn": float((y_ep.detach().float() - y_ffn.float()).abs().max() / scale),
+        "grad_rel": [float((a.float() - b.float()).abs().max() / b.float().abs().max())
+                     for a, b in ((gx_ep, gx1), (gw_ep, gw1))],
         "sets_differ": sets_differ, "kept": kept, "assignments": sl * m_cfg.top_k, "cap": cap,
         "experts_local": int(mp_local["w_gate"].shape[0]), "stats": ep_stats}
-    del mp_full, mp_local
+    del mp_full, mp_local, xg, wg, xg1, wg1, y_ep, y_plain, gx_ep, gw_ep, gx1, gw1
     torch.cuda.empty_cache()
     secs["moe"] = time.perf_counter() - t0
 
+    # ---- OLMoE-1B-7B, 2 layers at full width: one sharded step
+    t0 = time.perf_counter()
+    moe_shapes = _olmoe_rank(torch, root, mesh, dev, out)
+    secs["olmoe"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    _olmoe_ep_rank(torch, mesh, dev, out)
+    secs["olmoe_ep"] = time.perf_counter() - t0
+
     # ---- the unscaled kernel at this rank's shapes (rank 0, the others wait)
     t0 = time.perf_counter()
-    rows = []
     dist.barrier()
     if rank == 0:
-        for name, mm, k, n, per_step in par_shapes(cfg, m):
-            x8, w8 = shapes[(mm, k, n)]
-            ms = graph_ms(torch, lambda: mk.mma_matmul_kernel(x8, w8, planes=8), calls=5, reps=5)
-            check(torch.equal(torch._int_mm(x8, w8), mk.mma_matmul_kernel(x8, w8)),
-                  f"parallel {name}: library yardstick disagrees with the kernel")
-            lib_ms = graph_ms(torch, lambda: torch._int_mm(x8, w8), calls=5, reps=5)
-            nbytes, nops = mm * k + k * n + 4 * mm * n, 2 * mm * k * n
-            t_b, t_o = nbytes / HBM_BYTES_PER_S * 1e3, nops / INT8_OPS_PER_S * 1e3
-            rows.append(dict(name=name, M=mm, K=k, N=n, calls=per_step, ms=ms, library_ms=lib_ms,
-                             bound_ms=max(t_b, t_o), bound_by="bytes" if t_b >= t_o else "operations",
-                             plane_floor_ms=8 * t_o))
+        mcfg, _ = parallel_moe_cfgs()
+        out["times"] = _par_times(torch, graph_ms, mk, par_shapes(cfg, m), shapes)
+        m_moe = TRAIN_BATCH // mcfg.microbatches // mesh.size("data") * TRAIN_SEQ
+        out["moe_times"] = _par_times(torch, graph_ms, mk, par_shapes(mcfg, m_moe), moe_shapes)
     dist.barrier()
-    out["times"] = rows
     secs["times"] = time.perf_counter() - t0
     secs["all"] = time.perf_counter() - t_all
     out["secs"] = secs
@@ -3125,6 +3266,147 @@ def _parallel_rank(torch, np, dist, root: Path) -> dict:
     if rank == 0:
         shutil.rmtree(ckpt_dir, ignore_errors=True)
     return out
+
+
+def _par_times(torch, graph_ms, mk, par_rows, shapes) -> list:
+    """The unscaled kernel graph-timed at each of a step's shapes on one
+    rank, against ``torch._int_mm`` and the bound."""
+    rows = []
+    for name, mm, k, n, per_step in par_rows:
+        x8, w8 = shapes[(mm, k, n)]
+        ms = graph_ms(torch, lambda: mk.mma_matmul_kernel(x8, w8, planes=8), calls=5, reps=5)
+        check(torch.equal(torch._int_mm(x8, w8), mk.mma_matmul_kernel(x8, w8)),
+              f"parallel {name}: library yardstick disagrees with the kernel")
+        lib_ms = graph_ms(torch, lambda: torch._int_mm(x8, w8), calls=5, reps=5)
+        nbytes, nops = mm * k + k * n + 4 * mm * n, 2 * mm * k * n
+        t_b, t_o = nbytes / HBM_BYTES_PER_S * 1e3, nops / INT8_OPS_PER_S * 1e3
+        rows.append(dict(name=name, M=mm, K=k, N=n, calls=per_step, ms=ms, library_ms=lib_ms,
+                         bound_ms=max(t_b, t_o), bound_by="bytes" if t_b >= t_o else "operations",
+                         plane_floor_ms=8 * t_o))
+    return rows
+
+
+def _olmoe_rank(torch, root: Path, mesh, dev, out: dict) -> dict:
+    """Phase 16's OLMoE step on this rank: microbatch 0's kernel calls
+    against the plain version and its int32 products against the unsharded
+    step's (``yard_moe.pt``), then the whole step's launches, collectives,
+    loss and grad_norm.  Returns one (x, w) per kernel shape for the
+    timings."""
+    import torch.distributed as dist
+
+    from repro_torch.checkpoint.ckpt import tree_leaves
+    from repro_torch.data.pipeline import get_batch
+    from repro_torch.kernels import mma_matmul as mk
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer
+    from repro_torch.optim import adamw
+    from repro_torch.parallel import collectives as coll
+    from repro_torch.parallel import sharded_lm
+    from repro_torch.parallel import sharding as shd
+    from repro_torch.train import train_step as ts
+
+    cfg, dcfg = parallel_moe_cfgs()
+    di, ri = mesh.index("data"), mesh.index("model")
+    ab = ts.abstract_state(cfg)
+    st_sh = ts.state_shardings(ab, cfg, mesh)
+    step = ts.build_jitted_train_step(cfg, mesh, ab, par_batch(torch, cfg))
+    params = transformer.init_params(0, cfg, device=dev)
+    local = shd.shard_tree(params, st_sh["params"])
+    del params
+    state = {"params": local, "opt": adamw.init(local)}
+    torch.cuda.synchronize()
+    res = {"state_bytes": sum(t.numel() * t.element_size() for t in tree_leaves(state)),
+           "experts_local": int(local["blocks"]["moe"]["w_gate"].shape[1])}
+    yard = torch.load(root / "yard_moe.pt", weights_only=True)
+    per_mb = 2 * block_mma_linears(cfg) * cfg.n_layers + 1
+    calls, products, shapes = [], [], {}
+    inner_mm, inner_prod = ops.mma_matmul, sharded_lm.mma_product
+
+    def recording_mm(x, w, **kw):
+        o = inner_mm(x, w, **kw)
+        if len(calls) < per_mb:
+            x2 = x.reshape(-1, x.shape[-1])
+            want = mk.mma_matmul_plain(x2, w, planes=kw["planes"])
+            calls.append(bool(torch.equal(o.reshape(want.shape), want)))
+            shapes.setdefault((x2.shape[0], x2.shape[1], w.shape[1]), (x2.clone(), w.clone()))
+        return o
+
+    def recording_prod(*a, **kw):
+        acc = inner_prod(*a, **kw)
+        if len(products) < len(yard["int32"]):
+            products.append(acc)
+        return acc
+
+    coll.reset_stats(mesh)
+    mk.launches = 0
+    ops.mma_matmul, sharded_lm.mma_product = recording_mm, recording_prod
+    dist.barrier()
+    t0 = time.perf_counter()
+    try:
+        state, met = step(state, get_batch(dcfg, 0))
+        torch.cuda.synchronize()
+    finally:
+        ops.mma_matmul, sharded_lm.mma_product = inner_mm, inner_prod
+    res["step_s"] = time.perf_counter() - t0
+    res["launches"] = mk.launches
+    res["collectives"] = coll.collective_stats(mesh)
+    res["collective_s"] = coll.collective_seconds(mesh)
+    res["calls_exact"] = [sum(calls), len(calls)]
+    rows = TRAIN_BATCH // cfg.microbatches // mesh.size("data")
+    names = ["wq", "wk", "wv", "wo"] * cfg.n_layers + ["head"]
+    equal = []
+    for name, got, want in zip(names, products, yard["int32"]):
+        want = want[di * rows:(di + 1) * rows]  # microbatch 0's rows of this data rank
+        if name != "wo":  # column-parallel: this rank's columns
+            want = want[..., ri * got.shape[-1]:(ri + 1) * got.shape[-1]]
+        equal.append(bool(torch.equal(got.cpu(), want)))
+    res["int32_equal"] = [sum(equal), len(equal), len(yard["int32"])]
+    res["loss"], res["grad_norm"] = float(met["loss"]), float(met["grad_norm"])
+    res["peak_bytes"] = torch.cuda.max_memory_allocated()
+    out["olmoe"] = res
+    del state, local, products, yard
+    torch.cuda.empty_cache()
+    return shapes
+
+
+def _olmoe_ep_rank(torch, mesh, dev, out: dict) -> None:
+    """Phase 16's unquantized OLMoE step on this rank (the expert-parallel
+    path): its launches, collectives, loss and grad_norm."""
+    import torch.distributed as dist
+
+    from repro_torch.checkpoint.ckpt import tree_leaves
+    from repro_torch.data.pipeline import get_batch
+    from repro_torch.kernels import mma_matmul as mk
+    from repro_torch.models import transformer
+    from repro_torch.optim import adamw
+    from repro_torch.parallel import collectives as coll
+    from repro_torch.parallel import sharding as shd
+    from repro_torch.train import train_step as ts
+
+    cfg, dcfg = parallel_moe_ep_cfgs()
+    ab = ts.abstract_state(cfg)
+    st_sh = ts.state_shardings(ab, cfg, mesh)
+    step = ts.build_jitted_train_step(cfg, mesh, ab, par_batch(torch, cfg))
+    params = transformer.init_params(0, cfg, device=dev)
+    local = shd.shard_tree(params, st_sh["params"])
+    del params
+    state = {"params": local, "opt": adamw.init(local)}
+    torch.cuda.synchronize()
+    res = {"state_bytes": sum(t.numel() * t.element_size() for t in tree_leaves(state))}
+    coll.reset_stats(mesh)
+    mk.launches = 0
+    dist.barrier()
+    t0 = time.perf_counter()
+    state, met = step(state, get_batch(dcfg, 0))
+    torch.cuda.synchronize()
+    res["step_s"] = time.perf_counter() - t0
+    res["launches"] = mk.launches
+    res["collectives"] = coll.collective_stats(mesh)
+    res["collective_s"] = coll.collective_seconds(mesh)
+    res["loss"], res["grad_norm"] = float(met["loss"]), float(met["grad_norm"])
+    out["olmoe_ep"] = res
+    del state, local
+    torch.cuda.empty_cache()
 
 
 def parallel_training(torch, np, dev, card):
@@ -3138,6 +3420,7 @@ def parallel_training(torch, np, dev, card):
     from repro_torch.core import mma
     from repro_torch.data.pipeline import get_batch
     from repro_torch.kernels import mma_matmul as mk
+    from repro_torch.models import moe as moe_lib
     from repro_torch.models import transformer
     from repro_torch.optim import adamw
     from repro_torch.train import train_step as ts
@@ -3151,40 +3434,82 @@ def parallel_training(torch, np, dev, card):
     root.mkdir(parents=True)
     per_step = par_launches(cfg)
 
-    # ---- the yardstick: one unsharded step, microbatch 0's int32 products kept
-    params = transformer.init_params(0, cfg, device=dev)
-    n_params = sum(p.numel() for p in tree_leaves(params))
-    state = {"params": params, "opt": adamw.init(params)}
-    state_bytes = sum(t.numel() * t.element_size() for t in tree_leaves(state))
-    rec = []
-    inner = mma.mma_dot
+    def yardstick(c, dc_, moe_ep=None):
+        """One unsharded step: microbatch 0's forward int32 products (on the
+        host), the new params, loss, grad_norm, sizes and wall.  ``moe_ep``
+        stands in for ``moe_ffn_ep`` during the step."""
+        params = transformer.init_params(0, c, device=dev)
+        n_params = sum(p.numel() for p in tree_leaves(params))
+        state = {"params": params, "opt": adamw.init(params)}
+        state_bytes = sum(t.numel() * t.element_size() for t in tree_leaves(state))
+        rec, inner = [], mma.mma_dot
 
-    def recording(*a, **kw):
-        acc = inner(*a, **kw)
-        if len(rec) < 7 * cfg.n_layers + 1:
-            rec.append(acc.cpu())
-        return acc
+        def recording(*a, **kw):
+            acc = inner(*a, **kw)
+            if len(rec) < block_mma_linears(c) * c.n_layers + 1:
+                rec.append(acc.cpu())
+            return acc
 
-    mk.launches = 0
-    mma.mma_dot = recording
-    t0 = time.perf_counter()
-    try:
-        new, m1 = ts.train_step(state, get_batch(dcfg, 0), cfg, device=dev)
-        torch.cuda.synchronize()
-    finally:
-        mma.mma_dot = inner
-    yard_s = time.perf_counter() - t0
-    check(mk.launches == per_step, f"unsharded step: {mk.launches} unscaled launches")
-    yard = {"int32": rec, "params": [p.cpu() for p in tree_leaves(new["params"])]}
-    loss1, norm1 = float(m1["loss"]), float(m1["grad_norm"])
-    del state, new, params
-    torch.save(yard, root / "yard.pt")
-    del yard, rec
-    torch.cuda.empty_cache()
+        mk.launches = 0
+        mma.mma_dot, inner_ep = recording, moe_lib.moe_ffn_ep
+        if moe_ep is not None:
+            moe_lib.moe_ffn_ep = moe_ep
+        t0 = time.perf_counter()
+        try:
+            new, m1 = ts.train_step(state, get_batch(dc_, 0), c, device=dev)
+            torch.cuda.synchronize()
+        finally:
+            mma.mma_dot, moe_lib.moe_ffn_ep = inner, inner_ep
+        wall = time.perf_counter() - t0
+        check(mk.launches == par_launches(c), f"unsharded {c.name} step: {mk.launches} unscaled "
+              f"launches, expected {par_launches(c)}")
+        out = dict(int32=rec, params=[p.cpu() for p in tree_leaves(new["params"])],
+                   loss=float(m1["loss"]), grad_norm=float(m1["grad_norm"]), n_params=n_params,
+                   state_bytes=state_bytes, wall=wall)
+        del state, new, params
+        torch.cuda.empty_cache()
+        return out
+
+    # ---- the yardsticks: one unsharded step of each model
+    y = yardstick(cfg, dcfg)
+    loss1, norm1 = y["loss"], y["grad_norm"]
+    torch.save({"int32": y["int32"], "params": y["params"]}, root / "yard.pt")
     print(f"[parallel] {card} | Yi-6B at full width, {cfg.n_layers} of 32 layers: "
-          f"{n_params / 1e9:.3f} G params, {state_bytes / 1e9:.2f} GB of state; the unsharded "
-          f"step (the yardstick): loss {loss1:.6f}, grad_norm {norm1:.6f}, {per_step} unscaled "
-          f"launches, host wall {yard_s:.2f} s")
+          f"{y['n_params'] / 1e9:.3f} G params, {y['state_bytes'] / 1e9:.2f} GB of state; the "
+          f"unsharded step (the yardstick): loss {loss1:.6f}, grad_norm {norm1:.6f}, {per_step} "
+          f"unscaled launches, host wall {y['wall']:.2f} s")
+    del y
+    mcfg, mdcfg = parallel_moe_cfgs()
+    moe_per_step = par_launches(mcfg)
+    ym = yardstick(mcfg, mdcfg)
+    loss_m, norm_m = ym["loss"], ym["grad_norm"]
+    torch.save({"int32": ym["int32"]}, root / "yard_moe.pt")
+    print(f"[parallel] {card} | OLMoE-1B-7B at full width, {mcfg.n_layers} of 16 layers (64 "
+          f"experts, top-8): {ym['n_params'] / 1e9:.3f} G params, {ym['state_bytes'] / 1e9:.2f} GB "
+          f"of state; the unsharded step (the yardstick): loss {loss_m:.6f}, grad_norm "
+          f"{norm_m:.6f}, {moe_per_step} unscaled launches, host wall {ym['wall']:.2f} s")
+    del ym
+    ecfg, edcfg = parallel_moe_ep_cfgs()
+    ye = yardstick(ecfg, edcfg, moe_ep=lambda p, x, c: moe_ep_plain(torch, p, x, c))
+    loss_e, norm_e = ye["loss"], ye["grad_norm"]
+    print(f"[parallel] {card} | OLMoE-1B-7B unquantized, the same weights and batch: the "
+          f"unsharded step with moe_ffn_ep's slabs (data 2 x model 2, each routed alone on "
+          f"float32 logits): loss {loss_e:.6f}, grad_norm {norm_e:.6f}, host wall "
+          f"{ye['wall']:.2f} s")
+    del ye
+
+    # ---- the dry run's prediction of one rank of the (2, 2) mesh, each model
+    pred, pred_m = dry_prediction(torch, cfg), dry_prediction(torch, mcfg)
+    pred_e = dry_prediction(torch, ecfg)
+    for label, p in (("Yi-6B", pred), ("OLMoE-1B-7B", pred_m),
+                     ("OLMoE-1B-7B unquantized", pred_e)):
+        print(f"[parallel] dry run, {label}, one rank of (data 2, model 2), counted on meta "
+              f"tensors in {p['seconds']:.1f} s: state {p['state_bytes']} bytes; per step "
+              f"{p['collectives']['counts_by_kind']} ({p['collectives']['total_bytes']} bytes), "
+              f"{p['census']['products']} products ({p['census']['int8_products']} int8), "
+              f"{p['census']['flops']:.4e} FLOPs, {p['hbm_bytes']:.4e} bytes of HBM traffic "
+              f"(analytic); roofline bound {p['roofline']['step_time_lower_bound_s'] * 1e3:.2f} ms "
+              f"({p['roofline']['dominant']}) at the H100 SXM data sheet's peaks")
 
     # ---- the ranks
     t0 = time.perf_counter()
@@ -3212,6 +3537,43 @@ def parallel_training(torch, np, dev, card):
 
     # ---- gates
     total_state = sum(o["state_bytes"] for o in outs)
+    for o in outs:
+        r, om = o["rank"], o["olmoe"]
+        check(o["state_bytes"] == pred["state_bytes"] and om["state_bytes"] == pred_m["state_bytes"],
+              f"rank {r}: state bytes {o['state_bytes']}, {om['state_bytes']} against the dry "
+              f"run's {pred['state_bytes']}, {pred_m['state_bytes']}")
+        check(same_collectives(o["collectives"], pred["collectives"]),
+              f"rank {r}: Yi-6B step's collectives {o['collectives']} against the dry run's "
+              f"{pred['collectives']}")
+        check(same_collectives(om["collectives"], pred_m["collectives"]),
+              f"rank {r}: OLMoE step's collectives {om['collectives']} against the dry run's "
+              f"{pred_m['collectives']}")
+        n_mb = 2 * block_mma_linears(mcfg) * mcfg.n_layers + 1
+        check(om["calls_exact"][0] == om["calls_exact"][1] == n_mb,
+              f"rank {r}: OLMoE microbatch 0's kernel calls bit-exact {om['calls_exact']}")
+        n_fwd = block_mma_linears(mcfg) * mcfg.n_layers + 1
+        check(om["int32_equal"][0] == om["int32_equal"][1] == om["int32_equal"][2] == n_fwd,
+              f"rank {r}: OLMoE int32 products equal to the unsharded step's {om['int32_equal']}")
+        check(om["launches"] == moe_per_step, f"rank {r}: OLMoE launches per step "
+              f"{om['launches']}, expected {moe_per_step}")
+        check(om["experts_local"] == mcfg.moe.n_experts // 2,
+              f"rank {r}: {om['experts_local']} experts on the rank")
+        for k, want, tol in (("loss", loss_m, PAR_LOSS_REL), ("grad_norm", norm_m, PAR_NORM_REL)):
+            check(np.isfinite(om[k]) and abs(om[k] - want) <= tol * abs(want),
+                  f"rank {r}: OLMoE {k} {om[k]} against {want} (rel tolerance {tol})")
+        oe = o["olmoe_ep"]
+        check(oe["state_bytes"] == pred_e["state_bytes"]
+              and same_collectives(oe["collectives"], pred_e["collectives"]),
+              f"rank {r}: unquantized OLMoE step's state bytes {oe['state_bytes']} and "
+              f"collectives {oe['collectives']} against the dry run's {pred_e['state_bytes']}, "
+              f"{pred_e['collectives']}")
+        check(oe["collectives"]["counts_by_kind"].get("all-to-all", 0) > 0 and oe["launches"] == 0,
+              f"rank {r}: unquantized OLMoE step: {oe['collectives']['counts_by_kind']}, "
+              f"{oe['launches']} unscaled launches (the expert-parallel path has all-to-alls "
+              "and no kernel)")
+        for k, want, tol in (("loss", loss_e, PAR_LOSS_REL), ("grad_norm", norm_e, PAR_NORM_REL)):
+            check(np.isfinite(oe[k]) and abs(oe[k] - want) <= tol * abs(want),
+                  f"rank {r}: unquantized OLMoE {k} {oe[k]} against {want} (rel tolerance {tol})")
     print(f"[parallel] 4 ranks on the card, mesh (data 2, model 2), gloo over host memory: "
           f"state bytes per rank {[o['state_bytes'] for o in outs]} "
           f"({total_state / 1e9:.2f} GB together), peak allocated per rank "
@@ -3237,6 +3599,7 @@ def parallel_training(torch, np, dev, card):
         check(o["gc"]["ratio"] <= 1.01, f"rank {r}: compressed sync error {o['gc']['ratio']} of "
               "the int8 step")
         check(o["moe"]["routing_equal"] and o["moe"]["rel"] <= MOE_REL
+              and max(o["moe"]["grad_rel"]) <= MOE_REL
               and o["moe"]["kept"] == o["moe"]["assignments"] and o["moe"]["experts_local"] == 16,
               f"rank {r}: moe_ffn_ep {o['moe']}")
     o0 = outs[0]
@@ -3251,7 +3614,7 @@ def parallel_training(torch, np, dev, card):
           f"{[o['grad_norm1'] for o in outs]} vs {norm1}; gathered params: "
           f"{o0['param_differ']} of {o0['param_n']} elements differ, the worst by "
           f"{o0['param_worst']:.3f} of (two lr steps + one bf16 ulp)")
-    print(f"[parallel] {card} | {per_step} unscaled launches per step per rank (as the layout "
+    print(f"[parallel] {card} | {o0['launches_step2']} unscaled launches per step per rank (as the layout "
           f"gives); host wall per sharded step {[round(o['step2_s'], 3) for o in outs]} s "
           f"(step 2; step 1 with its checks {[round(o['secs']['step1'], 3) for o in outs]} s)")
     for o in outs[:1]:
@@ -3278,9 +3641,59 @@ def parallel_training(torch, np, dev, card):
           f"per rank, T = {MOE_T}: routing card = CPU on every slab, {mo['kept']} of "
           f"{mo['assignments']} assignments kept (cap {mo['cap']}), output within "
           f"{max(o['moe']['rel'] for o in outs):.2e} of moe_ffn's dispatch on the same float32 "
-          f"router logits (MOE_REL {MOE_REL}); {mo['stats']['counts_by_kind']} | moe_ffn itself "
+          f"router logits (MOE_REL {MOE_REL}), its gradients (x, the rank's w_gate) within "
+          f"{max(max(o['moe']['grad_rel']) for o in outs):.2e}; forward "
+          f"{mo['stats']['counts_by_kind']} | moe_ffn itself "
           f"(bf16 router): {mo['sets_differ']} of {MOE_T} tokens pick another expert set, "
           f"output {mo['rel_moe_ffn']:.3f} of the largest away (not gated)")
+    print(f"[parallel] dry run against the ranks: state bytes per rank equal the prediction "
+          f"(Yi-6B {pred['state_bytes']}, OLMoE-1B-7B {pred_m['state_bytes']}, unquantized "
+          f"{pred_e['state_bytes']}); one step's collectives on every rank equal the counted "
+          f"ones (Yi-6B step 2: {pred['collectives']['total_count']}, OLMoE step 1: "
+          f"{pred_m['collectives']['total_count']}, unquantized: "
+          f"{pred_e['collectives']['total_count']}) | roofline bound "
+          f"{pred['roofline']['step_time_lower_bound_s'] * 1e3:.2f} ms against "
+          f"{[round(o['step2_s'] * 1e3, 1) for o in outs]} ms measured (Yi-6B); "
+          f"{pred_m['roofline']['step_time_lower_bound_s'] * 1e3:.2f} ms against "
+          f"{[round(o['olmoe']['step_s'] * 1e3, 1) for o in outs]} ms (OLMoE-1B-7B); not gated")
+    om0 = o0["olmoe"]
+    ocs = om0["collectives"]
+    print(f"[parallel] {card} | OLMoE-1B-7B sharded step, mesh (data 2, model 2), "
+          f"{om0['experts_local']} experts per rank (global moe_ffn routing: the reference's path "
+          f"under mma_int8): loss {[o['olmoe']['loss'] for o in outs]} vs {loss_m} unsharded; "
+          f"grad_norm {[o['olmoe']['grad_norm'] for o in outs]} vs {norm_m}; {om0['launches']} "
+          f"unscaled launches per step per rank (as the layout gives); microbatch 0's {om0['calls_exact'][1]} kernel "
+          f"calls bit-exact, {om0['int32_equal'][1]} int32 products equal to the unsharded "
+          f"step's; state {om0['state_bytes']} bytes per rank, peak allocated "
+          f"{[round(o['olmoe']['peak_bytes'] / 1e9, 2) for o in outs]} GB")
+    print(f"[parallel] {card} | OLMoE-1B-7B host wall per sharded step "
+          f"{[round(o['olmoe']['step_s'], 3) for o in outs]} s; rank 0's collectives (gloo over "
+          f"host memory, not NVLink: nothing is claimed from their times): counts "
+          f"{ocs['counts_by_kind']}, bytes {ocs['bytes_by_kind']} ({ocs['total_bytes'] / 1e9:.3f} "
+          f"GB); host seconds in the transport "
+          f"{({k: round(v, 3) for k, v in om0['collective_s'].items()})}, "
+          f"{sum(om0['collective_s'].values()) / om0['step_s']:.3f} of the step")
+    oe0 = o0["olmoe_ep"]
+    print(f"[parallel] {card} | OLMoE-1B-7B unquantized sharded step (the expert-parallel "
+          f"path: sharded_lm._moe_ep, moe.ep_slab with a gradient, slabs of "
+          f"{TRAIN_BATCH // mcfg.microbatches // 2 * TRAIN_SEQ // 2} tokens): loss "
+          f"{[o['olmoe_ep']['loss'] for o in outs]} vs {loss_e}; grad_norm "
+          f"{[o['olmoe_ep']['grad_norm'] for o in outs]} vs {norm_e} (PAR_LOSS_REL "
+          f"{PAR_LOSS_REL}, PAR_NORM_REL {PAR_NORM_REL}); host wall "
+          f"{[round(o['olmoe_ep']['step_s'], 3) for o in outs]} s; rank 0's collectives "
+          f"{oe0['collectives']['counts_by_kind']} ({oe0['collectives']['total_bytes'] / 1e9:.3f} "
+          f"GB), {sum(oe0['collective_s'].values()) / oe0['step_s']:.3f} of the step in gloo")
+    moe_rows = o0["moe_times"]
+    for row in moe_rows:
+        print(f"[parallel] {card} | mma_matmul OLMoE sharded {row['name']} M={row['M']} "
+              f"K={row['K']} N={row['N']} ({row['calls']} per step per rank), planes 8: kernel "
+              f"{row['ms']:.4f} ms, torch._int_mm {row['library_ms']:.4f} ms, bound "
+              f"{row['bound_ms']:.5f} ms ({row['bound_by']})")
+    moe_step_ms = sum(r["calls"] * r["ms"] for r in moe_rows)
+    moe_lib_ms = sum(r["calls"] * r["library_ms"] for r in moe_rows)
+    moe_bound_ms = sum(r["calls"] * r["bound_ms"] for r in moe_rows)
+    print(f"[parallel] {card} | OLMoE per step per rank (graph-timed shapes x calls): kernel "
+          f"{moe_step_ms:.1f} ms, torch._int_mm {moe_lib_ms:.1f} ms, bound {moe_bound_ms:.2f} ms")
     rows = o0["times"]
     for row in rows:
         print(f"[parallel] {card} | mma_matmul sharded {row['name']} M={row['M']} K={row['K']} "
@@ -3296,12 +3709,20 @@ def parallel_training(torch, np, dev, card):
           f"{step_ms:.1f} ms, torch._int_mm {lib_ms:.1f} ms, bound {bound_ms:.2f} ms")
     print(f"[parallel] phase 16 took {phase_s:.1f} s (ranks {ranks_s:.1f} s; rank 0: "
           + ", ".join(f"{k} {v:.1f}" for k, v in o0["secs"].items()) + ")")
-    return dict(launches_parallel=sum(o["launches_step1"] + o["launches_step2"] for o in outs),
-                launches_parallel_per_step_per_rank=per_step, parallel_per_shape=rows,
+    return dict(launches_parallel=sum(o["launches_step1"] + o["launches_step2"]
+                                      + o["olmoe"]["launches"] for o in outs),
+                launches_parallel_per_step_per_rank=o0["launches_step2"],
+                parallel_per_shape=rows,
                 parallel_step=dict(kernel_ms=step_ms, library_ms=lib_ms, bound_ms=bound_ms,
                                    host_s=[o["step2_s"] for o in outs],
                                    collectives=o0["collectives"],
                                    collective_s=o0["collective_s"]),
+                launches_parallel_moe_per_step_per_rank=om0["launches"],
+                parallel_moe_per_shape=moe_rows,
+                parallel_moe_step=dict(kernel_ms=moe_step_ms, library_ms=moe_lib_ms,
+                                       bound_ms=moe_bound_ms,
+                                       host_s=[o["olmoe"]["step_s"] for o in outs],
+                                       collectives=ocs, collective_s=om0["collective_s"]),
                 phase16_s=phase_s)
 
 

@@ -11,6 +11,19 @@ from __future__ import annotations
 
 import importlib
 
+ARCH_IDS = [
+    "minitron_4b",
+    "yi_6b",
+    "h2o_danube_3_4b",
+    "granite_20b",
+    "internvl2_76b",
+    "olmoe_1b_7b",
+    "dbrx_132b",
+    "zamba2_7b",
+    "whisper_large_v3",
+    "rwkv6_3b",
+]
+
 
 def _norm(name: str) -> str:
     return name.replace("-", "_").replace(".", "_")

@@ -108,3 +108,15 @@ SHAPES = {
     "decode_32k": ShapeConfig("decode_32k", 32_768, 128, "decode"),
     "long_500k": ShapeConfig("long_500k", 524_288, 1, "decode"),
 }
+
+# Archs whose attention is sub-quadratic run the long_500k cell; full
+# attention at 500k tokens is skipped, as in the reference.
+LONG_CONTEXT_OK = {"h2o_danube_3_4b", "zamba2_7b", "rwkv6_3b"}
+
+
+def cells(arch_name: str) -> list[str]:
+    """The shape cells that are runnable for this arch."""
+    out = ["train_4k", "prefill_32k", "decode_32k"]
+    if arch_name.replace("-", "_") in LONG_CONTEXT_OK:
+        out.append("long_500k")
+    return out

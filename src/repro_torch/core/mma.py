@@ -38,7 +38,12 @@ def mma_dot(
     ``planes`` is the per-call precision budget: an int specializes the
     serial datapaths to that many MSB planes; a tensor budget applies the
     same truncation on the data side (``bitplane.normalize_planes``).
+
+    On ``meta`` inputs (the dry run's counting mode) the result is an empty
+    int32 ``meta`` tensor of the product's shape, whatever ``impl``.
     """
+    if x_int8.device.type == "meta":
+        return torch.matmul(x_int8, w_int8).to(torch.int32)
     x_int8, planes = bitplane.normalize_planes(x_int8, planes, signed=signed)
     if impl == "int8":
         if planes != bitplane.N_BITS:

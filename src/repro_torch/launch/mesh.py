@@ -14,11 +14,12 @@ from repro_torch.device import resolve_device
 from repro_torch.parallel.sharding import Mesh
 
 
-def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
-    """The production mesh, shape only (it names no ranks)."""
+def make_production_mesh(*, multi_pod: bool = False, device=None) -> Mesh:
+    """The production mesh, shape only (it names no ranks; it stands at rank
+    0's coordinates).  ``device='meta'``: the dry run's counting mode."""
     shape = (2, 16, 16) if multi_pod else (16, 16)
     axes = ("pod", "data", "model") if multi_pod else ("data", "model")
-    return Mesh(dict(zip(axes, shape)))
+    return Mesh(dict(zip(axes, shape)), device=device)
 
 
 def make_host_mesh(model: int = 2, *, device=None) -> Mesh:

@@ -379,8 +379,35 @@ def init_embedding(g: torch.Generator, vocab: int, d: int, *, device) -> dict:
     return {"table": (t * 0.02).to(torch.bfloat16)}
 
 
+class _Rows(torch.autograd.Function):
+    """``table[idx]``, whose gradient sums each row's occurrences in
+    float32 and rounds once to the table's dtype.  (Summed in bf16, as the
+    stock index backward does, a token that fills a quarter of a batch
+    loses its gradient's low bits over hundreds of adds: 4% of a
+    vocab-split embedding gradient's norm at OLMoE-1B-7B's width.)"""
+
+    @staticmethod
+    def forward(ctx, table, idx):
+        ctx.save_for_backward(idx)
+        ctx.table_shape = table.shape
+        return table[idx]
+
+    @staticmethod
+    def backward(ctx, g):
+        (idx,) = ctx.saved_tensors
+        acc = torch.zeros(ctx.table_shape, dtype=torch.float32, device=g.device)
+        acc.index_put_((idx.reshape(-1),), g.reshape(-1, g.shape[-1]).to(torch.float32),
+                       accumulate=True)
+        return acc.to(g.dtype), None
+
+
+def embed_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Rows ``idx`` of ``table`` (see :class:`_Rows` for the gradient)."""
+    return _Rows.apply(table, idx)
+
+
 def embed(p: dict, tokens: torch.Tensor) -> torch.Tensor:
-    return p["table"][tokens]
+    return embed_rows(p["table"], tokens)
 
 
 def unembed(p: dict, x: torch.Tensor) -> torch.Tensor:

@@ -74,28 +74,36 @@ def _top_k(probs: torch.Tensor, k: int):
     return vals[..., :k], idx[..., :k]
 
 
-def _local_dispatch(xf, logits, n_experts: int, top_k: int, cap: int, dtype):
-    """Routing on a token slab: the dispatch buffer ``(E, cap, D)`` and the
-    combine metadata ``(eid_s, pos, tok_s, gw_s, keep)``, each over the
-    T*k assignments sorted by expert id."""
-    t, d = xf.shape
-    dev = xf.device
+def assignments(logits: torch.Tensor, top_k: int):
+    """The top-k routing of ``logits`` (T, E) as its T*k (token, expert)
+    assignments sorted by expert id (stable): ``(eid, eid_s, pos, tok_s,
+    gw_s)``, ``eid`` unsorted and ``pos`` each sorted assignment's place in
+    its expert's segment."""
+    dev = logits.device
     probs = torch.softmax(logits, dim=-1)
     gate, idx = _top_k(probs, top_k)
     gate = gate / torch.clamp(gate.sum(-1, keepdim=True), min=1e-9)
-    tk = t * top_k
+    tk = logits.shape[0] * top_k
     eid = idx.reshape(tk)
     tok = torch.arange(tk, device=dev) // top_k  # repeat(arange(T), k), no host sync
     gw = gate.reshape(tk)
     order = torch.argsort(eid, stable=True)
     eid_s, tok_s, gw_s = eid[order], tok[order], gw[order]
-    first = torch.searchsorted(eid_s, eid_s, right=False)
-    pos = torch.arange(tk, device=dev) - first
+    pos = torch.arange(tk, device=dev) - torch.searchsorted(eid_s, eid_s, right=False)
+    return eid, eid_s, pos, tok_s, gw_s
+
+
+def _local_dispatch(xf, logits, n_experts: int, top_k: int, cap: int, dtype):
+    """Routing on a token slab: the dispatch buffer ``(E, cap, D)`` and the
+    combine metadata ``(eid_s, pos, tok_s, gw_s, keep)``, each over the
+    T*k assignments sorted by expert id."""
+    d = xf.shape[1]
+    _, eid_s, pos, tok_s, gw_s = assignments(logits, top_k)
     keep = pos < cap
     # a dropped assignment writes row ``cap`` of a (cap + 1)-row buffer,
     # which is cut off: the reference's out-of-bounds scatter with mode="drop"
     pos_c = torch.where(keep, pos, cap)
-    buf = torch.zeros((n_experts, cap + 1, d), dtype=dtype, device=dev)
+    buf = torch.zeros((n_experts, cap + 1, d), dtype=dtype, device=xf.device)
     buf[eid_s, pos_c] = xf[tok_s].to(dtype)
     return buf[:, :cap], (eid_s, pos, tok_s, gw_s, keep)
 
@@ -112,15 +120,21 @@ def expert_ffn(p: dict, xe: torch.Tensor) -> torch.Tensor:
 def _local_combine(oe, meta, t: int, cap: int, dtype):
     """Each token's output: its kept assignments' expert outputs times their
     gate weights, added in bf16 from zero in expert-id order."""
-    eid_s, pos, tok_s, gw_s, keep = meta
-    d = oe.shape[-1]
+    eid_s, pos = meta[0], meta[1]
+    return weighted_combine(oe[eid_s, torch.clamp(pos, max=cap - 1)], meta, t, dtype)
+
+
+def weighted_combine(contrib, meta, t: int, dtype):
+    """``_local_combine`` from each sorted assignment's expert output
+    ``contrib`` (T*k, D), however it was gathered."""
+    _, _, tok_s, gw_s, keep = meta
+    d = contrib.shape[-1]
     k = tok_s.numel() // t
-    contrib = oe[eid_s, torch.clamp(pos, max=cap - 1)]
     contrib = contrib * (gw_s * keep)[:, None].to(dtype)
     # a stable sort by token keeps each token's k assignments in the
     # expert-id order of the sorted list: (T, k, D), rank r = r-th expert
     by_tok = contrib[torch.argsort(tok_s, stable=True)].reshape(t, k, d)
-    out = torch.zeros((t, d), dtype=dtype, device=oe.device)
+    out = torch.zeros((t, d), dtype=dtype, device=contrib.device)
     for r in range(k):
         out = out + by_tok[:, r]
     return out
@@ -172,10 +186,7 @@ def moe_ffn_ep(p: dict, x: torch.Tensor, cfg) -> torch.Tensor:
                 f"{p['w_gate'].shape[0]} of {m.n_experts}")
         return moe_ffn(p, x, cfg)
 
-    e_loc = m.n_experts // msize
     bl, sl = b // b_fac, s // s_fac
-    t_loc = bl * sl
-    cap = capacity(t_loc, m)
     slab_axes = axis_tuple(x_spec[0]) + axis_tuple(x_spec[1])
     # whole tensors in varying use: their gradients sum over the slab axes
     xb = coll.pbroadcast(x, mesh, slab_axes)
@@ -183,19 +194,35 @@ def moe_ffn_ep(p: dict, x: torch.Tensor, cfg) -> torch.Tensor:
     w = {k: coll.pbroadcast(p[k], mesh, tuple(a for a in slab_axes if a != "model"))
          for k in ("w_gate", "w_up", "w_down")}
     b0, s0 = mesh.index(x_spec[0]) * bl, mesh.index(x_spec[1]) * sl
-    xf = xb[b0:b0 + bl, s0:s0 + sl].reshape(t_loc, d)
+    xf = xb[b0:b0 + bl, s0:s0 + sl].reshape(bl * sl, d)
+    y = ep_slab(w, xf, router_w, cfg, mesh).reshape(bl, sl, d)
+    out = torch.zeros((b, s, d), dtype=torch.float32, device=x.device)
+    out[b0:b0 + bl, s0:s0 + sl] = y.to(torch.float32)
+    return coll.all_reduce(out, mesh, slab_axes).to(x.dtype)
+
+
+def ep_slab(w: dict, xf: torch.Tensor, router_w: torch.Tensor, cfg, mesh) -> torch.Tensor:
+    """``moe_ffn_ep``'s body on one rank's token slab ``xf`` (T_loc, D):
+    route on the float32 product with the whole router ``router_w``, send
+    each expert shard its (E_loc, C, D) slab over 'model' (all-to-all), run
+    this rank's experts ``w`` on what arrives, send the outputs back and
+    combine.  Returns the slab's (T_loc, D)."""
+    from repro_torch.parallel import collectives as coll
+
+    m = cfg.moe
+    msize = mesh.shape["model"]
+    e_loc = m.n_experts // msize
+    t_loc, d = xf.shape
+    cap = capacity(t_loc, m)
     logits = xf.to(torch.float32) @ router_w.to(torch.float32)
-    xe, meta = _local_dispatch(xf, logits, m.n_experts, m.top_k, cap, x.dtype)
+    xe, meta = _local_dispatch(xf, logits, m.n_experts, m.top_k, cap, xf.dtype)
     # (E, C, D) -> (M, E_loc, C, D): expert e = m' * E_loc + j lives on m'
     recv = coll.all_to_all(xe.reshape(msize, e_loc, cap, d).contiguous(), mesh, "model")
     xcat = recv.transpose(0, 1).reshape(e_loc, msize * cap, d)
     oe = expert_ffn(w, xcat)
     back = oe.reshape(e_loc, msize, cap, d).transpose(0, 1).contiguous()
     oe_local = coll.all_to_all(back, mesh, "model").reshape(m.n_experts, cap, d)
-    y = _local_combine(oe_local, meta, t_loc, cap, x.dtype).reshape(bl, sl, d)
-    out = torch.zeros((b, s, d), dtype=torch.float32, device=x.device)
-    out[b0:b0 + bl, s0:s0 + sl] = y.to(torch.float32)
-    return coll.all_reduce(out, mesh, slab_axes).to(x.dtype)
+    return _local_combine(oe_local, meta, t_loc, cap, xf.dtype)
 
 
 def load_balance_loss(p: dict, x: torch.Tensor, cfg) -> torch.Tensor:

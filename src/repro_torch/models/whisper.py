@@ -150,7 +150,10 @@ def precompute_cross_kv(params, memory, cfg, *, device=None) -> dict:
 def _dec_positions(table: torch.Tensor, base, s: int) -> torch.Tensor:
     """``s`` learned positions from ``base``.  The start is clamped to
     ``[0, max_dec_pos - s]``, as the reference's ``dynamic_slice_in_dim``
-    clamps it: past the end, the last ``s`` positions."""
+    clamps it: past the end, the last ``s`` positions.  A ``meta`` index
+    (the dry run) has no value: the first ``s``, of the same shape."""
+    if isinstance(base, torch.Tensor) and base.is_meta:
+        return table[:s]
     start = max(0, min(int(base), table.shape[0] - s))
     return table[start:start + s]
 

@@ -30,6 +30,12 @@ Transport: a process group on NCCL takes the tensors where they are; on
 gloo, a CUDA tensor is staged through pinned host memory (copied out,
 reduced on the host, copied back), since gloo has no CUDA form of most of
 these collectives.  The choice is made by the group's backend alone.
+
+Counting mode: over a shape-only mesh (no ranks; ``sharding.Mesh`` with a
+``coord``), every collective takes ``meta`` tensors, is counted as above
+(the backward's too) and returns a ``meta`` tensor of its output's shape;
+nothing is sent.  The dry run (``launch.dryrun``) counts one rank's step
+this way.
 """
 from __future__ import annotations
 
@@ -82,10 +88,25 @@ def _host(t: torch.Tensor) -> torch.Tensor:
     return torch.empty(t.shape, dtype=t.dtype, pin_memory=True).copy_(t)
 
 
+def _counted(mesh: Mesh, x: torch.Tensor, dim: int = 0, scale=None) -> torch.Tensor | None:
+    """Counting mode's output (``x``'s shape, ``dim`` scaled by ``scale``
+    = (numerator, denominator)), or None where the mesh has ranks."""
+    if mesh.has_ranks:
+        return None
+    if x.device.type != "meta":
+        raise ValueError(f"a shape-only mesh counts collectives on meta tensors, not {x.device}")
+    shape = list(x.shape)
+    if scale is not None:
+        shape[dim] = shape[dim] * scale[0] // scale[1]
+    return torch.empty(shape, dtype=x.dtype, device=x.device)
+
+
 # ------------------------------------------------------------ raw forms
 
 
 def _all_reduce(x: torch.Tensor, mesh: Mesh, axes, op: str) -> torch.Tensor:
+    if (shaped := _counted(mesh, x)) is not None:
+        return shaped
     red = dist.ReduceOp.SUM if op == "sum" else dist.ReduceOp.MAX
     out = x.detach().clone()
     for a in axes:
@@ -99,6 +120,8 @@ def _all_reduce(x: torch.Tensor, mesh: Mesh, axes, op: str) -> torch.Tensor:
 
 
 def _all_gather(x: torch.Tensor, mesh: Mesh, axes, dim: int) -> torch.Tensor:
+    if (shaped := _counted(mesh, x, dim, (mesh.size(axes), 1))) is not None:
+        return shaped
     # the last axis is the minor one: gather it first
     out = x.detach()
     for a in reversed(axes):
@@ -114,6 +137,8 @@ def _all_gather(x: torch.Tensor, mesh: Mesh, axes, dim: int) -> torch.Tensor:
 
 
 def _reduce_scatter(x: torch.Tensor, mesh: Mesh, axes, dim: int) -> torch.Tensor:
+    if (shaped := _counted(mesh, x, dim, (1, mesh.size(axes)))) is not None:
+        return shaped
     out = x.detach()
     for a in axes:  # the major axis first
         n = mesh.shape[a]
@@ -128,6 +153,8 @@ def _reduce_scatter(x: torch.Tensor, mesh: Mesh, axes, dim: int) -> torch.Tensor
 
 
 def _all_to_all(x: torch.Tensor, mesh: Mesh, axis: str) -> torch.Tensor:
+    if (shaped := _counted(mesh, x)) is not None:
+        return shaped
     src = x.detach().contiguous()
     if _staged(mesh, axis, src):
         src = _host(src)
@@ -137,6 +164,8 @@ def _all_to_all(x: torch.Tensor, mesh: Mesh, axis: str) -> torch.Tensor:
 
 
 def _ppermute(x: torch.Tensor, mesh: Mesh, axis: str, perm) -> torch.Tensor:
+    if (shaped := _counted(mesh, x)) is not None:
+        return shaped
     me = mesh.index(axis)
     src = x.detach().contiguous()
     if _staged(mesh, axis, src):

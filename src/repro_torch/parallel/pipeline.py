@@ -67,11 +67,12 @@ def pipelined_loss_fn(params, batch, cfg, *, n_micro: int, axis: str = "model", 
     the rest whole); ``batch = {"tokens": (B, S+1)}``, the global batch on
     every rank: microbatch i is rows ``[i * B/n_micro, (i+1) * B/n_micro)``,
     and a data rank takes its slice of each.  Needs an active mesh with
-    ranks whose ``axis`` size divides ``cfg.n_layers``.  Returns ``(loss,
-    {"nll": loss})``, the loss equal on every rank."""
+    ranks whose ``axis`` size divides ``cfg.n_layers`` (or a shape-only
+    mesh on ``meta`` tensors: the dry run's counting mode).  Returns
+    ``(loss, {"nll": loss})``, the loss equal on every rank."""
     mesh = current_mesh()
-    if mesh is None or not mesh.has_ranks:
-        raise RuntimeError("pipelined_loss_fn requires an active mesh with ranks")
+    if mesh is None:
+        raise RuntimeError("pipelined_loss_fn requires an active mesh")
     n_stages = mesh.shape[axis]
     if cfg.n_layers % n_stages:
         raise ValueError(f"{cfg.n_layers} layers do not split into {n_stages} stages")

@@ -30,6 +30,35 @@ already (whole K, whole rows).
 Sequence parallelism of the residual (``seq`` -> ``model``) and the decode
 cache's ``kv_seq`` change only where a value lives, not what it is; the
 residual here is replicated over ``model``.
+
+The ``moe`` family (experts over ``model``, the router's E columns
+column-parallel):
+
+- under ``moe.ep`` where the reference takes ``moe_ffn_ep`` (|model| > 1,
+  whole slabs, no quantization), each rank routes its rows' ``seq`` slab
+  on the float32 product with the gathered router and exchanges expert
+  slabs over ``model`` (``models.moe.ep_slab``), with the reference's
+  local capacity;
+- otherwise the reference's ``moe_ffn`` under GSPMD, whose semantics are
+  global: ``cap`` is taken from every data rank's tokens, and an
+  assignment's position in its expert's segment counts the assignments of
+  every lower data rank (an all-gather of the per-expert counts over the
+  data axes).  Each rank runs its experts on its own rows' kept
+  assignments; the per-assignment outputs are summed over ``model`` (each
+  is nonzero on one rank: exact) and combined as ``moe_ffn`` combines.
+
+The router is a bf16 product under every ``quant`` (the reference's
+``moe_ffn`` and ``load_balance_loss`` call ``layers.linear`` without it).
+
+Routing decisions cross data ranks but carry no gradient, so each rank
+differentiates its own rows.  The load-balance aux (on the block's input,
+as the reference takes it) is a mean over global tokens: its sums are
+all-reduced over the data axes, and the probabilities' sum is marked for
+varying use there (``pbroadcast``), so the train step's mean over data
+ranks gives the aux's whole gradient.
+
+The ``vlm`` family prepends the batch's ``patches`` (split over the data
+axes like ``tokens``) and drops their positions' logits before the NLL.
 """
 from __future__ import annotations
 
@@ -42,6 +71,7 @@ from repro_torch.core import mma
 from repro_torch.core import quant as quant_lib
 from repro_torch.device import resolve_device
 from repro_torch.models import layers
+from repro_torch.models import moe as moe_lib
 from repro_torch.models.transformer import _layer_cfgs
 
 from . import collectives as coll
@@ -175,7 +205,7 @@ def embed(p: dict, tokens: torch.Tensor, cfg, mesh) -> torch.Tensor:
     vl = table.shape[0]
     local = tokens - mesh.index(MODEL) * vl
     ok = (local >= 0) & (local < vl)
-    x = table[torch.where(ok, local, 0)] * ok[..., None].to(table.dtype)
+    x = layers.embed_rows(table, torch.where(ok, local, 0)) * ok[..., None].to(table.dtype)
     return coll.all_reduce(x.to(torch.float32), mesh, MODEL).to(table.dtype)
 
 
@@ -206,38 +236,162 @@ def next_token_nll(lg: torch.Tensor, targets: torch.Tensor, mesh) -> torch.Tenso
     return (logz - gold).mean()
 
 
-def _block(p: dict, x: torch.Tensor, cfg, mesh, positions) -> torch.Tensor:
+# ------------------------------------------------------------------ MoE
+
+
+def _experts_split(p: dict, cfg) -> bool:
+    return p["w_gate"].shape[0] != cfg.moe.n_experts
+
+
+def router_logits(p: dict, xf: torch.Tensor, cfg, mesh, *, split: bool) -> torch.Tensor:
+    """(T_loc, D) -> (T_loc, E) float32, replicated over ``model``: the
+    router's bf16 product, then float32 (``moe.router_logits``); with
+    ``split`` ``xf`` is marked for varying use and the router's E columns
+    are the rank's, whose logits are summed into place over ``model``
+    (exact: one rank holds each column)."""
+    lg = torch.matmul(xf, p["router"]["w"].to(xf.dtype)).to(torch.float32)
+    if not split:
+        return lg
+    full = torch.zeros((*lg.shape[:-1], cfg.moe.n_experts), dtype=torch.float32, device=lg.device)
+    c0 = mesh.index(MODEL) * lg.shape[-1]
+    full[..., c0:c0 + lg.shape[-1]] = lg
+    return coll.all_reduce(full, mesh, MODEL)
+
+
+def load_balance_loss(p: dict, x: torch.Tensor, cfg, mesh) -> torch.Tensor:
+    """``moe.load_balance_loss`` over the global batch: ``f`` and the mean
+    probability are sums over every data rank's tokens (see the module's
+    docstring for the gradient)."""
+    m, dp = cfg.moe, dp_axes(mesh)
+    split = _experts_split(p, cfg)
+    xf = x.reshape(-1, x.shape[-1])
+    xs = coll.pbroadcast(xf, mesh, MODEL) if split else xf
+    probs = torch.softmax(router_logits(p, xs, cfg, mesh, split=split), dim=-1)
+    t = xf.shape[0] * mesh.size(dp)
+    top1 = torch.argmax(probs, dim=-1)
+    f = coll.all_reduce(F.one_hot(top1, m.n_experts).to(torch.float32).sum(0), mesh, dp) / t
+    psum = coll.pbroadcast(coll.all_reduce(probs.sum(0), mesh, dp), mesh, dp)
+    return m.n_experts * torch.sum(f * (psum / t))
+
+
+def route(p: dict, xs: torch.Tensor, cfg, mesh, *, split: bool):
+    """``moe_ffn``'s routing of this rank's tokens ``xs`` (T_loc, D) within
+    the global batch: ``(cap, (eid_s, pos, tok_s, gw_s, keep))`` over the
+    rank's T_loc*k assignments sorted by expert id (``tok_s`` local,
+    ``pos`` the global position in the expert's segment)."""
+    m, dp = cfg.moe, dp_axes(mesh)
+    cap = moe_lib.capacity(xs.shape[0] * mesh.size(dp), m)
+    eid, eid_s, local_pos, tok_s, gw_s = moe_lib.assignments(
+        router_logits(p, xs, cfg, mesh, split=split), m.top_k)
+    # each expert's segment starts after the lower data ranks' assignments
+    counts = torch.zeros((1, m.n_experts), dtype=torch.int64, device=xs.device)
+    counts.scatter_add_(1, eid[None], torch.ones_like(eid)[None])
+    below = coll.all_gather(counts, mesh, dp, dim=0)[:mesh.index(dp)].sum(0)
+    pos = below[eid_s] + local_pos
+    return cap, (eid_s, pos, tok_s, gw_s, pos < cap)
+
+
+def _moe_global(p: dict, x: torch.Tensor, cfg, mesh) -> torch.Tensor:
+    """The reference's ``moe_ffn`` on this rank's rows ``x`` (B_loc, S, D)
+    (see the module's docstring)."""
+    bl, s, d = x.shape
+    t_loc = bl * s
+    split = _experts_split(p, cfg)
+    xf = x.reshape(t_loc, d)
+    xs = coll.pbroadcast(xf, mesh, MODEL) if split else xf
+    cap, meta = route(p, xs, cfg, mesh, split=split)
+    eid_s, pos, tok_s, _, keep = meta
+    e_loc = p["w_gate"].shape[0]
+    e0 = mesh.index(MODEL) * e_loc if split else 0
+    mine = keep & (eid_s >= e0) & (eid_s < e0 + e_loc)
+    # an assignment another rank's experts take, or a dropped one, writes
+    # row ``cap`` of a (cap + 1)-row buffer, which is cut off
+    e_c, pos_c = torch.where(mine, eid_s - e0, 0), torch.where(mine, pos, cap)
+    buf = torch.zeros((e_loc, cap + 1, d), dtype=x.dtype, device=x.device)
+    buf[e_c, pos_c] = xs[tok_s].to(x.dtype)
+    oe = moe_lib.expert_ffn(p, buf[:, :cap])
+    contrib = oe[e_c, torch.clamp(pos_c, max=cap - 1)] * mine[:, None].to(x.dtype)
+    if split:
+        contrib = coll.all_reduce(contrib.to(torch.float32), mesh, MODEL).to(x.dtype)
+    return moe_lib.weighted_combine(contrib, meta, t_loc, x.dtype).reshape(bl, s, d)
+
+
+def _moe_ep(p: dict, x: torch.Tensor, cfg, mesh) -> torch.Tensor:
+    """``moe_ffn_ep`` on this rank's rows: the rank's ``seq`` slab through
+    ``moe.ep_slab``, the slabs summed into place over ``model``."""
+    bl, s, d = x.shape
+    sl = s // mesh.size(MODEL)
+    xb = coll.pbroadcast(x, mesh, MODEL)
+    router = _gathered(p["router"]["w"], cfg.moe.n_experts, mesh)
+    s0 = mesh.index(MODEL) * sl
+    y = moe_lib.ep_slab(p, xb[:, s0:s0 + sl].reshape(bl * sl, d), router, cfg, mesh)
+    out = torch.zeros((bl, s, d), dtype=torch.float32, device=x.device)
+    out[:, s0:s0 + sl] = y.reshape(bl, sl, d).to(torch.float32)
+    return coll.all_reduce(out, mesh, MODEL).to(x.dtype)
+
+
+def moe_ffn(p: dict, x: torch.Tensor, cfg, mesh) -> torch.Tensor:
+    """The MoE FFN on this rank's rows, by the path the reference takes:
+    ``moe_ffn_ep``'s where its conditions hold, else ``moe_ffn``'s."""
+    m, msize = cfg.moe, mesh.size(MODEL)
+    if m.ep and msize > 1 and m.n_experts % msize == 0 and cfg.quant.mode == "none":
+        if x.shape[1] % msize:
+            raise NotImplementedError(
+                f"moe_ffn_ep with a sequence of {x.shape[1]} that 'model' ({msize}) does not split")
+        return _moe_ep(p, x, cfg, mesh)
+    return _moe_global(p, x, cfg, mesh)
+
+
+def _layer(p: dict, x: torch.Tensor, aux: torch.Tensor, cfg, mesh, positions):
+    """One layer: the MoE aux on the block's input (quirk of the
+    reference), then attention and the FFN."""
+    if cfg.moe.n_experts:
+        aux = aux + load_balance_loss(p["moe"], layers.rmsnorm(p["ln2"], x, cfg.norm_eps), cfg,
+                                      mesh)
     x = x + attention(p["attn"], layers.rmsnorm(p["ln1"], x, cfg.norm_eps), cfg, mesh, positions)
-    return x + mlp(p["mlp"], layers.rmsnorm(p["ln2"], x, cfg.norm_eps), cfg, mesh)
+    h = layers.rmsnorm(p["ln2"], x, cfg.norm_eps)
+    if cfg.moe.n_experts:
+        return x + moe_ffn(p["moe"], h, cfg, mesh), aux
+    return x + mlp(p["mlp"], h, cfg, mesh), aux
 
 
 def loss_fn(params: dict, batch: dict, cfg, *, mesh=None, device=None):
     """Next-token cross-entropy of this rank's rows (``batch["tokens"]``:
     (B_local, S+1)) under ``mesh`` (default: the active one), ``params``
-    this rank's slices on ``device``.  Returns ``(loss, metrics)`` as
-    ``transformer.loss_fn`` does; the loss is the mean over the rank's rows
-    and is equal on every rank of a ``model`` group.  The dense family
-    only."""
+    this rank's slices on ``device``; ``batch["patches"]`` (B_local, P, D)
+    for vlm.  Returns ``(loss, metrics)`` as ``transformer.loss_fn`` does;
+    the loss is the rank's rows' NLL plus 0.01 x the global aux, equal on
+    every rank of a ``model`` group.  The dense, moe and vlm families.
+
+    Over a shape-only mesh on ``meta`` tensors (``device='meta'``) this
+    counts the rank's collectives (``parallel.collectives``)."""
     mesh = mesh or current_mesh()
-    if mesh is None or not mesh.has_ranks:
-        raise RuntimeError("sharded_lm.loss_fn needs an active mesh with ranks")
-    if cfg.family != "dense":
-        raise NotImplementedError(f"the sharded loss covers the dense family, not {cfg.family!r}")
+    if mesh is None:
+        raise RuntimeError("sharded_lm.loss_fn needs an active mesh")
+    if cfg.family not in ("dense", "moe", "vlm"):
+        raise NotImplementedError(
+            f"the sharded loss covers the dense, moe and vlm families, not {cfg.family!r}")
     dev = resolve_device(device)
     tok = torch.as_tensor(batch["tokens"], dtype=torch.int64, device=dev)
     x = embed(params["embed"], tok[:, :-1], cfg, mesh)
+    prefix = batch.get("patches")
+    n_prefix = 0
+    if prefix is not None:  # the vlm stub frontend
+        n_prefix = prefix.shape[1]
+        x = torch.cat([torch.as_tensor(prefix, device=dev).to(x.dtype), x], dim=1)
     positions = torch.arange(x.shape[1], device=dev)[None, :]
+    aux = torch.zeros((), dtype=torch.float32, device=dev)
     remat = (cfg.remat == "full" and torch.is_grad_enabled()
              and any(t.requires_grad for t in tree_leaves(params["blocks"])))
     for l, lcfg in enumerate(_layer_cfgs(cfg)):
         blk = layers.layer_params(params["blocks"], l)
         if remat:
-            x = checkpoint(_block, blk, x, lcfg, mesh, positions, use_reentrant=False)
+            x, aux = checkpoint(_layer, blk, x, aux, lcfg, mesh, positions, use_reentrant=False)
         else:
-            x = _block(blk, x, lcfg, mesh, positions)
+            x, aux = _layer(blk, x, aux, lcfg, mesh, positions)
     x = layers.rmsnorm(params["ln_f"], x, cfg.norm_eps)
     lg, split = logits(params, x, cfg, mesh)
+    lg = lg[:, n_prefix:]
     targets = tok[:, 1:]
     nll = next_token_nll(lg, targets, mesh) if split else layers.next_token_nll(lg, targets)
-    aux = torch.zeros((), dtype=torch.float32, device=dev)
     return nll + 0.01 * aux, {"nll": nll, "aux": aux}

@@ -98,16 +98,24 @@ class Mesh:
     ranks exist, this process's place on it with one process group per axis
     (from a ``torch.distributed.device_mesh.DeviceMesh``).  Without a
     device mesh it is shape only, the counterpart of
-    ``jax.sharding.AbstractMesh``: enough to resolve specs, not to run.
+    ``jax.sharding.AbstractMesh``: enough to resolve specs and, on ``meta``
+    tensors, to count what one rank's step would communicate
+    (``parallel.collectives``' counting mode).  A shape-only mesh stands at
+    ``coord`` (axis -> index; every axis 0 unless given).
 
     ``device`` is where this rank's tensors live.  ``stats`` counts the
     collectives issued over this mesh (``parallel.collectives``)."""
 
-    def __init__(self, shape: dict[str, int], *, device_mesh=None, device=None):
+    def __init__(self, shape: dict[str, int], *, device_mesh=None, device=None, coord=None):
         self.shape = dict(shape)
         self.axis_names = tuple(self.shape)
         self.device_mesh = device_mesh
         self.device = None if device is None else torch.device(device)
+        self.coord = {a: 0 for a in self.axis_names}
+        for a, i in (coord or {}).items():
+            if a not in self.shape or not 0 <= i < self.shape[a]:
+                raise ValueError(f"coordinate {a}={i} is off the mesh {self.shape}")
+            self.coord[a] = int(i)
         self.stats = {"bytes_by_kind": {}, "counts_by_kind": {}, "seconds_by_kind": {}}
 
     @classmethod
@@ -137,8 +145,13 @@ class Mesh:
         idx = 0
         for a in axis_tuple(axes):
             if a in self.shape:
-                idx = idx * self.shape[a] + self.device_mesh.get_local_rank(a)
+                idx = idx * self.shape[a] + self._local(a)
         return idx
+
+    def _local(self, axis: str) -> int:
+        if self.device_mesh is None:
+            return self.coord[axis]
+        return self.device_mesh.get_local_rank(axis)
 
     def group(self, axis: str):
         return self.device_mesh.get_group(axis)

@@ -69,3 +69,45 @@ def make_decode(cfg, batch: int, max_seq: int, *, device=None):
             return mod.decode_step(params, tokens, cache, index, cfg, device=dev)
 
     return decode, spec
+
+
+def cache_shardings(abstract_cache, cfg, mesh, batch: int, max_seq: int = 0):
+    """NamedShardings of a decode cache (a tree of tensors, ``meta`` or
+    real), the reference's layout.  Attention KV caches (identified by a
+    ``max_seq``-sized dim) split batch over ('pod', 'data') and the
+    *sequence* dim over 'model' (the 'kv_seq' rule: decode attention then
+    runs as partial softmax per sequence shard).  Recurrent states split
+    batch over the data axes and their last dim that |model| divides over
+    'model'."""
+    from repro_torch.checkpoint.ckpt import tree_leaves, tree_unflatten
+    from repro_torch.parallel.sharding import NamedSharding, P
+
+    dpa = tuple(a for a in ("pod", "data") if a in mesh.shape)
+    dpsize = mesh.size(dpa)
+    msize = mesh.shape.get("model", 1)
+
+    def one(t):
+        shape = tuple(t.shape)
+        axes: list = [None] * len(shape)
+        bdim = -1
+        if batch > 1 and batch % dpsize == 0:
+            for i, d in enumerate(shape):
+                if d == batch:
+                    axes[i] = dpa if len(dpa) > 1 else dpa[0]
+                    bdim = i
+                    break
+        sdim = -1
+        if max_seq:
+            for i in range(bdim + 1, len(shape)):
+                if shape[i] == max_seq and shape[i] % msize == 0:
+                    axes[i] = "model"
+                    sdim = i
+                    break
+        if sdim < 0:
+            for i in range(len(shape) - 1, bdim, -1):
+                if axes[i] is None and shape[i] % msize == 0 and shape[i] >= msize:
+                    axes[i] = "model"
+                    break
+        return NamedSharding(mesh, P(*axes))
+
+    return tree_unflatten(abstract_cache, [one(t) for t in tree_leaves(abstract_cache)])

@@ -66,19 +66,21 @@ def train(
     *,
     start_step: int = 0,
     log=print,
+    clock=time.perf_counter,
 ):
     """Run ``step_fn(state, batch) -> (state, metrics)`` from ``start_step``
-    to ``tcfg.total_steps``; returns ``(state, {"losses", "stragglers"})``."""
+    to ``tcfg.total_steps``; returns ``(state, {"losses", "stragglers"})``.
+    ``clock`` (seconds, monotonic) times each step for the watchdog."""
     ckpt = Checkpointer(tcfg.ckpt_dir, keep=tcfg.keep)
     timer = StepTimer()
     losses = []
     step = start_step
     while step < tcfg.total_steps:
         batch = data_pipeline.get_batch(data_cfg, step)
-        t0 = time.perf_counter()
+        t0 = clock()
         state, metrics = step_fn(state, batch)
         _synchronize(metrics)
-        dt = time.perf_counter() - t0
+        dt = clock() - t0
         if timer.record(step, dt, tcfg.watchdog_factor):
             log(f"[straggler] step {step} took {dt:.3f}s (median "
                 f"{statistics.median(timer.history[-20:]):.3f}s) — would requeue host")

@@ -22,12 +22,14 @@ from jax.sharding import AxisType  # noqa: E402
 from repro.configs import get_smoke_config  # noqa: E402
 from repro.configs.base import QuantConfig  # noqa: E402
 from repro.models import build, moe as moe_lib  # noqa: E402
+from repro.models import layers as jlayers  # noqa: E402
 from repro.optim import adamw, grad_compress as gc  # noqa: E402
 from repro.parallel import sharding as shd  # noqa: E402
 from repro.parallel.pipeline import pipelined_loss_fn  # noqa: E402
 from repro.train import train_step as ts  # noqa: E402
 
 EXACT = {"xla_allow_excess_precision": False, "xla_disable_hlo_passes": "algsimp"}
+ROUTE_CAPACITY = 0.5  # the routing check's capacity factor (tests/_torch_ranks.py's too)
 
 
 def auto_mesh(shape, names):
@@ -81,6 +83,64 @@ def main(d):
             m["grad_norm"])
         out.update({f"{name}/p/{k}": v for k, v in flat(new["params"]).items()})
 
+    # the moe (ep off and on) and vlm smoke models' sharded steps on (4, 2);
+    # moe_ffn_ep under quantization is moe_ffn (the reference falls back),
+    # so moe/horner stands for moe_ep/horner too.  The moe steps run
+    # unsharded as well.
+    import dataclasses as dc
+
+    quants = {"none": QuantConfig(), "horner": QuantConfig(mode="mma_int8", impl="xla")}
+    for family, arch, ep, names in (("moe", "olmoe_1b_7b", False, ("none", "horner")),
+                                    ("moe_ep", "olmoe_1b_7b", True, ("none",)),
+                                    ("vlm", "internvl2_76b", None, ("none", "horner"))):
+        base = get_smoke_config(arch)
+        if ep is not None:
+            base = base.replace(moe=dc.replace(base.moe, ep=ep))
+        fparams = tree(inp, f"{base.family}/")
+        batch = {"tokens": tok}
+        if base.family == "vlm":
+            batch["patches"] = jnp.asarray(inp["patches"], jnp.bfloat16)
+        for name in names:
+            cfg = base.replace(quant=quants[name])
+            ab = ts.abstract_state(cfg)
+            st_sh = ts.state_shardings(ab, cfg, mesh)
+            b_sh = ts.batch_shardings({k: jax.ShapeDtypeStruct(v.shape, v.dtype)
+                                       for k, v in batch.items()}, mesh)
+            state = jax.device_put({"params": fparams, "opt": adamw.init(fparams)}, st_sh)
+
+            def fstep(st, b, cfg=cfg):
+                with shd.use_mesh(mesh):
+                    return ts.train_step(st, b, cfg)
+
+            _, m = exact(fstep, state, {k: jax.device_put(v, b_sh[k]) for k, v in batch.items()},
+                         in_shardings=(st_sh, b_sh), out_shardings=(st_sh, None))
+            out[f"{family}/{name}/loss"] = np.asarray(m["loss"])
+            out[f"{family}/{name}/grad_norm"] = np.asarray(m["grad_norm"])
+            if family != "moe":
+                continue
+            # the same step unsharded, on one device
+            _, m = exact(lambda st, b, cfg=cfg: ts.train_step(st, b, cfg),
+                         {"params": fparams, "opt": adamw.init(fparams)}, batch)
+            out[f"{family}/{name}/loss_whole"] = np.asarray(m["loss"])
+            out[f"{family}/{name}/grad_norm_whole"] = np.asarray(m["grad_norm"])
+
+    # moe_ffn's routing of the moe smoke model's layer 0 on xm: the whole
+    # batch's (the global capacity and positions), at a capacity factor
+    # that drops assignments
+    mcfg0 = get_smoke_config("olmoe_1b_7b")
+    mcfg0 = mcfg0.replace(moe=dc.replace(mcfg0.moe, capacity_factor=ROUTE_CAPACITY))
+    router = tree(inp, "moe/")["blocks"]["moe"]["router"]["w"][0]
+    xf = jnp.asarray(inp["xm"], jnp.bfloat16).reshape(-1, mcfg0.d_model)
+    lg = jlayers.linear({"w": router}, xf).astype(jnp.float32)
+    mm = mcfg0.moe
+    t = xf.shape[0]
+    cap = min(t * mm.top_k, max(int(t * mm.top_k / mm.n_experts * mm.capacity_factor), 4))
+    _, (eid_s, pos, tok_s, _, keep) = moe_lib._local_dispatch(xf, lg, mm.n_experts, mm.top_k,
+                                                              cap, xf.dtype)
+    for k, v in (("eid", eid_s), ("pos", pos), ("tok", tok_s), ("keep", keep)):
+        out[f"route/{k}"] = np.asarray(v)
+    out["route/cap"] = np.asarray(cap)
+
     # compressed gradient sync: the reference test's 20 steps, compiled as
     # the source reads (XLA's fusion would contract ``e - q * s`` into one
     # FMA, an ulp of the residual per step)
@@ -96,8 +156,6 @@ def main(d):
     out["gc/synced"], out["gc/err"] = np.stack(synced_all), np.asarray(err)
 
     # expert-parallel MoE on (4, 2), dropless; each slab's routing
-    import dataclasses as dc
-
     mcfg = get_smoke_config("olmoe_1b_7b")
     mcfg = mcfg.replace(moe=dc.replace(mcfg.moe, capacity_factor=64.0, ep=True))
     mp = tree(inp, "m/")

@@ -32,9 +32,12 @@ from repro_torch.train import train_step as ts
 from repro_torch.train import trainer
 
 WORLD = 8
-# the order of one forward's quantized linears (2 layers, then the head)
-LINEARS = ["wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down"] * 2 + ["head"]
 ROW = ("wo", "w_down")
+# the sharded steps beside the dense one: (smoke config, moe.ep); each also
+# runs under mma_int8 on the Horner route
+FAMILIES = {"moe": ("olmoe_1b_7b", False), "moe_ep": ("olmoe_1b_7b", True),
+            "vlm": ("internvl2_76b", None)}
+ROUTE_CAPACITY = 0.5  # the routing check's capacity factor: it drops assignments
 
 
 def tree(inp: dict, prefix: str) -> dict:
@@ -49,23 +52,57 @@ def tree(inp: dict, prefix: str) -> dict:
     return out
 
 
-def _route(quant: str):
-    cfg = get_smoke_config("yi_6b")
+def _route(quant: str, family: str = "dense"):
+    if family == "dense":
+        cfg = get_smoke_config("yi_6b")
+    else:
+        arch, ep = FAMILIES[family]
+        cfg = get_smoke_config(arch)
+        if ep is not None:
+            cfg = cfg.replace(moe=dataclasses.replace(cfg.moe, ep=ep))
     if quant == "horner":
         cfg = cfg.replace(quant=QuantConfig(mode="mma_int8", impl="horner"))
     return cfg
 
 
-def _train_step(inp, mesh, quant, out):
+def _batch(inp, cfg) -> dict:
+    batch = {"tokens": inp["tokens"]}
+    if cfg.family == "vlm":
+        batch["patches"] = torch.tensor(inp["patches"]).to(torch.bfloat16)
+    return batch
+
+
+def _meta(batch: dict) -> dict:
+    return {k: torch.empty(v.shape, dtype=torch.as_tensor(v).dtype, device="meta")
+            for k, v in batch.items()}
+
+
+def counting_mesh(mesh) -> Mesh:
+    """The shape-only mesh at this rank's place: the dry run's counting mode."""
+    return Mesh(mesh.shape, device="meta", coord={a: mesh.index(a) for a in mesh.axis_names})
+
+
+def _counted_step(cfg, mesh, batch) -> dict:
+    """The collectives one rank's step issues, counted on meta tensors."""
+    cmesh = counting_mesh(mesh)
+    ab = ts.abstract_state(cfg)
+    step = ts.build_jitted_train_step(cfg, cmesh, ab, _meta(batch))
+    step(shd.shard_tree(ab, ts.state_shardings(ab, cfg, cmesh)), _meta(batch))
+    return coll.collective_stats(cmesh)
+
+
+def _train_step(inp, mesh, quant, out, family="dense"):
     """One sharded step; for the Horner route also every int32 product
-    (after its all-reduce) against the unsharded step's, bit for bit."""
-    cfg = _route(quant)
-    params = tree(inp, "p/")
-    tok = inp["tokens"]
+    (after its all-reduce) against the unsharded step's, bit for bit; and
+    the same step's collectives counted on meta tensors."""
+    cfg = _route(quant, family)
+    params = tree(inp, "p/" if family == "dense" else f"{cfg.family}/")
+    key = quant if family == "dense" else f"{family}/{quant}"
+    batch = _batch(inp, cfg)
+    tok = batch["tokens"]
     ab = ts.abstract_state(cfg)
     st_sh = ts.state_shardings(ab, cfg, mesh)
-    step = ts.build_jitted_train_step(
-        cfg, mesh, ab, {"tokens": torch.empty(tok.shape, dtype=torch.int32, device="meta")})
+    step = ts.build_jitted_train_step(cfg, mesh, ab, _meta(batch))
     local = shd.shard_tree({"params": params, "opt": adamw.init(params)}, st_sh)
 
     sharded_calls, plain_calls = [], []
@@ -79,13 +116,14 @@ def _train_step(inp, mesh, quant, out):
     coll.reset_stats(mesh)
     sharded_lm.mma_product = rec_product
     try:
-        new, m = step(local, {"tokens": tok})
+        new, m = step(local, batch)
     finally:
         sharded_lm.mma_product = inner_product
-    out[f"{quant}/stats"] = coll.collective_stats(mesh)
-    out[f"{quant}/loss"], out[f"{quant}/grad_norm"] = float(m["loss"]), float(m["grad_norm"])
+    out[f"{key}/stats"] = coll.collective_stats(mesh)
+    out[f"{key}/count"] = _counted_step(cfg, mesh, batch)
+    out[f"{key}/loss"], out[f"{key}/grad_norm"] = float(m["loss"]), float(m["grad_norm"])
     full = shd.gather_tree(new, st_sh)
-    out[f"{quant}/params"] = full["params"]
+    out[f"{key}/params"] = full["params"] if family == "dense" else None
     # the port's unsharded step on the whole batch
     def rec_dot(*a, **kw):
         acc = inner_dot(*a, **kw)
@@ -94,15 +132,17 @@ def _train_step(inp, mesh, quant, out):
 
     mma.mma_dot = rec_dot
     try:
-        new1, m1 = ts.train_step({"params": params, "opt": adamw.init(params)},
-                                 {"tokens": tok}, cfg, device="cpu")
+        new1, m1 = ts.train_step({"params": params, "opt": adamw.init(params)}, batch, cfg,
+                                 device="cpu")
     finally:
         mma.mma_dot = inner_dot
-    out[f"{quant}/loss1"], out[f"{quant}/grad_norm1"] = float(m1["loss"]), float(m1["grad_norm"])
-    out[f"{quant}/params1"] = new1["params"]
+    out[f"{key}/loss1"], out[f"{key}/grad_norm1"] = float(m1["loss"]), float(m1["grad_norm"])
+    out[f"{key}/params1"] = new1["params"] if family == "dense" else None
     if quant == "horner":
-        # forward, then the backward's recompute, layer by layer in reverse
-        names = LINEARS + LINEARS[7:14] + LINEARS[:7]
+        # forward (each layer's linears, then the head), then the backward's
+        # recompute of each layer
+        per = ["wq", "wk", "wv", "wo"] + ([] if cfg.moe.n_experts else ["w_gate", "w_up", "w_down"])
+        names = per * cfg.n_layers + ["head"] + per * cfg.n_layers
         d, r = mesh.index("data"), mesh.index("model")
         rows = slice(d * tok.shape[0] // mesh.size("data"), (d + 1) * tok.shape[0] // mesh.size("data"))
         equal = []
@@ -112,9 +152,37 @@ def _train_step(inp, mesh, quant, out):
                 n = got.shape[-1]
                 want = want[..., r * n:(r + 1) * n]
             equal.append(got.dtype == torch.int32 and torch.equal(got, want))
-        out["int32"] = {"n": (len(sharded_calls), len(plain_calls)), "equal": equal,
-                        "shapes": [tuple(c.shape) for c in sharded_calls]}
+        out["int32" if family == "dense" else f"{key}/int32"] = {
+            "n": (len(sharded_calls), len(plain_calls)), "equal": equal,
+            "shapes": [tuple(c.shape) for c in sharded_calls]}
     return full, st_sh
+
+
+def _moe_global(inp, mesh, out):
+    """Layer 0 of the moe smoke model on ``xm`` (one row per data rank):
+    ``moe_ffn``'s routing as ``sharded_lm.route`` takes it (global capacity
+    and positions), and the global load-balance loss with its router
+    gradient (averaged over the data ranks, as the train step averages)
+    against the unsharded ``moe.load_balance_loss``'s."""
+    cfg = _route("none", "moe")
+    params = tree(inp, "moe/")
+    sh = ts.state_shardings(ts.abstract_state(cfg), cfg, mesh)["params"]
+    cfg = cfg.replace(moe=dataclasses.replace(cfg.moe, capacity_factor=ROUTE_CAPACITY))
+    p = layers.layer_params(shd.shard_tree(params, sh)["blocks"], 0)["moe"]
+    xm = torch.tensor(inp["xm"]).to(torch.bfloat16)
+    xs = xm[mesh.index("data")]
+    cap, (eid_s, pos, tok_s, _, keep) = sharded_lm.route(p, xs, cfg, mesh, split=True)
+    out["route"] = {"cap": cap, "eid": eid_s, "pos": pos, "tok": tok_s, "keep": keep}
+    w = p["router"]["w"].detach().requires_grad_()
+    aux = sharded_lm.load_balance_loss({**p, "router": {"w": w}}, xs[None], cfg, mesh)
+    (g,) = torch.autograd.grad(aux, [w])
+    g = coll.all_reduce(g.float(), mesh, "data") / mesh.size("data")
+    p1 = layers.layer_params(params["blocks"], 0)["moe"]
+    w1 = p1["router"]["w"].detach().requires_grad_()
+    aux1 = moe_lib.load_balance_loss({**p1, "router": {"w": w1}}, xm, cfg)
+    (g1,) = torch.autograd.grad(aux1, [w1])
+    n = g.shape[-1]
+    out["aux"] = (float(aux), float(aux1), g, g1.float()[:, mesh.index("model") * n:][:, :n])
 
 
 def _elastic(d, state_a, st_a, mesh_b, out):
@@ -210,6 +278,16 @@ def _pipeline(inp, mesh, out):
     out["pp/loss1"] = float(loss1)
     out["pp/grads1"] = tree_unflatten(full, list(torch.autograd.grad(loss1, tree_leaves(full))))
     out["pp/stage"] = mesh.index("model")
+    cmesh = counting_mesh(mesh)
+    ab = {k: layers.tree_map(lambda t: torch.empty(t.shape, dtype=t.dtype, device="meta"), v)
+          for k, v in params.items()}
+    local_m = layers.tree_map(lambda t: t.requires_grad_(),
+                              shd.shard_tree(ab, pp.stage_shardings(ab, cmesh)))
+    with shd.use_mesh(cmesh):
+        loss_m, _ = pp.pipelined_loss_fn(local_m, _meta({"tokens": inp["tokens"]}), cfg,
+                                         n_micro=2, device="meta")
+    torch.autograd.grad(loss_m, tree_leaves(local_m))
+    out["pp/count"] = coll.collective_stats(cmesh)
 
 
 def rank_main(rank: int, d: str) -> None:
@@ -223,6 +301,10 @@ def rank_main(rank: int, d: str) -> None:
         out = {"mesh": (mesh.shape, mesh.index("data"), mesh.index("model"))}
         _train_step(inp, mesh, "none", out)
         state_a, st_a = _train_step(inp, mesh, "horner", out)
+        for family in FAMILIES:
+            for quant in ("none", "horner"):
+                _train_step(inp, mesh, quant, out, family)
+        _moe_global(inp, mesh, out)
         _elastic(d, state_a, st_a, mesh_b, out)
         _compressed(inp, out)
         _moe(inp, mesh, out)

@@ -7,9 +7,9 @@ once for the whole module; every join has a time limit, and a rank still
 alive at it is killed and fails the module.  The reference side is one
 subprocess (``_ref_parallel.py``: 8 forced host devices, Auto-typed meshes,
 ``JAX_PLATFORMS=cpu``), run beside the ranks.  Both read the same inputs:
-Yi-6B's and OLMoE's smoke weights drawn by the port (seed 0), the tokens and
-the gradients of the reference's own ``test_distributed.py``, drawn with
-numpy.
+Yi-6B's, OLMoE's and InternVL2's smoke weights drawn by the port (seed 0),
+the tokens and the gradients of the reference's own ``test_distributed.py``
+and the vlm's patches, drawn with numpy.
 
 Tolerances, each against what it compares:
 
@@ -26,7 +26,16 @@ Tolerances, each against what it compares:
 - ``moe_ffn_ep``: routing exact per slab, output within ``MOE_REL`` of the
   reference's ``moe_ffn_ep`` and the port's ``moe_ffn``;
 - the pipeline (PP 2 x DP 4): loss within ``LOSS_REL`` of the reference's
-  ``pipelined_loss_fn`` and of the port's unsharded ``loss_fn``.
+  ``pipelined_loss_fn`` and of the port's unsharded ``loss_fn``;
+- the moe (``moe.ep`` off and on) and vlm smoke steps: loss within
+  ``LOSS_REL``, grad_norm within ``NORM_REL`` (see
+  ``test_sharded_family_step_equals_the_reference`` for which step each is
+  held to); int32 products bit-equal; ``moe_ffn``'s routing on 4 data
+  ranks equal to the reference's whole-batch routing; the global aux
+  within 1e-6 and its router gradient within ``MOE_REL`` (bf16 partial
+  sums);
+- every step counted on meta tensors over a shape-only mesh at the rank's
+  coordinates: the live step's collectives exactly.
 """
 import os
 import subprocess
@@ -68,10 +77,18 @@ def _inputs(d: Path) -> None:
     rng = np.random.default_rng(0)  # the reference test's draws, in its order
     inp = {**{f"p/{k}": v for k, v in _flat(params).items()},
            **{f"m/{k}": v for k, v in _flat(mparams).items()}}
+    for arch in ("olmoe_1b_7b", "internvl2_76b"):  # the moe and vlm models, whole
+        fcfg = get_smoke_config(arch)
+        inp.update({f"{fcfg.family}/{k}": v
+                    for k, v in _flat(transformer.init_params(0, fcfg, device="cpu")).items()})
     inp["g_local"] = rng.standard_normal((8, 128)).astype(np.float32)
     inp["tokens"] = rng.integers(0, cfg.vocab, (8, 33)).astype(np.int32)
     xm = torch.tensor(rng.standard_normal((4, 16, mcfg.d_model)) * 0.1, dtype=torch.float32)
     inp["xm"] = xm.to(torch.bfloat16).float().numpy()
+    vcfg = get_smoke_config("internvl2_76b")
+    patches = torch.tensor(rng.standard_normal((8, vcfg.vlm_patches, vcfg.d_model)),
+                           dtype=torch.float32)
+    inp["patches"] = patches.to(torch.bfloat16).float().numpy()
     np.savez(d / "inputs.npz", **inp)
 
 
@@ -260,3 +277,93 @@ def test_pipeline_gradients_reach_both_stages(runs):
     from repro_torch.parallel.pipeline import bubble_fraction
 
     assert abs(bubble_fraction(2, 2) - 1 / 3) < 1e-9
+
+
+FAMILY_CASES = [(f, q) for f in ("moe", "moe_ep", "vlm") for q in ("none", "horner")]
+
+
+@pytest.mark.parametrize("family,quant", FAMILY_CASES)
+def test_sharded_family_step_equals_the_reference(runs, family, quant):
+    """The moe (``moe.ep`` off and on) and vlm smoke models' sharded steps,
+    the same on every rank: the loss within tolerance of the reference's
+    sharded step, and of the port's unsharded step where that takes the
+    same path (not ``moe_ffn_ep``, which routes each slab on its own
+    capacity; under quantization the reference falls back to ``moe_ffn``,
+    so ``moe/horner`` is the reference's ``moe_ep/horner`` too).
+
+    grad_norm: within tolerance of the reference's sharded step, except
+    where routing is global (``moe_ffn``): there of the reference's
+    unsharded step and of the port's.  The reference's sharded ``moe_ffn``
+    step rounds its partial sums otherwise (GSPMD), the rounding moves near
+    ties of the router, and a moved expert choice moves the gradient: its
+    grad_norm is 3.2e-3 from its own unsharded step's on this batch."""
+    ref, ranks, _ = runs
+    key = f"{family}/{quant}"
+    rkey = "moe/horner" if key == "moe_ep/horner" else key
+    for out in ranks:
+        assert _rel(out[f"{key}/loss"], ref[f"{rkey}/loss"]) < LOSS_REL
+        if key != "moe_ep/none":
+            assert _rel(out[f"{key}/loss"], out[f"{key}/loss1"]) < LOSS_REL
+            assert _rel(out[f"{key}/grad_norm"], out[f"{key}/grad_norm1"]) < NORM_REL
+        if rkey.startswith("moe/"):
+            assert _rel(out[f"{key}/loss"], ref[f"{rkey}/loss_whole"]) < LOSS_REL
+            assert _rel(out[f"{key}/grad_norm"], ref[f"{rkey}/grad_norm_whole"]) < NORM_REL
+        else:
+            assert _rel(out[f"{key}/grad_norm"], ref[f"{rkey}/grad_norm"]) < NORM_REL
+    assert len({out[f"{key}/loss"] for out in ranks}) == 1
+    assert len({out[f"{key}/grad_norm"] for out in ranks}) == 1
+
+
+@pytest.mark.parametrize("family", ["moe", "moe_ep", "vlm"])
+def test_sharded_family_int32_products_are_bit_equal_to_unsharded(runs, family):
+    _, ranks, _ = runs
+    for out in ranks:
+        rec = out[f"{family}/horner/int32"]
+        # the attention linears (and the vlm's MLP) of 2 layers and the
+        # head, then the layers again in remat
+        n = (4 if family.startswith("moe") else 7) * 4 + 1
+        assert rec["n"] == (n, n)
+        assert all(rec["equal"]), rec["equal"]
+    if family == "vlm":  # the 8 patch positions ride the sequence
+        assert ranks[0]["vlm/horner/int32"]["shapes"][0] == (2, 40, 64)
+
+
+@pytest.mark.parametrize("key", ["none", "horner", "pp"] + [f"{f}/{q}" for f, q in FAMILY_CASES])
+def test_counting_mode_equals_the_live_collectives(runs, key):
+    """Each rank's step run again on meta tensors over a shape-only mesh at
+    the rank's coordinates issues the live step's collectives exactly."""
+    _, ranks, _ = runs
+    for out in ranks:
+        assert out[f"{key}/count"] == out[f"{key}/stats"], key
+    if key.startswith("moe/"):  # the global routing's counts cross the data ranks
+        assert ranks[0][f"{key}/stats"]["counts_by_kind"]["all-gather"] == 4
+
+
+def test_moe_global_routing_equals_the_reference(runs):
+    """``moe_ffn``'s routing on 4 data ranks: each rank's assignments are the
+    reference's whole-batch ones of its tokens, in order, with the global
+    capacity and positions; the batch drops some."""
+    ref, ranks, _ = runs
+    assert not ref["route/keep"].all()
+    for out in ranks:
+        rt = out["route"]
+        assert rt["cap"] == int(ref["route/cap"])
+        t_loc = rt["tok"].numel() // 2
+        d = out["mesh"][1]
+        sel = (ref["route/tok"] >= d * t_loc) & (ref["route/tok"] < (d + 1) * t_loc)
+        assert np.array_equal(rt["eid"].numpy(), ref["route/eid"][sel])
+        assert np.array_equal(rt["tok"].numpy() + d * t_loc, ref["route/tok"][sel])
+        assert np.array_equal(rt["pos"].numpy(), ref["route/pos"][sel])
+        assert np.array_equal(rt["keep"].numpy(), ref["route/keep"][sel])
+
+
+def test_sharded_load_balance_loss_and_gradient(runs):
+    """The aux over 4 data ranks is the whole batch's, and its router
+    gradient, averaged over the data ranks as the train step averages, is
+    the unsharded one's."""
+    _, ranks, _ = runs
+    for out in ranks:
+        aux, aux1, g, g1 = out["aux"]
+        assert abs(aux - aux1) <= 1e-6 * abs(aux1)
+        # bf16 gradients: partial sums over 16 tokens against one over 64
+        assert float((g - g1).abs().max()) <= MOE_REL * float(g1.abs().max())

@@ -22,7 +22,6 @@ import os
 import shutil
 import subprocess
 import sys
-import time
 from functools import partial
 from pathlib import Path
 
@@ -279,21 +278,67 @@ def test_straggler_detection():
 
 def test_trainer_flags_a_straggler(tmp_path):
     """A step that takes more than ``watchdog_factor`` x the trailing median
-    is logged and returned."""
+    is logged and returned.  The steps run on a fake clock that each step
+    advances by its delay, so the verdict does not depend on the host's load."""
     dcfg = dp.DataConfig(vocab=16, seq_len=4, global_batch=2)
     delays = [0.0] * 6 + [0.05] + [0.0]
     lines = []
+    now = [0.0]
 
     def step_fn(st, b):
-        time.sleep(delays[int(st["n"])] + 0.002)
+        now[0] += delays[int(st["n"])] + 0.002
         return {"n": st["n"] + 1}, {"loss": torch.tensor(float(b["tokens"].sum()))}
 
     tcfg = trainer.TrainerConfig(total_steps=8, ckpt_every=100, log_every=4,
                                  ckpt_dir=str(tmp_path / "ck"))
-    _, m = trainer.train({"n": torch.tensor(0)}, step_fn, dcfg, tcfg, log=lines.append)
+    _, m = trainer.train({"n": torch.tensor(0)}, step_fn, dcfg, tcfg, log=lines.append,
+                         clock=lambda: now[0])
     assert m["stragglers"] == [6]
     assert any(line.startswith("[straggler] step 6") for line in lines)
     assert m["losses"] == [float(dp.get_batch(dcfg, s)["tokens"].sum()) for s in range(8)]
+
+
+# ------------------------------------------------- the embedding gradient
+
+
+def test_embedding_gradient_sums_in_float32_where_the_reference_rounds_per_add():
+    """A deliberate departure from the reference.  On a skewed batch (4,096
+    Zipf tokens, one of them a quarter of the batch) the reference's gradient
+    of ``jnp.take`` (a bf16 scatter-add) rounds after every add, bit-equal to
+    torch's stock index backward, and lands a few percent from the exact
+    sum.  The port's ``layers.embed`` sums each row in float32 and rounds
+    once: within one bf16 rounding of the exact sum."""
+    rng = np.random.default_rng(0)
+    vocab, d, t = 64, 32, 4096
+    tok = rng.zipf(1.3, size=t) % vocab
+    tok[: t // 4] = 3
+    rng.shuffle(tok)
+    table = torch.tensor(rng.standard_normal((vocab, d)) * 0.02, dtype=torch.float32
+                         ).to(torch.bfloat16)
+    g = torch.tensor(rng.standard_normal((t, d)), dtype=torch.float32).to(torch.bfloat16)
+    tok_t = torch.tensor(tok)
+
+    def ref_loss(tb, tk, gb):
+        return jnp.sum(jlayers.embed({"table": tb}, tk).astype(jnp.float32) * gb.astype(jnp.float32))
+
+    to_j = lambda x: jnp.asarray(x.float().numpy(), jnp.bfloat16)  # noqa: E731
+    ref = np.asarray(jax.jit(jax.grad(ref_loss))(to_j(table), jnp.asarray(tok), to_j(g))
+                     .astype(jnp.float32))
+    tp = table.clone().requires_grad_()
+    (layers.embed({"table": tp}, tok_t).float() * g.float()).sum().backward()
+    port = tp.grad.float().numpy()
+    ts_ = table.clone().requires_grad_()
+    (ts_[tok_t].float() * g.float()).sum().backward()
+    stock = ts_.grad.float().numpy()
+
+    exact = np.zeros((vocab, d))
+    np.add.at(exact, tok, g.double().numpy())
+    ulp = np.exp2(np.floor(np.log2(np.maximum(np.abs(exact), 1e-30))) - 7)  # bf16: 8 bits
+    assert np.array_equal(ref, stock)  # the reference rounds per add
+    assert np.all(np.abs(port - exact) <= 0.5 * ulp + 1e-6 * np.abs(exact))
+    scale = np.abs(exact).max()
+    assert np.abs(ref - exact).max() / scale > 1e-2
+    assert np.abs(port - exact).max() / scale < 4e-3
 
 
 # ------------------------------------------------------------- launcher
