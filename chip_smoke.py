@@ -294,6 +294,21 @@ printing its seconds; any failure ends the run with a non-zero exit:
    ``moe.ep_slab`` with a gradient, 512-token slabs): loss and grad_norm
    within ``PAR_LOSS_REL`` / ``PAR_NORM_REL``, all-to-alls and no kernel
    launch, state bytes and collectives equal to the dry run's.
+   (c) The ssm, hybrid and encdec families at full width on the same ranks
+   and mesh (``PAR_FAMILIES``): RWKV6-3B at 2 of 32 layers, Zamba2-7B at 7
+   of 81 (a group of 6 and a tail layer), Whisper-large-v3 at 2 encoder
+   and 2 decoder layers over 1500 frames, phase 15's settings with each
+   config's microbatches.  For each, one unsharded step in the parent (the
+   yardstick, ``yard_{arch}.pt``), the dry run's prediction, then one
+   sharded step on each rank (``sharded_rwkv6``, ``sharded_zamba2``,
+   ``sharded_whisper``): microbatch 0's unscaled calls (33 / 62 / 64)
+   bit-exact against the plain version, its int32 products (17 / 34 / 32)
+   equal to the yardstick's, loss and grad_norm within ``PAR_LOSS_REL`` /
+   ``PAR_NORM_REL``, the launches per step per rank (66 / 248 / 128) and
+   per kernel shape equal to ``par_shapes``' layout, state bytes and
+   collectives equal to the dry run's; prints the host wall per step, the
+   collectives by kind and their share, and the kernel graph-timed at each
+   of the model's shapes against ``torch._int_mm`` and the bound.
 
 The line before the last is a JSON object naming every kernel with its
 launches on its main path and its times; the last line is
@@ -398,7 +413,7 @@ TRAIN_STEPS, TRAIN_CKPT_EVERY = 4, 2
 F32_OPS_PER_S = 67e12  # the H100 SXM's float32 peak outside the tensor cores
 # Phase 16 trains Yi-6B at full width, 2 of 32 layers (0.870 G params, 12.2 GB
 # of state), sharded over 4 ranks on the one card: mesh (data 2, model 2).
-PAR_LAYERS, PAR_WORLD, PAR_JOIN_S = 2, 4, 400
+PAR_LAYERS, PAR_WORLD, PAR_JOIN_S = 2, 4, 600
 PAR_STATE_LIMIT = 60e9  # bytes of state of the four ranks together
 # The sharded step against the unsharded one.  The int32 products are equal
 # (gated bit for bit); the float paths differ by a row-parallel linear's
@@ -420,6 +435,13 @@ PAR_MOE_LAYERS = 2
 # logits, two all-to-alls over 'model'): one more OLMoE step on the ranks
 # runs that path, against an unsharded step that routes the same slabs
 # alone (``moe_ep_plain``).
+# Phase 16(c): the ssm, hybrid and encdec families at full width on the same
+# ranks and mesh, depth cut: RWKV6-3B 2 of 32 layers, Zamba2-7B 7 of 81 (one
+# group of 6 and one tail layer, so both paths run), Whisper-large-v3 2
+# encoder and 2 decoder layers over 1500 frames.
+PAR_FAMILIES = (("rwkv6_3b", "RWKV6-3B", dict(n_layers=2)),
+                ("zamba2_7b", "Zamba2-7B", dict(n_layers=7)),
+                ("whisper_large_v3", "Whisper-large-v3", dict(n_layers=2, enc_layers=2)))
 # substrings of stock matmul kernel names (cuBLAS, CUTLASS) in a profile
 GEMM_NAMES = ("gemm", "nvjet", "xmma", "cutlass")
 
@@ -2903,26 +2925,73 @@ def moe_ep_plain(torch, p: dict, x, cfg):
     return torch.cat(rows, dim=0)
 
 
+def parallel_family_cfgs():
+    """Phase 16(c)'s models: ``(tag, label, cfg, data config)`` for each of
+    ``PAR_FAMILIES`` at full width, QAT through the unscaled kernel at 8
+    planes, each config's microbatches, full remat; 8 x 512 synthetic
+    decoder tokens per step (seed 0), Whisper's frames drawn beside them."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import QuantConfig
+    from repro_torch.data.pipeline import DataConfig
+
+    out = []
+    for tag, label, depth in PAR_FAMILIES:
+        cfg = get_config(tag).replace(
+            **depth, quant=QuantConfig(mode="mma_int8", impl="kernel", planes=8))
+        extras = {"frames": (cfg.enc_seq, cfg.d_model)} if cfg.family == "encdec" else None
+        dcfg = DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH,
+                          microbatches=cfg.microbatches, seed=0, extras=extras)
+        out.append((tag, label, cfg, dcfg))
+    return out
+
+
 def block_mma_linears(cfg) -> int:
-    """A block's quantized linears: attention's four, and the MLP's three
-    (an MoE block's experts and router are not quantized)."""
+    """A transformer block's quantized linears: attention's four, and the
+    MLP's three (an MoE block's experts and router are not quantized)."""
     return 4 if cfg.moe.n_experts else 7
 
 
+def mb_linears(cfg) -> tuple[int, int]:
+    """One microbatch's quantized linears: ``(forward, remat's recompute)``.
+    RWKV6: 5 in the time mix and 3 in the channel mix per block; Zamba2: 4
+    per Mamba2 layer (the in-projections and ``out_proj``) and 5 in the
+    shared block (not rematerialised) per group; Whisper: 6 per encoder and
+    10 per decoder block, its tied head a bf16 product; the others
+    ``block_mma_linears`` per block; every head but Whisper's one more."""
+    if cfg.family == "ssm":
+        blocks = 8 * cfg.n_layers
+        return blocks + 1, blocks
+    if cfg.family == "hybrid":
+        g = cfg.attn_every
+        mamba = 4 * cfg.n_layers
+        return mamba + 5 * (cfg.n_layers // g) + 1, mamba
+    if cfg.family == "encdec":
+        blocks = 6 * cfg.enc_layers + 10 * cfg.n_layers
+        return blocks, blocks
+    blocks = block_mma_linears(cfg) * cfg.n_layers
+    return blocks + 1, blocks
+
+
 def par_launches(cfg) -> int:
-    """Unscaled launches per step on one rank, from the layout: every block
-    linear and the head is split over 'model' (column- or row-parallel), so
-    each of a microbatch's block linears (twice: remat's recompute) and the
-    head is one kernel call on each rank.  Unquantized: none."""
+    """Unscaled launches per step on one rank, from the layout: every
+    quantized linear is split over 'model' (column- or row-parallel), so
+    each of a microbatch's linears (a rematerialised one twice) is one
+    kernel call on each rank.  Unquantized: none."""
     if cfg.quant.mode == "none":
         return 0
-    return cfg.microbatches * (2 * block_mma_linears(cfg) * cfg.n_layers + 1)
+    return cfg.microbatches * sum(mb_linears(cfg))
 
 
 def par_batch(torch, cfg) -> dict:
-    """Phase 16's batch as meta tensors: (microbatches, rows, 513) tokens."""
-    return {"tokens": torch.empty((cfg.microbatches, TRAIN_BATCH // cfg.microbatches,
-                                   TRAIN_SEQ + 1), dtype=torch.int32, device="meta")}
+    """Phase 16's batch as meta tensors: (microbatches, rows, 513) tokens
+    (and Whisper's float32 frames)."""
+    rows = TRAIN_BATCH // cfg.microbatches
+    out = {"tokens": torch.empty((cfg.microbatches, rows, TRAIN_SEQ + 1), dtype=torch.int32,
+                                 device="meta")}
+    if cfg.family == "encdec":
+        out["frames"] = torch.empty((cfg.microbatches, rows, cfg.enc_seq, cfg.d_model),
+                                    dtype=torch.float32, device="meta")
+    return out
 
 
 def dry_prediction(torch, cfg) -> dict:
@@ -2955,9 +3024,34 @@ def same_collectives(live: dict, predicted: dict) -> bool:
 
 def par_shapes(cfg, m: int) -> list:
     """The unscaled kernel's shapes on one rank of the (2, 2) mesh at M =
-    ``m`` rows: ``(name, M, K, N, calls per step)``."""
-    d, kv, ff, v, n, mb = (cfg.d_model, cfg.n_kv_heads * cfg.hd, cfg.d_ff, cfg.vocab,
-                           cfg.n_layers, cfg.microbatches)
+    ``m`` decoder rows: ``(name, M, K, N, calls per step)``, from the layout
+    (``sharded_lm`` and the family modules of ``repro_torch.parallel``)."""
+    d, ff, v, n, mb = cfg.d_model, cfg.d_ff, cfg.vocab, cfg.n_layers, cfg.microbatches
+    if cfg.family == "ssm":  # 2 x: remat's recompute
+        return [("time-mix wr/wk/wv/wg, channel wr", m, d, d // 2, 2 * 5 * n * mb),
+                ("time-mix wo", m, d // 2, d, 2 * n * mb),
+                ("channel wk", m, d, ff // 2, 2 * n * mb),
+                ("channel wv", m, ff // 2, d, 2 * n * mb), ("head", m, d, v // 2, mb)]
+    if cfg.family == "hybrid":
+        di, groups = 2 * d, n // cfg.attn_every
+        heads = di // cfg.ssm_head_dim
+        return [("z_proj", m, d // 2, di, 2 * n * mb),
+                ("xbc_proj", m, d // 2, di + 2 * cfg.ssm_state, 2 * n * mb),
+                ("dt_proj", m, d // 2, heads, 2 * n * mb),
+                ("out_proj, shared proj", m, di // 2, d, (2 * n + groups) * mb),
+                ("shared wq/wk/wv", m, 2 * d, d, 3 * groups * mb),
+                ("shared wo", m, d, 2 * d, groups * mb), ("head", m, d, v // 2, mb)]
+    if cfg.family == "encdec":
+        me, le = m // TRAIN_SEQ * cfg.enc_seq, cfg.enc_layers
+        return [("encoder wq/wk/wv, cross wk/wv", me, d, d // 2, 2 * (3 * le + 2 * n) * mb),
+                ("encoder wo", me, d // 2, d, 2 * le * mb),
+                ("encoder w_up", me, d, ff // 2, 2 * le * mb),
+                ("encoder w_down", me, ff // 2, d, 2 * le * mb),
+                ("decoder wq/wk/wv, cross wq", m, d, d // 2, 2 * 4 * n * mb),
+                ("decoder wo, cross wo", m, d // 2, d, 2 * 2 * n * mb),
+                ("decoder w_up", m, d, ff // 2, 2 * n * mb),
+                ("decoder w_down", m, ff // 2, d, 2 * n * mb)]
+    kv = cfg.n_kv_heads * cfg.hd
     shapes = [("wq", m, d, d // 2, 2 * n * mb), ("wk/wv", m, d, kv // 2, 4 * n * mb),
               ("wo", m, d // 2, d, 2 * n * mb)]
     if not cfg.moe.n_experts:
@@ -3250,6 +3344,14 @@ def _parallel_rank(torch, np, dist, root: Path) -> dict:
     _olmoe_ep_rank(torch, mesh, dev, out)
     secs["olmoe_ep"] = time.perf_counter() - t0
 
+    # ---- (c) RWKV6-3B, Zamba2-7B and Whisper-large-v3: one sharded step each
+    family_shapes, out["families"] = {}, {}
+    for tag, _, fcfg, fdcfg in parallel_family_cfgs():
+        t0 = time.perf_counter()
+        out["families"][tag], family_shapes[tag] = _model_rank(torch, root, mesh, dev, fcfg, fdcfg,
+                                                               f"yard_{tag}.pt")
+        secs[tag] = time.perf_counter() - t0
+
     # ---- the unscaled kernel at this rank's shapes (rank 0, the others wait)
     t0 = time.perf_counter()
     dist.barrier()
@@ -3258,6 +3360,11 @@ def _parallel_rank(torch, np, dist, root: Path) -> dict:
         out["times"] = _par_times(torch, graph_ms, mk, par_shapes(cfg, m), shapes)
         m_moe = TRAIN_BATCH // mcfg.microbatches // mesh.size("data") * TRAIN_SEQ
         out["moe_times"] = _par_times(torch, graph_ms, mk, par_shapes(mcfg, m_moe), moe_shapes)
+        out["family_times"] = {}
+        for tag, _, fcfg, _ in parallel_family_cfgs():
+            m_f = TRAIN_BATCH // fcfg.microbatches // mesh.size("data") * TRAIN_SEQ
+            out["family_times"][tag] = _par_times(torch, graph_ms, mk, par_shapes(fcfg, m_f),
+                                                  family_shapes[tag])
     dist.barrier()
     secs["times"] = time.perf_counter() - t0
     secs["all"] = time.perf_counter() - t_all
@@ -3286,46 +3393,49 @@ def _par_times(torch, graph_ms, mk, par_rows, shapes) -> list:
     return rows
 
 
-def _olmoe_rank(torch, root: Path, mesh, dev, out: dict) -> dict:
-    """Phase 16's OLMoE step on this rank: microbatch 0's kernel calls
+def _model_rank(torch, root: Path, mesh, dev, cfg, dcfg, yard: str) -> tuple[dict, dict]:
+    """One sharded step of ``cfg`` on this rank: microbatch 0's kernel calls
     against the plain version and its int32 products against the unsharded
-    step's (``yard_moe.pt``), then the whole step's launches, collectives,
-    loss and grad_norm.  Returns one (x, w) per kernel shape for the
-    timings."""
+    step's (``root/yard``), then the whole step's launches (by shape too),
+    collectives, loss and grad_norm.  Returns the results and one (x, w) per
+    kernel shape for the timings."""
+    import collections
+
     import torch.distributed as dist
 
+    from repro_torch import models
     from repro_torch.checkpoint.ckpt import tree_leaves
     from repro_torch.data.pipeline import get_batch
     from repro_torch.kernels import mma_matmul as mk
     from repro_torch.kernels import ops
-    from repro_torch.models import transformer
     from repro_torch.optim import adamw
     from repro_torch.parallel import collectives as coll
     from repro_torch.parallel import sharded_lm
     from repro_torch.parallel import sharding as shd
     from repro_torch.train import train_step as ts
 
-    cfg, dcfg = parallel_moe_cfgs()
     di, ri = mesh.index("data"), mesh.index("model")
     ab = ts.abstract_state(cfg)
     st_sh = ts.state_shardings(ab, cfg, mesh)
     step = ts.build_jitted_train_step(cfg, mesh, ab, par_batch(torch, cfg))
-    params = transformer.init_params(0, cfg, device=dev)
+    params = models.build(cfg).init_params(0, cfg, device=dev)
     local = shd.shard_tree(params, st_sh["params"])
     del params
     state = {"params": local, "opt": adamw.init(local)}
     torch.cuda.synchronize()
-    res = {"state_bytes": sum(t.numel() * t.element_size() for t in tree_leaves(state)),
-           "experts_local": int(local["blocks"]["moe"]["w_gate"].shape[1])}
-    yard = torch.load(root / "yard_moe.pt", weights_only=True)
-    per_mb = 2 * block_mma_linears(cfg) * cfg.n_layers + 1
-    calls, products, shapes = [], [], {}
+    res = {"state_bytes": sum(t.numel() * t.element_size() for t in tree_leaves(state))}
+    if cfg.moe.n_experts:
+        res["experts_local"] = int(local["blocks"]["moe"]["w_gate"].shape[1])
+    yard_int32 = torch.load(root / yard, weights_only=True)["int32"]
+    per_mb = sum(mb_linears(cfg))
+    calls, products, shapes, by_shape = [], [], {}, collections.Counter()
     inner_mm, inner_prod = ops.mma_matmul, sharded_lm.mma_product
 
     def recording_mm(x, w, **kw):
         o = inner_mm(x, w, **kw)
+        x2 = x.reshape(-1, x.shape[-1])
+        by_shape[(x2.shape[0], x2.shape[1], w.shape[1])] += 1
         if len(calls) < per_mb:
-            x2 = x.reshape(-1, x.shape[-1])
             want = mk.mma_matmul_plain(x2, w, planes=kw["planes"])
             calls.append(bool(torch.equal(o.reshape(want.shape), want)))
             shapes.setdefault((x2.shape[0], x2.shape[1], w.shape[1]), (x2.clone(), w.clone()))
@@ -3333,7 +3443,7 @@ def _olmoe_rank(torch, root: Path, mesh, dev, out: dict) -> dict:
 
     def recording_prod(*a, **kw):
         acc = inner_prod(*a, **kw)
-        if len(products) < len(yard["int32"]):
+        if len(products) < len(yard_int32):
             products.append(acc)
         return acc
 
@@ -3349,23 +3459,31 @@ def _olmoe_rank(torch, root: Path, mesh, dev, out: dict) -> dict:
         ops.mma_matmul, sharded_lm.mma_product = inner_mm, inner_prod
     res["step_s"] = time.perf_counter() - t0
     res["launches"] = mk.launches
+    res["launches_by_shape"] = [[*k, v] for k, v in sorted(by_shape.items())]
     res["collectives"] = coll.collective_stats(mesh)
     res["collective_s"] = coll.collective_seconds(mesh)
     res["calls_exact"] = [sum(calls), len(calls)]
     rows = TRAIN_BATCH // cfg.microbatches // mesh.size("data")
-    names = ["wq", "wk", "wv", "wo"] * cfg.n_layers + ["head"]
     equal = []
-    for name, got, want in zip(names, products, yard["int32"]):
+    for got, want in zip(products, yard_int32):
         want = want[di * rows:(di + 1) * rows]  # microbatch 0's rows of this data rank
-        if name != "wo":  # column-parallel: this rank's columns
+        if got.shape[-1] != want.shape[-1]:  # column-parallel: this rank's columns
             want = want[..., ri * got.shape[-1]:(ri + 1) * got.shape[-1]]
         equal.append(bool(torch.equal(got.cpu(), want)))
-    res["int32_equal"] = [sum(equal), len(equal), len(yard["int32"])]
+    res["int32_equal"] = [sum(equal), len(equal), len(yard_int32)]
+    res["int32_differ"] = [i for i, e in enumerate(equal) if not e]
     res["loss"], res["grad_norm"] = float(met["loss"]), float(met["grad_norm"])
     res["peak_bytes"] = torch.cuda.max_memory_allocated()
-    out["olmoe"] = res
-    del state, local, products, yard
+    del state, local, products, yard_int32
     torch.cuda.empty_cache()
+    return res, shapes
+
+
+def _olmoe_rank(torch, root: Path, mesh, dev, out: dict) -> dict:
+    """Phase 16's OLMoE step on this rank (``_model_rank``).  Returns one
+    (x, w) per kernel shape for the timings."""
+    cfg, dcfg = parallel_moe_cfgs()
+    out["olmoe"], shapes = _model_rank(torch, root, mesh, dev, cfg, dcfg, "yard_moe.pt")
     return shapes
 
 
@@ -3416,12 +3534,13 @@ def parallel_training(torch, np, dev, card):
     Returns kernel 1's phase-16 entries."""
     import torch.multiprocessing as mp
 
+    from repro_torch import models
     from repro_torch.checkpoint.ckpt import tree_leaves
+    from repro_torch.configs import get_config
     from repro_torch.core import mma
     from repro_torch.data.pipeline import get_batch
     from repro_torch.kernels import mma_matmul as mk
     from repro_torch.models import moe as moe_lib
-    from repro_torch.models import transformer
     from repro_torch.optim import adamw
     from repro_torch.train import train_step as ts
 
@@ -3438,7 +3557,7 @@ def parallel_training(torch, np, dev, card):
         """One unsharded step: microbatch 0's forward int32 products (on the
         host), the new params, loss, grad_norm, sizes and wall.  ``moe_ep``
         stands in for ``moe_ffn_ep`` during the step."""
-        params = transformer.init_params(0, c, device=dev)
+        params = models.build(c).init_params(0, c, device=dev)
         n_params = sum(p.numel() for p in tree_leaves(params))
         state = {"params": params, "opt": adamw.init(params)}
         state_bytes = sum(t.numel() * t.element_size() for t in tree_leaves(state))
@@ -3446,7 +3565,7 @@ def parallel_training(torch, np, dev, card):
 
         def recording(*a, **kw):
             acc = inner(*a, **kw)
-            if len(rec) < block_mma_linears(c) * c.n_layers + 1:
+            if len(rec) < mb_linears(c)[0]:
                 rec.append(acc.cpu())
             return acc
 
@@ -3498,11 +3617,30 @@ def parallel_training(torch, np, dev, card):
           f"{ye['wall']:.2f} s")
     del ye
 
+    # ---- (c) the ssm, hybrid and encdec models' yardsticks
+    fams = {}
+    for tag, label, fcfg, fdcfg in parallel_family_cfgs():
+        yf = yardstick(fcfg, fdcfg)
+        torch.save({"int32": yf["int32"]}, root / f"yard_{tag}.pt")
+        fams[tag] = dict(label=label, cfg=fcfg, loss=yf["loss"], grad_norm=yf["grad_norm"],
+                         n_params=yf["n_params"], state_bytes=yf["state_bytes"], wall=yf["wall"])
+        depth = (f"{fcfg.enc_layers} + {fcfg.n_layers} of 32 + 32 encoder + decoder layers, "
+                 f"{fcfg.enc_seq} frames" if fcfg.family == "encdec"
+                 else f"{fcfg.n_layers} of {get_config(tag).n_layers} layers")
+        print(f"[parallel] {card} | {label} at full width, {depth}: {yf['n_params'] / 1e9:.3f} G "
+              f"params, {yf['state_bytes'] / 1e9:.2f} GB of state; the unsharded step (the "
+              f"yardstick): loss {yf['loss']:.6f}, grad_norm {yf['grad_norm']:.6f}, "
+              f"{par_launches(fcfg)} unscaled launches, host wall {yf['wall']:.2f} s")
+        del yf
+
     # ---- the dry run's prediction of one rank of the (2, 2) mesh, each model
     pred, pred_m = dry_prediction(torch, cfg), dry_prediction(torch, mcfg)
     pred_e = dry_prediction(torch, ecfg)
+    for f in fams.values():
+        f["pred"] = dry_prediction(torch, f["cfg"])
     for label, p in (("Yi-6B", pred), ("OLMoE-1B-7B", pred_m),
-                     ("OLMoE-1B-7B unquantized", pred_e)):
+                     ("OLMoE-1B-7B unquantized", pred_e),
+                     *((f["label"], f["pred"]) for f in fams.values())):
         print(f"[parallel] dry run, {label}, one rank of (data 2, model 2), counted on meta "
               f"tensors in {p['seconds']:.1f} s: state {p['state_bytes']} bytes; per step "
               f"{p['collectives']['counts_by_kind']} ({p['collectives']['total_bytes']} bytes), "
@@ -3704,13 +3842,16 @@ def parallel_training(torch, np, dev, card):
     step_ms = sum(r["calls"] * r["ms"] for r in rows)
     lib_ms = sum(r["calls"] * r["library_ms"] for r in rows)
     bound_ms = sum(r["calls"] * r["bound_ms"] for r in rows)
-    phase_s = time.perf_counter() - t_phase
     print(f"[parallel] {card} | per step per rank (graph-timed shapes x calls): kernel "
           f"{step_ms:.1f} ms, torch._int_mm {lib_ms:.1f} ms, bound {bound_ms:.2f} ms")
+    families = {tag: parallel_family_gates(np, card, f, outs, tag) for tag, f in fams.items()}
+    phase_s = time.perf_counter() - t_phase
     print(f"[parallel] phase 16 took {phase_s:.1f} s (ranks {ranks_s:.1f} s; rank 0: "
           + ", ".join(f"{k} {v:.1f}" for k, v in o0["secs"].items()) + ")")
     return dict(launches_parallel=sum(o["launches_step1"] + o["launches_step2"]
-                                      + o["olmoe"]["launches"] for o in outs),
+                                      + o["olmoe"]["launches"]
+                                      + sum(f["launches"] for f in o["families"].values())
+                                      for o in outs),
                 launches_parallel_per_step_per_rank=o0["launches_step2"],
                 parallel_per_shape=rows,
                 parallel_step=dict(kernel_ms=step_ms, library_ms=lib_ms, bound_ms=bound_ms,
@@ -3723,7 +3864,71 @@ def parallel_training(torch, np, dev, card):
                                        bound_ms=moe_bound_ms,
                                        host_s=[o["olmoe"]["step_s"] for o in outs],
                                        collectives=ocs, collective_s=om0["collective_s"]),
-                phase16_s=phase_s)
+                parallel_families=families, phase16_s=phase_s)
+
+
+def parallel_family_gates(np, card, f: dict, outs: list, tag: str) -> dict:
+    """Phase 16(c)'s gates and prints for one model (``f``: its config,
+    label, yardstick and dry-run prediction) over the ranks' results.
+    Returns its kernel entries."""
+    c, pred, label = f["cfg"], f["pred"], f["label"]
+    n_fwd, n_mb = mb_linears(c)[0], sum(mb_linears(c))
+    m = TRAIN_BATCH // c.microbatches // 2 * TRAIN_SEQ  # decoder rows per call
+    layout = {}
+    for _, mm, k, n, per_step in par_shapes(c, m):
+        layout[(mm, k, n)] = layout.get((mm, k, n), 0) + per_step
+    for o in outs:
+        r, fo = o["rank"], o["families"][tag]
+        check(fo["state_bytes"] == pred["state_bytes"],
+              f"rank {r}: {label} state bytes {fo['state_bytes']} against the dry run's "
+              f"{pred['state_bytes']}")
+        check(same_collectives(fo["collectives"], pred["collectives"]),
+              f"rank {r}: {label} step's collectives {fo['collectives']} against the dry run's "
+              f"{pred['collectives']}")
+        check(fo["calls_exact"][0] == fo["calls_exact"][1] == n_mb,
+              f"rank {r}: {label} microbatch 0's kernel calls bit-exact {fo['calls_exact']}")
+        check(fo["int32_equal"][0] == fo["int32_equal"][1] == fo["int32_equal"][2] == n_fwd,
+              f"rank {r}: {label} int32 products equal to the unsharded step's "
+              f"{fo['int32_equal']}, the products that differ {fo['int32_differ']}")
+        by_shape = {tuple(x[:3]): x[3] for x in fo["launches_by_shape"]}
+        check(fo["launches"] == par_launches(c) and by_shape == layout,
+              f"rank {r}: {label} launches per step {fo['launches']} by shape {by_shape}, "
+              f"expected {par_launches(c)}, {layout}")
+        for k, tol in (("loss", PAR_LOSS_REL), ("grad_norm", PAR_NORM_REL)):
+            check(np.isfinite(fo[k]) and abs(fo[k] - f[k]) <= tol * abs(f[k]),
+                  f"rank {r}: {label} {k} {fo[k]} against {f[k]} (rel tolerance {tol})")
+    fo0 = outs[0]["families"][tag]
+    cs = fo0["collectives"]
+    print(f"[parallel] {card} | {label} sharded step, mesh (data 2, model 2): loss "
+          f"{[o['families'][tag]['loss'] for o in outs]} vs {f['loss']} unsharded; grad_norm "
+          f"{[o['families'][tag]['grad_norm'] for o in outs]} vs {f['grad_norm']}; "
+          f"{fo0['launches']} unscaled launches per step per rank (as the layout gives, shape by "
+          f"shape); microbatch 0's {fo0['calls_exact'][1]} kernel calls bit-exact, "
+          f"{fo0['int32_equal'][1]} int32 products equal to the unsharded step's; state "
+          f"{fo0['state_bytes']} bytes per rank (the dry run's), peak allocated "
+          f"{[round(o['families'][tag]['peak_bytes'] / 1e9, 2) for o in outs]} GB")
+    print(f"[parallel] {card} | {label} host wall per sharded step "
+          f"{[round(o['families'][tag]['step_s'], 3) for o in outs]} s; rank 0's collectives "
+          f"(gloo over host memory, not NVLink: nothing is claimed from their times), the dry "
+          f"run's: counts {cs['counts_by_kind']}, bytes {cs['bytes_by_kind']} "
+          f"({cs['total_bytes'] / 1e9:.3f} GB); host seconds in the transport "
+          f"{({k: round(v, 3) for k, v in fo0['collective_s'].items()})}, "
+          f"{sum(fo0['collective_s'].values()) / fo0['step_s']:.3f} of the step")
+    rows = outs[0]["family_times"][tag]
+    for row in rows:
+        print(f"[parallel] {card} | mma_matmul {label} sharded {row['name']} M={row['M']} "
+              f"K={row['K']} N={row['N']} ({row['calls']} per step per rank), planes 8: kernel "
+              f"{row['ms']:.4f} ms, torch._int_mm {row['library_ms']:.4f} ms, bound "
+              f"{row['bound_ms']:.5f} ms ({row['bound_by']})")
+    step = {k: sum(r["calls"] * r[key] for r in rows)
+            for k, key in (("kernel_ms", "ms"), ("library_ms", "library_ms"),
+                           ("bound_ms", "bound_ms"))}
+    print(f"[parallel] {card} | {label} per step per rank (graph-timed shapes x calls): kernel "
+          f"{step['kernel_ms']:.1f} ms, torch._int_mm {step['library_ms']:.1f} ms, bound "
+          f"{step['bound_ms']:.2f} ms")
+    return dict(launches_per_step_per_rank=fo0["launches"], per_shape=rows,
+                step=dict(**step, host_s=[o["families"][tag]["step_s"] for o in outs],
+                          collectives=cs, collective_s=fo0["collective_s"]))
 
 
 def main() -> int:

@@ -3,8 +3,8 @@
 
     python3 scripts/phase16_alone.py
 
-Prints phase 16's lines and a JSON summary of what it returns.  Needs a
-CUDA card; about 3-4 minutes with the build.
+Prints phase 16's lines, (a)-(c) included, and a JSON summary of what it
+returns.  Needs a CUDA card; about 5-7 minutes with the build.
 """
 from __future__ import annotations
 

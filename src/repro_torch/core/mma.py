@@ -72,11 +72,20 @@ def mma_linear(
     """Quantized linear: float x (..., K) @ float w (K, N) -> float (..., N).
 
     The forward runs int8 through the MMA datapath; gradients flow through
-    the float product (straight-through estimator).
+    the float product (straight-through estimator).  The value is the
+    quantized product exactly (``out + (full - full.detach())``): the
+    reference's ``full + stop_gradient(out - full)`` rounds the subtraction
+    where ``out`` and ``full`` part by more than a factor of 2, and so
+    depends on the float product's summation order, which a sharded step
+    changes.
     """
     xq = quant.quantize_acts(x, batch_axis=batch_axis)
     wq = w_q if w_q is not None else quant.quantize_weights(w, channel_axis=-1)
     out_i32 = mma_dot(xq.values, wq.values, planes=planes, impl=impl)
     out = out_i32.to(torch.float32) * quant.quantized_matmul_scale(xq.scale, wq.scale)
-    full = x @ w
-    return full + (out - full).detach()
+    return straight_through(out, x @ w)
+
+
+def straight_through(out: torch.Tensor, full: torch.Tensor) -> torch.Tensor:
+    """``out``'s value with ``full``'s gradient (see :func:`mma_linear`)."""
+    return out.detach() + (full - full.detach())

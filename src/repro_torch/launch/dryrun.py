@@ -14,12 +14,11 @@ coordinates) and counts what passes:
   (``mm``/``bmm``/``addmm``/``baddbmm``; the MMA's int8 products among
   them, ``core.mma.mma_dot``'s meta branch), per chip and step;
 - ``collectives`` / ``cost.coll_bytes``: the collectives' counts and operand
-  bytes by kind (``parallel.collectives``' counting mode), for the train
-  cells of the families with a sharded loss (dense, moe, vlm).  Every other
-  cell (ssm, hybrid and encdec train cells, every prefill and decode cell:
-  the port has no sharded forward for them yet) has ``collectives: null``,
-  ``coll_bytes`` 0 and ``"collectives_counted": false``; its FLOPs are the
-  whole (unsharded) step's over the chip count (``flops_basis``);
+  bytes by kind (``parallel.collectives``' counting mode) of every train
+  cell (every family has a sharded loss).  Prefill and decode cells (the
+  port has no sharded serving forward yet) have ``collectives: null``,
+  ``coll_bytes`` 0 and ``"collectives_counted": false``; their FLOPs are
+  the whole (unsharded) step's over the chip count (``flops_basis``);
 - ``census``: the run's product count (and its int8 products).
 
 As the reference's probes do, a cell is counted at depth 1 and 2 (a hybrid
@@ -61,7 +60,6 @@ from repro_torch.parallel import sharding as shd
 from repro_torch.train import train_step as ts
 
 RESULTS = Path(__file__).resolve().parents[3] / "results" / "dryrun_torch"
-COUNTED_FAMILIES = ("dense", "moe", "vlm")
 
 _aten = torch.ops.aten
 _PRODUCTS = {_aten.mm.default: 0, _aten.addmm.default: 1, _aten.bmm.default: 0,
@@ -118,18 +116,15 @@ def count_train_step(cfg, mesh, batch: dict) -> dict:
 
 
 def _count_cell(cfg, shape_name: str, mesh) -> dict:
-    """One cell's counts: a counted family's train cell is one rank's
-    sharded step; any other cell is its whole step on unsharded meta
-    tensors, no mesh (serving cells: the cell's own ``fn``)."""
+    """One cell's counts: a train cell is one rank's sharded step; a serving
+    cell its whole step on unsharded meta tensors, no mesh (the cell's own
+    ``fn``)."""
     cell = specs.build_cell(cfg, shape_name, mesh)
     if cell["kind"] != "train":
         return count_run(cell["fn"], cell["args"])
-    if cfg.family in COUNTED_FAMILIES:
-        ab_state, batch = cell["args"]
-        state = shd.shard_tree(ab_state, cell["in_shardings"][0])
-        return count_run(cell["fn"], (state, batch), mesh)
-    return count_run(lambda state, batch: ts.train_step(state, batch, cfg, device="meta"),
-                     cell["args"])
+    ab_state, batch = cell["args"]
+    state = shd.shard_tree(ab_state, cell["in_shardings"][0])
+    return count_run(cell["fn"], (state, batch), mesh)
 
 
 def _flat(d: dict, prefix=()) -> dict:
@@ -212,7 +207,7 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool, quant: str = "none"
         cfg = apply_overrides(cfg, overrides)
     mesh = make_production_mesh(multi_pod=multi_pod, device="meta")
     cell = specs.build_cell(cfg, shape_name, mesh)
-    counted = cell["kind"] == "train" and cfg.family in COUNTED_FAMILIES
+    counted = cell["kind"] == "train"
     n_chips = mesh.size(mesh.axis_names)
     t0 = time.time()
     probe = probe_counts(cfg, shape_name, mesh)

@@ -17,6 +17,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch.checkpoint.ckpt import tree_leaves
 from repro_torch.core import mma
 from repro_torch.core import quant as quant_lib
 from repro_torch.kernels import ops
@@ -45,6 +46,15 @@ def stack_trees(trees: list[dict]) -> dict:
 def layer_params(blocks: dict, l: int) -> dict:
     """Layer ``l``'s parameters: views ``leaf[l]`` of a stacked tree."""
     return tree_map(lambda t: t[l], blocks)
+
+
+def remat_on(cfg, blocks) -> bool:
+    """Whether a stateless forward rematerialises each of its blocks, as the
+    reference's ``jax.checkpoint`` of its scan body under ``cfg.remat ==
+    'full'``: only where a gradient of ``blocks`` is being taken (serving
+    keeps one forward per block)."""
+    return (cfg.remat == "full" and torch.is_grad_enabled()
+            and any(t.requires_grad for t in tree_leaves(blocks)))
 
 
 def params_to(params, device) -> dict:
@@ -155,6 +165,39 @@ def rmsnorm(p: dict, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     var = torch.mean(torch.square(xf), dim=-1, keepdim=True)
     y = xf * torch.rsqrt(var + eps)
     return (y * p["scale"].to(torch.float32)).to(x.dtype)
+
+
+def sum_squares(x: torch.Tensor) -> torch.Tensor:
+    """The float64 sum of squares over the last dim, kept.  For bf16 (or
+    float32 bf16-valued) inputs every square is exact and so is the sum,
+    but for a rounding of ~2**-53 of it: the same in any order, so a row
+    split into parts and summed again gives the same value.  The sharded
+    norms (``parallel.sharded_lm.split_rmsnorm``) all-reduce these."""
+    xd = x.to(torch.float64)
+    return torch.sum(xd * xd, dim=-1, keepdim=True)
+
+
+def rmsnorm_exact(p: dict, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """:func:`rmsnorm` with the mean square from :func:`sum_squares`: the
+    norm over heads (RWKV6's ``ln_x``, Mamba2's ``norm``), which a sharded
+    step takes over the rank's heads with one all-reduce, bit-equal to
+    this one."""
+    xf = x.to(torch.float32)
+    var = (sum_squares(x) / x.shape[-1]).to(torch.float32)
+    y = xf * torch.rsqrt(var + eps)
+    return (y * p["scale"].to(torch.float32)).to(x.dtype)
+
+
+def einsum_exact(eq: str, *operands: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``torch.einsum`` accumulated in float64, rounded to ``dtype``.  Each
+    product of bf16 or float32 operands is exact in float64 and a sum of a
+    few thousand of them nearly so, so the rounded result does not depend
+    on the reduction order, which cuBLAS picks by shape (on Hopper by a
+    tile's place in a stream-K split too): a rank's rows or heads of a
+    sharded step come out as they do in the whole batch.  For the float
+    products between the recurrent families' quantized linears, whose
+    int8 levels a moved ulp can change."""
+    return torch.einsum(eq, *(t.to(torch.float64) for t in operands)).to(dtype)
 
 
 def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:

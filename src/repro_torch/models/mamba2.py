@@ -11,7 +11,10 @@ Dtypes follow the reference op by op: where it mixes bf16 and float32
 operands (``*`` and ``einsum`` promote to float32 in JAX, not in torch) the
 bf16 operand is cast to float32 here, and where it rounds to bf16 (the
 ``C . B`` product, the carried chunk states) so does this.  The float32
-leaves (``a_log``, ``dt_bias``, ``d_skip``) stay float32.
+leaves (``a_log``, ``dt_bias``, ``d_skip``) stay float32.  The chunked
+SSD's products and the gated ``norm``'s mean square accumulate in float64
+(``layers.einsum_exact``, ``layers.rmsnorm_exact``), so a sharded step's
+rank computes its rows and heads bit-equal to the whole batch's.
 """
 from __future__ import annotations
 
@@ -103,13 +106,13 @@ def _ssd_chunked(x, dt, a, bmat, cmat):
     lj = cum[:, :, None, :, :]
     mask = torch.tril(torch.ones((q, q), dtype=torch.bool, device=x.device))
     decay = torch.exp(torch.where(mask[None, None, :, :, None], li - lj, -torch.inf))
-    cb = torch.einsum("bcin,bcjn->bcij", cs, bs)  # bf16, as the reference's
+    cb = layers.einsum_exact("bcin,bcjn->bcij", cs, bs, dtype=cs.dtype)  # bf16, as the reference's
     att = cb[..., None].to(F32) * decay * dts[:, :, None, :, :]  # (B, NC, Q, Q, H)
-    y_intra = torch.einsum("bcijh,bcjhp->bcihp", att, xs)
+    y_intra = layers.einsum_exact("bcijh,bcjhp->bcihp", att, xs, dtype=F32)
 
     # chunk-final states: S_c = sum_j exp(cum_last - cum_j) dt_j B_j x_j^T
     w_end = torch.exp(cum[:, :, -1:, :] - cum) * dts  # (B, NC, Q, H)
-    sc = torch.einsum("bcjn,bcjhp->bchnp", bs.to(F32), w_end[..., None] * xs)
+    sc = layers.einsum_exact("bcjn,bcjhp->bchnp", bs, w_end[..., None] * xs, dtype=F32)
 
     # inter-chunk carry: state_c = exp(sum ls_c) state_{c-1} + S_c; chunk c
     # reads the state entering it
@@ -124,8 +127,7 @@ def _ssd_chunked(x, dt, a, bmat, cmat):
     # inter-chunk contribution: y_i += C_i . (exp(cum_i) * state_prev)
     w_in = torch.exp(cum)  # (B, NC, Q, H)
     cw = cs.to(F32)[:, :, :, :, None] * w_in[:, :, :, None, :]  # (B, NC, Q, N, H)
-    y_inter = torch.einsum("bcinh,bchnp->bcihp", cw,
-                           prev_states.to(cmat.dtype).to(F32))
+    y_inter = layers.einsum_exact("bcinh,bchnp->bcihp", cw, prev_states.to(cmat.dtype), dtype=F32)
     return (y_intra + y_inter).reshape(b, s, h, p)
 
 
@@ -166,7 +168,7 @@ def mamba_forward(p, x, cfg, *, state=None):
 
     y = y.to(x.dtype) + xs * p["d_skip"].to(x.dtype)[None, None, :, None]
     y = y.reshape(bsz, s, d_inner)
-    y = layers.rmsnorm(p["norm"], y * F.silu(z.to(F32)).to(x.dtype), cfg.norm_eps)
+    y = layers.rmsnorm_exact(p["norm"], y * F.silu(z.to(F32)).to(x.dtype), cfg.norm_eps)
     out = layers.linear(p["out_proj"], y, cfg.quant)
     new_state = None if state is None else {"conv": new_conv, "ssm": new_ssm}
     return out, new_state

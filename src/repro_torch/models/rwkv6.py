@@ -12,13 +12,19 @@ layer, so the state is O(1) in the sequence length.
 Channel-mix: token shift and a squared-ReLU MLP.
 
 The parameter tree is the reference's, every block leaf stacked ``(L, ...)``
-under ``params["blocks"]``; a Python loop takes layer ``l``'s views.  The
-float32 leaves (``w_base``, ``u``) stay float32.
+under ``params["blocks"]``; a Python loop takes layer ``l``'s views, each
+block rematerialised where a gradient is taken under ``cfg.remat == 'full'``
+(the reference's ``jax.checkpoint`` of its scan body).  The float32 leaves
+(``w_base``, ``u``) stay float32.  ``ln_x``'s mean square, the LoRAs' and
+the WKV step's products accumulate in float64 (``layers.rmsnorm_exact``,
+``layers.einsum_exact``), so a sharded step's rank computes its rows and
+heads bit-equal to the whole batch's.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core import quant
 from repro_torch.device import resolve_device
@@ -122,6 +128,15 @@ def _shift(x: torch.Tensor, last: torch.Tensor | None = None) -> torch.Tensor:
     return torch.cat([pad, x[:, :-1]], dim=1)
 
 
+def lora_linear(p: dict, x: torch.Tensor) -> torch.Tensor:
+    """A LoRA's product (no quant config, as the reference's): a float
+    weight's accumulated in float64 (``layers.einsum_exact``), an int8
+    leaf's on the Horner route at 8 planes (``layers.linear``)."""
+    if "w" in p:
+        return layers.einsum_exact("...k,kn->...n", x, p["w"], dtype=x.dtype)
+    return layers.linear(p, x)
+
+
 def wkv(r, k, v, w, u, s0):
     """The WKV recurrence over the sequence, in float32.  r, k, v, w:
     (B, S, H, P); u: (H, P); s0: (B, H, P, P).  Returns y (B, S, H, P) and
@@ -130,7 +145,8 @@ def wkv(r, k, v, w, u, s0):
     ys = []
     for t in range(r.shape[1]):
         kv = k[:, t, :, :, None] * v[:, t, :, None, :]  # (B, H, P, P)
-        ys.append(torch.einsum("bhp,bhpq->bhq", r[:, t], st + u[None, :, :, None] * kv))
+        ys.append(layers.einsum_exact("bhp,bhpq->bhq", r[:, t], st + u[None, :, :, None] * kv,
+                                      dtype=st.dtype))
         st = w[:, t, :, :, None] * st + kv
     return torch.stack(ys, dim=1), st
 
@@ -143,8 +159,8 @@ def time_mix(p, x, cfg, *, state=None):
     # data-dependent interpolation (the RWKV6 "ddlerp"); mix_lora_a takes no
     # quant config: int8 leaves run the Horner route at 8 planes
     delta = xprev - x
-    lora = torch.tanh(layers.linear(p["mix_lora_a"], x).reshape(b, s, 5, LORA_R))
-    dyn = torch.einsum("bsfr,frd->bsfd", lora, p["mix_lora_b"].to(x.dtype))
+    lora = torch.tanh(lora_linear(p["mix_lora_a"], x).reshape(b, s, 5, LORA_R))
+    dyn = layers.einsum_exact("bsfr,frd->bsfd", lora, p["mix_lora_b"], dtype=x.dtype)
     mix = p["mix_base"].to(x.dtype)[None, None] + dyn  # (B, S, 5, D)
     xr, xk, xv, xw, xg = [x + delta * mix[:, :, i, :] for i in range(5)]
     r = layers.linear(p["wr"], xr, cfg.quant).reshape(b, s, h, pd)
@@ -152,8 +168,8 @@ def time_mix(p, x, cfg, *, state=None):
     v = layers.linear(p["wv"], xv, cfg.quant).reshape(b, s, h, pd)
     g = F.silu(layers.linear(p["wg"], xg, cfg.quant).to(torch.float32))
     # data-dependent decay  w_t = exp(-exp(base + lora_w(xw)))
-    wl = torch.tanh(layers.linear(p["w_lora_a"], xw))
-    wd = layers.linear({"w": p["w_lora_b"]}, wl)
+    wl = torch.tanh(lora_linear(p["w_lora_a"], xw))
+    wd = lora_linear({"w": p["w_lora_b"]}, wl)
     logw = p["w_base"][None, None, :] + wd.to(torch.float32)
     w = torch.exp(-torch.exp(logw)).reshape(b, s, h, pd)  # in (0, 1)
 
@@ -161,7 +177,7 @@ def time_mix(p, x, cfg, *, state=None):
           if state is None else state["s"])
     f32 = torch.float32
     y, s_final = wkv(r.to(f32), k.to(f32), v.to(f32), w, p["u"].to(f32), s0)
-    y = layers.rmsnorm(p["ln_x"], y.reshape(b, s, d).to(x.dtype), cfg.norm_eps)
+    y = layers.rmsnorm_exact(p["ln_x"], y.reshape(b, s, d).to(x.dtype), cfg.norm_eps)
     out = layers.linear(p["wo"], (y.to(f32) * g).to(x.dtype), cfg.quant)
     new_state = None if state is None else {"s": s_final, "x": x[:, -1, :]}
     return out, new_state
@@ -193,6 +209,10 @@ def block(blk, h, cfg, *, state=None):
     return h, None if state is None else (new_tm["s"], new_tm["x"], new_cm)
 
 
+def _stateless_block(blk, h, cfg):
+    return block(blk, h, cfg)[0]
+
+
 def forward(params, tokens, cfg, *, state=None, device=None, **_):
     """tokens: (B, S) int -> logits (B, S, vocab) on ``device`` (the CUDA
     card unless ``device='cpu'``).  With ``state`` (decode; see
@@ -202,9 +222,13 @@ def forward(params, tokens, cfg, *, state=None, device=None, **_):
     params = params_to(params, dev)
     tokens = torch.as_tensor(tokens, dtype=torch.int64, device=dev)
     x = layers.embed(params["embed"], tokens)
+    remat = state is None and layers.remat_on(cfg, params["blocks"])
     new = []
     for l in range(cfg.n_layers):
         blk = layers.layer_params(params["blocks"], l)
+        if remat:
+            x = checkpoint(_stateless_block, blk, x, cfg, use_reentrant=False)
+            continue
         lstate = None if state is None else (state["tm_s"][l], state["tm_x"][l],
                                              state["cm_x"][l])
         x, ns = block(blk, x, cfg, state=lstate)

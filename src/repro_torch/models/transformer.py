@@ -17,7 +17,6 @@ import dataclasses
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.checkpoint.ckpt import tree_leaves
 from repro_torch.core import quant
 from repro_torch.core.plane_schedule import PlaneSchedule
 from repro_torch.device import resolve_device
@@ -171,10 +170,7 @@ def forward(
 
     aux = torch.zeros((), dtype=torch.float32, device=dev) if return_aux else None
     moe_aux = return_aux and bool(cfg.moe.n_experts)
-    # remat as the reference's jax.checkpoint of its scan body: only where a
-    # gradient is being taken (serving keeps one forward per block)
-    remat = (cache is None and cfg.remat == "full" and torch.is_grad_enabled()
-             and any(t.requires_grad for t in tree_leaves(params["blocks"])))
+    remat = cache is None and layers.remat_on(cfg, params["blocks"])
     for l, lcfg in enumerate(_layer_cfgs(cfg)):
         blk = layer_params(params["blocks"], l)
         if cache is None:

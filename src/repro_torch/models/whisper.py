@@ -7,12 +7,16 @@ MLPs, the output projection tied to the token embedding.
 The parameter tree is the reference's: every encoder leaf stacked
 ``(L_enc, ...)`` under ``params["enc_blocks"]``, every decoder leaf
 ``(L, ...)`` under ``params["dec_blocks"]``.  The reference scans over the
-stacks; here a Python loop takes layer ``l``'s views.  The decoder's KV
-cache is updated in place, as in :mod:`.transformer`.
+stacks; here a Python loop takes layer ``l``'s views, each encoder and
+(cacheless) decoder block rematerialised where a gradient is taken under
+``cfg.remat == 'full'``, as the reference's ``jax.checkpoint`` of its scan
+bodies.  The decoder's KV cache is updated in place, as in
+:mod:`.transformer`.
 """
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core import quant
 from repro_torch.device import resolve_device
@@ -98,8 +102,11 @@ def encode(params, frames, cfg, *, device=None) -> torch.Tensor:
     params = params_to(params, dev)
     frames = torch.as_tensor(frames, device=dev)
     x = frames.to(torch.bfloat16) + params["enc_pos"][None, : frames.shape[1]]
+    remat = layers.remat_on(cfg, params["enc_blocks"])
     for l in range(cfg.enc_layers or cfg.n_layers):
-        x = enc_block(layers.layer_params(params["enc_blocks"], l), x, cfg)
+        blk = layers.layer_params(params["enc_blocks"], l)
+        x = checkpoint(enc_block, blk, x, cfg, use_reentrant=False) if remat else \
+            enc_block(blk, x, cfg)
     return layers.rmsnorm(params["enc_ln"], x, cfg.norm_eps)
 
 
@@ -173,9 +180,12 @@ def decode(params, tokens, memory, cfg, *, cache=None, cache_index=None, cross_k
     x = layers.embed(params["embed"], tokens)
     base = 0 if cache_index is None else cache_index
     x = x + _dec_positions(params["dec_pos"], base, x.shape[1])[None]
+    remat = cache is None and layers.remat_on(cfg, params["dec_blocks"])
     for l in range(cfg.n_layers):
         blk = layers.layer_params(params["dec_blocks"], l)
-        if cache is None:  # no cache: the memory is projected again
+        if remat:
+            x = checkpoint(dec_block, blk, x, memory, cfg, use_reentrant=False)
+        elif cache is None:  # no cache: the memory is projected again
             x = dec_block(blk, x, memory, cfg)
         else:
             ckv = None if cross_kv is None else (cross_kv["k"][l], cross_kv["v"][l])

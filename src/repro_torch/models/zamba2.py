@@ -15,6 +15,7 @@ one scalar index for every row (the family has no per-row positions).
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core import quant
 from repro_torch.device import resolve_device
@@ -95,12 +96,24 @@ def _shared_attn(p, x, emb, cfg, scfg, *, positions, cache=None, cache_index=Non
     return x + layers.linear(p["proj"], h, cfg.quant), new_cache
 
 
+def _mamba_layer(blk, h, cfg):
+    out, _ = mamba2.mamba_forward(blk["mamba"], layers.rmsnorm(blk["ln"], h, cfg.norm_eps), cfg)
+    return h + out
+
+
 def _mamba_group(h, gp, cfg, gstate=None):
     """The Mamba2 layers of one group (``gp`` stacked ``(g, ...)``) on the
-    residual stream; with ``gstate`` also their new states, stacked."""
+    residual stream; with ``gstate`` also their new states, stacked.
+    Without state each layer is rematerialised where a gradient is taken
+    under ``cfg.remat == 'full'`` (the reference's ``jax.checkpoint`` of
+    its inner scan body; the shared block is not)."""
+    remat = gstate is None and layers.remat_on(cfg, gp)
     new = []
     for i in range(gp["ln"]["scale"].shape[0]):
         blk = layers.layer_params(gp, i)
+        if remat:
+            h = checkpoint(_mamba_layer, blk, h, cfg, use_reentrant=False)
+            continue
         st = None if gstate is None else layers.layer_params(gstate, i)
         out, ns = mamba2.mamba_forward(blk["mamba"], layers.rmsnorm(blk["ln"], h, cfg.norm_eps),
                                        cfg, state=st)

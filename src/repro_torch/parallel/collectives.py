@@ -13,7 +13,10 @@ each rank is that rank's share.  So:
   its transpose is the sum all-reduce.  (A max all-reduce carries no
   gradient.)
 - ``all_gather``'s output is for varying use, and its transpose is
-  ``reduce_scatter``; ``reduce_scatter``'s is ``all_gather``.
+  ``reduce_scatter``; ``reduce_scatter``'s is ``all_gather``.  With
+  ``replicated=True`` the output is for replicated use (every rank's
+  consumers alike, its gradient whole on each rank), and the transpose
+  keeps the rank's slice: no collective.
 - ``all_to_all`` and ``ppermute`` transpose to their inverses.
 
 Every call is counted on ``mesh.stats`` by kind, under the reference's HLO
@@ -223,6 +226,17 @@ class _AllGather(torch.autograd.Function):
         return _reduce_scatter(g, ctx.mesh, ctx.axes, ctx.dim), None, None, None
 
 
+class _AllGatherReplicated(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes, dim):
+        ctx.mesh, ctx.axes, ctx.dim, ctx.n = mesh, axes, dim, x.shape[dim]
+        return _all_gather(x, mesh, axes, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.narrow(ctx.dim, ctx.mesh.index(ctx.axes) * ctx.n, ctx.n), None, None, None
+
+
 class _ReduceScatter(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, mesh, axes, dim):
@@ -286,14 +300,17 @@ def pbroadcast(x: torch.Tensor, mesh: Mesh, axes) -> torch.Tensor:
     return _PBroadcast.apply(x, mesh, axes)
 
 
-def all_gather(x: torch.Tensor, mesh: Mesh, axes, dim: int = 0) -> torch.Tensor:
+def all_gather(x: torch.Tensor, mesh: Mesh, axes, dim: int = 0, *,
+               replicated: bool = False) -> torch.Tensor:
     """Every rank's ``x`` concatenated along ``dim`` in rank order over
-    ``axes`` (the first axis the major one)."""
+    ``axes`` (the first axis the major one); for varying use, or with
+    ``replicated`` for replicated use (see the module's docstring)."""
     axes = _live(mesh, axes)
     if not axes:
         return x
     _record(mesh, "all-gather", x)
-    return _AllGather.apply(x, mesh, axes, dim % x.ndim)
+    fn = _AllGatherReplicated if replicated else _AllGather
+    return fn.apply(x, mesh, axes, dim % x.ndim)
 
 
 def reduce_scatter(x: torch.Tensor, mesh: Mesh, axes, dim: int = 0) -> torch.Tensor:

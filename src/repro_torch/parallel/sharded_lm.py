@@ -1,6 +1,10 @@
-"""The dense transformer's loss on one rank of a device mesh: what GSPMD
-computes for the reference's rules, with the layouts and collectives
-written out.
+"""The transformer families' loss on one rank of a device mesh (dense,
+moe, vlm): what GSPMD computes for the reference's rules, with the layouts
+and collectives written out; and the pieces the other families' sharded
+losses share (``sharded_rwkv6``, ``sharded_zamba2``, ``sharded_whisper``):
+column- and row-parallel linears, attention (with or without RoPE and the
+causal mask), cross-attention, the split RMSNorm, gathered leaves, the
+vocab-parallel embedding, head and NLL.
 
 Each rank holds its slices of the parameters (``sharding.shard_tree`` by
 ``param_specs.named_shardings``) and its rows of the batch (batch over
@@ -24,7 +28,8 @@ amax and per-channel weight amax are max all-reduced over ``model``, its
 int32 accumulator is sum all-reduced before the dequantization (exact: the
 sharded integer product equals the unsharded one bit for bit), and the
 straight-through estimator's float32 product is a float all-reduce
-(equal within rounding).  A column-parallel linear's maxes are local
+(equal within rounding; the forward value is the quantized product's,
+``core.mma.straight_through``).  A column-parallel linear's maxes are local
 already (whole K, whole rows).
 
 Sequence parallelism of the residual (``seq`` -> ``model``) and the decode
@@ -66,7 +71,6 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.checkpoint.ckpt import tree_leaves
 from repro_torch.core import mma
 from repro_torch.core import quant as quant_lib
 from repro_torch.device import resolve_device
@@ -119,7 +123,7 @@ def _product(w: torch.Tensor, x: torch.Tensor, quant, mesh, *, reduce: bool) -> 
         full = xf @ wf
         if reduce:
             full = coll.all_reduce(full, mesh, MODEL)
-        return (full + (out - full).detach()).to(x.dtype)
+        return mma.straight_through(out, full).to(x.dtype)
     if reduce:
         return coll.all_reduce(x.to(torch.float32) @ w.to(torch.float32), mesh, MODEL).to(x.dtype)
     return torch.matmul(x, w.to(x.dtype))
@@ -149,20 +153,48 @@ def _row(p: dict, x: torch.Tensor, quant, mesh) -> torch.Tensor:
     return out + p["b"].to(out.dtype) if "b" in p else out
 
 
-def _gathered(t: torch.Tensor, full: int, mesh) -> torch.Tensor:
-    return t if t.shape[-1] == full else coll.all_gather(t, mesh, MODEL, dim=-1)
+def _varying(t: torch.Tensor, mesh) -> torch.Tensor:
+    """``t`` (replicated over ``model``) marked for varying use there."""
+    return coll.pbroadcast(t, mesh, MODEL)
 
 
-def attention(p: dict, x: torch.Tensor, cfg, mesh, positions) -> torch.Tensor:
-    b, s, _ = x.shape
+def _gathered(t: torch.Tensor, full: int, mesh, *, replicated: bool = False) -> torch.Tensor:
+    """``t`` whole along its last dim (``full`` wide): gathered over
+    ``model`` where the rank holds a slice.  This is how a leaf split off
+    the head boundary (RWKV6's ``u``, ``mix_base``, LoRAs; Mamba2's
+    ``conv_w``; Whisper's position tables) comes whole; ``replicated`` for a
+    consumer that is alike on every rank (``collectives.all_gather``)."""
+    if t.shape[-1] == full:
+        return t
+    return coll.all_gather(t, mesh, MODEL, dim=-1, replicated=replicated)
+
+
+def split_rmsnorm(p: dict, x: torch.Tensor, eps: float, mesh) -> torch.Tensor:
+    """``layers.rmsnorm_exact`` over a last dim of which ``x`` holds the
+    rank's slice (``p["scale"]`` whole, replicated): the float64 sum of
+    squares sum all-reduced over ``model``, then each rank scales its slice.
+    Equal bit for bit to the unsharded norm (the partial sums are exact)."""
+    full = p["scale"].shape[0]
+    ss = _varying(coll.all_reduce(layers.sum_squares(x), mesh, MODEL), mesh)
+    y = x.to(torch.float32) * torch.rsqrt((ss / full).to(torch.float32) + eps)
+    scale = _slice(_varying(p["scale"], mesh), 0, mesh)
+    return (y * scale.to(torch.float32)).to(x.dtype)
+
+
+def _attend(p: dict, xq: torch.Tensor, xkv: torch.Tensor, cfg, mesh, positions,
+            causal: bool) -> torch.Tensor:
+    """The rank's heads of attention: q from ``xq``, k and v from ``xkv``
+    (both marked for varying use), RoPE where ``positions`` are given, then
+    ``wo`` row-parallel.  Where ``n_heads`` does not divide the model axis
+    every head runs on every rank (the reference's ``constrain_qkv``
+    fallback)."""
+    b, s, _ = xq.shape
+    t = xkv.shape[1]
     hd, h, kv = cfg.hd, cfg.n_heads, cfg.n_kv_heads
-    if p["wo"]["w"].shape[0] == h * hd:  # wo unsplit: the sublayer is replicated
-        return layers.attention(p, x, cfg, positions=positions)[0]
     m, quant = mesh.size(MODEL), cfg.quant
-    xb = coll.pbroadcast(x, mesh, MODEL)
-    q = _column(p["wq"], xb, quant, mesh, h * hd)
-    k = _column(p["wk"], xb, quant, mesh, kv * hd)
-    v = _column(p["wv"], xb, quant, mesh, kv * hd)
+    q = _column(p["wq"], xq, quant, mesh, h * hd)
+    k = _column(p["wk"], xkv, quant, mesh, kv * hd)
+    v = _column(p["wv"], xkv, quant, mesh, kv * hd)
     heads_ok = h % m == 0
     if not heads_ok:  # every head on every rank
         q = _gathered(q, h * hd, mesh)
@@ -170,17 +202,34 @@ def attention(p: dict, x: torch.Tensor, cfg, mesh, positions) -> torch.Tensor:
         k, v = _gathered(k, kv * hd, mesh), _gathered(v, kv * hd, mesh)
         if heads_ok:  # the kv head of each of the rank's q heads
             hl = h // m
-            idx = (mesh.index(MODEL) * hl + torch.arange(hl, device=x.device)) // (h // kv)
-            k = k.reshape(b, s, kv, hd)[:, :, idx]
-            v = v.reshape(b, s, kv, hd)[:, :, idx]
-    q = layers.rope(q.reshape(b, s, -1, hd), positions, cfg.rope_theta)
-    k = layers.rope(k.reshape(b, s, -1, hd), positions, cfg.rope_theta)
-    v = v.reshape(b, s, -1, hd)
-    out = layers.flash_attention(q, k, v, causal=True, window=cfg.swa_window,
+            idx = (mesh.index(MODEL) * hl + torch.arange(hl, device=xq.device)) // (h // kv)
+            k = k.reshape(b, t, kv, hd)[:, :, idx]
+            v = v.reshape(b, t, kv, hd)[:, :, idx]
+    q, k, v = q.reshape(b, s, -1, hd), k.reshape(b, t, -1, hd), v.reshape(b, t, -1, hd)
+    if positions is not None:
+        q = layers.rope(q, positions, cfg.rope_theta)
+        k = layers.rope(k, positions, cfg.rope_theta)
+    out = layers.flash_attention(q, k, v, causal=causal, window=cfg.swa_window,
                                  chunk=cfg.attn_chunk).reshape(b, s, -1)
     if not heads_ok:
         out = _slice(out, 2, mesh)  # the rows of wo this rank holds
     return _row(p["wo"], out, quant, mesh)
+
+
+def attention(p: dict, x: torch.Tensor, cfg, mesh, positions, *, causal: bool = True
+              ) -> torch.Tensor:
+    """Self-attention (``positions`` None: no RoPE, as Whisper's)."""
+    if p["wo"]["w"].shape[0] == cfg.n_heads * cfg.hd:  # wo unsplit: replicated
+        return layers.attention(p, x, cfg, positions=positions, causal=causal)[0]
+    xb = _varying(x, mesh)
+    return _attend(p, xb, xb, cfg, mesh, positions, causal)
+
+
+def cross_attention(p: dict, x: torch.Tensor, memory: torch.Tensor, cfg, mesh) -> torch.Tensor:
+    """Whisper's cross-attention: the rank's heads of q from ``x``, of k and
+    v from the encoder ``memory`` through the same column-parallel linears,
+    no mask, ``wo`` row-parallel."""
+    return _attend(p, _varying(x, mesh), _varying(memory, mesh), cfg, mesh, None, False)
 
 
 def mlp(p: dict, x: torch.Tensor, cfg, mesh) -> torch.Tensor:
@@ -209,18 +258,29 @@ def embed(p: dict, tokens: torch.Tensor, cfg, mesh) -> torch.Tensor:
     return coll.all_reduce(x.to(torch.float32), mesh, MODEL).to(table.dtype)
 
 
+def tied_logits(embed_p: dict, x: torch.Tensor, cfg, mesh) -> tuple[torch.Tensor, bool]:
+    """The logits of the head tied to the embedding (a bf16 product), the
+    rank's vocab slice where the table is split, and whether it is."""
+    table = embed_p["table"]
+    if table.shape[0] == cfg.vocab:
+        return layers.unembed(embed_p, x), False
+    return torch.matmul(coll.pbroadcast(x, mesh, MODEL), table.to(x.dtype).T), True
+
+
 def logits(params: dict, x: torch.Tensor, cfg, mesh) -> tuple[torch.Tensor, bool]:
     """The head's logits (the rank's vocab slice when the head is split)
     and whether they are split."""
     if cfg.tie_embeddings:
-        table = params["embed"]["table"]
-        if table.shape[0] == cfg.vocab:
-            return layers.unembed(params["embed"], x), False
-        return torch.matmul(coll.pbroadcast(x, mesh, MODEL), table.to(x.dtype).T), True
+        return tied_logits(params["embed"], x, cfg, mesh)
     head = params["head"]
     if head["w"].shape[-1] == cfg.vocab:
         return layers.linear(head, x, cfg.quant), False
     return _column(head, coll.pbroadcast(x, mesh, MODEL), cfg.quant, mesh, cfg.vocab), True
+
+
+def nll(lg: torch.Tensor, split: bool, targets: torch.Tensor, mesh) -> torch.Tensor:
+    """The mean next-token NLL of :func:`logits`' output."""
+    return next_token_nll(lg, targets, mesh) if split else layers.next_token_nll(lg, targets)
 
 
 def next_token_nll(lg: torch.Tensor, targets: torch.Tensor, mesh) -> torch.Tensor:
@@ -359,19 +419,24 @@ def loss_fn(params: dict, batch: dict, cfg, *, mesh=None, device=None):
     """Next-token cross-entropy of this rank's rows (``batch["tokens"]``:
     (B_local, S+1)) under ``mesh`` (default: the active one), ``params``
     this rank's slices on ``device``; ``batch["patches"]`` (B_local, P, D)
-    for vlm.  Returns ``(loss, metrics)`` as ``transformer.loss_fn`` does;
-    the loss is the rank's rows' NLL plus 0.01 x the global aux, equal on
-    every rank of a ``model`` group.  The dense, moe and vlm families.
+    for vlm, ``batch["frames"]`` (B_local, T, D) for encdec.  Returns
+    ``(loss, metrics)`` as the family's unsharded ``loss_fn`` does; the
+    loss is the rank's rows' NLL (plus 0.01 x the global aux for moe),
+    equal on every rank of a ``model`` group.  Every LM family: the ssm,
+    hybrid and encdec ones in ``sharded_rwkv6``, ``sharded_zamba2`` and
+    ``sharded_whisper``.
 
     Over a shape-only mesh on ``meta`` tensors (``device='meta'``) this
     counts the rank's collectives (``parallel.collectives``)."""
     mesh = mesh or current_mesh()
     if mesh is None:
         raise RuntimeError("sharded_lm.loss_fn needs an active mesh")
-    if cfg.family not in ("dense", "moe", "vlm"):
-        raise NotImplementedError(
-            f"the sharded loss covers the dense, moe and vlm families, not {cfg.family!r}")
     dev = resolve_device(device)
+    if cfg.family in ("ssm", "hybrid", "encdec"):
+        from . import sharded_rwkv6, sharded_whisper, sharded_zamba2
+
+        mod = {"ssm": sharded_rwkv6, "hybrid": sharded_zamba2, "encdec": sharded_whisper}
+        return mod[cfg.family].loss_fn(params, batch, cfg, mesh, dev)
     tok = torch.as_tensor(batch["tokens"], dtype=torch.int64, device=dev)
     x = embed(params["embed"], tok[:, :-1], cfg, mesh)
     prefix = batch.get("patches")
@@ -381,8 +446,7 @@ def loss_fn(params: dict, batch: dict, cfg, *, mesh=None, device=None):
         x = torch.cat([torch.as_tensor(prefix, device=dev).to(x.dtype), x], dim=1)
     positions = torch.arange(x.shape[1], device=dev)[None, :]
     aux = torch.zeros((), dtype=torch.float32, device=dev)
-    remat = (cfg.remat == "full" and torch.is_grad_enabled()
-             and any(t.requires_grad for t in tree_leaves(params["blocks"])))
+    remat = layers.remat_on(cfg, params["blocks"])
     for l, lcfg in enumerate(_layer_cfgs(cfg)):
         blk = layers.layer_params(params["blocks"], l)
         if remat:
@@ -391,7 +455,5 @@ def loss_fn(params: dict, batch: dict, cfg, *, mesh=None, device=None):
             x, aux = _layer(blk, x, aux, lcfg, mesh, positions)
     x = layers.rmsnorm(params["ln_f"], x, cfg.norm_eps)
     lg, split = logits(params, x, cfg, mesh)
-    lg = lg[:, n_prefix:]
-    targets = tok[:, 1:]
-    nll = next_token_nll(lg, targets, mesh) if split else layers.next_token_nll(lg, targets)
-    return nll + 0.01 * aux, {"nll": nll, "aux": aux}
+    out = nll(lg[:, n_prefix:], split, tok[:, 1:], mesh)
+    return out + 0.01 * aux, {"nll": out, "aux": aux}

@@ -1,14 +1,15 @@
 """The reference side of ``tests/test_torch_distributed.py``, run as a
 subprocess with 8 forced host devices:
 
-    JAX_PLATFORMS=cpu python tests/_ref_parallel.py DIR
+    JAX_PLATFORMS=cpu python tests/_ref_parallel.py DIR PART
 
 Reads ``DIR/inputs.npz`` (the port's weights and the test's data) and writes
-``DIR/ref.npz``.  Every mesh is built with Auto-typed axes: jax 0.9's
+``DIR/ref_PART.npz`` (see :func:`main`).  Every mesh is built with Auto-typed axes: jax 0.9's
 ``jax.make_mesh`` makes Explicit axes by default, under which the reference's
 sharded code raises ``ShardingTypeError``.  The reference package itself is
 used as it is.
 """
+import dataclasses as dc
 import os
 import sys
 
@@ -30,10 +31,18 @@ from repro.train import train_step as ts  # noqa: E402
 
 EXACT = {"xla_allow_excess_precision": False, "xla_disable_hlo_passes": "algsimp"}
 ROUTE_CAPACITY = 0.5  # the routing check's capacity factor (tests/_torch_ranks.py's too)
+BOTH = ("none", "horner")
+# family -> (smoke config, moe.ep, quant settings)
+FAMILY_STEPS = {"moe": ("olmoe_1b_7b", False, BOTH), "moe_ep": ("olmoe_1b_7b", True, ("none",)),
+                "vlm": ("internvl2_76b", None, BOTH), "ssm": ("rwkv6_3b", None, BOTH),
+                "hybrid": ("zamba2_7b", None, BOTH), "encdec": ("whisper_large_v3", None, BOTH)}
 
 
 def auto_mesh(shape, names):
     return jax.make_mesh(shape, names, axis_types=(AxisType.Auto,) * len(shape))
+
+
+FLOAT32_LEAVES = ("w_base", "u", "a_log", "dt_bias", "d_skip")  # RWKV6's and Mamba2's
 
 
 def tree(inp, prefix):
@@ -44,7 +53,7 @@ def tree(inp, prefix):
             node = out
             for p in parents:
                 node = node.setdefault(p, {})
-            node[leaf] = jnp.asarray(v, jnp.bfloat16)
+            node[leaf] = jnp.asarray(v, jnp.float32 if leaf in FLOAT32_LEAVES else jnp.bfloat16)
     return out
 
 
@@ -58,48 +67,24 @@ def exact(fn, *args, **jit_kw):
     return jax.jit(fn, **jit_kw).lower(*args).compile(EXACT)(*args)
 
 
-def main(d):
-    inp = dict(np.load(os.path.join(d, "inputs.npz")))
+def family_steps(inp, mesh, families) -> dict:
+    """The sharded steps on ``mesh`` of the smoke models of ``families``
+    (names of ``FAMILY_STEPS``), each under both quant settings where it
+    lists them; the moe steps also unsharded."""
     out = {}
-    mesh = auto_mesh((4, 2), ("data", "model"))
-    params = tree(inp, "p/")
     tok = jnp.asarray(inp["tokens"])
-
-    # the sharded train step on (4, 2)
-    for name, q in (("none", QuantConfig()), ("horner", QuantConfig(mode="mma_int8", impl="xla"))):
-        cfg = get_smoke_config("yi_6b").replace(quant=q)
-        ab = ts.abstract_state(cfg)
-        st_sh = ts.state_shardings(ab, cfg, mesh)
-        b_sh = ts.batch_shardings({"tokens": jax.ShapeDtypeStruct(tok.shape, jnp.int32)}, mesh)
-        state = jax.device_put({"params": params, "opt": adamw.init(params)}, st_sh)
-
-        def step_fn(st, b, cfg=cfg):
-            with shd.use_mesh(mesh):
-                return ts.train_step(st, b, cfg)
-
-        new, m = exact(step_fn, state, {"tokens": jax.device_put(tok, b_sh["tokens"])},
-                       in_shardings=(st_sh, b_sh), out_shardings=(st_sh, None))
-        out[f"{name}/loss"], out[f"{name}/grad_norm"] = np.asarray(m["loss"]), np.asarray(
-            m["grad_norm"])
-        out.update({f"{name}/p/{k}": v for k, v in flat(new["params"]).items()})
-
-    # the moe (ep off and on) and vlm smoke models' sharded steps on (4, 2);
-    # moe_ffn_ep under quantization is moe_ffn (the reference falls back),
-    # so moe/horner stands for moe_ep/horner too.  The moe steps run
-    # unsharded as well.
-    import dataclasses as dc
-
     quants = {"none": QuantConfig(), "horner": QuantConfig(mode="mma_int8", impl="xla")}
-    for family, arch, ep, names in (("moe", "olmoe_1b_7b", False, ("none", "horner")),
-                                    ("moe_ep", "olmoe_1b_7b", True, ("none",)),
-                                    ("vlm", "internvl2_76b", None, ("none", "horner"))):
+    for family in families:
+        arch, ep, names = FAMILY_STEPS[family]
         base = get_smoke_config(arch)
         if ep is not None:
             base = base.replace(moe=dc.replace(base.moe, ep=ep))
         fparams = tree(inp, f"{base.family}/")
-        batch = {"tokens": tok}
+        batch = {"tokens": jnp.asarray(inp["tokens_257"]) if family == "hybrid" else tok}
         if base.family == "vlm":
             batch["patches"] = jnp.asarray(inp["patches"], jnp.bfloat16)
+        if base.family == "encdec":
+            batch["frames"] = jnp.asarray(inp["frames"], jnp.bfloat16)
         for name in names:
             cfg = base.replace(quant=quants[name])
             ab = ts.abstract_state(cfg)
@@ -123,6 +108,46 @@ def main(d):
                          {"params": fparams, "opt": adamw.init(fparams)}, batch)
             out[f"{family}/{name}/loss_whole"] = np.asarray(m["loss"])
             out[f"{family}/{name}/grad_norm_whole"] = np.asarray(m["grad_norm"])
+    return out
+
+
+def main(d, part):
+    """``part``: ``base`` (every check but the ssm, hybrid and encdec
+    steps), or a comma-separated list of those families; the test runs the
+    parts as concurrent subprocesses."""
+    inp = dict(np.load(os.path.join(d, "inputs.npz")))
+    mesh = auto_mesh((4, 2), ("data", "model"))
+    if part != "base":
+        out = family_steps(inp, mesh, part.split(","))
+        np.savez(os.path.join(d, f"ref_{part}.npz"), **out)
+        print("REF_OK")
+        return
+    out = {}
+    params = tree(inp, "p/")
+    tok = jnp.asarray(inp["tokens"])
+
+    # the sharded train step on (4, 2)
+    for name, q in (("none", QuantConfig()), ("horner", QuantConfig(mode="mma_int8", impl="xla"))):
+        cfg = get_smoke_config("yi_6b").replace(quant=q)
+        ab = ts.abstract_state(cfg)
+        st_sh = ts.state_shardings(ab, cfg, mesh)
+        b_sh = ts.batch_shardings({"tokens": jax.ShapeDtypeStruct(tok.shape, jnp.int32)}, mesh)
+        state = jax.device_put({"params": params, "opt": adamw.init(params)}, st_sh)
+
+        def step_fn(st, b, cfg=cfg):
+            with shd.use_mesh(mesh):
+                return ts.train_step(st, b, cfg)
+
+        new, m = exact(step_fn, state, {"tokens": jax.device_put(tok, b_sh["tokens"])},
+                       in_shardings=(st_sh, b_sh), out_shardings=(st_sh, None))
+        out[f"{name}/loss"], out[f"{name}/grad_norm"] = np.asarray(m["loss"]), np.asarray(
+            m["grad_norm"])
+        out.update({f"{name}/p/{k}": v for k, v in flat(new["params"]).items()})
+
+    # the moe (ep off and on) and vlm smoke models' sharded steps on (4, 2);
+    # moe_ffn_ep under quantization is moe_ffn (the reference falls back),
+    # so moe/horner stands for moe_ep/horner too
+    out.update(family_steps(inp, mesh, ("moe", "moe_ep", "vlm")))
 
     # moe_ffn's routing of the moe smoke model's layer 0 on xm: the whole
     # batch's (the global capacity and positions), at a capacity factor
@@ -185,9 +210,9 @@ def main(d):
     with shd.use_mesh(mesh):
         out["pp/loss"] = np.asarray(jax.jit(
             lambda p_, b_: pipelined_loss_fn(p_, b_, pcfg, n_micro=2)[0])(params, batch))
-    np.savez(os.path.join(d, "ref.npz"), **out)
+    np.savez(os.path.join(d, "ref_base.npz"), **out)
     print("REF_OK")
 
 
 if __name__ == "__main__":
-    main(sys.argv[1])
+    main(sys.argv[1], sys.argv[2])

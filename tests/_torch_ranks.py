@@ -9,11 +9,13 @@ world's meshes and writes ``DIR/rank{r}.pt`` for the test to compare.
 import dataclasses
 import os
 import shutil
+from functools import partial
 
 import numpy as np
 import torch
 import torch.distributed as dist
 
+from repro_torch import models
 from repro_torch.checkpoint.ckpt import Checkpointer, tree_leaves, tree_unflatten
 from repro_torch.configs import get_smoke_config
 from repro_torch.configs.base import QuantConfig
@@ -32,12 +34,13 @@ from repro_torch.train import train_step as ts
 from repro_torch.train import trainer
 
 WORLD = 8
-ROW = ("wo", "w_down")
 # the sharded steps beside the dense one: (smoke config, moe.ep); each also
 # runs under mma_int8 on the Horner route
 FAMILIES = {"moe": ("olmoe_1b_7b", False), "moe_ep": ("olmoe_1b_7b", True),
-            "vlm": ("internvl2_76b", None)}
+            "vlm": ("internvl2_76b", None), "ssm": ("rwkv6_3b", None),
+            "hybrid": ("zamba2_7b", None), "encdec": ("whisper_large_v3", None)}
 ROUTE_CAPACITY = 0.5  # the routing check's capacity factor: it drops assignments
+FLOAT32_LEAVES = ("w_base", "u", "a_log", "dt_bias", "d_skip")  # RWKV6's and Mamba2's
 
 
 def tree(inp: dict, prefix: str) -> dict:
@@ -48,7 +51,8 @@ def tree(inp: dict, prefix: str) -> dict:
             node = out
             for p in parents:
                 node = node.setdefault(p, {})
-            node[leaf] = torch.tensor(v).to(torch.bfloat16)
+            node[leaf] = torch.tensor(v).to(
+                torch.float32 if leaf in FLOAT32_LEAVES else torch.bfloat16)
     return out
 
 
@@ -66,9 +70,11 @@ def _route(quant: str, family: str = "dense"):
 
 
 def _batch(inp, cfg) -> dict:
-    batch = {"tokens": inp["tokens"]}
+    batch = {"tokens": inp["tokens_257" if cfg.family == "hybrid" else "tokens"]}
     if cfg.family == "vlm":
         batch["patches"] = torch.tensor(inp["patches"]).to(torch.bfloat16)
+    if cfg.family == "encdec":
+        batch["frames"] = torch.tensor(inp["frames"]).to(torch.bfloat16)
     return batch
 
 
@@ -139,16 +145,15 @@ def _train_step(inp, mesh, quant, out, family="dense"):
     out[f"{key}/loss1"], out[f"{key}/grad_norm1"] = float(m1["loss"]), float(m1["grad_norm"])
     out[f"{key}/params1"] = new1["params"] if family == "dense" else None
     if quant == "horner":
-        # forward (each layer's linears, then the head), then the backward's
-        # recompute of each layer
-        per = ["wq", "wk", "wv", "wo"] + ([] if cfg.moe.n_experts else ["w_gate", "w_up", "w_down"])
-        names = per * cfg.n_layers + ["head"] + per * cfg.n_layers
+        # forward, then the backward's recompute of each rematerialised block;
+        # a column-parallel product is the rank's columns, a row-parallel one
+        # (after its all-reduce) whole
         d, r = mesh.index("data"), mesh.index("model")
         rows = slice(d * tok.shape[0] // mesh.size("data"), (d + 1) * tok.shape[0] // mesh.size("data"))
         equal = []
-        for name, got, want in zip(names, sharded_calls, plain_calls):
+        for got, want in zip(sharded_calls, plain_calls):
             want = want[rows]
-            if name not in ROW:
+            if got.shape[-1] != want.shape[-1]:
                 n = got.shape[-1]
                 want = want[..., r * n:(r + 1) * n]
             equal.append(got.dtype == torch.int32 and torch.equal(got, want))
@@ -156,6 +161,30 @@ def _train_step(inp, mesh, quant, out, family="dense"):
             "n": (len(sharded_calls), len(plain_calls)), "equal": equal,
             "shapes": [tuple(c.shape) for c in sharded_calls]}
     return full, st_sh
+
+
+def _float32_grads(inp, mesh, family, out, key=None):
+    """The ``family`` smoke model's sharded gradients with every leaf in
+    float32 (no bf16 rounding left to differ), averaged over the data ranks
+    as the train step averages and gathered, against the unsharded ones:
+    the largest difference relative to each leaf's largest gradient, under
+    ``out[f"{key or family}/f32_grad_rel"]``."""
+    cfg = _route("none", family)
+    params = layers.tree_map(lambda t: t.float(), tree(inp, f"{cfg.family}/"))
+    batch = {k: torch.as_tensor(v) for k, v in _batch(inp, cfg).items()}
+    sh = ts.state_shardings(ts.abstract_state(cfg), cfg, mesh)["params"]
+    local_batch = shd.shard_tree(batch, ts.batch_shardings(batch, mesh))
+    with shd.use_mesh(mesh):
+        _, grads = ts.value_and_grad(
+            partial(sharded_lm.loss_fn, cfg=cfg, mesh=mesh, device="cpu"),
+            shd.shard_tree(params, sh), local_batch)
+    _, grads1 = ts.value_and_grad(partial(models.build(cfg).loss_fn, cfg=cfg, device="cpu"),
+                                  params, batch)
+    worst = 0.0
+    for g, g1, s in zip(tree_leaves(grads), tree_leaves(grads1), tree_leaves(sh)):
+        g = shd.gather(coll.all_reduce(g, mesh, "data") / mesh.size("data"), s)
+        worst = max(worst, float((g - g1).abs().max() / g1.abs().max().clamp_min(1e-30)))
+    out[f"{key or family}/f32_grad_rel"] = worst
 
 
 def _moe_global(inp, mesh, out):
@@ -304,6 +333,11 @@ def rank_main(rank: int, d: str) -> None:
         for family in FAMILIES:
             for quant in ("none", "horner"):
                 _train_step(inp, mesh, quant, out, family)
+        for family in ("ssm", "hybrid", "encdec"):
+            _float32_grads(inp, mesh, family, out)
+        # under (2, 4) a rank holds half of one of RWKV6's two heads: every
+        # head runs on every rank
+        _float32_grads(inp, mesh_b, "ssm", out, "ssm_model4")
         _moe_global(inp, mesh, out)
         _elastic(d, state_a, st_a, mesh_b, out)
         _compressed(inp, out)

@@ -48,6 +48,7 @@ import pytest
 import torch
 import torch.multiprocessing as mp
 
+from repro_torch import models
 from repro_torch.checkpoint.ckpt import tree_leaves
 from repro_torch.configs import get_smoke_config
 from repro_torch.models import moe as moe_lib
@@ -56,11 +57,24 @@ from repro_torch.models import transformer
 TESTS = Path(__file__).resolve().parent
 SRC = TESTS.parent / "src"
 WORLD = 8
-JOIN_S = 300  # each rank and the reference subprocess: a guard against a hang (a run takes ~35 s)
+JOIN_S = 300  # every rank and reference subprocess: a guard against a hang
+# the reference's side in three concurrent subprocesses (its compiles are
+# the file's long pole: the hybrid step's about 50 s each)
+REF_PARTS = ("base", "ssm,encdec", "hybrid")
 LOSS_REL = 1e-3
 NORM_REL = 1e-3
 PARAM_ATOL = 1e-5
 MOE_REL = 1e-2
+# float32 gradients, sharded against unsharded, relative to each leaf's
+# largest element: a missing or doubled share shows as O(1).  Seen: 1.4e-6
+# (ssm, encdec) and 1.1e-4 (hybrid: Mamba2's a_log and dt_bias gradients
+# are sums with cancellation, 1e-2 against terms near 1, and the SSD's
+# float32 reductions regroup with the heads a rank holds; splitting the
+# heads in two in the unsharded forward alone moves a_log's by 2.4e-5)
+F32_GRAD_REL = 1e-3
+# RWKV6's bf16 grad_norm (see test_sharded_family_step_equals_the_reference):
+# test_torch_train_families.py's NORM_REL, which holds it across the packages
+RWKV6_NORM_REL = 2e-2
 
 
 def _flat(t, prefix=""):
@@ -77,10 +91,10 @@ def _inputs(d: Path) -> None:
     rng = np.random.default_rng(0)  # the reference test's draws, in its order
     inp = {**{f"p/{k}": v for k, v in _flat(params).items()},
            **{f"m/{k}": v for k, v in _flat(mparams).items()}}
-    for arch in ("olmoe_1b_7b", "internvl2_76b"):  # the moe and vlm models, whole
-        fcfg = get_smoke_config(arch)
+    for arch in ("olmoe_1b_7b", "internvl2_76b", "rwkv6_3b", "zamba2_7b", "whisper_large_v3"):
+        fcfg = get_smoke_config(arch)  # the moe, vlm, ssm, hybrid and encdec models, whole
         inp.update({f"{fcfg.family}/{k}": v
-                    for k, v in _flat(transformer.init_params(0, fcfg, device="cpu")).items()})
+                    for k, v in _flat(models.build(fcfg).init_params(0, fcfg, device="cpu")).items()})
     inp["g_local"] = rng.standard_normal((8, 128)).astype(np.float32)
     inp["tokens"] = rng.integers(0, cfg.vocab, (8, 33)).astype(np.int32)
     xm = torch.tensor(rng.standard_normal((4, 16, mcfg.d_model)) * 0.1, dtype=torch.float32)
@@ -89,6 +103,11 @@ def _inputs(d: Path) -> None:
     patches = torch.tensor(rng.standard_normal((8, vcfg.vlm_patches, vcfg.d_model)),
                            dtype=torch.float32)
     inp["patches"] = patches.to(torch.bfloat16).float().numpy()
+    # the hybrid's sequence is one SSD chunk (mamba2.CHUNK); the encdec's frames
+    inp["tokens_257"] = rng.integers(0, cfg.vocab, (8, 257)).astype(np.int32)
+    wcfg = get_smoke_config("whisper_large_v3")
+    frames = torch.tensor(rng.standard_normal((8, wcfg.enc_seq, wcfg.d_model)), dtype=torch.float32)
+    inp["frames"] = frames.to(torch.bfloat16).float().numpy()
     np.savez(d / "inputs.npz", **inp)
 
 
@@ -98,8 +117,9 @@ def runs(tmp_path_factory):
     _inputs(d)
     env = {"PYTHONPATH": str(SRC), "PATH": os.environ.get("PATH", "/usr/bin:/bin"),
            "HOME": os.environ.get("HOME", str(d)), "JAX_PLATFORMS": "cpu"}
-    ref = subprocess.Popen([sys.executable, str(TESTS / "_ref_parallel.py"), str(d)], env=env,
-                           stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    refs = [subprocess.Popen([sys.executable, str(TESTS / "_ref_parallel.py"), str(d), part],
+                             env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+            for part in REF_PARTS]
     sys.path.insert(0, str(TESTS))
     import _torch_ranks
 
@@ -108,24 +128,28 @@ def runs(tmp_path_factory):
     for p in procs:
         p.start()
     deadline = time.monotonic() + JOIN_S
+    said = []
     try:
         for p in procs:
             p.join(max(0.0, deadline - time.monotonic()))
         hung = [r for r, p in enumerate(procs) if p.is_alive()]
-        out, err = ref.communicate(timeout=max(1.0, deadline - time.monotonic()))
+        for ref in refs:
+            said.append(ref.communicate(timeout=max(1.0, deadline - time.monotonic())))
     finally:
         for p in procs:
             if p.is_alive():
                 p.kill()
                 p.join(5)
-        if ref.poll() is None:
-            ref.kill()
-            ref.communicate()
+        for ref in refs:
+            if ref.poll() is None:
+                ref.kill()
+                ref.communicate()
     assert not hung, f"ranks {hung} still running after {JOIN_S} s"
     assert [p.exitcode for p in procs] == [0] * WORLD, [p.exitcode for p in procs]
-    assert "REF_OK" in out, out[-2000:] + err[-4000:]
-    return (dict(np.load(d / "ref.npz")),
-            [torch.load(d / f"rank{r}.pt", weights_only=False) for r in range(WORLD)],
+    for part, (out, err) in zip(REF_PARTS, said):
+        assert "REF_OK" in out, part + out[-2000:] + err[-4000:]
+    ref = {k: v for part in REF_PARTS for k, v in np.load(d / f"ref_{part}.npz").items()}
+    return (ref, [torch.load(d / f"rank{r}.pt", weights_only=False) for r in range(WORLD)],
             dict(np.load(d / "inputs.npz")))
 
 
@@ -279,53 +303,95 @@ def test_pipeline_gradients_reach_both_stages(runs):
     assert abs(bubble_fraction(2, 2) - 1 / 3) < 1e-9
 
 
-FAMILY_CASES = [(f, q) for f in ("moe", "moe_ep", "vlm") for q in ("none", "horner")]
+FAMILY_CASES = [(f, q) for f in ("moe", "moe_ep", "vlm", "ssm", "hybrid", "encdec")
+                for q in ("none", "horner")]
 
 
 @pytest.mark.parametrize("family,quant", FAMILY_CASES)
 def test_sharded_family_step_equals_the_reference(runs, family, quant):
-    """The moe (``moe.ep`` off and on) and vlm smoke models' sharded steps,
-    the same on every rank: the loss within tolerance of the reference's
-    sharded step, and of the port's unsharded step where that takes the
-    same path (not ``moe_ffn_ep``, which routes each slab on its own
-    capacity; under quantization the reference falls back to ``moe_ffn``,
-    so ``moe/horner`` is the reference's ``moe_ep/horner`` too).
+    """The moe (``moe.ep`` off and on), vlm, ssm, hybrid and encdec smoke
+    models' sharded steps, the same on every rank: the loss within
+    tolerance of the reference's sharded step, and of the port's unsharded
+    step where that takes the same path (not ``moe_ffn_ep``, which routes
+    each slab on its own capacity; under quantization the reference falls
+    back to ``moe_ffn``, so ``moe/horner`` is the reference's
+    ``moe_ep/horner`` too).
 
     grad_norm: within tolerance of the reference's sharded step, except
     where routing is global (``moe_ffn``): there of the reference's
     unsharded step and of the port's.  The reference's sharded ``moe_ffn``
     step rounds its partial sums otherwise (GSPMD), the rounding moves near
     ties of the router, and a moved expert choice moves the gradient: its
-    grad_norm is 3.2e-3 from its own unsharded step's on this batch."""
+    grad_norm is 3.2e-3 from its own unsharded step's on this batch.
+
+    And for the ssm family at ``RWKV6_NORM_REL``: RWKV6's grad_norm is
+    ``u``'s gradient, which the first position dominates (its state and
+    ``u`` are zero, so ``ln_x`` normalises a zero row and ``rsqrt(eps)``
+    scales its gradient by 316), and the bf16 roundings of the residual's
+    gradient upstream, which a sharded step groups otherwise, move it by
+    parts in a thousand: the reference's own sharded and unsharded steps
+    are 7.3e-3 apart on this batch.  Its gradients in float32 are held to
+    the unsharded ones leaf by leaf
+    (``test_sharded_float32_gradients_equal_unsharded``)."""
     ref, ranks, _ = runs
     key = f"{family}/{quant}"
     rkey = "moe/horner" if key == "moe_ep/horner" else key
+    norm_rel = RWKV6_NORM_REL if family == "ssm" else NORM_REL
     for out in ranks:
         assert _rel(out[f"{key}/loss"], ref[f"{rkey}/loss"]) < LOSS_REL
         if key != "moe_ep/none":
             assert _rel(out[f"{key}/loss"], out[f"{key}/loss1"]) < LOSS_REL
-            assert _rel(out[f"{key}/grad_norm"], out[f"{key}/grad_norm1"]) < NORM_REL
+            assert _rel(out[f"{key}/grad_norm"], out[f"{key}/grad_norm1"]) < norm_rel
         if rkey.startswith("moe/"):
             assert _rel(out[f"{key}/loss"], ref[f"{rkey}/loss_whole"]) < LOSS_REL
             assert _rel(out[f"{key}/grad_norm"], ref[f"{rkey}/grad_norm_whole"]) < NORM_REL
         else:
-            assert _rel(out[f"{key}/grad_norm"], ref[f"{rkey}/grad_norm"]) < NORM_REL
+            assert _rel(out[f"{key}/grad_norm"], ref[f"{rkey}/grad_norm"]) < norm_rel
     assert len({out[f"{key}/loss"] for out in ranks}) == 1
     assert len({out[f"{key}/grad_norm"] for out in ranks}) == 1
 
 
-@pytest.mark.parametrize("family", ["moe", "moe_ep", "vlm"])
+# quantized products of microbatch 0's forward (each then again in remat's
+# recompute): the attention's four linears and the MLP's three per layer
+# (the moe's MLP is its experts, bf16); RWKV6's time mix 5 and channel mix 3;
+# Zamba2's 4 per Mamba2 layer (5) and the shared block's 5 per group (2);
+# Whisper's encoder 6 and decoder 10 per layer (its head is bf16, tied)
+INT32_FORWARD = {"moe": 4 * 2 + 1, "moe_ep": 4 * 2 + 1, "vlm": 7 * 2 + 1, "ssm": 8 * 2 + 1,
+                 "hybrid": 4 * 5 + 5 * 2 + 1, "encdec": 6 * 2 + 10 * 2}
+INT32_REMAT = {"moe": 4 * 2, "moe_ep": 4 * 2, "vlm": 7 * 2, "ssm": 8 * 2, "hybrid": 4 * 5,
+               "encdec": 6 * 2 + 10 * 2}
+
+
+@pytest.mark.parametrize("family", ["moe", "moe_ep", "vlm", "ssm", "hybrid", "encdec"])
 def test_sharded_family_int32_products_are_bit_equal_to_unsharded(runs, family):
     _, ranks, _ = runs
     for out in ranks:
         rec = out[f"{family}/horner/int32"]
-        # the attention linears (and the vlm's MLP) of 2 layers and the
-        # head, then the layers again in remat
-        n = (4 if family.startswith("moe") else 7) * 4 + 1
+        n = INT32_FORWARD[family] + INT32_REMAT[family]
         assert rec["n"] == (n, n)
         assert all(rec["equal"]), rec["equal"]
+    shapes = ranks[0][f"{family}/horner/int32"]["shapes"]
     if family == "vlm":  # the 8 patch positions ride the sequence
-        assert ranks[0]["vlm/horner/int32"]["shapes"][0] == (2, 40, 64)
+        assert shapes[0] == (2, 40, 64)
+    if family == "ssm":  # wr: the rank's head; time mix wo whole
+        assert shapes[0] == (2, 32, 64) and shapes[4] == (2, 32, 128)
+    if family == "hybrid":  # the row-parallel in-projections: whole after the all-reduce
+        assert shapes[:4] == [(2, 256, 256), (2, 256, 288), (2, 256, 8), (2, 256, 128)]
+    if family == "encdec":  # the encoder's frames, then the decoder's tokens
+        assert shapes[0] == (2, 32, 64) and shapes[12] == (2, 32, 64)
+
+
+@pytest.mark.parametrize("family", ["ssm", "hybrid", "encdec", "ssm_model4"])
+def test_sharded_float32_gradients_equal_unsharded(runs, family):
+    """With every leaf in float32 the sharded step's gradients (averaged
+    over the data ranks, gathered) are the unsharded ones, leaf by leaf, to
+    within float32's reassociation; on (4, 2), and for RWKV6 on (2, 4) too,
+    where the model axis splits inside a head and every head runs on every
+    rank (the path the production meshes' 16-way model axis takes for
+    RWKV6-3B's 40 heads)."""
+    _, ranks, _ = runs
+    for out in ranks:
+        assert out[f"{family}/f32_grad_rel"] < F32_GRAD_REL, out[f"{family}/f32_grad_rel"]
 
 
 @pytest.mark.parametrize("key", ["none", "horner", "pp"] + [f"{f}/{q}" for f, q in FAMILY_CASES])

@@ -168,6 +168,21 @@ def test_dryrun_writes_the_cells_json(tmp_path):
                                                      "yi_6b__train_4k__16_16.json"]
 
 
+@pytest.mark.parametrize("arch", ["whisper_large_v3", "zamba2_7b", "rwkv6_3b"])
+def test_every_family_train_cell_counts_its_collectives(arch):
+    """The ssm, hybrid and encdec train cells on 16x16 are counted as one
+    rank's sharded step, as the other families' are: their collectives
+    include the layers' all-reduces over 'model' (the gradient sync over
+    the data axes issues one per parameter leaf, the loss and the norm a
+    few, whatever the depth).  RWKV6's per-token loop on meta tensors makes
+    its cell the slow one (about 4 minutes on one core)."""
+    r = dryrun.run_cell(arch, "train_4k", multi_pod=False)
+    assert r["collectives_counted"] and r["flops_basis"] == "per-rank step"
+    n_leaves = len(tree_leaves(specs._abstract_params(get_config(arch))))
+    assert r["collectives"]["counts_by_kind"]["all-reduce"] > n_leaves + 4
+    assert r["cost"]["coll_bytes"] == r["collectives"]["total_bytes"] > 0
+
+
 def test_dryrun_pp_writes_its_json(tmp_path):
     assert dryrun_pp.main(["--n-micro", "4", "--out", str(tmp_path)]) == 0
     r = json.loads((tmp_path / "yi_6b__train_4k__16_16__pp.json").read_text())
