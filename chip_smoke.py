@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Phases, in one process (phase 16 adds four rank processes of its own), each
+Phases, in one process (phases 16-17 add four rank processes of their own), each
 printing its seconds; any failure ends the run with a non-zero exit:
 
 1. Device: the card's name and power limit (``nvidia-smi``), then the build
@@ -309,9 +309,37 @@ printing its seconds; any failure ends the run with a non-zero exit:
    collectives equal to the dry run's; prints the host wall per step, the
    collectives by kind and their share, and the kernel graph-timed at each
    of the model's shapes against ``torch._int_mm`` and the bound.
+17. Sharded serving (main path 12), in phase 16's four rank processes
+   after their training state is freed: every LM family through
+   ``serve_step.make_prefill`` / ``make_decode`` with the (data 2, model 2)
+   mesh, the kernel route at 8 planes, int8 weights and KV cache
+   (``SERVE_MODELS``): Yi-6B at full width and depth (32 layers, random
+   weights from seed 0 quantized on the card, about 3 GB of int8 weights
+   per rank), 8 prompts of ``SERVE_PROMPT`` tokens through one writing
+   prefill and 8 greedy decode steps against a cache of ``SERVE_MAX_SEQ``
+   (256 positions per rank); OLMoE-1B-7B, RWKV6-3B, Zamba2-7B and
+   Whisper-large-v3 at phase 16's depth cuts, 4 rows, one writing prefill
+   (Zamba2: the stateless prefill) and 4 greedy steps (Whisper's encoder
+   and cross K/V first, sharded, over 4 x 1500 frames).  Before the ranks
+   spawn, each model's unsharded steps in this process (the yardstick:
+   logits, tokens, the first layer's int32 products) and the dry run's
+   prediction (``serve_prediction``: state bytes, one prefill's and one
+   decode step's collectives, counted on meta tensors).  Gates: (a) each
+   rank's params, cache and extras bytes and its prefill's and decode
+   step's collectives equal the prediction; (b) launches per decode step
+   per rank equal ``serve_launches`` (Yi-6B: 161 scaled + 64 unscaled);
+   (c) every kernel call of one recorded decode step bit-exact against
+   its plain version; (d) the prefill's and decode step 0's first-layer
+   int32 products equal the yardstick's; (e) every call's logits within
+   ``SERVE_LOGIT_REL`` of the yardstick's, greedy tokens equal up to the
+   first near tie.  Prints the host wall per prefill and decode step per
+   rank, the collectives and their share, and the scaled kernel at Yi-6B's
+   sharded decode shapes (w cold) against ``torch._int_mm`` + scale and
+   the bound.
 
-The line before the last is a JSON object naming every kernel with its
-launches on its main path and its times; the last line is
+The lines before the last three print each kernel's detail (per shape and
+per path); the line before the last is a JSON object naming every kernel
+with its launches on its main path and its times; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 from __future__ import annotations
@@ -442,6 +470,46 @@ PAR_MOE_LAYERS = 2
 PAR_FAMILIES = (("rwkv6_3b", "RWKV6-3B", dict(n_layers=2)),
                 ("zamba2_7b", "Zamba2-7B", dict(n_layers=7)),
                 ("whisper_large_v3", "Whisper-large-v3", dict(n_layers=2, enc_layers=2)))
+# Phase 17 serves every LM family sharded on phase 16's 4 ranks, mesh (data
+# 2, model 2), the kernel route with int8 weights and KV cache at 8 planes
+# (quirk 1: the LM phases gate at 8): (arch, label, depth, rows, decode
+# steps).  Yi-6B at full width and depth, 8 prompts of SERVE_PROMPT tokens
+# through one writing prefill and 8 greedy decode steps against a cache of
+# SERVE_MAX_SEQ (each rank holds half the positions); the others at phase
+# 16's depth cuts, 4 rows, one writing prefill (Zamba2: the stateless
+# prefill; Mamba2 decodes one token per call) and 4 greedy steps.
+SERVE_MAX_SEQ, SERVE_PROMPT = 512, 256
+SERVE_MODELS = (("yi_6b", "Yi-6B", {}, 8, 8),
+                ("olmoe_1b_7b", "OLMoE-1B-7B", dict(n_layers=2), 4, 4),
+                ("rwkv6_3b", "RWKV6-3B", dict(n_layers=2), 4, 4),
+                ("zamba2_7b", "Zamba2-7B", dict(n_layers=7), 4, 4),
+                ("whisper_large_v3", "Whisper-large-v3", dict(n_layers=2, enc_layers=2), 4, 4))
+# The sharded steps' logits against the unsharded yardstick's on the same
+# tokens (the ranks are fed the yardstick's greedy tokens), relative to the
+# largest.  On the CPU the port's sharded steps equal its unsharded ones bit
+# for bit; on the card cuBLAS sums the unsharded attention's one pass over
+# the cache in another order than the ranks' partial sums and their
+# all-reduce, a bf16 rounding of the attention's output flips, and that
+# moves an int8 level of wo's input (OLMoE-1B-7B's writing prefill: one
+# row of one level), whose effect grows through the layers: Yi-6B's 32
+# layers parted by 0.0546 of the largest logit on an H100 (PERF.md §6).
+# test_torch_gpu.py holds the card against the CPU at 0.05 on 2 layers.
+# The ranks' own greedy tokens must equal the yardstick's, or part where
+# the yardstick's margin between the two is within twice the bound.
+SERVE_LOGIT_REL = 0.1
+# each family's quantized products in its first layer: a transformer
+# block's 7 (MoE: attention's 4), RWKV6's mix_lora_a, time mix 5 and channel
+# mix 3, a Mamba2 layer's 4, Whisper's decoder block 8 (its cross K/V
+# precomputed); and of them the ones before the first attention combine,
+# held bit for bit against the yardstick's (the rest is reported): q, k, v
+# (the recurrent layers have no attention)
+SERVE_LAYER0 = {"dense": 7, "moe": 4, "ssm": 9, "hybrid": 4, "encdec": 8}
+SERVE_PRE_ATTENTION = {"dense": 3, "moe": 3, "ssm": 9, "hybrid": 4, "encdec": 3}
+# the keys of each kernel's entry in the kernels line; the rest of its
+# summary is printed on a [detail] line before it
+KERNEL_KEYS = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
+               "bound_ms", "bound_by", "library_ms")
+SERVING_KEYS = ("serving", "serving_per_shape", "serving_step", "launches_serving", "phase17_s")
 # substrings of stock matmul kernel names (cuBLAS, CUTLASS) in a profile
 GEMM_NAMES = ("gemm", "nvjet", "xmma", "cutlass")
 
@@ -3060,8 +3128,9 @@ def par_shapes(cfg, m: int) -> list:
 
 
 def parallel_rank(rank: int, world: int, root: str) -> None:
-    """Phase 16's ranks: one process each on the card, gloo between them
-    (NCCL refuses two ranks on one device).  Writes ``root/rank{r}.json``."""
+    """Phases 16 and 17's ranks: one process each on the card, gloo between
+    them (NCCL refuses two ranks on one device); the phases to run are in
+    ``root/phases.json``.  Writes ``root/rank{r}.json``."""
     import numpy as np
     import torch
     import torch.distributed as dist
@@ -3073,7 +3142,21 @@ def parallel_rank(rank: int, world: int, root: str) -> None:
     dist.init_process_group("gloo", init_method=f"file://{root}/pg", rank=rank,
                             world_size=world)
     try:
-        out = _parallel_rank(torch, np, dist, Path(root))
+        phases = json.loads((Path(root) / "phases.json").read_text())
+        out = _parallel_rank(torch, np, dist, Path(root)) if 16 in phases else \
+            {"rank": dist.get_rank(), "secs": {}}
+        if 17 in phases:
+            from repro_torch.kernels import mma_matmul as mk
+            from repro_torch.launch.mesh import make_host_mesh
+
+            mk.build()  # phase 1's library, found by its hash: not rebuilt
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            mk.launches = mk.scaled_launches = 0
+            out["serving"] = _serving_rank(torch, np, dist, Path(root), make_host_mesh(model=2),
+                                           torch.device("cuda"))
+            out["serving_launches"] = [mk.scaled_launches, mk.launches]
+            out["secs"]["serving"] = time.perf_counter() - t0
         (Path(root) / f"rank{rank}.json").write_text(json.dumps(out))
     finally:
         dist.destroy_process_group()
@@ -3527,11 +3610,13 @@ def _olmoe_ep_rank(torch, mesh, dev, out: dict) -> None:
     torch.cuda.empty_cache()
 
 
-def parallel_training(torch, np, dev, card):
-    """Phase 16: parallel training (main path 11).  The unsharded step in
-    this process first (the yardstick), its weights freed; then 4 ranks in 4
-    processes on the card (``parallel_rank``), their gates checked here.
-    Returns kernel 1's phase-16 entries."""
+def parallel_training(torch, np, dev, card, phases=(16, 17)):
+    """Phase 16: parallel training (main path 11), and phase 17: sharded
+    serving (main path 12), on the same 4 ranks.  The unsharded steps in
+    this process first (the yardsticks), their weights freed, and the dry
+    run's predictions; then 4 ranks in 4 processes on the card
+    (``parallel_rank``), their gates checked here.  ``phases``: both, or
+    one of them.  Returns the kernels' entries of the phases run."""
     import torch.multiprocessing as mp
 
     from repro_torch import models
@@ -3589,67 +3674,91 @@ def parallel_training(torch, np, dev, card):
         torch.cuda.empty_cache()
         return out
 
-    # ---- the yardsticks: one unsharded step of each model
-    y = yardstick(cfg, dcfg)
-    loss1, norm1 = y["loss"], y["grad_norm"]
-    torch.save({"int32": y["int32"], "params": y["params"]}, root / "yard.pt")
-    print(f"[parallel] {card} | Yi-6B at full width, {cfg.n_layers} of 32 layers: "
-          f"{y['n_params'] / 1e9:.3f} G params, {y['state_bytes'] / 1e9:.2f} GB of state; the "
-          f"unsharded step (the yardstick): loss {loss1:.6f}, grad_norm {norm1:.6f}, {per_step} "
-          f"unscaled launches, host wall {y['wall']:.2f} s")
-    del y
-    mcfg, mdcfg = parallel_moe_cfgs()
-    moe_per_step = par_launches(mcfg)
-    ym = yardstick(mcfg, mdcfg)
-    loss_m, norm_m = ym["loss"], ym["grad_norm"]
-    torch.save({"int32": ym["int32"]}, root / "yard_moe.pt")
-    print(f"[parallel] {card} | OLMoE-1B-7B at full width, {mcfg.n_layers} of 16 layers (64 "
-          f"experts, top-8): {ym['n_params'] / 1e9:.3f} G params, {ym['state_bytes'] / 1e9:.2f} GB "
-          f"of state; the unsharded step (the yardstick): loss {loss_m:.6f}, grad_norm "
-          f"{norm_m:.6f}, {moe_per_step} unscaled launches, host wall {ym['wall']:.2f} s")
-    del ym
-    ecfg, edcfg = parallel_moe_ep_cfgs()
-    ye = yardstick(ecfg, edcfg, moe_ep=lambda p, x, c: moe_ep_plain(torch, p, x, c))
-    loss_e, norm_e = ye["loss"], ye["grad_norm"]
-    print(f"[parallel] {card} | OLMoE-1B-7B unquantized, the same weights and batch: the "
-          f"unsharded step with moe_ffn_ep's slabs (data 2 x model 2, each routed alone on "
-          f"float32 logits): loss {loss_e:.6f}, grad_norm {norm_e:.6f}, host wall "
-          f"{ye['wall']:.2f} s")
-    del ye
+    if 16 in phases:
+        # ---- the yardsticks: one unsharded step of each model
+        y = yardstick(cfg, dcfg)
+        loss1, norm1 = y["loss"], y["grad_norm"]
+        torch.save({"int32": y["int32"], "params": y["params"]}, root / "yard.pt")
+        print(f"[parallel] {card} | Yi-6B at full width, {cfg.n_layers} of 32 layers: "
+              f"{y['n_params'] / 1e9:.3f} G params, {y['state_bytes'] / 1e9:.2f} GB of state; the "
+              f"unsharded step (the yardstick): loss {loss1:.6f}, grad_norm {norm1:.6f}, {per_step} "
+              f"unscaled launches, host wall {y['wall']:.2f} s")
+        del y
+        mcfg, mdcfg = parallel_moe_cfgs()
+        moe_per_step = par_launches(mcfg)
+        ym = yardstick(mcfg, mdcfg)
+        loss_m, norm_m = ym["loss"], ym["grad_norm"]
+        torch.save({"int32": ym["int32"]}, root / "yard_moe.pt")
+        print(f"[parallel] {card} | OLMoE-1B-7B at full width, {mcfg.n_layers} of 16 layers (64 "
+              f"experts, top-8): {ym['n_params'] / 1e9:.3f} G params, {ym['state_bytes'] / 1e9:.2f} GB "
+              f"of state; the unsharded step (the yardstick): loss {loss_m:.6f}, grad_norm "
+              f"{norm_m:.6f}, {moe_per_step} unscaled launches, host wall {ym['wall']:.2f} s")
+        del ym
+        ecfg, edcfg = parallel_moe_ep_cfgs()
+        ye = yardstick(ecfg, edcfg, moe_ep=lambda p, x, c: moe_ep_plain(torch, p, x, c))
+        loss_e, norm_e = ye["loss"], ye["grad_norm"]
+        print(f"[parallel] {card} | OLMoE-1B-7B unquantized, the same weights and batch: the "
+              f"unsharded step with moe_ffn_ep's slabs (data 2 x model 2, each routed alone on "
+              f"float32 logits): loss {loss_e:.6f}, grad_norm {norm_e:.6f}, host wall "
+              f"{ye['wall']:.2f} s")
+        del ye
 
-    # ---- (c) the ssm, hybrid and encdec models' yardsticks
-    fams = {}
-    for tag, label, fcfg, fdcfg in parallel_family_cfgs():
-        yf = yardstick(fcfg, fdcfg)
-        torch.save({"int32": yf["int32"]}, root / f"yard_{tag}.pt")
-        fams[tag] = dict(label=label, cfg=fcfg, loss=yf["loss"], grad_norm=yf["grad_norm"],
-                         n_params=yf["n_params"], state_bytes=yf["state_bytes"], wall=yf["wall"])
-        depth = (f"{fcfg.enc_layers} + {fcfg.n_layers} of 32 + 32 encoder + decoder layers, "
-                 f"{fcfg.enc_seq} frames" if fcfg.family == "encdec"
-                 else f"{fcfg.n_layers} of {get_config(tag).n_layers} layers")
-        print(f"[parallel] {card} | {label} at full width, {depth}: {yf['n_params'] / 1e9:.3f} G "
-              f"params, {yf['state_bytes'] / 1e9:.2f} GB of state; the unsharded step (the "
-              f"yardstick): loss {yf['loss']:.6f}, grad_norm {yf['grad_norm']:.6f}, "
-              f"{par_launches(fcfg)} unscaled launches, host wall {yf['wall']:.2f} s")
-        del yf
+        # ---- (c) the ssm, hybrid and encdec models' yardsticks
+        fams = {}
+        for tag, label, fcfg, fdcfg in parallel_family_cfgs():
+            yf = yardstick(fcfg, fdcfg)
+            torch.save({"int32": yf["int32"]}, root / f"yard_{tag}.pt")
+            fams[tag] = dict(label=label, cfg=fcfg, loss=yf["loss"], grad_norm=yf["grad_norm"],
+                             n_params=yf["n_params"], state_bytes=yf["state_bytes"], wall=yf["wall"])
+            depth = (f"{fcfg.enc_layers} + {fcfg.n_layers} of 32 + 32 encoder + decoder layers, "
+                     f"{fcfg.enc_seq} frames" if fcfg.family == "encdec"
+                     else f"{fcfg.n_layers} of {get_config(tag).n_layers} layers")
+            print(f"[parallel] {card} | {label} at full width, {depth}: {yf['n_params'] / 1e9:.3f} G "
+                  f"params, {yf['state_bytes'] / 1e9:.2f} GB of state; the unsharded step (the "
+                  f"yardstick): loss {yf['loss']:.6f}, grad_norm {yf['grad_norm']:.6f}, "
+                  f"{par_launches(fcfg)} unscaled launches, host wall {yf['wall']:.2f} s")
+            del yf
 
-    # ---- the dry run's prediction of one rank of the (2, 2) mesh, each model
-    pred, pred_m = dry_prediction(torch, cfg), dry_prediction(torch, mcfg)
-    pred_e = dry_prediction(torch, ecfg)
-    for f in fams.values():
-        f["pred"] = dry_prediction(torch, f["cfg"])
-    for label, p in (("Yi-6B", pred), ("OLMoE-1B-7B", pred_m),
-                     ("OLMoE-1B-7B unquantized", pred_e),
-                     *((f["label"], f["pred"]) for f in fams.values())):
-        print(f"[parallel] dry run, {label}, one rank of (data 2, model 2), counted on meta "
-              f"tensors in {p['seconds']:.1f} s: state {p['state_bytes']} bytes; per step "
-              f"{p['collectives']['counts_by_kind']} ({p['collectives']['total_bytes']} bytes), "
-              f"{p['census']['products']} products ({p['census']['int8_products']} int8), "
-              f"{p['census']['flops']:.4e} FLOPs, {p['hbm_bytes']:.4e} bytes of HBM traffic "
-              f"(analytic); roofline bound {p['roofline']['step_time_lower_bound_s'] * 1e3:.2f} ms "
-              f"({p['roofline']['dominant']}) at the H100 SXM data sheet's peaks")
+        # ---- the dry run's prediction of one rank of the (2, 2) mesh, each model
+        pred, pred_m = dry_prediction(torch, cfg), dry_prediction(torch, mcfg)
+        pred_e = dry_prediction(torch, ecfg)
+        for f in fams.values():
+            f["pred"] = dry_prediction(torch, f["cfg"])
+        for label, p in (("Yi-6B", pred), ("OLMoE-1B-7B", pred_m),
+                         ("OLMoE-1B-7B unquantized", pred_e),
+                         *((f["label"], f["pred"]) for f in fams.values())):
+            print(f"[parallel] dry run, {label}, one rank of (data 2, model 2), counted on meta "
+                  f"tensors in {p['seconds']:.1f} s: state {p['state_bytes']} bytes; per step "
+                  f"{p['collectives']['counts_by_kind']} ({p['collectives']['total_bytes']} bytes), "
+                  f"{p['census']['products']} products ({p['census']['int8_products']} int8), "
+                  f"{p['census']['flops']:.4e} FLOPs, {p['hbm_bytes']:.4e} bytes of HBM traffic "
+                  f"(analytic); roofline bound {p['roofline']['step_time_lower_bound_s'] * 1e3:.2f} ms "
+                  f"({p['roofline']['dominant']}) at the H100 SXM data sheet's peaks")
+
+    # ---- phase 17: the unsharded serving steps (the yardsticks) and the dry
+    # run's prediction of one rank's state and collectives, each model
+    yards, preds = {}, {}
+    if 17 in phases:
+        t17 = time.perf_counter()
+        for tag, label, scfg, rows, steps in serve_cfgs():
+            yards[tag] = serving_yardstick(torch, np, dev, scfg, rows, steps)
+            torch.save({k: yards[tag][k] for k in ("int32_prefill", "int32_decode0", "logits",
+                                                   "tokens")}, root / f"yard_serve_{tag}.pt")
+            for k in ("int32_prefill", "int32_decode0"):
+                del yards[tag][k]
+            preds[tag] = p17 = serve_prediction(torch, scfg, rows)
+            print(f"[serving] {card} | {label}: the unsharded yardstick, {rows} rows: "
+                  f"{yards[tag]['launches']} (scaled, unscaled) launches per decode step; dry run, "
+                  f"one rank of (data 2, model 2), {p17['mode']}, counted on meta tensors in "
+                  f"{p17['seconds']:.1f} s: state {p17['param_bytes']} + {p17['cache_bytes']} + "
+                  f"{p17['extras_bytes']} bytes (params, cache, extras); prefill "
+                  f"{p17['prefill']['counts_by_kind']} ({p17['prefill']['total_bytes']} bytes), "
+                  f"decode step {p17['decode']['counts_by_kind']} "
+                  f"({p17['decode']['total_bytes']} bytes)")
+        prep17_s = time.perf_counter() - t17
 
     # ---- the ranks
+    (root / "phases.json").write_text(json.dumps(list(phases)))
     t0 = time.perf_counter()
     ctx = mp.get_context("spawn")
     procs = [ctx.Process(target=parallel_rank, args=(r, PAR_WORLD, str(root)))
@@ -3673,198 +3782,216 @@ def parallel_training(torch, np, dev, card):
     outs = [json.loads((root / f"rank{r}.json").read_text()) for r in range(PAR_WORLD)]
     shutil.rmtree(root, ignore_errors=True)
 
-    # ---- gates
-    total_state = sum(o["state_bytes"] for o in outs)
-    for o in outs:
-        r, om = o["rank"], o["olmoe"]
-        check(o["state_bytes"] == pred["state_bytes"] and om["state_bytes"] == pred_m["state_bytes"],
-              f"rank {r}: state bytes {o['state_bytes']}, {om['state_bytes']} against the dry "
-              f"run's {pred['state_bytes']}, {pred_m['state_bytes']}")
-        check(same_collectives(o["collectives"], pred["collectives"]),
-              f"rank {r}: Yi-6B step's collectives {o['collectives']} against the dry run's "
-              f"{pred['collectives']}")
-        check(same_collectives(om["collectives"], pred_m["collectives"]),
-              f"rank {r}: OLMoE step's collectives {om['collectives']} against the dry run's "
-              f"{pred_m['collectives']}")
-        n_mb = 2 * block_mma_linears(mcfg) * mcfg.n_layers + 1
-        check(om["calls_exact"][0] == om["calls_exact"][1] == n_mb,
-              f"rank {r}: OLMoE microbatch 0's kernel calls bit-exact {om['calls_exact']}")
-        n_fwd = block_mma_linears(mcfg) * mcfg.n_layers + 1
-        check(om["int32_equal"][0] == om["int32_equal"][1] == om["int32_equal"][2] == n_fwd,
-              f"rank {r}: OLMoE int32 products equal to the unsharded step's {om['int32_equal']}")
-        check(om["launches"] == moe_per_step, f"rank {r}: OLMoE launches per step "
-              f"{om['launches']}, expected {moe_per_step}")
-        check(om["experts_local"] == mcfg.moe.n_experts // 2,
-              f"rank {r}: {om['experts_local']} experts on the rank")
-        for k, want, tol in (("loss", loss_m, PAR_LOSS_REL), ("grad_norm", norm_m, PAR_NORM_REL)):
-            check(np.isfinite(om[k]) and abs(om[k] - want) <= tol * abs(want),
-                  f"rank {r}: OLMoE {k} {om[k]} against {want} (rel tolerance {tol})")
-        oe = o["olmoe_ep"]
-        check(oe["state_bytes"] == pred_e["state_bytes"]
-              and same_collectives(oe["collectives"], pred_e["collectives"]),
-              f"rank {r}: unquantized OLMoE step's state bytes {oe['state_bytes']} and "
-              f"collectives {oe['collectives']} against the dry run's {pred_e['state_bytes']}, "
-              f"{pred_e['collectives']}")
-        check(oe["collectives"]["counts_by_kind"].get("all-to-all", 0) > 0 and oe["launches"] == 0,
-              f"rank {r}: unquantized OLMoE step: {oe['collectives']['counts_by_kind']}, "
-              f"{oe['launches']} unscaled launches (the expert-parallel path has all-to-alls "
-              "and no kernel)")
-        for k, want, tol in (("loss", loss_e, PAR_LOSS_REL), ("grad_norm", norm_e, PAR_NORM_REL)):
-            check(np.isfinite(oe[k]) and abs(oe[k] - want) <= tol * abs(want),
-                  f"rank {r}: unquantized OLMoE {k} {oe[k]} against {want} (rel tolerance {tol})")
-    print(f"[parallel] 4 ranks on the card, mesh (data 2, model 2), gloo over host memory: "
-          f"state bytes per rank {[o['state_bytes'] for o in outs]} "
-          f"({total_state / 1e9:.2f} GB together), peak allocated per rank "
-          f"{[round(o['peak_bytes'] / 1e9, 2) for o in outs]} GB; library {outs[0]['library']} "
-          f"(phase 1's, not rebuilt)")
-    check(total_state < PAR_STATE_LIMIT, f"the ranks' state is {total_state / 1e9:.2f} GB")
-    for o in outs:
-        r = o["rank"]
-        check(o["calls_exact"][0] == o["calls_exact"][1] == 2 * 7 * cfg.n_layers + 1,
-              f"rank {r}: microbatch 0's kernel calls bit-exact {o['calls_exact']}")
-        check(o["int32_equal"][0] == o["int32_equal"][1] == o["int32_equal"][2] == 7 * cfg.n_layers + 1,
-              f"rank {r}: int32 products equal to the unsharded step's {o['int32_equal']}")
-        check(o["launches_step1"] == o["launches_step2"] == per_step,
-              f"rank {r}: launches per step {o['launches_step1']}, {o['launches_step2']}, "
-              f"expected {per_step}")
-        for k, want, tol in (("loss1", loss1, PAR_LOSS_REL), ("grad_norm1", norm1, PAR_NORM_REL),
-                             ("loss_pp", loss1, PAR_LOSS_REL),
-                             ("loss2_b", o["loss2"], PAR_LOSS_REL),
-                             ("grad_norm2_b", o["grad_norm2"], PAR_NORM_REL)):
-            check(np.isfinite(o[k]) and abs(o[k] - want) <= tol * abs(want),
-                  f"rank {r}: {k} {o[k]} against {want} (rel tolerance {tol})")
-        check(o["restored_equal"], f"rank {r}: the (1, 4) restore differs from the saved state")
-        check(o["gc"]["ratio"] <= 1.01, f"rank {r}: compressed sync error {o['gc']['ratio']} of "
-              "the int8 step")
-        check(o["moe"]["routing_equal"] and o["moe"]["rel"] <= MOE_REL
-              and max(o["moe"]["grad_rel"]) <= MOE_REL
-              and o["moe"]["kept"] == o["moe"]["assignments"] and o["moe"]["experts_local"] == 16,
-              f"rank {r}: moe_ffn_ep {o['moe']}")
-    o0 = outs[0]
-    check(o0["param_worst"] <= 1.0 and o0["param_differ"] <= PAR_PARAM_DIFFER * o0["param_n"],
-          f"params after one step: {o0['param_differ']} of {o0['param_n']} differ, the worst by "
-          f"{o0['param_worst']} of two lr steps + one bf16 ulp")
-    print(f"[parallel] microbatch 0 on each rank: {o0['calls_exact'][1]} unscaled calls bit-exact "
-          f"against the plain version at the sharded shapes; {o0['int32_equal'][1]} int32 "
-          f"products (column-parallel: the rank's columns; row-parallel: all-reduced) equal to "
-          f"the unsharded step's, bit for bit")
-    print(f"[parallel] step 1: loss {[o['loss1'] for o in outs]} vs {loss1} unsharded; grad_norm "
-          f"{[o['grad_norm1'] for o in outs]} vs {norm1}; gathered params: "
-          f"{o0['param_differ']} of {o0['param_n']} elements differ, the worst by "
-          f"{o0['param_worst']:.3f} of (two lr steps + one bf16 ulp)")
-    print(f"[parallel] {card} | {o0['launches_step2']} unscaled launches per step per rank (as the layout "
-          f"gives); host wall per sharded step {[round(o['step2_s'], 3) for o in outs]} s "
-          f"(step 2; step 1 with its checks {[round(o['secs']['step1'], 3) for o in outs]} s)")
-    for o in outs[:1]:
-        cs = o["collectives"]
-        share = sum(o["collective_s"].values()) / o["step2_s"]
-        print(f"[parallel] rank 0, step 2, collectives (gloo over host memory, not NVLink: "
-              f"nothing is claimed from their times): counts {cs['counts_by_kind']}, bytes "
-              f"{cs['bytes_by_kind']} ({cs['total_bytes'] / 1e9:.3f} GB); host seconds in the "
-              f"transport {({k: round(v, 3) for k, v in o['collective_s'].items()})}, "
-              f"{share:.3f} of the step")
-    print(f"[parallel] checkpoint saved under (2, 2), restored under (1, 4) in "
-          f"{[round(o['restore_s'], 1) for o in outs]} s: every rank's slices bit-equal; one "
-          f"step from it: loss {o0['loss2_b']} vs {o0['loss2']} under (2, 2), grad_norm "
-          f"{o0['grad_norm2_b']} vs {o0['grad_norm2']}; state per rank under (1, 4) "
-          f"{[o['state_bytes_b'] for o in outs]}")
-    print(f"[parallel] GPipe PP 2 x DP 2 (one layer per stage, {cfg.microbatches} microbatches): "
-          f"loss {[o['loss_pp'] for o in outs]} vs {loss1} unsharded")
-    print(f"[parallel] compressed_psum_shardmap over 'data', {o0['gc']['leaves']} gradient "
-          f"leaves: error at most {max(o['gc']['ratio'] for o in outs):.3f} of the int8 step; "
-          f"{o0['gc']['stats']['counts_by_kind']}, {o0['gc']['stats']['total_bytes'] / 1e6:.1f} "
-          f"MB crossed per rank")
-    mo = o0["moe"]
-    print(f"[parallel] moe_ffn_ep, OLMoE-1B-7B layer, mesh (1, 4), {mo['experts_local']} experts "
-          f"per rank, T = {MOE_T}: routing card = CPU on every slab, {mo['kept']} of "
-          f"{mo['assignments']} assignments kept (cap {mo['cap']}), output within "
-          f"{max(o['moe']['rel'] for o in outs):.2e} of moe_ffn's dispatch on the same float32 "
-          f"router logits (MOE_REL {MOE_REL}), its gradients (x, the rank's w_gate) within "
-          f"{max(max(o['moe']['grad_rel']) for o in outs):.2e}; forward "
-          f"{mo['stats']['counts_by_kind']} | moe_ffn itself "
-          f"(bf16 router): {mo['sets_differ']} of {MOE_T} tokens pick another expert set, "
-          f"output {mo['rel_moe_ffn']:.3f} of the largest away (not gated)")
-    print(f"[parallel] dry run against the ranks: state bytes per rank equal the prediction "
-          f"(Yi-6B {pred['state_bytes']}, OLMoE-1B-7B {pred_m['state_bytes']}, unquantized "
-          f"{pred_e['state_bytes']}); one step's collectives on every rank equal the counted "
-          f"ones (Yi-6B step 2: {pred['collectives']['total_count']}, OLMoE step 1: "
-          f"{pred_m['collectives']['total_count']}, unquantized: "
-          f"{pred_e['collectives']['total_count']}) | roofline bound "
-          f"{pred['roofline']['step_time_lower_bound_s'] * 1e3:.2f} ms against "
-          f"{[round(o['step2_s'] * 1e3, 1) for o in outs]} ms measured (Yi-6B); "
-          f"{pred_m['roofline']['step_time_lower_bound_s'] * 1e3:.2f} ms against "
-          f"{[round(o['olmoe']['step_s'] * 1e3, 1) for o in outs]} ms (OLMoE-1B-7B); not gated")
-    om0 = o0["olmoe"]
-    ocs = om0["collectives"]
-    print(f"[parallel] {card} | OLMoE-1B-7B sharded step, mesh (data 2, model 2), "
-          f"{om0['experts_local']} experts per rank (global moe_ffn routing: the reference's path "
-          f"under mma_int8): loss {[o['olmoe']['loss'] for o in outs]} vs {loss_m} unsharded; "
-          f"grad_norm {[o['olmoe']['grad_norm'] for o in outs]} vs {norm_m}; {om0['launches']} "
-          f"unscaled launches per step per rank (as the layout gives); microbatch 0's {om0['calls_exact'][1]} kernel "
-          f"calls bit-exact, {om0['int32_equal'][1]} int32 products equal to the unsharded "
-          f"step's; state {om0['state_bytes']} bytes per rank, peak allocated "
-          f"{[round(o['olmoe']['peak_bytes'] / 1e9, 2) for o in outs]} GB")
-    print(f"[parallel] {card} | OLMoE-1B-7B host wall per sharded step "
-          f"{[round(o['olmoe']['step_s'], 3) for o in outs]} s; rank 0's collectives (gloo over "
-          f"host memory, not NVLink: nothing is claimed from their times): counts "
-          f"{ocs['counts_by_kind']}, bytes {ocs['bytes_by_kind']} ({ocs['total_bytes'] / 1e9:.3f} "
-          f"GB); host seconds in the transport "
-          f"{({k: round(v, 3) for k, v in om0['collective_s'].items()})}, "
-          f"{sum(om0['collective_s'].values()) / om0['step_s']:.3f} of the step")
-    oe0 = o0["olmoe_ep"]
-    print(f"[parallel] {card} | OLMoE-1B-7B unquantized sharded step (the expert-parallel "
-          f"path: sharded_lm._moe_ep, moe.ep_slab with a gradient, slabs of "
-          f"{TRAIN_BATCH // mcfg.microbatches // 2 * TRAIN_SEQ // 2} tokens): loss "
-          f"{[o['olmoe_ep']['loss'] for o in outs]} vs {loss_e}; grad_norm "
-          f"{[o['olmoe_ep']['grad_norm'] for o in outs]} vs {norm_e} (PAR_LOSS_REL "
-          f"{PAR_LOSS_REL}, PAR_NORM_REL {PAR_NORM_REL}); host wall "
-          f"{[round(o['olmoe_ep']['step_s'], 3) for o in outs]} s; rank 0's collectives "
-          f"{oe0['collectives']['counts_by_kind']} ({oe0['collectives']['total_bytes'] / 1e9:.3f} "
-          f"GB), {sum(oe0['collective_s'].values()) / oe0['step_s']:.3f} of the step in gloo")
-    moe_rows = o0["moe_times"]
-    for row in moe_rows:
-        print(f"[parallel] {card} | mma_matmul OLMoE sharded {row['name']} M={row['M']} "
-              f"K={row['K']} N={row['N']} ({row['calls']} per step per rank), planes 8: kernel "
-              f"{row['ms']:.4f} ms, torch._int_mm {row['library_ms']:.4f} ms, bound "
-              f"{row['bound_ms']:.5f} ms ({row['bound_by']})")
-    moe_step_ms = sum(r["calls"] * r["ms"] for r in moe_rows)
-    moe_lib_ms = sum(r["calls"] * r["library_ms"] for r in moe_rows)
-    moe_bound_ms = sum(r["calls"] * r["bound_ms"] for r in moe_rows)
-    print(f"[parallel] {card} | OLMoE per step per rank (graph-timed shapes x calls): kernel "
-          f"{moe_step_ms:.1f} ms, torch._int_mm {moe_lib_ms:.1f} ms, bound {moe_bound_ms:.2f} ms")
-    rows = o0["times"]
-    for row in rows:
-        print(f"[parallel] {card} | mma_matmul sharded {row['name']} M={row['M']} K={row['K']} "
-              f"N={row['N']} ({row['calls']} per step per rank), planes 8: kernel "
-              f"{row['ms']:.4f} ms, torch._int_mm {row['library_ms']:.4f} ms, bound "
-              f"{row['bound_ms']:.5f} ms ({row['bound_by']}), plane-work floor "
-              f"{row['plane_floor_ms']:.5f} ms")
-    step_ms = sum(r["calls"] * r["ms"] for r in rows)
-    lib_ms = sum(r["calls"] * r["library_ms"] for r in rows)
-    bound_ms = sum(r["calls"] * r["bound_ms"] for r in rows)
-    print(f"[parallel] {card} | per step per rank (graph-timed shapes x calls): kernel "
-          f"{step_ms:.1f} ms, torch._int_mm {lib_ms:.1f} ms, bound {bound_ms:.2f} ms")
-    families = {tag: parallel_family_gates(np, card, f, outs, tag) for tag, f in fams.items()}
-    phase_s = time.perf_counter() - t_phase
-    print(f"[parallel] phase 16 took {phase_s:.1f} s (ranks {ranks_s:.1f} s; rank 0: "
-          + ", ".join(f"{k} {v:.1f}" for k, v in o0["secs"].items()) + ")")
-    return dict(launches_parallel=sum(o["launches_step1"] + o["launches_step2"]
-                                      + o["olmoe"]["launches"]
-                                      + sum(f["launches"] for f in o["families"].values())
-                                      for o in outs),
-                launches_parallel_per_step_per_rank=o0["launches_step2"],
-                parallel_per_shape=rows,
-                parallel_step=dict(kernel_ms=step_ms, library_ms=lib_ms, bound_ms=bound_ms,
-                                   host_s=[o["step2_s"] for o in outs],
-                                   collectives=o0["collectives"],
-                                   collective_s=o0["collective_s"]),
-                launches_parallel_moe_per_step_per_rank=om0["launches"],
-                parallel_moe_per_shape=moe_rows,
-                parallel_moe_step=dict(kernel_ms=moe_step_ms, library_ms=moe_lib_ms,
-                                       bound_ms=moe_bound_ms,
-                                       host_s=[o["olmoe"]["step_s"] for o in outs],
-                                       collectives=ocs, collective_s=om0["collective_s"]),
-                parallel_families=families, phase16_s=phase_s)
+    result = {}
+    if 16 in phases:
+        # ---- gates
+        total_state = sum(o["state_bytes"] for o in outs)
+        for o in outs:
+            r, om = o["rank"], o["olmoe"]
+            check(o["state_bytes"] == pred["state_bytes"] and om["state_bytes"] == pred_m["state_bytes"],
+                  f"rank {r}: state bytes {o['state_bytes']}, {om['state_bytes']} against the dry "
+                  f"run's {pred['state_bytes']}, {pred_m['state_bytes']}")
+            check(same_collectives(o["collectives"], pred["collectives"]),
+                  f"rank {r}: Yi-6B step's collectives {o['collectives']} against the dry run's "
+                  f"{pred['collectives']}")
+            check(same_collectives(om["collectives"], pred_m["collectives"]),
+                  f"rank {r}: OLMoE step's collectives {om['collectives']} against the dry run's "
+                  f"{pred_m['collectives']}")
+            n_mb = 2 * block_mma_linears(mcfg) * mcfg.n_layers + 1
+            check(om["calls_exact"][0] == om["calls_exact"][1] == n_mb,
+                  f"rank {r}: OLMoE microbatch 0's kernel calls bit-exact {om['calls_exact']}")
+            n_fwd = block_mma_linears(mcfg) * mcfg.n_layers + 1
+            check(om["int32_equal"][0] == om["int32_equal"][1] == om["int32_equal"][2] == n_fwd,
+                  f"rank {r}: OLMoE int32 products equal to the unsharded step's {om['int32_equal']}")
+            check(om["launches"] == moe_per_step, f"rank {r}: OLMoE launches per step "
+                  f"{om['launches']}, expected {moe_per_step}")
+            check(om["experts_local"] == mcfg.moe.n_experts // 2,
+                  f"rank {r}: {om['experts_local']} experts on the rank")
+            for k, want, tol in (("loss", loss_m, PAR_LOSS_REL), ("grad_norm", norm_m, PAR_NORM_REL)):
+                check(np.isfinite(om[k]) and abs(om[k] - want) <= tol * abs(want),
+                      f"rank {r}: OLMoE {k} {om[k]} against {want} (rel tolerance {tol})")
+            oe = o["olmoe_ep"]
+            check(oe["state_bytes"] == pred_e["state_bytes"]
+                  and same_collectives(oe["collectives"], pred_e["collectives"]),
+                  f"rank {r}: unquantized OLMoE step's state bytes {oe['state_bytes']} and "
+                  f"collectives {oe['collectives']} against the dry run's {pred_e['state_bytes']}, "
+                  f"{pred_e['collectives']}")
+            check(oe["collectives"]["counts_by_kind"].get("all-to-all", 0) > 0 and oe["launches"] == 0,
+                  f"rank {r}: unquantized OLMoE step: {oe['collectives']['counts_by_kind']}, "
+                  f"{oe['launches']} unscaled launches (the expert-parallel path has all-to-alls "
+                  "and no kernel)")
+            for k, want, tol in (("loss", loss_e, PAR_LOSS_REL), ("grad_norm", norm_e, PAR_NORM_REL)):
+                check(np.isfinite(oe[k]) and abs(oe[k] - want) <= tol * abs(want),
+                      f"rank {r}: unquantized OLMoE {k} {oe[k]} against {want} (rel tolerance {tol})")
+        print(f"[parallel] 4 ranks on the card, mesh (data 2, model 2), gloo over host memory: "
+              f"state bytes per rank {[o['state_bytes'] for o in outs]} "
+              f"({total_state / 1e9:.2f} GB together), peak allocated per rank "
+              f"{[round(o['peak_bytes'] / 1e9, 2) for o in outs]} GB; library {outs[0]['library']} "
+              f"(phase 1's, not rebuilt)")
+        check(total_state < PAR_STATE_LIMIT, f"the ranks' state is {total_state / 1e9:.2f} GB")
+        for o in outs:
+            r = o["rank"]
+            check(o["calls_exact"][0] == o["calls_exact"][1] == 2 * 7 * cfg.n_layers + 1,
+                  f"rank {r}: microbatch 0's kernel calls bit-exact {o['calls_exact']}")
+            check(o["int32_equal"][0] == o["int32_equal"][1] == o["int32_equal"][2] == 7 * cfg.n_layers + 1,
+                  f"rank {r}: int32 products equal to the unsharded step's {o['int32_equal']}")
+            check(o["launches_step1"] == o["launches_step2"] == per_step,
+                  f"rank {r}: launches per step {o['launches_step1']}, {o['launches_step2']}, "
+                  f"expected {per_step}")
+            for k, want, tol in (("loss1", loss1, PAR_LOSS_REL), ("grad_norm1", norm1, PAR_NORM_REL),
+                                 ("loss_pp", loss1, PAR_LOSS_REL),
+                                 ("loss2_b", o["loss2"], PAR_LOSS_REL),
+                                 ("grad_norm2_b", o["grad_norm2"], PAR_NORM_REL)):
+                check(np.isfinite(o[k]) and abs(o[k] - want) <= tol * abs(want),
+                      f"rank {r}: {k} {o[k]} against {want} (rel tolerance {tol})")
+            check(o["restored_equal"], f"rank {r}: the (1, 4) restore differs from the saved state")
+            check(o["gc"]["ratio"] <= 1.01, f"rank {r}: compressed sync error {o['gc']['ratio']} of "
+                  "the int8 step")
+            check(o["moe"]["routing_equal"] and o["moe"]["rel"] <= MOE_REL
+                  and max(o["moe"]["grad_rel"]) <= MOE_REL
+                  and o["moe"]["kept"] == o["moe"]["assignments"] and o["moe"]["experts_local"] == 16,
+                  f"rank {r}: moe_ffn_ep {o['moe']}")
+        o0 = outs[0]
+        check(o0["param_worst"] <= 1.0 and o0["param_differ"] <= PAR_PARAM_DIFFER * o0["param_n"],
+              f"params after one step: {o0['param_differ']} of {o0['param_n']} differ, the worst by "
+              f"{o0['param_worst']} of two lr steps + one bf16 ulp")
+        print(f"[parallel] microbatch 0 on each rank: {o0['calls_exact'][1]} unscaled calls bit-exact "
+              f"against the plain version at the sharded shapes; {o0['int32_equal'][1]} int32 "
+              f"products (column-parallel: the rank's columns; row-parallel: all-reduced) equal to "
+              f"the unsharded step's, bit for bit")
+        print(f"[parallel] step 1: loss {[o['loss1'] for o in outs]} vs {loss1} unsharded; grad_norm "
+              f"{[o['grad_norm1'] for o in outs]} vs {norm1}; gathered params: "
+              f"{o0['param_differ']} of {o0['param_n']} elements differ, the worst by "
+              f"{o0['param_worst']:.3f} of (two lr steps + one bf16 ulp)")
+        print(f"[parallel] {card} | {o0['launches_step2']} unscaled launches per step per rank (as the layout "
+              f"gives); host wall per sharded step {[round(o['step2_s'], 3) for o in outs]} s "
+              f"(step 2; step 1 with its checks {[round(o['secs']['step1'], 3) for o in outs]} s)")
+        for o in outs[:1]:
+            cs = o["collectives"]
+            share = sum(o["collective_s"].values()) / o["step2_s"]
+            print(f"[parallel] rank 0, step 2, collectives (gloo over host memory, not NVLink: "
+                  f"nothing is claimed from their times): counts {cs['counts_by_kind']}, bytes "
+                  f"{cs['bytes_by_kind']} ({cs['total_bytes'] / 1e9:.3f} GB); host seconds in the "
+                  f"transport {({k: round(v, 3) for k, v in o['collective_s'].items()})}, "
+                  f"{share:.3f} of the step")
+        print(f"[parallel] checkpoint saved under (2, 2), restored under (1, 4) in "
+              f"{[round(o['restore_s'], 1) for o in outs]} s: every rank's slices bit-equal; one "
+              f"step from it: loss {o0['loss2_b']} vs {o0['loss2']} under (2, 2), grad_norm "
+              f"{o0['grad_norm2_b']} vs {o0['grad_norm2']}; state per rank under (1, 4) "
+              f"{[o['state_bytes_b'] for o in outs]}")
+        print(f"[parallel] GPipe PP 2 x DP 2 (one layer per stage, {cfg.microbatches} microbatches): "
+              f"loss {[o['loss_pp'] for o in outs]} vs {loss1} unsharded")
+        print(f"[parallel] compressed_psum_shardmap over 'data', {o0['gc']['leaves']} gradient "
+              f"leaves: error at most {max(o['gc']['ratio'] for o in outs):.3f} of the int8 step; "
+              f"{o0['gc']['stats']['counts_by_kind']}, {o0['gc']['stats']['total_bytes'] / 1e6:.1f} "
+              f"MB crossed per rank")
+        mo = o0["moe"]
+        print(f"[parallel] moe_ffn_ep, OLMoE-1B-7B layer, mesh (1, 4), {mo['experts_local']} experts "
+              f"per rank, T = {MOE_T}: routing card = CPU on every slab, {mo['kept']} of "
+              f"{mo['assignments']} assignments kept (cap {mo['cap']}), output within "
+              f"{max(o['moe']['rel'] for o in outs):.2e} of moe_ffn's dispatch on the same float32 "
+              f"router logits (MOE_REL {MOE_REL}), its gradients (x, the rank's w_gate) within "
+              f"{max(max(o['moe']['grad_rel']) for o in outs):.2e}; forward "
+              f"{mo['stats']['counts_by_kind']} | moe_ffn itself "
+              f"(bf16 router): {mo['sets_differ']} of {MOE_T} tokens pick another expert set, "
+              f"output {mo['rel_moe_ffn']:.3f} of the largest away (not gated)")
+        print(f"[parallel] dry run against the ranks: state bytes per rank equal the prediction "
+              f"(Yi-6B {pred['state_bytes']}, OLMoE-1B-7B {pred_m['state_bytes']}, unquantized "
+              f"{pred_e['state_bytes']}); one step's collectives on every rank equal the counted "
+              f"ones (Yi-6B step 2: {pred['collectives']['total_count']}, OLMoE step 1: "
+              f"{pred_m['collectives']['total_count']}, unquantized: "
+              f"{pred_e['collectives']['total_count']}) | roofline bound "
+              f"{pred['roofline']['step_time_lower_bound_s'] * 1e3:.2f} ms against "
+              f"{[round(o['step2_s'] * 1e3, 1) for o in outs]} ms measured (Yi-6B); "
+              f"{pred_m['roofline']['step_time_lower_bound_s'] * 1e3:.2f} ms against "
+              f"{[round(o['olmoe']['step_s'] * 1e3, 1) for o in outs]} ms (OLMoE-1B-7B); not gated")
+        om0 = o0["olmoe"]
+        ocs = om0["collectives"]
+        print(f"[parallel] {card} | OLMoE-1B-7B sharded step, mesh (data 2, model 2), "
+              f"{om0['experts_local']} experts per rank (global moe_ffn routing: the reference's path "
+              f"under mma_int8): loss {[o['olmoe']['loss'] for o in outs]} vs {loss_m} unsharded; "
+              f"grad_norm {[o['olmoe']['grad_norm'] for o in outs]} vs {norm_m}; {om0['launches']} "
+              f"unscaled launches per step per rank (as the layout gives); microbatch 0's {om0['calls_exact'][1]} kernel "
+              f"calls bit-exact, {om0['int32_equal'][1]} int32 products equal to the unsharded "
+              f"step's; state {om0['state_bytes']} bytes per rank, peak allocated "
+              f"{[round(o['olmoe']['peak_bytes'] / 1e9, 2) for o in outs]} GB")
+        print(f"[parallel] {card} | OLMoE-1B-7B host wall per sharded step "
+              f"{[round(o['olmoe']['step_s'], 3) for o in outs]} s; rank 0's collectives (gloo over "
+              f"host memory, not NVLink: nothing is claimed from their times): counts "
+              f"{ocs['counts_by_kind']}, bytes {ocs['bytes_by_kind']} ({ocs['total_bytes'] / 1e9:.3f} "
+              f"GB); host seconds in the transport "
+              f"{({k: round(v, 3) for k, v in om0['collective_s'].items()})}, "
+              f"{sum(om0['collective_s'].values()) / om0['step_s']:.3f} of the step")
+        oe0 = o0["olmoe_ep"]
+        print(f"[parallel] {card} | OLMoE-1B-7B unquantized sharded step (the expert-parallel "
+              f"path: sharded_lm._moe_ep, moe.ep_slab with a gradient, slabs of "
+              f"{TRAIN_BATCH // mcfg.microbatches // 2 * TRAIN_SEQ // 2} tokens): loss "
+              f"{[o['olmoe_ep']['loss'] for o in outs]} vs {loss_e}; grad_norm "
+              f"{[o['olmoe_ep']['grad_norm'] for o in outs]} vs {norm_e} (PAR_LOSS_REL "
+              f"{PAR_LOSS_REL}, PAR_NORM_REL {PAR_NORM_REL}); host wall "
+              f"{[round(o['olmoe_ep']['step_s'], 3) for o in outs]} s; rank 0's collectives "
+              f"{oe0['collectives']['counts_by_kind']} ({oe0['collectives']['total_bytes'] / 1e9:.3f} "
+              f"GB), {sum(oe0['collective_s'].values()) / oe0['step_s']:.3f} of the step in gloo")
+        moe_rows = o0["moe_times"]
+        for row in moe_rows:
+            print(f"[parallel] {card} | mma_matmul OLMoE sharded {row['name']} M={row['M']} "
+                  f"K={row['K']} N={row['N']} ({row['calls']} per step per rank), planes 8: kernel "
+                  f"{row['ms']:.4f} ms, torch._int_mm {row['library_ms']:.4f} ms, bound "
+                  f"{row['bound_ms']:.5f} ms ({row['bound_by']})")
+        moe_step_ms = sum(r["calls"] * r["ms"] for r in moe_rows)
+        moe_lib_ms = sum(r["calls"] * r["library_ms"] for r in moe_rows)
+        moe_bound_ms = sum(r["calls"] * r["bound_ms"] for r in moe_rows)
+        print(f"[parallel] {card} | OLMoE per step per rank (graph-timed shapes x calls): kernel "
+              f"{moe_step_ms:.1f} ms, torch._int_mm {moe_lib_ms:.1f} ms, bound {moe_bound_ms:.2f} ms")
+        rows = o0["times"]
+        for row in rows:
+            print(f"[parallel] {card} | mma_matmul sharded {row['name']} M={row['M']} K={row['K']} "
+                  f"N={row['N']} ({row['calls']} per step per rank), planes 8: kernel "
+                  f"{row['ms']:.4f} ms, torch._int_mm {row['library_ms']:.4f} ms, bound "
+                  f"{row['bound_ms']:.5f} ms ({row['bound_by']}), plane-work floor "
+                  f"{row['plane_floor_ms']:.5f} ms")
+        step_ms = sum(r["calls"] * r["ms"] for r in rows)
+        lib_ms = sum(r["calls"] * r["library_ms"] for r in rows)
+        bound_ms = sum(r["calls"] * r["bound_ms"] for r in rows)
+        print(f"[parallel] {card} | per step per rank (graph-timed shapes x calls): kernel "
+              f"{step_ms:.1f} ms, torch._int_mm {lib_ms:.1f} ms, bound {bound_ms:.2f} ms")
+        families = {tag: parallel_family_gates(np, card, f, outs, tag) for tag, f in fams.items()}
+    if 16 in phases:
+        phase_s = time.perf_counter() - t_phase
+        print(f"[parallel] phase 16 took {phase_s:.1f} s with phase 17's yardsticks and ranks "
+              f"(ranks {ranks_s:.1f} s; rank 0: "
+              + ", ".join(f"{k} {v:.1f}" for k, v in o0["secs"].items()) + ")")
+        result.update(
+            launches_parallel=sum(o["launches_step1"] + o["launches_step2"]
+                                  + o["olmoe"]["launches"]
+                                  + sum(f["launches"] for f in o["families"].values())
+                                  for o in outs),
+            launches_parallel_per_step_per_rank=o0["launches_step2"],
+            parallel_per_shape=rows,
+            parallel_step=dict(kernel_ms=step_ms, library_ms=lib_ms, bound_ms=bound_ms,
+                               host_s=[o["step2_s"] for o in outs],
+                               collectives=o0["collectives"],
+                               collective_s=o0["collective_s"]),
+            launches_parallel_moe_per_step_per_rank=om0["launches"],
+            parallel_moe_per_shape=moe_rows,
+            parallel_moe_step=dict(kernel_ms=moe_step_ms, library_ms=moe_lib_ms,
+                                   bound_ms=moe_bound_ms,
+                                   host_s=[o["olmoe"]["step_s"] for o in outs],
+                                   collectives=ocs, collective_s=om0["collective_s"]),
+            parallel_families=families, phase16_s=phase_s)
+    if 17 in phases:
+        t17 = time.perf_counter()
+        got = serving_gates(torch, np, dev, card, outs, preds, yards)
+        scaled = sum(o["serving_launches"][0] for o in outs)
+        unscaled = sum(o["serving_launches"][1] for o in outs)
+        result.update(got, launches_serving=scaled, launches_serving_unscaled=unscaled,
+                      phase17_s=prep17_s + time.perf_counter() - t17
+                      + max(o["secs"]["serving"] for o in outs))
+        print(f"[serving] phase 17 took {result['phase17_s']:.1f} s: yardsticks and dry run "
+              f"{prep17_s:.1f} s, ranks {[round(o['secs']['serving'], 1) for o in outs]} s, gates "
+              f"and times {time.perf_counter() - t17:.1f} s; {scaled} scaled and {unscaled} "
+              f"unscaled kernel launches on the four ranks (main path 12)")
+    return result
 
 
 def parallel_family_gates(np, card, f: dict, outs: list, tag: str) -> dict:
@@ -3929,6 +4056,480 @@ def parallel_family_gates(np, card, f: dict, outs: list, tag: str) -> dict:
     return dict(launches_per_step_per_rank=fo0["launches"], per_shape=rows,
                 step=dict(**step, host_s=[o["families"][tag]["step_s"] for o in outs],
                           collectives=cs, collective_s=fo0["collective_s"]))
+
+
+# ------------------------------------------------------- 17. sharded serving
+
+
+def serve_cfgs():
+    """Phase 17's models: ``(tag, label, cfg, rows, decode steps)``, each on
+    the kernel route at 8 planes with int8 weights and KV cache."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import QuantConfig
+
+    q = QuantConfig(mode="mma_int8", impl="kernel", planes=8, weights_int8=True, kv_int8=True)
+    return [(tag, label, get_config(tag).replace(**depth, quant=q), rows, steps)
+            for tag, label, depth, rows, steps in SERVE_MODELS]
+
+
+def serve_launches(cfg) -> tuple[int, int]:
+    """Kernel launches ``(scaled, unscaled)`` per decode step on one rank of
+    the (data 2, model 2) mesh, from the layout (``param_specs``' rules;
+    every linear 256 or more wide on both dims int8): a column-parallel
+    int8 linear is one scaled launch, a row-parallel one one unscaled launch
+    (its int32 partial all-reduced), a float linear under ``mma_int8`` one
+    unscaled launch.  Transformer block: wq/wk/wv column, wo row, the MLP's
+    w_gate/w_up column and w_down row (MoE: experts and router bf16); the
+    head column.  RWKV6 block: time mix wr/wk/wv/wg column and wo row
+    (``mix_lora_a`` on the Horner route, ``w_lora_a`` 64 wide, a float
+    product: no launch), channel mix wk/wr column and wv row.  Zamba2: every
+    Mamba2 layer's z_proj, xbc_proj, dt_proj (float, H wide) and out_proj
+    row-parallel; the shared block's wq/wk/wv column, wo and proj row, once
+    per group.  Whisper decoder block: self wq/wk/wv column and wo row,
+    cross wq column and wo row (its K/V precomputed), w_up column and
+    w_down row; its head is tied, bf16."""
+    n = cfg.n_layers
+    if cfg.family == "ssm":
+        return 6 * n + 1, 2 * n
+    if cfg.family == "hybrid":
+        groups = n // cfg.attn_every
+        return 3 * groups + 1, 4 * n + 2 * groups
+    if cfg.family == "encdec":
+        return 5 * n, 3 * n
+    if cfg.moe.n_experts:
+        return 3 * n + 1, n
+    return 5 * n + 1, 2 * n
+
+
+def serve_tokens(np, cfg, rows: int):
+    """Phase 17's prompts (numpy seed 0): ``(rows, SERVE_PROMPT)`` tokens,
+    and Whisper's ``(rows, enc_seq, d_model)`` frames."""
+    rng = np.random.default_rng(0)
+    tok = rng.integers(0, cfg.vocab, (rows, SERVE_PROMPT)).astype(np.int64)
+    frames = (rng.standard_normal((rows, cfg.enc_seq, cfg.d_model)).astype(np.float32)
+              if cfg.family == "encdec" else None)
+    return tok, frames
+
+
+class ProductRecorder:
+    """The first ``n`` int32 products of each serving call: on the sharded
+    side ``sharded_lm.mma_product``'s (a row-parallel one after its
+    all-reduce) and ``mma.mma_dot``'s outside it (a LoRA's), on the
+    unsharded side ``mma.mma_dot``'s; the scaled kernel's (fused: its int32
+    is not returned) recomputed by the plain version on its operands.
+    Kept on the host.  ``exact``: also hold every kernel call (scaled and
+    unscaled) against its plain version, counting the equal ones."""
+
+    def __init__(self, n: int, sharded: bool):
+        self.n, self.sharded, self.calls = n, sharded, []
+        self.exact = None
+
+    def __enter__(self):
+        import torch
+
+        from repro_torch.core import mma
+        from repro_torch.kernels import mma_matmul as mk
+        from repro_torch.kernels import ops
+        from repro_torch.parallel import sharded_lm
+
+        self.saved = (sharded_lm.mma_product, mma.mma_dot, ops.mma_matmul_scaled,
+                      ops.mma_matmul)
+        inner_prod, inner_dot, inner_scaled, inner_mm = self.saved
+        inside = []
+
+        def keep(acc):
+            if len(self.calls) < self.n:
+                self.calls.append(acc.cpu())
+
+        def prod(*a, **kw):
+            inside.append(1)
+            try:
+                acc = inner_prod(*a, **kw)
+            finally:
+                inside.pop()
+            keep(acc)
+            return acc
+
+        def dot(*a, **kw):
+            acc = inner_dot(*a, **kw)
+            if not inside:
+                keep(acc)
+            return acc
+
+        def scaled(x, w, xs, ws, *, planes=8, **kw):
+            out = inner_scaled(x, w, xs, ws, planes=planes, **kw)
+            x2 = x.reshape(-1, x.shape[-1])
+            if len(self.calls) < self.n:
+                keep(mk.mma_matmul_plain(x2, w, planes=planes).reshape(*x.shape[:-1], -1))
+            if self.exact is not None:
+                want = mk.mma_matmul_scaled_plain(x2, w, xs.reshape(1), ws.reshape(-1),
+                                                  planes=planes)
+                self.exact.append(bool(torch.equal(out.reshape(want.shape), want)))
+            return out
+
+        def unscaled(x, w, *, planes=8, **kw):
+            out = inner_mm(x, w, planes=planes, **kw)
+            if self.exact is not None:
+                x2 = x.reshape(-1, x.shape[-1])
+                want = mk.mma_matmul_plain(x2, w, planes=planes)
+                self.exact.append(bool(torch.equal(out.reshape(want.shape), want)))
+            return out
+
+        if self.sharded:
+            sharded_lm.mma_product = prod
+        mma.mma_dot, ops.mma_matmul_scaled, ops.mma_matmul = dot, scaled, unscaled
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.core import mma
+        from repro_torch.kernels import ops
+        from repro_torch.parallel import sharded_lm
+
+        (sharded_lm.mma_product, mma.mma_dot, ops.mma_matmul_scaled,
+         ops.mma_matmul) = self.saved
+
+
+def _serve_model(torch, cfg, dev):
+    from repro_torch import models
+
+    return models.build(cfg).init_params(0, cfg, device=dev, int8_min_dim=256)
+
+
+def serving_yardstick(torch, np, dev, cfg, rows: int, steps: int) -> dict:
+    """Phase 17's unsharded steps of one model in this process: the writing
+    prefill (Zamba2: the stateless prefill) of the prompts, then ``steps``
+    greedy decode steps.  Each call's last-position logits and greedy
+    tokens, the first layer's int32 products of the prefill and of decode
+    step 0 (on the host), the launches per decode step and the host wall."""
+    from repro_torch.kernels import mma_matmul as mk
+    from repro_torch.models import whisper
+    from repro_torch.serve import serve_step as ss
+
+    params = _serve_model(torch, cfg, dev)
+    tok, frames = serve_tokens(np, cfg, rows)
+    tok = torch.as_tensor(tok, device=dev)
+    dec, _ = ss.make_decode(cfg, rows, SERVE_MAX_SEQ, device=dev)
+    cache = ss.init_serving_cache(cfg, rows, SERVE_MAX_SEQ, device=dev,
+                                  dtype=torch.int8 if cfg.quant.kv_int8 else torch.bfloat16)
+    ex = {}
+    if cfg.family == "encdec":
+        with torch.no_grad():
+            memory = whisper.encode(params, torch.as_tensor(frames, device=dev), cfg, device=dev)
+            ex = {"memory": memory,
+                  "cross_kv": whisper.precompute_cross_kv(params, memory, cfg, device=dev)}
+    n0 = SERVE_LAYER0[cfg.family]
+    out = {"logits": [], "tokens": [], "wall": []}
+    idx = 0
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with ProductRecorder(n0, False) as rec:
+            if cfg.family == "hybrid":
+                lg = ss.make_prefill(cfg, device=dev)(params, tok, {})
+            else:
+                lg, cache = dec(params, tok, cache, torch.tensor(idx, device=dev), ex)
+                idx += tok.shape[1]
+            lg = lg[:, -1].float()
+            torch.cuda.synchronize()
+        out["wall"].append(time.perf_counter() - t0)
+        out["int32_prefill"] = rec.calls
+        for i in range(steps):
+            nxt = lg.argmax(-1)
+            out["logits"].append(lg.cpu())
+            out["tokens"].append(nxt.cpu())
+            before = (mk.scaled_launches, mk.launches)
+            t0 = time.perf_counter()
+            with ProductRecorder(n0 if i == 0 else 0, False) as rec:
+                lg, cache = dec(params, nxt[:, None], cache, torch.tensor(idx, device=dev), ex)
+                lg = lg[:, -1].float()
+                torch.cuda.synchronize()
+            out["wall"].append(time.perf_counter() - t0)
+            out["launches"] = (mk.scaled_launches - before[0], mk.launches - before[1])
+            if i == 0:
+                out["int32_decode0"] = rec.calls
+            idx += 1
+        out["logits"].append(lg.cpu())
+        out["tokens"].append(lg.argmax(-1).cpu())
+    del params, cache, ex
+    torch.cuda.empty_cache()
+    return out
+
+
+def serve_prediction(torch, cfg, rows: int) -> dict:
+    """What the dry run predicts for one rank of phase 17's (data 2, model
+    2) mesh: its state bytes (params, cache and Whisper's extras:
+    ``specs.sharded_bytes``) and the collectives of one prefill and of one
+    decode step (the counting mode on meta tensors, the rank's step from
+    ``serve_step.make_prefill`` / ``make_decode`` with the mesh)."""
+    from repro_torch.launch import specs
+    from repro_torch.parallel import collectives as coll
+    from repro_torch.parallel import sharding as shd
+    from repro_torch.parallel.sharding import Mesh
+    from repro_torch.serve import serve_step as ss
+
+    t0 = time.perf_counter()
+    mesh = Mesh({"data": 2, "model": 2}, device="meta")
+    ab = specs._abstract_params(cfg)
+    p_sh, mode = ss.param_shardings(ab, cfg, mesh)
+    dec, spec = ss.make_decode(cfg, rows, SERVE_MAX_SEQ, mesh=mesh, device="meta", shardings=p_sh)
+    c_sh = ss.cache_shardings(spec, cfg, mesh, rows, SERVE_MAX_SEQ)
+    params, cache = shd.shard_tree(ab, p_sh), shd.shard_tree(spec, c_sh)
+    rl = rows // 2
+
+    def meta(*shape, dtype=torch.int64):
+        return torch.empty(shape, dtype=dtype, device="meta")
+
+    ex, ex_bytes = {}, 0
+    if cfg.family == "encdec":
+        l, t, kvd = cfg.n_layers, cfg.enc_seq, (cfg.n_kv_heads, cfg.hd)
+        ex = {"memory": meta(rl, t, cfg.d_model, dtype=torch.bfloat16),
+              "cross_kv": {"k": meta(l, rl, t, *kvd, dtype=torch.bfloat16),
+                           "v": meta(l, rl, t, *kvd, dtype=torch.bfloat16)}}
+        ex_bytes = sum(x.numel() * x.element_size() for x in
+                       (ex["memory"], ex["cross_kv"]["k"], ex["cross_kv"]["v"]))
+    with torch.no_grad():
+        coll.reset_stats(mesh)
+        if cfg.family == "hybrid":
+            ss.make_prefill(cfg, mesh=mesh, device="meta", shardings=p_sh)(
+                params, meta(rl, SERVE_PROMPT), {})
+        else:
+            dec(params, meta(rl, SERVE_PROMPT), cache, meta(), ex)
+        prefill = coll.collective_stats(mesh)
+        coll.reset_stats(mesh)
+        dec(params, meta(rl, 1), cache, meta(), ex)
+        decode = coll.collective_stats(mesh)
+    return dict(param_bytes=specs.sharded_bytes(ab, p_sh, mesh),
+                cache_bytes=specs.sharded_bytes(spec, c_sh, mesh), extras_bytes=ex_bytes,
+                prefill=prefill, decode=decode, mode=mode, seconds=time.perf_counter() - t0)
+
+
+def _serving_rank(torch, np, dist, root: Path, mesh, dev) -> dict:
+    """Phase 17 on this rank: every model of ``serve_cfgs`` served sharded
+    (``serve_step.make_prefill`` / ``make_decode`` with the mesh): the
+    writing prefill of the rank's prompts, then greedy decode steps; the
+    live state bytes, collectives, launches, the kernel calls of one
+    recorded decode step against their plain versions, the first layer's
+    int32 products, each call's logits and tokens (the whole vocab,
+    gathered outside the step) and host walls."""
+    from repro_torch.checkpoint.ckpt import tree_leaves
+    from repro_torch.kernels import mma_matmul as mk
+    from repro_torch.parallel import collectives as coll
+    from repro_torch.parallel import sharded_lm, sharded_whisper
+    from repro_torch.parallel import sharding as shd
+    from repro_torch.serve import serve_step as ss
+    from repro_torch.launch import specs
+
+    di, ri = mesh.index("data"), mesh.index("model")
+    res = {}
+    for tag, _, cfg, rows, steps in serve_cfgs():
+        t_model = time.perf_counter()
+        rl = rows // 2
+        r0 = di * rl
+        full = _serve_model(torch, cfg, dev)
+        p_sh, _ = ss.param_shardings(specs._abstract_params(cfg), cfg, mesh)
+        params = shd.shard_tree(full, p_sh)
+        del full
+        torch.cuda.empty_cache()
+        dec, spec = ss.make_decode(cfg, rows, SERVE_MAX_SEQ, mesh=mesh, device=dev, shardings=p_sh)
+        c_sh = ss.cache_shardings(spec, cfg, mesh, rows, SERVE_MAX_SEQ)
+        cache = shd.shard_tree(ss.init_serving_cache(
+            cfg, rows, SERVE_MAX_SEQ, device=dev,
+            dtype=torch.int8 if cfg.quant.kv_int8 else torch.bfloat16), c_sh)
+        tok, frames = serve_tokens(np, cfg, rows)
+        tok = torch.as_tensor(tok[r0:r0 + rl], device=dev)
+        yard = torch.load(root / f"yard_serve_{tag}.pt", weights_only=False)
+        ex = {}
+        with torch.no_grad():
+            if cfg.family == "encdec":
+                fr = torch.as_tensor(frames[r0:r0 + rl], device=dev)
+                memory = sharded_whisper.encode(params, fr, cfg, mesh)
+                ex = {"memory": memory,
+                      "cross_kv": sharded_whisper.precompute_cross_kv(params, memory, cfg, mesh)}
+        out = {"state_bytes": [sum(t.numel() * t.element_size() for t in tree_leaves(x))
+                               for x in (params, cache, ex)],
+               "logits": [], "tokens": [], "wall": []}
+        n0 = SERVE_LAYER0[cfg.family]
+        idx = 0
+
+        def whole(lg):
+            return sharded_lm.gathered_logits(lg, lg.shape[-1] != cfg.vocab, mesh)[:, -1].float()
+
+        with torch.no_grad():
+            coll.reset_stats(mesh)
+            dist.barrier()
+            t0 = time.perf_counter()
+            with ProductRecorder(n0, True) as rec:
+                if cfg.family == "hybrid":
+                    lg = ss.make_prefill(cfg, mesh=mesh, device=dev, shardings=p_sh)(
+                        params, tok, {})
+                else:
+                    lg, cache = dec(params, tok, cache, torch.tensor(idx, device=dev), ex)
+                    idx += tok.shape[1]
+                torch.cuda.synchronize()
+            out["wall"].append(time.perf_counter() - t0)
+            out["prefill_stats"] = coll.collective_stats(mesh)
+            out["prefill_coll_s"] = sum(coll.collective_seconds(mesh).values())
+            out["int32_prefill"] = rec.calls
+            lg = whole(lg)
+            for i in range(steps):
+                # the yardstick's greedy token: every call on the same inputs
+                nxt = yard["tokens"][i][r0:r0 + rl].to(dev)
+                out["logits"].append(lg.cpu())
+                out["tokens"].append(lg.argmax(-1).cpu())
+                coll.reset_stats(mesh)
+                before = (mk.scaled_launches, mk.launches)
+                dist.barrier()
+                t0 = time.perf_counter()
+                with ProductRecorder(n0 if i == 0 else 0, True) as rec:
+                    if i == 1:  # the recorded step: every kernel call against its plain version
+                        rec.exact = []
+                    lg, cache = dec(params, nxt[:, None], cache, torch.tensor(idx, device=dev), ex)
+                    torch.cuda.synchronize()
+                out["wall"].append(time.perf_counter() - t0)
+                out.setdefault("launches", []).append(
+                    (mk.scaled_launches - before[0], mk.launches - before[1]))
+                if i == 0:
+                    out["int32_decode0"] = rec.calls
+                    out["decode_stats"] = coll.collective_stats(mesh)
+                    out["decode_coll_s"] = sum(coll.collective_seconds(mesh).values())
+                if i == 1:
+                    out["calls_exact"] = [sum(rec.exact), len(rec.exact)]
+                idx += 1
+                lg = whole(lg)
+            out["logits"].append(lg.cpu())
+            out["tokens"].append(lg.argmax(-1).cpu())
+        eq, ndiff = [], []
+        for which in ("int32_prefill", "int32_decode0"):
+            for got, want in zip(out.pop(which), yard[which]):
+                want = want[r0:r0 + rl]
+                if got.shape[-1] != want.shape[-1]:  # column-parallel: the rank's columns
+                    want = want[..., ri * got.shape[-1]:(ri + 1) * got.shape[-1]]
+                eq.append(got.shape == want.shape and bool(torch.equal(got, want)))
+                ndiff.append(int((got != want).sum()) if got.shape == want.shape else -1)
+        out["int32_ndiff"] = ndiff
+        out["int32_equal"] = [sum(eq), len(eq), len(yard["int32_prefill"]) + len(yard["int32_decode0"])]
+        out["int32_differ"] = [i for i, e in enumerate(eq) if not e]
+        out["logit_rel"], out["tokens_equal"], out["margins"] = [], [], []
+        for got, want, gt, wt in zip(out.pop("logits"), yard["logits"], out.pop("tokens"),
+                                     yard["tokens"]):
+            want, wt = want[r0:r0 + rl], wt[r0:r0 + rl]
+            scale = want.abs().max()
+            out["logit_rel"].append(float((got - want).abs().max() / scale))
+            out["tokens_equal"].append(bool(torch.equal(gt, wt)))
+            for row in torch.nonzero(gt != wt).flatten().tolist():
+                # a parting: the yardstick's margin between its token and the rank's
+                out["margins"].append(float((want[row, wt[row]] - want[row, gt[row]]) / scale))
+        out["seconds"] = time.perf_counter() - t_model
+        out["peak_bytes"] = torch.cuda.max_memory_allocated()
+        res[tag] = out
+        del params, cache, ex, yard
+        torch.cuda.empty_cache()
+    return res
+
+
+def serving_gates(torch, np, dev, card, outs: list, preds: dict, yards: dict) -> dict:
+    """Phase 17's gates over the ranks' results, its prints, and the scaled
+    kernel graph-timed at Yi-6B's sharded decode shapes.  Returns the
+    scaled kernel's phase-17 entries."""
+    g = torch.Generator(device=dev).manual_seed(17)
+    entries = {}
+    for tag, label, cfg, rows, steps in serve_cfgs():
+        for o in outs:  # every rank's numbers first, whatever gate fails below
+            so = o["serving"][tag]
+            print(f"[serving] {label} rank {o['rank']}: int32 equal {so['int32_equal']} (differ "
+                  f"{so['int32_differ']}, elements {so['int32_ndiff']}), logits rel {so['logit_rel']}, tokens equal "
+                  f"{so['tokens_equal']}, margins {so['margins']}, launches {so['launches'][:1]}, "
+                  f"calls exact {so['calls_exact']}")
+    for tag, label, cfg, rows, steps in serve_cfgs():
+        pred, yard = preds[tag], yards[tag]
+        want_launches = serve_launches(cfg)
+        for o in outs:
+            r, so = o["rank"], o["serving"][tag]
+            check(so["state_bytes"] == [pred["param_bytes"], pred["cache_bytes"],
+                                        pred["extras_bytes"]],
+                  f"rank {r}: {label} state bytes {so['state_bytes']} against the dry run's "
+                  f"{[pred['param_bytes'], pred['cache_bytes'], pred['extras_bytes']]}")
+            for which in ("prefill", "decode"):
+                check(same_collectives(so[f"{which}_stats"], pred[which]),
+                      f"rank {r}: {label} {which} collectives {so[f'{which}_stats']} against the "
+                      f"dry run's {pred[which]}")
+            check(all(tuple(x) == want_launches for x in so["launches"]),
+                  f"rank {r}: {label} launches per decode step {so['launches']}, expected "
+                  f"{want_launches} (scaled, unscaled)")
+            check(so["calls_exact"][0] == so["calls_exact"][1] == sum(want_launches),
+                  f"rank {r}: {label} recorded decode step's kernel calls bit-exact "
+                  f"{so['calls_exact']}")
+            n0, npre = SERVE_LAYER0[cfg.family], SERVE_PRE_ATTENTION[cfg.family]
+            pre = [i for i in range(2 * n0) if i % n0 < npre]  # the prefill's, decode 0's
+            check(so["int32_equal"][1] == so["int32_equal"][2] == 2 * n0
+                  and not set(pre) & set(so["int32_differ"]),
+                  f"rank {r}: {label} first layer's int32 products before the attention "
+                  f"combine equal to the yardstick's: {so['int32_equal']}, differ "
+                  f"{so['int32_differ']} (gated {pre})")
+            check(all(np.isfinite(x) and x <= SERVE_LOGIT_REL for x in so["logit_rel"]),
+                  f"rank {r}: {label} logits against the yardstick's {so['logit_rel']} "
+                  f"(SERVE_LOGIT_REL {SERVE_LOGIT_REL})")
+            check(all(m <= 2 * SERVE_LOGIT_REL for m in so["margins"]),
+                  f"rank {r}: {label} greedy tokens part from the yardstick's at margins "
+                  f"{so['margins']} of the largest logit")
+        s0 = outs[0]["serving"][tag]
+        walls = [o["serving"][tag]["wall"] for o in outs]
+        dec_s = [statistics.median(w[1:]) for w in walls]
+        ps, ds = s0["prefill_stats"], s0["decode_stats"]
+        print(f"[serving] {card} | {label} sharded ({cfg.n_layers} layers, {rows} rows, "
+              f"{'stateless prefill' if cfg.family == 'hybrid' else 'writing prefill'} of "
+              f"{SERVE_PROMPT} tokens, {steps} greedy decode steps, cache {SERVE_MAX_SEQ}, "
+              f"{pred['mode']}): state per rank {s0['state_bytes']} bytes (params, cache, extras: "
+              f"the dry run's); {want_launches[0]} scaled + {want_launches[1]} unscaled launches "
+              f"per decode step per rank (as the layout gives); the recorded step's "
+              f"{s0['calls_exact'][1]} kernel calls bit-exact; {s0['int32_equal'][1]} first-layer "
+              f"int32 products equal to the yardstick's")
+        print(f"[serving] {card} | {label} logits against the unsharded yardstick on its tokens, "
+              f"per call: worst {max(max(o['serving'][tag]['logit_rel']) for o in outs):.3e} of "
+              f"the largest (SERVE_LOGIT_REL {SERVE_LOGIT_REL}); the ranks' greedy tokens equal "
+              f"the yardstick's at {sum(sum(o['serving'][tag]['tokens_equal']) for o in outs)} of "
+              f"{sum(len(o['serving'][tag]['tokens_equal']) for o in outs)} calls x ranks, partings "
+              f"at margins {[m for o in outs for m in o['serving'][tag]['margins']]}; first "
+              f"layer's int32 products equal: {s0['int32_equal'][0]} of {s0['int32_equal'][1]} "
+              f"(those before the attention combine gated)")
+        print(f"[serving] {card} | {label} host wall per rank: prefill "
+              f"{[round(w[0], 3) for w in walls]} s (unsharded {yard['wall'][0]:.3f} s), decode "
+              f"step (median) {[round(x, 4) for x in dec_s]} s (unsharded "
+              f"{statistics.median(yard['wall'][1:]):.4f} s); rank 0's collectives (gloo over "
+              f"host memory, not NVLink: nothing is claimed from their times): prefill "
+              f"{ps['counts_by_kind']} {ps['total_bytes']} bytes, {s0['prefill_coll_s'] / walls[0][0]:.3f} "
+              f"of it in the transport; decode step {ds['counts_by_kind']} {ds['total_bytes']} "
+              f"bytes, {s0['decode_coll_s'] / walls[0][1]:.3f} of the step")
+        entries[tag] = dict(launches_per_decode_step_per_rank=list(want_launches),
+                            prefill_s=[w[0] for w in walls], decode_step_s=dec_s,
+                            unsharded_prefill_s=yard["wall"][0],
+                            unsharded_decode_step_s=statistics.median(yard["wall"][1:]),
+                            collectives_decode=ds, collectives_prefill=ps,
+                            logit_rel=max(max(o["serving"][tag]["logit_rel"]) for o in outs))
+    # the scaled kernel at Yi-6B's sharded decode shapes: M = 4 rows per data
+    # rank, the column-parallel linears' half of N
+    _, _, ycfg, yrows, _ = serve_cfgs()[0]
+    d, kv = ycfg.d_model, ycfg.n_kv_heads * ycfg.hd
+    m = yrows // 2
+    rows_t = []
+    for name, k, n in (("wq", d, d // 2), ("wk/wv", d, kv // 2), ("w_gate/w_up", d, ycfg.d_ff // 2),
+                       ("head", d, ycfg.vocab // 2)):
+        ms_planes, lib_ms, plain_ms, copies, calls = cold_shape_times(torch, dev, g, m, k, n, (8,))
+        b_ms, b_by, _, _ = scaled_bound([(m, k, n)])
+        rows_t.append(dict(name=name, M=m, K=k, N=n, ms=ms_planes[8], library_ms=lib_ms,
+                           plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by))
+        print(f"[serving] {card} | mma_matmul_scaled Yi-6B sharded {name} M={m} K={k} N={n} "
+              f"(w cold: {copies} copies, graph of {calls} calls) planes 8: kernel "
+              f"{ms_planes[8]:.5f} ms, torch._int_mm+scale {lib_ms:.5f} ms, plain {plain_ms:.4f} "
+              f"ms, bound {b_ms:.5f} ms ({b_by})")
+    per_step = {"wq": 1, "wk/wv": 2, "w_gate/w_up": 2, "head": 0}
+    step = {key: sum(r[key] * per_step[r["name"]] for r in rows_t) * ycfg.n_layers
+            + next(r[key] for r in rows_t if r["name"] == "head")
+            for key in ("ms", "library_ms", "bound_ms")}
+    print(f"[serving] {card} | Yi-6B one sharded decode step's 161 scaled calls per rank "
+          f"(graph-timed shapes x calls): kernel {step['ms']:.3f} ms, torch._int_mm+scale "
+          f"{step['library_ms']:.3f} ms, bound {step['bound_ms']:.3f} ms")
+    return dict(serving=entries, serving_per_shape=rows_t, serving_step=step)
 
 
 def main() -> int:
@@ -4332,12 +4933,27 @@ def main() -> int:
     torch.cuda.empty_cache()
     lap(15)
 
-    # ------------------------------------------ 16. parallel training
-    summary.update(parallel_training(torch, np, dev, card))
+    # ------------------ 16-17. parallel training and sharded serving
+    par = parallel_training(torch, np, dev, card)
+    scaled_summary.update({k: par.pop(k) for k in SERVING_KEYS})
+    summary["launches_serving"] = par.pop("launches_serving_unscaled")
+    summary.update(par)
     torch.cuda.empty_cache()
-    lap(16)
+    lap("16-17")
+    check(summary["launches_serving"] > 0 and scaled_summary["launches_serving"] > 0,
+          f"phase 17 launched the kernels {summary['launches_serving']} (unscaled), "
+          f"{scaled_summary['launches_serving']} (scaled) times")
+    # the per-shape and per-path detail first, so that the total, the kernels
+    # line (one entry per kernel) and the last line land in the tail
+    for k in (summary, scaled_summary):
+        print(f"[detail] {k['name']} " + json.dumps({x: v for x, v in k.items()
+                                                     if x not in KERNEL_KEYS}))
     print(f"[done] every phase passed in {time.perf_counter() - t_start:.1f} s, the build included")
-    print(json.dumps({"kernels": [summary, scaled_summary]}))
+    print(json.dumps({"kernels": [
+        {**{x: k[x] for x in KERNEL_KEYS},
+         "launches_by_path": {x: v for x, v in k.items() if x.startswith("launches") and x !=
+                              "launches" and isinstance(v, int)}}
+        for k in (summary, scaled_summary)]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))
     return 0

@@ -1,13 +1,17 @@
 #!/usr/bin/env python3
-"""``chip_smoke.py``'s kernel build and phase 16 (parallel training) alone:
+"""``chip_smoke.py``'s kernel build and phases 16 (parallel training) and 17
+(sharded serving) alone, on the same four rank processes:
 
-    python3 scripts/phase16_alone.py
+    python3 scripts/phase16_alone.py [--phases 16,17]
 
-Prints phase 16's lines, (a)-(c) included, and a JSON summary of what it
-returns.  Needs a CUDA card; about 5-7 minutes with the build.
+Prints the phases' lines, 16(a)-(c) and 17's gates included, and a JSON
+summary of what they return.  ``--phases 17`` runs phase 17 alone (its
+yardsticks, the dry run's prediction and the ranks' serving).  Needs a
+CUDA card; about 5-8 minutes with the build for both.
 """
 from __future__ import annotations
 
+import argparse
 import json
 import sys
 import time
@@ -20,6 +24,9 @@ import chip_smoke  # noqa: E402
 
 
 def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--phases", default="16,17", help="comma-separated: 16, 17 or both")
+    phases = tuple(int(p) for p in ap.parse_args().phases.split(","))
     import numpy as np
     import torch
 
@@ -31,9 +38,9 @@ def main() -> int:
     print(card)
     lib, _ = mk.build()
     print(f"[build] {lib.name} in {time.perf_counter() - t0:.1f} s")
-    out = chip_smoke.parallel_training(torch, np, torch.device("cuda"), card)
+    out = chip_smoke.parallel_training(torch, np, torch.device("cuda"), card, phases=phases)
     print(json.dumps({k: v for k, v in out.items() if not k.endswith("per_shape")}))
-    print(f"[done] phase 16 alone in {time.perf_counter() - t0:.1f} s")
+    print(f"[done] phases {phases} alone in {time.perf_counter() - t0:.1f} s")
     return 0
 
 

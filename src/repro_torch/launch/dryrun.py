@@ -14,11 +14,10 @@ coordinates) and counts what passes:
   (``mm``/``bmm``/``addmm``/``baddbmm``; the MMA's int8 products among
   them, ``core.mma.mma_dot``'s meta branch), per chip and step;
 - ``collectives`` / ``cost.coll_bytes``: the collectives' counts and operand
-  bytes by kind (``parallel.collectives``' counting mode) of every train
-  cell (every family has a sharded loss).  Prefill and decode cells (the
-  port has no sharded serving forward yet) have ``collectives: null``,
-  ``coll_bytes`` 0 and ``"collectives_counted": false``; their FLOPs are
-  the whole (unsharded) step's over the chip count (``flops_basis``);
+  bytes by kind (``parallel.collectives``' counting mode) of every cell:
+  one rank's sharded train step, prefill or decode step (every LM family
+  has a sharded loss and sharded serving steps), ``"collectives_counted":
+  true`` and ``flops_basis`` ``"per-rank step"``;
 - ``census``: the run's product count (and its int8 products).
 
 As the reference's probes do, a cell is counted at depth 1 and 2 (a hybrid
@@ -35,8 +34,8 @@ the port does not run.
 
 One JSON per cell goes to ``results/dryrun_torch/`` (``--out``); the
 reference's ``results/dryrun/`` is never written.  ``--all`` over the 66
-cells allocates nothing and takes about 13 minutes on one CPU core
-(RWKV6's per-token loop most of it).
+cells allocates nothing and takes about 16 minutes on one CPU core
+(RWKV6's per-token loops most of it: its train and prefill cells).
 """
 from __future__ import annotations
 
@@ -116,15 +115,18 @@ def count_train_step(cfg, mesh, batch: dict) -> dict:
 
 
 def _count_cell(cfg, shape_name: str, mesh) -> dict:
-    """One cell's counts: a train cell is one rank's sharded step; a serving
-    cell its whole step on unsharded meta tensors, no mesh (the cell's own
-    ``fn``)."""
+    """One cell's counts: one rank's sharded step (the cell's ``fn``) on its
+    slices of the cell's meta arguments; a train step takes the global
+    batch and cuts its rows itself."""
     cell = specs.build_cell(cfg, shape_name, mesh)
-    if cell["kind"] != "train":
-        return count_run(cell["fn"], cell["args"])
-    ab_state, batch = cell["args"]
-    state = shd.shard_tree(ab_state, cell["in_shardings"][0])
-    return count_run(cell["fn"], (state, batch), mesh)
+    if cell["kind"] == "train":
+        ab_state, batch = cell["args"]
+        args = (shd.shard_tree(ab_state, cell["in_shardings"][0]), batch)
+    else:
+        args = tuple(shd.shard_tree(a, sh) if isinstance(a, dict) else shd.shard(a, sh)
+                     for a, sh in zip(cell["args"], cell["in_shardings"]))
+    with torch.no_grad():
+        return count_run(cell["fn"], args, mesh)
 
 
 def _flat(d: dict, prefix=()) -> dict:
@@ -207,15 +209,14 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool, quant: str = "none"
         cfg = apply_overrides(cfg, overrides)
     mesh = make_production_mesh(multi_pod=multi_pod, device="meta")
     cell = specs.build_cell(cfg, shape_name, mesh)
-    counted = cell["kind"] == "train"
     n_chips = mesh.size(mesh.axis_names)
     t0 = time.time()
     probe = probe_counts(cfg, shape_name, mesh)
     t_count = time.time() - t0
     census = probe["census"]
-    flops = census["flops"] if counted else census["flops"] / n_chips
-    coll_stats = probe["collectives"] if counted else None
-    coll_bytes = coll_stats["total_bytes"] if counted else 0
+    flops = census["flops"]
+    coll_stats = probe["collectives"]
+    coll_bytes = coll_stats["total_bytes"]
     meta = cell["meta"]
     mem_model = hlo_analysis.analytic_hbm_bytes(cell["kind"], **meta["mem_in"])
     roof = hlo_analysis.roofline(flops, mem_model["total"], coll_bytes)
@@ -231,10 +232,10 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool, quant: str = "none"
         serve_mode=meta.get("serve_mode", "-"),
         memory={"argument_size_in_bytes": argument_bytes(cell, mesh)},
         cost={"flops": float(flops), "coll_bytes": float(coll_bytes),
-              "coll_count": float(coll_stats["total_count"]) if counted else 0.0},
-        flops_basis="per-rank step" if counted else "whole step / chips",
+              "coll_count": float(coll_stats["total_count"])},
+        flops_basis="per-rank step",
         hbm_traffic_model=mem_model,
-        collectives=coll_stats, collectives_counted=counted, census=census,
+        collectives=coll_stats, collectives_counted=True, census=census,
         roofline=roof,
         model_flops_per_chip=model_flops_per_chip,
         useful_flops_fraction=model_flops_per_chip / flops if flops else 0.0,

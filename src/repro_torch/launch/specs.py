@@ -4,12 +4,12 @@ counterpart of the reference's ``launch/specs.py``, on the ``meta`` device.
 ``build_cell(cfg, shape_name, mesh)`` returns a dict with:
 
   kind:    'train' | 'prefill' | 'decode'
-  fn:      the step: for train, one rank's sharded step
-           (``train.train_step.build_jitted_train_step``); for prefill and
-           decode, the whole serving step of ``serve.serve_step.make_prefill``
-           / ``make_decode`` (the port has no sharded serving forward yet)
-  args:    its arguments as ``meta`` tensors (the train state and batch
-           global: the step takes the rank's slices)
+  fn:      one rank's sharded step: for train
+           ``train.train_step.build_jitted_train_step``'s, for prefill and
+           decode ``serve.serve_step.make_prefill`` / ``make_decode``'s
+           with the mesh
+  args:    its arguments as global ``meta`` tensors (the step takes the
+           rank's slices: ``sharding.shard_tree`` by ``in_shardings``)
   in_shardings / out_shardings: NamedShardings on ``mesh``
   meta:    params, active_params, tokens, serve_mode and ``mem_in``, the
            inputs of ``hlo_analysis.analytic_hbm_bytes`` (bytes per chip)
@@ -21,11 +21,10 @@ names one) is where ``fn`` runs.  Nothing is allocated or run here.
 Serving mode: TP by default; where the TP-split bf16 weights would pass
 10 GiB per chip, 2-D (each weight's first free dim that the data axes
 divide is split over them too, FSDP-style gathering), as the reference
-switches.  The serving step's activation quantization is per tensor on the
-kernel route (``models.layers.linear``, quirk 1 of the reference): under
-data parallelism that tensor's amax spans every data rank's rows.  The
-port has no sharded serving forward yet, so no collective of a serving
-cell is counted (``launch.dryrun``).
+switches (``serve_step.param_shardings``).  The serving step's activation
+quantization is per tensor on the kernel route (``models.layers.linear``,
+quirk 1 of the reference): under data parallelism that tensor's amax spans
+every data rank's rows (``parallel.sharded_lm.wq_product``).
 """
 from __future__ import annotations
 
@@ -172,33 +171,17 @@ def train_mem_in(cfg, ab_state, st_sh, mesh, global_batch: int, seq_len: int) ->
 
 def _serve_params(cfg, mesh, *, max_dec_pos: int = 4096):
     """Abstract params and their shardings for serving, and the mode: 'tp',
-    or '2d' where the TP-split bf16 weights pass 10 GiB per chip."""
+    or '2d' where the TP-split bf16 weights pass 10 GiB per chip
+    (``serve_step.param_shardings``)."""
     ab = _abstract_params(cfg, max_dec_pos=max_dec_pos)
-    n = param_count(ab)
-    per_chip = 2 * n / mesh.shape.get("model", 1)
-    mode = "2d" if per_chip > 10 * (1 << 30) else "tp"
-    p_sh = pspecs.named_shardings(ab, cfg, mesh)
-    if mode == "2d":
-        dpa = tuple(a for a in ("pod", "data") if a in mesh.shape)
-        dsize = mesh.size(dpa)
-
-        def widen(sh, leaf):
-            spec = list(sh.spec) + [None] * (leaf.ndim - len(sh.spec))
-            for i, (sp, dim) in enumerate(zip(spec, leaf.shape)):
-                if sp is None and dim % dsize == 0 and dim >= dsize:
-                    spec[i] = dpa if len(dpa) > 1 else dpa[0]
-                    break
-            return NamedSharding(mesh, P(*spec))
-
-        p_sh = tree_unflatten(p_sh, [widen(sh, leaf) for sh, leaf in
-                                     zip(tree_leaves(p_sh), tree_leaves(ab))])
+    p_sh, mode = ss.param_shardings(ab, cfg, mesh)
     return ab, p_sh, mode
 
 
 def _build_prefill(cfg, shape, mesh) -> dict:
     b, s = shape.global_batch, shape.seq_len
     ab_params, p_sh, mode = _serve_params(cfg, mesh, max_dec_pos=s + 1)
-    prefill = ss.make_prefill(cfg, device=_device(mesh))
+    prefill = ss.make_prefill(cfg, mesh=mesh, device=_device(mesh), shardings=p_sh)
     tokens = sds((b, s), torch.int32)
     extras = {}
     if cfg.family == "vlm":
@@ -232,7 +215,7 @@ def _build_prefill(cfg, shape, mesh) -> dict:
 def _build_decode(cfg, shape, mesh) -> dict:
     b, s = shape.global_batch, shape.seq_len
     ab_params, p_sh, mode = _serve_params(cfg, mesh, max_dec_pos=s + 1)
-    decode, ab_cache = ss.make_decode(cfg, b, s, device=_device(mesh))
+    decode, ab_cache = ss.make_decode(cfg, b, s, mesh=mesh, device=_device(mesh), shardings=p_sh)
     c_sh = ss.cache_shardings(ab_cache, cfg, mesh, b, max_seq=s)
     tokens = sds((b, 1), torch.int32)
     extras = {}

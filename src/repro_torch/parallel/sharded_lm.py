@@ -1,10 +1,13 @@
-"""The transformer families' loss on one rank of a device mesh (dense,
-moe, vlm): what GSPMD computes for the reference's rules, with the layouts
-and collectives written out; and the pieces the other families' sharded
-losses share (``sharded_rwkv6``, ``sharded_zamba2``, ``sharded_whisper``):
-column- and row-parallel linears, attention (with or without RoPE and the
-causal mask), cross-attention, the split RMSNorm, gathered leaves, the
-vocab-parallel embedding, head and NLL.
+"""The transformer families' loss and serving steps on one rank of a device
+mesh (dense, moe, vlm): what GSPMD computes for the reference's rules, with
+the layouts and collectives written out; and the pieces the other
+families' sharded losses and serving steps share (``sharded_rwkv6``,
+``sharded_zamba2``, ``sharded_whisper``): column- and row-parallel linears
+(float or pre-quantized, ``wq_product``), attention (with or without RoPE
+and the causal mask), attention over a sequence-split KV cache
+(``cached_attention``), cross-attention, the split RMSNorm, gathered
+leaves, the vocab-parallel embedding, head and NLL.  The serving section
+(at the end) says how prefill and decode are laid out.
 
 Each rank holds its slices of the parameters (``sharding.shard_tree`` by
 ``param_specs.named_shardings``) and its rows of the batch (batch over
@@ -32,9 +35,9 @@ straight-through estimator's float32 product is a float all-reduce
 ``core.mma.straight_through``).  A column-parallel linear's maxes are local
 already (whole K, whole rows).
 
-Sequence parallelism of the residual (``seq`` -> ``model``) and the decode
-cache's ``kv_seq`` change only where a value lives, not what it is; the
-residual here is replicated over ``model``.
+Sequence parallelism of the residual (``seq`` -> ``model``) changes only
+where a value lives, not what it is; the residual here is replicated over
+``model``.
 
 The ``moe`` family (experts over ``model``, the router's E columns
 column-parallel):
@@ -67,6 +70,10 @@ axes like ``tokens``) and drops their positions' logits before the NLL.
 """
 from __future__ import annotations
 
+import contextlib
+import contextvars
+import math
+
 import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
@@ -74,19 +81,42 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.core import mma
 from repro_torch.core import quant as quant_lib
 from repro_torch.device import resolve_device
+from repro_torch.kernels import ops
 from repro_torch.models import layers
 from repro_torch.models import moe as moe_lib
 from repro_torch.models.transformer import _layer_cfgs
 
 from . import collectives as coll
-from .sharding import current_mesh
+from .sharding import axis_tuple, current_mesh
 
 MODEL = "model"
+F32 = torch.float32
+
+# the data axes a serving step's rows are split over: the mesh's data axes,
+# or none where the batch does not divide them (every data rank then holds
+# every row); unset (training), the mesh's data axes
+_ROW_AXES: contextvars.ContextVar = contextvars.ContextVar("row_axes", default=None)
 
 
 def dp_axes(mesh) -> tuple[str, ...]:
     """The data-parallel axes present on ``mesh``."""
     return tuple(a for a in ("pod", "data") if a in mesh.shape)
+
+
+def row_axes(mesh) -> tuple[str, ...]:
+    """The axes this step's rows are split over (see ``_ROW_AXES``)."""
+    got = _ROW_AXES.get()
+    return dp_axes(mesh) if got is None else got
+
+
+@contextlib.contextmanager
+def rows_over(axes: tuple[str, ...]):
+    """Run a serving step whose rows are split over ``axes``."""
+    token = _ROW_AXES.set(tuple(axes))
+    try:
+        yield
+    finally:
+        _ROW_AXES.reset(token)
 
 
 def _slice(t: torch.Tensor, dim: int, mesh) -> torch.Tensor:
@@ -129,12 +159,80 @@ def _product(w: torch.Tensor, x: torch.Tensor, quant, mesh, *, reduce: bool) -> 
     return torch.matmul(x, w.to(x.dtype))
 
 
+def w_dims(p: dict) -> tuple[int, int]:
+    """(K, N) of a linear's weight on this rank, float or pre-quantized."""
+    w = p["w_q"] if "w_q" in p else p["w"]
+    return w.shape[-2], w.shape[-1]
+
+
+def wq_product(p: dict, x: torch.Tensor, quant, mesh, *, row: bool) -> torch.Tensor:
+    """``x @ w`` of a pre-quantized linear (``w_q``, ``w_scale``: the rank's
+    columns, or with ``row`` its slice of K), float32, as
+    ``layers.linear`` computes it on the global tensor:
+
+    - ``w_scale`` (split by N under the rules, whatever ``w_q``'s split)
+      comes whole for a row-parallel weight (an all-gather);
+    - the activation amax is the global one: per batch row (``impl`` int8,
+      horner, cascade) a max all-reduce over ``model`` where K is split; on
+      the kernel route, one scale per tensor (quirk 1), also over the axes
+      the rows are split over;
+    - a column-parallel or replicated product on the kernel route is the
+      scaled kernel; a row-parallel one the unscaled kernel on the K slice,
+      its int32 sum all-reduced over ``model``, then ``(float32(acc) *
+      x_scale) * w_scale[n]``, the scaled kernel's epilogue in its order:
+      bit-equal to the unsharded call;
+    - on the other routes ``mma_dot`` (``mma_product``, all-reduced with
+      ``row``), then ``acc * (x_scale * w_scale)``."""
+    planes = quant.planes if quant is not None else 8
+    impl = quant.impl if quant is not None else "horner"
+    xf = x.to(F32)
+    axes = (MODEL,) if row else ()
+    if impl != "kernel" and x.ndim >= 3:  # one scale per batch row
+        amax = torch.amax(torch.abs(xf), dim=tuple(range(1, x.ndim)), keepdim=True)
+    else:  # one scale for the global tensor
+        amax = torch.amax(torch.abs(xf))
+        axes = row_axes(mesh) + axes
+    xq = quant_lib.quantize_amax(xf, coll.all_reduce(amax, mesh, axes, "max"))
+    # the rules split every (1, N) scale by N: a row-parallel weight's
+    # (whole N) gathers its own
+    w_scale = _gathered(p["w_scale"].squeeze(-2), p["w_q"].shape[-1], mesh, replicated=True)
+    if impl == "kernel" and not row:
+        if x.device.type == "meta":  # the dry run's counting mode: the product's shape
+            return torch.matmul(xq.values, p["w_q"]).to(F32)
+        return ops.mma_matmul_scaled(xq.values, p["w_q"], xq.scale, w_scale, planes=planes,
+                                     device=x.device)
+    acc = mma_product(xq.values, p["w_q"], planes=planes, impl=impl, mesh=mesh, reduce=row)
+    if impl == "kernel":
+        return acc.to(F32) * xq.scale * w_scale
+    return acc.to(F32) * (xq.scale * w_scale)
+
+
+def _bias(out: torch.Tensor, b, n: int, mesh) -> torch.Tensor:
+    """``out`` (``n`` columns of the whole) plus the bias's columns."""
+    if b is None:
+        return out
+    if b.shape[-1] != n:
+        b = _slice(b, 0, mesh)
+    return out + b.to(out.dtype)
+
+
+def linear(p: dict, x: torch.Tensor, quant, mesh) -> torch.Tensor:
+    """A linear whose weight is whole on the rank, its input replicated:
+    ``layers.linear``, but for a pre-quantized weight on the kernel route,
+    whose activation scale is the global tensor's (``wq_product``)."""
+    if "w_q" not in p:
+        return layers.linear(p, x, quant)
+    out = wq_product(p, x, quant, mesh, row=False).to(x.dtype)
+    return _bias(out, p.get("b"), out.shape[-1], mesh)
+
+
 def _column(p: dict, x: torch.Tensor, quant, mesh, n_full: int) -> torch.Tensor:
     """A column-parallel linear inside a tensor-parallel sublayer (``x``
     already marked for varying use): the rank's columns, or every column
     from a weight that could not be split."""
     if "w_q" in p:
-        raise NotImplementedError("pre-quantized (w_q) weights under a mesh: serving's slice")
+        out = wq_product(p, x, quant, mesh, row=False).to(x.dtype)
+        return _bias(out, p.get("b"), out.shape[-1], mesh)
     w, b = p["w"], p.get("b")
     if w.shape[-1] == n_full:  # replicated weight in varying use: sum its gradient
         w = coll.pbroadcast(w, mesh, MODEL)
@@ -147,9 +245,12 @@ def _column(p: dict, x: torch.Tensor, quant, mesh, n_full: int) -> torch.Tensor:
 
 def _row(p: dict, x: torch.Tensor, quant, mesh) -> torch.Tensor:
     """A row-parallel linear: ``x`` holds the rank's slice of K."""
-    if p["w"].shape[0] != x.shape[-1]:
-        raise ValueError(f"row-parallel weight {tuple(p['w'].shape)} for input {tuple(x.shape)}")
-    out = _product(p["w"], x, quant, mesh, reduce=True)
+    if w_dims(p)[0] != x.shape[-1]:
+        raise ValueError(f"row-parallel weight {w_dims(p)} for input {tuple(x.shape)}")
+    if "w_q" in p:
+        out = wq_product(p, x, quant, mesh, row=True).to(x.dtype)
+    else:
+        out = _product(p["w"], x, quant, mesh, reduce=True)
     return out + p["b"].to(out.dtype) if "b" in p else out
 
 
@@ -216,11 +317,28 @@ def _attend(p: dict, xq: torch.Tensor, xkv: torch.Tensor, cfg, mesh, positions,
     return _row(p["wo"], out, quant, mesh)
 
 
+def _whole_attention(p: dict, x: torch.Tensor, cfg, mesh, positions, causal: bool
+                     ) -> torch.Tensor:
+    """``layers.attention`` (no cache) of weights whole on the rank, through
+    :func:`linear`."""
+    b, s, _ = x.shape
+    hd, quant = cfg.hd, cfg.quant
+    q = linear(p["wq"], x, quant, mesh).reshape(b, s, cfg.n_heads, hd)
+    k = linear(p["wk"], x, quant, mesh).reshape(b, s, cfg.n_kv_heads, hd)
+    v = linear(p["wv"], x, quant, mesh).reshape(b, s, cfg.n_kv_heads, hd)
+    if positions is not None:
+        q = layers.rope(q, positions, cfg.rope_theta)
+        k = layers.rope(k, positions, cfg.rope_theta)
+    out = layers.flash_attention(q, k, v, causal=causal, window=cfg.swa_window,
+                                 chunk=cfg.attn_chunk)
+    return linear(p["wo"], out.reshape(b, s, cfg.n_heads * hd), quant, mesh)
+
+
 def attention(p: dict, x: torch.Tensor, cfg, mesh, positions, *, causal: bool = True
               ) -> torch.Tensor:
     """Self-attention (``positions`` None: no RoPE, as Whisper's)."""
-    if p["wo"]["w"].shape[0] == cfg.n_heads * cfg.hd:  # wo unsplit: replicated
-        return layers.attention(p, x, cfg, positions=positions, causal=causal)[0]
+    if w_dims(p["wo"])[0] == cfg.n_heads * cfg.hd:  # wo unsplit: replicated
+        return _whole_attention(p, x, cfg, mesh, positions, causal)
     xb = _varying(x, mesh)
     return _attend(p, xb, xb, cfg, mesh, positions, causal)
 
@@ -233,18 +351,28 @@ def cross_attention(p: dict, x: torch.Tensor, memory: torch.Tensor, cfg, mesh) -
 
 
 def mlp(p: dict, x: torch.Tensor, cfg, mesh) -> torch.Tensor:
+    """The MLP: ``w_gate``/``w_up`` column-parallel, ``w_down`` row-parallel;
+    weights that could not be split whole on every rank (:func:`linear`)."""
     ff, quant = cfg.d_ff, cfg.quant
-    if p["w_down"]["w"].shape[0] == ff:
-        return layers.mlp(p, x, cfg)
-    xb = coll.pbroadcast(x, mesh, MODEL)
-    if "w_gate" in p:
-        gate = _column(p["w_gate"], xb, quant, mesh, ff)
-        up = _column(p["w_up"], xb, quant, mesh, ff)
-        h = F.silu(gate.to(torch.float32)).to(x.dtype) * up
+    if w_dims(p["w_down"])[0] == ff:
+        def up(name):
+            return linear(p[name], x, quant, mesh)
+
+        def down(h):
+            return linear(p["w_down"], h, quant, mesh)
     else:
-        h = F.gelu(_column(p["w_up"], xb, quant, mesh, ff).to(torch.float32),
-                   approximate="tanh").to(x.dtype)
-    return _row(p["w_down"], h, quant, mesh)
+        xb = coll.pbroadcast(x, mesh, MODEL)
+
+        def up(name):
+            return _column(p[name], xb, quant, mesh, ff)
+
+        def down(h):
+            return _row(p["w_down"], h, quant, mesh)
+    if "w_gate" in p:
+        h = F.silu(up("w_gate").to(torch.float32)).to(x.dtype) * up("w_up")
+    else:
+        h = F.gelu(up("w_up").to(torch.float32), approximate="tanh").to(x.dtype)
+    return down(h)
 
 
 def embed(p: dict, tokens: torch.Tensor, cfg, mesh) -> torch.Tensor:
@@ -273,8 +401,8 @@ def logits(params: dict, x: torch.Tensor, cfg, mesh) -> tuple[torch.Tensor, bool
     if cfg.tie_embeddings:
         return tied_logits(params["embed"], x, cfg, mesh)
     head = params["head"]
-    if head["w"].shape[-1] == cfg.vocab:
-        return layers.linear(head, x, cfg.quant), False
+    if w_dims(head)[1] == cfg.vocab:
+        return linear(head, x, cfg.quant, mesh), False
     return _column(head, coll.pbroadcast(x, mesh, MODEL), cfg.quant, mesh, cfg.vocab), True
 
 
@@ -457,3 +585,311 @@ def loss_fn(params: dict, batch: dict, cfg, *, mesh=None, device=None):
     lg, split = logits(params, x, cfg, mesh)
     out = nll(lg[:, n_prefix:], split, tok[:, 1:], mesh)
     return out + 0.01 * aux, {"nll": out, "aux": aux}
+
+
+# ---------------------------------------------------------------- serving
+#
+# The serving steps on a mesh (``serve.serve_step.make_prefill`` /
+# ``make_decode`` with ``mesh``): the reference's prefill and decode under
+# GSPMD with its serving layouts (``launch.specs._build_prefill`` /
+# ``_build_decode``): parameters TP (or 2-D, see :func:`gather_2d`), rows
+# over the data axes, the decode cache in ``serve_step.cache_shardings``'
+# layout, whose attention caches split their *sequence* over ``model``
+# (the reference's ``kv_seq`` rule).  Decode attention then runs every
+# head on every rank (the reference replicates q over ``model``) over the
+# rank's keys, and the ranks' partial softmaxes combine with a max and a
+# sum all-reduce of O(B·H·d): the cache is never gathered.
+
+
+def reshard(t: torch.Tensor, src, dst, mesh) -> torch.Tensor:
+    """This rank's slice of a tensor laid out by spec ``src`` as the slice
+    spec ``dst`` gives it: each dim split differently is gathered over its
+    ``src`` axes (replicated use), then cut to its ``dst`` slice.  No
+    collective where the specs agree."""
+    src = tuple(src) + (None,) * (t.ndim - len(src))
+    dst = tuple(dst) + (None,) * (t.ndim - len(dst))
+    for dim, (a, b) in enumerate(zip(src, dst)):
+        if axis_tuple(a) != axis_tuple(b) and mesh.size(a) > 1:
+            t = coll.all_gather(t, mesh, axis_tuple(a), dim=dim, replicated=True)
+    for dim, (a, b) in enumerate(zip(src, dst)):
+        n = mesh.size(b)
+        if axis_tuple(a) != axis_tuple(b) and n > 1:
+            size = t.shape[dim] // n
+            t = t.narrow(dim, mesh.index(axis_tuple(b)) * size, size)
+    return t.contiguous()
+
+
+def gather_2d(tree, specs, mesh, skip: int = 0):
+    """The leaves of ``tree`` with every dim that ``specs`` (a tree of
+    ``PartitionSpec``, or None) splits over the data axes gathered over
+    them: the 2-D serving mode's weights (``serve_step.param_shardings``)
+    in their TP layout, FSDP-style.  ``skip``: leading dims of the specs
+    that ``tree`` has dropped (one layer's view of a stacked tree)."""
+    if specs is None:
+        return tree
+    if isinstance(tree, dict):
+        return {k: gather_2d(v, specs[k], mesh, skip) for k, v in tree.items()}
+    dpa = set(dp_axes(mesh))
+    for dim, entry in enumerate(tuple(specs)[skip:]):
+        axes = tuple(a for a in axis_tuple(entry) if a in dpa)
+        if axes and mesh.size(axes) > 1:
+            tree = coll.all_gather(tree, mesh, axes, dim=dim, replicated=True)
+    return tree
+
+
+def data_split_dims(specs, skip: int) -> bool:
+    """Whether any leaf of ``specs`` splits one of its first ``skip`` dims
+    (a stacked tree's layer dims) over a data axis."""
+    if specs is None:
+        return False
+    if isinstance(specs, dict):
+        return any(data_split_dims(v, skip) for v in specs.values())
+    return any(a in ("pod", "data") for e in tuple(specs)[:skip] for a in axis_tuple(e))
+
+
+def gathered_logits(lg: torch.Tensor, split: bool, mesh) -> torch.Tensor:
+    """The whole vocab of logits a step returned split over ``model``."""
+    return coll.all_gather(lg, mesh, MODEL, dim=-1, replicated=True) if split else lg
+
+
+def _qkv_whole(p: dict, x: torch.Tensor, cfg, mesh):
+    """q, k and v of every head on every rank (the reference's decode
+    constrains them replicated over ``model``): the column-parallel
+    products, gathered."""
+    hd, h, kv, quant = cfg.hd, cfg.n_heads, cfg.n_kv_heads, cfg.quant
+    parts = [(_column(p[n], x, quant, mesh, f), f)
+             for n, f in (("wq", h * hd), ("wk", kv * hd), ("wv", kv * hd))]
+    if all(t.shape[-1] * mesh.size(MODEL) == f for t, f in parts) and mesh.size(MODEL) > 1:
+        # one all-gather for the three: rank r's [q_r k_r v_r] side by side
+        widths = [t.shape[-1] for t, _ in parts]
+        g = coll.all_gather(torch.cat([t for t, _ in parts], -1), mesh, MODEL, dim=-1,
+                            replicated=True)
+        g = g.reshape(*g.shape[:-1], mesh.size(MODEL), sum(widths))
+        outs, c0 = [], 0
+        for w in widths:
+            outs.append(g[..., c0:c0 + w].reshape(*g.shape[:-2], -1))
+            c0 += w
+        return outs
+    return [_gathered(t, f, mesh, replicated=True) for t, f in parts]
+
+
+def write_local(c: torch.Tensor, u: torch.Tensor, index, mesh) -> None:
+    """Write ``u`` (B, s, ...) at global positions ``[start, start + s)`` of
+    a cache split over ``model`` by sequence, of which ``c`` (B, S_l, ...)
+    is this rank's slice: the rank writes only the positions it holds.
+    ``start`` is ``index`` clamped to ``[0, S_max - s]``, as the unsharded
+    ``layers.cache_write`` (and the reference's ``dynamic_update_slice``)
+    clamps it.  In pieces of at most S_l positions, whose slots mod S_l are
+    distinct: a position another rank holds writes its slot's own value
+    back."""
+    b, s = u.shape[:2]
+    sl = c.shape[1]
+    start = torch.clamp(torch.as_tensor(index, dtype=torch.int64, device=c.device), 0,
+                        sl * mesh.size(MODEL) - s).expand(b)
+    local = (start[:, None] + torch.arange(s, device=c.device)[None, :]
+             - mesh.index(MODEL) * sl)
+    rows = torch.arange(b, device=c.device)[:, None]
+    tail = (1,) * (u.ndim - 2)
+    for j in range(0, s, sl):
+        lj = local[:, j:j + sl]
+        ok = ((lj >= 0) & (lj < sl)).reshape(lj.shape + tail)
+        slot = lj.remainder(sl)
+        c[rows, slot] = torch.where(ok, u[:, j:j + sl].to(c.dtype), c[rows, slot])
+
+
+def kv_seq_attention(q, k, v, q_pos, k_pos, *, causal: bool, window: int, chunk: int, mesh
+                     ) -> torch.Tensor:
+    """Softmax attention of ``q`` (B, S, H, D) over keys split over
+    ``model`` by sequence: this rank's ``k``, ``v`` (B, T, KV, D) at
+    absolute positions ``k_pos`` (T,).  Two passes over the rank's keys (in
+    chunks of ``chunk``; one for a short query): the scores' max, max
+    all-reduced over ``model``, then ``p = exp(score - max)`` (each the
+    unsharded step's value, so its bf16 rounding for ``p @ v`` is too), the
+    rank's sum of ``p`` and float32 sum of ``p @ v``, one sum all-reduce of
+    both (O(B·H·D)), ``p @ v`` then rounded to q's dtype once, as the
+    unsharded product is.  Only the order of those float32 sums differs
+    from ``layers.flash_attention``'s one pass (its chunked path over more
+    than one chunk of keys rescales by a running max instead).  A query that sees no key gives 0.  Returns (B, S, H, D)
+    in q's dtype."""
+    b, s, h, d = q.shape
+    t, kvh = k.shape[1], k.shape[2]
+    g = h // kvh
+    scale = 1.0 / math.sqrt(d)
+    dev = q.device
+    qg = q.reshape(b, s, kvh, g, d)
+    if s <= 8:
+        chunk = max(t, 1)
+
+    def scores(j):
+        kp = k_pos[j:j + chunk]
+        sc = torch.einsum("bskgd,bckd->bkgsc", qg, k[:, j:j + chunk]).to(F32) * scale
+        if causal:
+            ok = kp[None, None, :] <= q_pos[..., None]
+        else:
+            ok = torch.ones((1, s, kp.shape[0]), dtype=torch.bool, device=dev)
+        if window:
+            ok = ok & (kp[None, None, :] > q_pos[..., None] - window)
+        return torch.where(ok[:, None, None], sc, -torch.inf)
+
+    starts = range(0, t, chunk)
+    first = scores(0) if len(starts) == 1 else None
+    m = torch.full((b, kvh, g, s), -torch.inf, dtype=F32, device=dev)
+    for j in starts:
+        m = torch.maximum(m, (first if first is not None else scores(j)).amax(dim=-1))
+    m = coll.all_reduce(m, mesh, MODEL, "max")
+    m_safe = torch.where(torch.isfinite(m), m, 0.0)
+    l = torch.zeros((b, kvh, g, s), dtype=F32, device=dev)
+    acc = torch.zeros((b, s, kvh, g, d), dtype=F32, device=dev)
+    for j in starts:
+        sc = first if first is not None else scores(j)
+        p = torch.where(torch.isfinite(sc), torch.exp(sc - m_safe[..., None]), 0.0)
+        l = l + p.sum(dim=-1)
+        acc = acc + torch.einsum("bkgsc,bckd->bskgd", p.to(q.dtype).to(F32),
+                                 v[:, j:j + chunk].to(F32))
+    lt = l.permute(0, 3, 1, 2).reshape(b, s, kvh * g)
+    both = coll.all_reduce(torch.cat([acc.reshape(b, s, -1), lt], -1), mesh, MODEL)
+    # p @ v rounded once to q's dtype, as the unsharded product returns it
+    acc = both[..., :kvh * g * d].to(q.dtype).to(F32)
+    lt = both[..., kvh * g * d:]
+    out = acc.reshape(b, s, kvh, g, d) / torch.clamp(lt, min=1e-20).reshape(b, s, kvh, g)[..., None]
+    return out.reshape(b, s, h, d).to(q.dtype)
+
+
+def cached_attention(p: dict, x: torch.Tensor, cfg, mesh, positions, cache, index
+                     ) -> torch.Tensor:
+    """``layers.attention`` with a KV cache (written in place at ``index``)
+    whose sequence is split over ``model`` (this rank's slices ``cache`` =
+    (k, v), (B, S_l, KV, hd), bf16 or int8 at ``layers.KV_CACHE_SCALE``):
+    every head's q, k and v on every rank, each rank writes the new
+    positions it holds and attends over its keys, the partial softmaxes
+    combine over ``model`` (:func:`kv_seq_attention`), and ``wo`` is
+    row-parallel on the rank's heads (or whole).  ``positions`` None: no
+    RoPE (Whisper)."""
+    b, s, _ = x.shape
+    hd, h, kvh = cfg.hd, cfg.n_heads, cfg.n_kv_heads
+    q, k, v = _qkv_whole(p, _varying(x, mesh), cfg, mesh)
+    q, k, v = q.reshape(b, s, h, hd), k.reshape(b, s, kvh, hd), v.reshape(b, s, kvh, hd)
+    if positions is not None:
+        q = layers.rope(q, positions, cfg.rope_theta)
+        k = layers.rope(k, positions, cfg.rope_theta)
+    ck, cv = cache
+    if ck.dtype == torch.int8:
+        def q8(t):
+            return torch.clamp(torch.round(t.to(F32) / layers.KV_CACHE_SCALE), -127,
+                               127).to(torch.int8)
+
+        write_local(ck, q8(k), index, mesh)
+        write_local(cv, q8(v), index, mesh)
+        k = (ck.to(F32) * layers.KV_CACHE_SCALE).to(q.dtype)
+        v = (cv.to(F32) * layers.KV_CACHE_SCALE).to(q.dtype)
+    else:
+        write_local(ck, k, index, mesh)
+        write_local(cv, v, index, mesh)
+        k, v = ck, cv
+    sl = ck.shape[1]
+    off = torch.as_tensor(index, dtype=torch.int64, device=x.device)
+    ar = torch.arange(s, device=x.device)
+    q_pos = off.reshape(-1, 1) + ar[None, :] if off.ndim else (off + ar)[None, :]
+    k_pos = mesh.index(MODEL) * sl + torch.arange(sl, device=x.device)
+    out = kv_seq_attention(q, k, v, q_pos, k_pos, causal=True, window=cfg.swa_window,
+                           chunk=cfg.attn_chunk, mesh=mesh).reshape(b, s, h * hd)
+    if w_dims(p["wo"])[0] == h * hd:
+        return linear(p["wo"], out, cfg.quant, mesh)
+    return _row(p["wo"], _slice(out, 2, mesh), cfg.quant, mesh)
+
+
+def moe_serve(p: dict, x: torch.Tensor, cfg, mesh) -> torch.Tensor:
+    """The MoE FFN of a serving step on this rank's rows: ``moe_ffn_ep``'s
+    body where the reference takes it (quantization off, experts that
+    divide ``model``), on the ``seq`` slab where ``model`` splits the
+    sequence and else on the rank's whole rows (the reference's
+    ``spec_for`` drops a ``seq`` split that does not divide, so each
+    ``model`` rank routes every token of its rows alone, on the capacity of
+    its rows: a decode step); otherwise ``moe_ffn``'s global routing."""
+    m, msize = cfg.moe, mesh.size(MODEL)
+    if m.ep and msize > 1 and m.n_experts % msize == 0 and cfg.quant.mode == "none" \
+            and x.shape[1] % msize:
+        bl, s, d = x.shape
+        router = _gathered(p["router"]["w"], m.n_experts, mesh)
+        return moe_lib.ep_slab(p, x.reshape(bl * s, d), router, cfg, mesh).reshape(bl, s, d)
+    return moe_ffn(p, x, cfg, mesh)
+
+
+def _serve_layer(blk: dict, x: torch.Tensor, cfg, mesh, positions, cache, index):
+    h = layers.rmsnorm(blk["ln1"], x, cfg.norm_eps)
+    if cache is None:
+        x = x + attention(blk["attn"], h, cfg, mesh, positions)
+    else:
+        x = x + cached_attention(blk["attn"], h, cfg, mesh, positions, cache, index)
+    h = layers.rmsnorm(blk["ln2"], x, cfg.norm_eps)
+    if cfg.moe.n_experts:
+        return x + moe_serve(blk["moe"], h, cfg, mesh)
+    return x + mlp(blk["mlp"], h, cfg, mesh)
+
+
+def serve_forward(params: dict, tokens, cfg, mesh, dev, *, cache=None, index=None,
+                  prefix=None, specs=None):
+    """The transformer families' forward on this rank's rows: the prefill
+    (no cache: the rank's heads, as the training forward) or a decode or
+    writing prefill into the rank's slice of a ``kv_seq``-split cache at
+    ``index`` (:func:`cached_attention`).  ``prefix`` (B_local, P, D): the
+    vlm's patches.  ``specs``: the params' specs in the 2-D serving mode.
+    Returns the head's logits (the rank's vocab slice where the head is
+    split) and whether they are split."""
+    top = {k: v for k, v in params.items() if k != "blocks"}
+    blocks, bspecs = params["blocks"], None
+    if specs is not None:
+        top = gather_2d(top, {k: specs[k] for k in top}, mesh)
+        if data_split_dims(specs["blocks"], 1):  # layers split over data: gather them all
+            blocks = gather_2d(blocks, specs["blocks"], mesh)
+        else:
+            bspecs = specs["blocks"]
+    tok = torch.as_tensor(tokens, dtype=torch.int64, device=dev)
+    x = embed(top["embed"], tok, cfg, mesh)
+    if prefix is not None:
+        x = torch.cat([torch.as_tensor(prefix, device=dev).to(x.dtype), x], dim=1)
+    s = x.shape[1]
+    base = torch.as_tensor(0 if index is None else index, device=dev)
+    ar = torch.arange(s, device=dev)
+    positions = base.reshape(-1, 1) + ar[None, :] if base.ndim else base + ar[None, :]
+    for l, lcfg in enumerate(_layer_cfgs(cfg)):
+        blk = gather_2d(layers.layer_params(blocks, l), bspecs, mesh, skip=1)
+        c = None if cache is None else (cache["k"][l], cache["v"][l])
+        x = _serve_layer(blk, x, lcfg, mesh, positions, c, base)
+    x = layers.rmsnorm(top["ln_f"], x, cfg.norm_eps)
+    return logits(top, x, cfg, mesh)
+
+
+def serve_prefill(params: dict, tokens, extras: dict, cfg, mesh, dev, specs=None):
+    """The prefill step on this rank (``serve_step.make_prefill`` with a
+    mesh): logits (B_local, P + S, vocab or its rank's slice) and whether
+    they are split by vocab."""
+    if cfg.family in ("ssm", "hybrid", "encdec"):
+        from . import sharded_rwkv6, sharded_whisper, sharded_zamba2
+
+        _no_2d(cfg, specs)
+        mod = {"ssm": sharded_rwkv6, "hybrid": sharded_zamba2, "encdec": sharded_whisper}
+        return mod[cfg.family].serve_prefill(params, tokens, extras, cfg, mesh, dev)
+    return serve_forward(params, tokens, cfg, mesh, dev, prefix=extras.get("patches"),
+                         specs=specs)
+
+
+def serve_decode(params: dict, tokens, cache: dict, index, extras: dict, cfg, mesh, dev,
+                 specs=None):
+    """One decode (or writing prefill) step on this rank: tokens (B_local,
+    S_new) at ``index`` into this rank's slice of the cache, in its compute
+    layout (``serve_step``).  Returns (logits, split, cache)."""
+    if cfg.family in ("ssm", "hybrid", "encdec"):
+        from . import sharded_rwkv6, sharded_whisper, sharded_zamba2
+
+        _no_2d(cfg, specs)
+        mod = {"ssm": sharded_rwkv6, "hybrid": sharded_zamba2, "encdec": sharded_whisper}
+        return mod[cfg.family].serve_decode(params, tokens, cache, index, extras, cfg, mesh, dev)
+    lg, split = serve_forward(params, tokens, cfg, mesh, dev, cache=cache, index=index,
+                              specs=specs)
+    return lg, split, cache
+
+
+def _no_2d(cfg, specs) -> None:
+    if specs is not None:
+        raise NotImplementedError(f"the 2-D serving mode for the {cfg.family} family")

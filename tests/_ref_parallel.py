@@ -111,11 +111,146 @@ def family_steps(inp, mesh, families) -> dict:
     return out
 
 
+# tests/test_torch_serve_sharded.py: each family's smoke model served on
+# the (data 2, model 4) mesh, the port's tokens, weights and cache sizes
+SERVE_ARCHS = {"dense": "yi_6b", "moe": "olmoe_1b_7b", "vlm": "internvl2_76b",
+               "ssm": "rwkv6_3b", "hybrid": "zamba2_7b", "encdec": "whisper_large_v3"}
+SERVE_MAX_SEQ, SERVE_STEPS = 48, 3
+
+
+def serve_tree(inp, prefix):
+    """The port's saved tree, each leaf in its own dtype (int8 ``w_q``,
+    float32 ``w_scale`` and the recurrent families' float32 leaves)."""
+    out = {}
+    for k, v in inp.items():
+        if k.startswith(prefix):
+            *parents, leaf = k[len(prefix):].split("/")
+            node = out
+            for p in parents:
+                node = node.setdefault(p, {})
+            if v.dtype == np.float32 and leaf not in FLOAT32_LEAVES + ("w_scale",):
+                node[leaf] = jnp.asarray(v, jnp.bfloat16)
+            else:
+                node[leaf] = jnp.asarray(v)
+    return out
+
+
+def serve_family(inp, mesh, family, route, batch=4, key=None, whole=False) -> dict:
+    """The reference's sharded prefill and decode steps of one family, as
+    ``launch.specs._build_prefill`` / ``_build_decode`` lay them out (the
+    params by ``param_specs``, the rows over 'data', the cache by
+    ``serve_step.cache_shardings``), compiled with ``EXACT``: the logits of
+    the prefill and of every decode call (a writing prefill of the prompt,
+    then single tokens; Zamba2 single tokens only).  ``whole``: the same
+    steps unsharded, on one device (under keys ``.../whole``)."""
+    from jax.sharding import NamedSharding, PartitionSpec as P
+
+    from repro.launch import specs as rspecs
+    from repro.models import whisper
+    from repro.parallel import param_specs as pspecs
+    from repro.serve import serve_step as ss
+
+    key = (key or f"{family}/{route}") + ("/whole" if whole else "")
+    cfg = get_smoke_config(SERVE_ARCHS[family])
+    if route != "none":
+        cfg = cfg.replace(quant=QuantConfig(mode="mma_int8", impl="int8", weights_int8=True,
+                                            kv_int8=True))
+    params = serve_tree(inp, f"{family}/{'q' if route != 'none' else 'f'}/")
+    rules = rspecs._rules(cfg)
+    if whole:
+        mesh = auto_mesh((1, 1), ("data", "model"))
+    p_sh = pspecs.named_shardings(jax.eval_shape(lambda: params), cfg, mesh)
+    params = jax.device_put(params, p_sh)
+    b = batch
+    out = {}
+    s_pre = 256 if family == "hybrid" else 16
+    tok = jnp.asarray(inp[f"serve/prefill_{s_pre}"][:b])
+    extras = {}
+    if family == "vlm":
+        extras["patches"] = jnp.asarray(inp["serve/patches"][:b], jnp.bfloat16)
+    if family == "encdec":
+        extras["frames"] = jnp.asarray(inp["serve/frames"][:b], jnp.bfloat16)
+    prefill = ss.make_prefill(cfg)
+    tok_sh = NamedSharding(mesh, P("data", None))
+    ex_sh = {k: NamedSharding(mesh, P("data", *([None] * (v.ndim - 1)))) for k, v in extras.items()}
+
+    def pre_fn(p_, t_, e_):
+        with shd.use_mesh(mesh, rules):
+            return prefill(p_, t_, e_)
+
+    lg = exact(pre_fn, params, jax.device_put(tok, tok_sh),
+               {k: jax.device_put(v, ex_sh[k]) for k, v in extras.items()},
+               in_shardings=(p_sh, tok_sh, ex_sh))
+    out[f"{key}/prefill"] = np.asarray(jnp.asarray(lg, jnp.float32))
+    if family == "hybrid" and route != "none" and not whole:
+        # the same step under plain jax.jit, which skips some bf16 roundings:
+        # the quantized stateless Zamba2 forward's spread between builds
+        lg = jax.jit(pre_fn, in_shardings=(p_sh, tok_sh, ex_sh))(
+            params, jax.device_put(tok, tok_sh), {})
+        out[f"{key}/prefill_plain"] = np.asarray(jnp.asarray(lg, jnp.float32))
+
+    decode, ab_cache = ss.make_decode(cfg, b, SERVE_MAX_SEQ)
+    c_sh = ss.cache_shardings(ab_cache, cfg, mesh, b, max_seq=SERVE_MAX_SEQ)
+    cache = jax.device_put(jax.tree.map(lambda a: jnp.zeros(a.shape, a.dtype), ab_cache), c_sh)
+    dex = {}
+    if family == "encdec":
+        memory = exact(lambda p_, f_: whisper.encode(p_, f_, cfg), params, extras["frames"])
+        dex = {"memory": memory,
+               "cross_kv": exact(lambda p_, m_: whisper.precompute_cross_kv(p_, m_, cfg), params,
+                                 memory)}
+
+    def ex_sharding(v):
+        axes = [None] * v.ndim
+        for i, d_ in enumerate(v.shape):
+            if d_ == b:
+                axes[i] = "data"
+                break
+        return NamedSharding(mesh, P(*axes))
+
+    dex_sh = jax.tree.map(ex_sharding, dex)
+    dex = jax.tree.map(lambda v, s_: jax.device_put(v, s_), dex, dex_sh)
+
+    def dec_fn(p_, t_, c_, i_, e_):
+        with shd.use_mesh(mesh, rules):
+            return decode(p_, t_, c_, i_, e_)
+
+    calls = [] if family == "hybrid" else [inp["serve/prompt"][:b]]
+    calls += [inp["serve/steps"][i][:b] for i in range(SERVE_STEPS + (family == "hybrid"))]
+    compiled, idx = {}, 0
+    for i, t in enumerate(calls):
+        t = jax.device_put(jnp.asarray(t), tok_sh)
+        args = (params, t, cache, jnp.asarray(idx, jnp.int32), dex)
+        if t.shape not in compiled:
+            compiled[t.shape] = jax.jit(
+                dec_fn, in_shardings=(p_sh, tok_sh, c_sh, NamedSharding(mesh, P()), dex_sh),
+                out_shardings=(None, c_sh)).lower(*args).compile(EXACT)
+        lg, cache = compiled[t.shape](*args)
+        out[f"{key}/decode{i}"] = np.asarray(jnp.asarray(lg, jnp.float32))
+        idx += t.shape[1]
+    return out
+
+
 def main(d, part):
     """``part``: ``base`` (every check but the ssm, hybrid and encdec
-    steps), or a comma-separated list of those families; the test runs the
-    parts as concurrent subprocesses."""
+    steps), a comma-separated list of those families, or ``serve:`` and a
+    comma-separated list of the families whose serving steps to run; the
+    tests run the parts as concurrent subprocesses."""
     inp = dict(np.load(os.path.join(d, "inputs.npz")))
+    if part.startswith("serve:"):
+        mesh = auto_mesh((2, 4), ("data", "model"))
+        out = {}
+        for family in part[len("serve:"):].split(","):
+            for route in ("none", "int8"):
+                out.update(serve_family(inp, mesh, family, route))
+                if family == "moe" or (family, route) == ("hybrid", "int8"):
+                    # GSPMD's partial sums move the router's near ties; the
+                    # quantized stateless Zamba2 forward is chaotic
+                    out.update(serve_family(inp, mesh, family, route, whole=True))
+            if family == "hybrid":  # the rule's first dim equal to the batch: the groups
+                out.update(serve_family(inp, mesh, family, "int8", batch=2, key="hybrid_b2/int8"))
+        np.savez(os.path.join(d, f"ref_{part.replace(':', '_').replace(',', '_')}.npz"), **out)
+        print("REF_OK")
+        return
     mesh = auto_mesh((4, 2), ("data", "model"))
     if part != "base":
         out = family_steps(inp, mesh, part.split(","))

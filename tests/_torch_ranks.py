@@ -349,3 +349,268 @@ def rank_main(rank: int, d: str) -> None:
             shutil.rmtree(os.path.join(d, "ckpt"), ignore_errors=True)
     finally:
         dist.destroy_process_group()
+
+
+# ------------------------------------------------------------ sharded serving
+# The port's side of ``tests/test_torch_serve_sharded.py``: each family's
+# smoke model served on the (data 2, model 4) mesh through
+# ``serve_step.make_prefill`` / ``make_decode`` with the mesh, against the
+# same steps unsharded; every call also counted on meta tensors.
+
+SERVE_ARCHS = {"dense": "yi_6b", "moe": "olmoe_1b_7b", "vlm": "internvl2_76b",
+               "ssm": "rwkv6_3b", "hybrid": "zamba2_7b", "encdec": "whisper_large_v3"}
+SERVE_ROUTES = ("none", "int8", "kernel")
+SERVE_BATCH, SERVE_MAX_SEQ, SERVE_PROMPT, SERVE_STEPS = 4, 48, 20, 3
+SERVE_HYBRID_PREFILL = 256  # one SSD chunk (mamba2.CHUNK)
+INT8_MIN_DIM = 128  # the smoke models' linears of 128 and more are pre-quantized
+
+
+def serve_cfg(family: str, route: str):
+    cfg = get_smoke_config(SERVE_ARCHS[family])
+    if route == "none":
+        return cfg
+    return cfg.replace(quant=QuantConfig(mode="mma_int8", impl=route, weights_int8=True,
+                                         kv_int8=True))
+
+
+def serve_tree(inp: dict, prefix: str) -> dict:
+    """A parameter tree saved by ``test_torch_serve_sharded._inputs``:
+    leaves in their own dtypes (int8 ``w_q``, float32 ``w_scale`` and
+    RWKV6's and Mamba2's float32 leaves, bf16 the rest)."""
+    out = {}
+    for k, v in inp.items():
+        if k.startswith(prefix):
+            *parents, leaf = k[len(prefix):].split("/")
+            node = out
+            for p in parents:
+                node = node.setdefault(p, {})
+            t = torch.tensor(v)
+            if t.dtype == torch.float32 and leaf not in FLOAT32_LEAVES + ("w_scale",):
+                t = t.to(torch.bfloat16)
+            node[leaf] = t
+    return out
+
+
+def _abstract(tree):
+    return layers.tree_map(lambda t: torch.empty(t.shape, dtype=t.dtype, device="meta"), tree)
+
+
+def _rows(t, mesh, n: int):
+    d = mesh.index("data")
+    per = n // mesh.size("data")
+    return t[d * per:(d + 1) * per]
+
+
+class _Recorder:
+    """Every int32 product of a serving call, in call order: on the sharded
+    side ``sharded_lm.mma_product``'s (a row-parallel one after its
+    all-reduce), on the unsharded side ``mma.mma_dot``'s; the scaled
+    kernel's (fused: its int32 is not returned) recomputed by the unscaled
+    kernel's plain version on its operands, on both."""
+
+    def __init__(self, sharded: bool):
+        self.calls, self.sharded = [], sharded
+
+    def __enter__(self):
+        from repro_torch.kernels import mma_matmul as mk
+        from repro_torch.kernels import ops
+
+        self.saved = (sharded_lm.mma_product, mma.mma_dot, ops.mma_matmul_scaled)
+        inner_prod, inner_dot, inner_scaled = self.saved
+
+        inside = []
+
+        def prod(*a, **kw):
+            inside.append(1)
+            try:
+                acc = inner_prod(*a, **kw)
+            finally:
+                inside.pop()
+            self.calls.append(acc)
+            return acc
+
+        def dot(*a, **kw):  # a LoRA's product, or the unsharded step's
+            acc = inner_dot(*a, **kw)
+            if not inside:
+                self.calls.append(acc)
+            return acc
+
+        def scaled(x, w, xs, ws, *, planes=8, **kw):
+            self.calls.append(mk.mma_matmul_plain(x, w, planes=planes))
+            return inner_scaled(x, w, xs, ws, planes=planes, **kw)
+
+        if self.sharded:
+            sharded_lm.mma_product = prod
+        mma.mma_dot = dot
+        ops.mma_matmul_scaled = scaled
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.kernels import ops
+
+        sharded_lm.mma_product, mma.mma_dot, ops.mma_matmul_scaled = self.saved
+
+
+def _equal_products(got: list, want: list, mesh, n_rows: int) -> list:
+    """Each sharded product against the unsharded one: the rank's rows, and
+    a column-parallel product's columns."""
+    out = []
+    r = mesh.index("model")
+    for g, w in zip(got, want):
+        w = _rows(w, mesh, n_rows) if w.shape[0] == n_rows else w
+        if g.shape[-1] != w.shape[-1]:
+            n = g.shape[-1]
+            w = w[..., r * n:(r + 1) * n]
+        out.append(g.dtype == torch.int32 and g.shape == w.shape and bool(torch.equal(g, w)))
+    return out
+
+
+def _serve_extras(inp: dict, family: str) -> dict:
+    """The family's prefill extras: the vlm's patches, Whisper's frames."""
+    extras = {}
+    if family == "vlm":
+        extras["patches"] = torch.tensor(inp["serve/patches"]).to(torch.bfloat16)
+    if family == "encdec":
+        extras["frames"] = torch.tensor(inp["serve/frames"]).to(torch.bfloat16)
+    return extras
+
+
+def serve_family(inp, mesh, family: str, route: str, out: dict, *, batch=SERVE_BATCH,
+                 key=None, two_d=False) -> None:
+    """One family's prefill, writing prefill and decode steps on this rank
+    against the unsharded steps; results under ``out[key/...]``."""
+    from repro_torch.launch import specs as specs_lib
+    from repro_torch.models import whisper
+    from repro_torch.serve import serve_step as ss
+
+    key = key or f"{family}/{route}"
+    cfg = serve_cfg(family, route)
+    params = serve_tree(inp, f"{family}/{'q' if route != 'none' else 'f'}/")
+    n = batch
+    p_ab = _abstract(params)
+    if two_d:
+        saved = ss.TWO_D_BYTES
+        ss.TWO_D_BYTES = 0
+    try:
+        p_sh, mode = ss.param_shardings(p_ab, cfg, mesh)
+    finally:
+        if two_d:
+            ss.TWO_D_BYTES = saved
+    out[f"{key}/mode"] = mode
+    local = shd.shard_tree(params, p_sh)
+    cmesh = counting_mesh(mesh)
+    cp_sh, _ = (ss.param_shardings(p_ab, cfg, cmesh) if not two_d
+                else (tree_unflatten(p_sh, [NamedSharding(cmesh, s.spec) for s in tree_leaves(p_sh)]),
+                      mode))
+    local_m = shd.shard_tree(p_ab, cp_sh)
+    ex = _serve_extras(inp, family)
+    ex = {k: v[:n] for k, v in ex.items()}
+    res = {}
+
+    def counted(fn_m, *args):
+        coll.reset_stats(cmesh)
+        fn_m(*args)
+        return coll.collective_stats(cmesh)
+
+    def meta(t):
+        return torch.empty(t.shape, dtype=t.dtype, device="meta")
+
+    # ---- the prefill (no cache)
+    s_pre = SERVE_HYBRID_PREFILL if family == "hybrid" else 16
+    tok = torch.tensor(inp[f"serve/prefill_{s_pre}"][:n])
+    pre_ex = {k: v for k, v in ex.items() if k in ("patches", "frames")}
+    pre = ss.make_prefill(cfg, mesh=mesh, device="cpu", shardings=p_sh)
+    pre1 = ss.make_prefill(cfg, device="cpu")
+    loc_ex = {k: _rows(v, mesh, n) for k, v in pre_ex.items()}
+    coll.reset_stats(mesh)
+    with torch.no_grad(), _Recorder(True) as rec:
+        lg = pre(local, _rows(tok, mesh, n), loc_ex)
+    res["prefill/stats"] = coll.collective_stats(mesh)
+    res["prefill/logits"] = sharded_lm.gathered_logits(lg, lg.shape[-1] != cfg.vocab, mesh).float()
+    with torch.no_grad(), _Recorder(False) as rec1:
+        lg1 = pre1(params, tok, pre_ex)
+    res["prefill/logits1"] = _rows(lg1, mesh, n).float()
+    res["prefill/int32"] = _equal_products(rec.calls, rec1.calls, mesh, n)
+    pre_m = ss.make_prefill(cfg, mesh=cmesh, device="meta", shardings=cp_sh)
+    with torch.no_grad():
+        res["prefill/count"] = counted(pre_m, local_m, meta(_rows(tok, mesh, n)),
+                                       {k: meta(v) for k, v in loc_ex.items()})
+
+    # ---- decode: a writing prefill (not for the hybrid: Mamba2 decodes one
+    # token per call), then single-token steps
+    dec, spec = ss.make_decode(cfg, n, SERVE_MAX_SEQ, mesh=mesh, device="cpu", shardings=p_sh)
+    dec1, _ = ss.make_decode(cfg, n, SERVE_MAX_SEQ, device="cpu")
+    dec_m, _ = ss.make_decode(cfg, n, SERVE_MAX_SEQ, mesh=cmesh, device="meta", shardings=cp_sh)
+    c_sh = ss.cache_shardings(spec, cfg, mesh, n, SERVE_MAX_SEQ)
+    cdtype = torch.int8 if cfg.quant.kv_int8 else torch.bfloat16
+    cache1 = ss.init_serving_cache(cfg, n, SERVE_MAX_SEQ, dtype=cdtype, device="cpu")
+    cache = shd.shard_tree(cache1, c_sh)
+    cache_m = shd.shard_tree(spec, ss.cache_shardings(spec, cfg, cmesh, n, SERVE_MAX_SEQ))
+    dex, dex1 = {}, {}
+    if family == "encdec":
+        with torch.no_grad():
+            memory = whisper.encode(params, ex["frames"], cfg, device="cpu")
+            ckv = whisper.precompute_cross_kv(params, memory, cfg, device="cpu")
+        dex1 = {"memory": memory, "cross_kv": ckv}
+        dex = {"memory": _rows(memory, mesh, n),
+               "cross_kv": {k: v[:, mesh.index("data") * (n // mesh.size("data")):]
+                            [:, :n // mesh.size("data")] for k, v in ckv.items()}}
+    calls = []
+    if family != "hybrid":
+        calls.append(torch.tensor(inp["serve/prompt"][:n]))
+    steps = SERVE_STEPS + (1 if family == "hybrid" else 0)
+    calls += [torch.tensor(inp["serve/steps"][i][:n]) for i in range(steps)]
+    idx = 0
+    res["decode"] = []
+    for i, t in enumerate(calls):
+        coll.reset_stats(mesh)
+        with torch.no_grad(), _Recorder(True) as rec:
+            lg, cache = dec(local, _rows(t, mesh, n), cache, torch.tensor(idx), dex)
+        stats = coll.collective_stats(mesh)
+        with torch.no_grad(), _Recorder(False) as rec1:
+            lg1, cache1 = dec1(params, t, cache1, torch.tensor(idx), dex1)
+        with torch.no_grad():
+            cnt = counted(dec_m, local_m, meta(_rows(t, mesh, n)), cache_m, meta(torch.tensor(idx)),
+                          layers.tree_map(meta, dex))
+        step = {"stats": stats, "count": cnt,
+                "logits": sharded_lm.gathered_logits(lg, lg.shape[-1] != cfg.vocab, mesh).float(),
+                "logits1": _rows(lg1, mesh, n).float(),
+                "int32": _equal_products(rec.calls, rec1.calls, mesh, n)}
+        if i == 0:  # layer 0's new cache or state, gathered, against the unsharded one's
+            whole = shd.gather_tree(cache, c_sh)
+            step["cache0"] = {k: bool(torch.equal(a[0], b[0])) for k, a, b in
+                              zip(_leaf_names(whole), tree_leaves(whole), tree_leaves(cache1))}
+        res["decode"].append(step)
+        idx += t.shape[1]
+    state = sum(x.numel() * x.element_size() for x in tree_leaves(local)) + \
+        sum(x.numel() * x.element_size() for x in tree_leaves(cache))
+    res["state_bytes"] = state
+    res["dry_bytes"] = specs_lib.sharded_bytes(p_ab, p_sh, mesh) + \
+        specs_lib.sharded_bytes(spec, c_sh, mesh)
+    out[key] = res
+
+
+def _leaf_names(tree, prefix=""):
+    if isinstance(tree, dict):
+        return [n for k, v in tree.items() for n in _leaf_names(v, f"{prefix}{k}/")]
+    return [prefix[:-1]]
+
+
+SERVE_CASES = [(f, r) for f in SERVE_ARCHS for r in SERVE_ROUTES]
+
+
+def serve_main(rank: int, d: str) -> None:
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"file://{os.path.join(d, 'pg')}", rank=rank,
+                            world_size=WORLD)
+    try:
+        inp = dict(np.load(os.path.join(d, "inputs.npz")))
+        mesh = make_host_mesh(4, device="cpu")  # (data 2, model 4)
+        out = {"mesh": (mesh.shape, mesh.index("data"), mesh.index("model"))}
+        for family, route in SERVE_CASES:
+            serve_family(inp, mesh, family, route, out)
+        serve_family(inp, mesh, "hybrid", "int8", out, batch=2, key="hybrid_b2/int8")
+        serve_family(inp, mesh, "dense", "int8", out, key="dense_2d/int8", two_d=True)
+        torch.save(out, os.path.join(d, f"serve{rank}.pt"))
+    finally:
+        dist.destroy_process_group()

@@ -162,8 +162,10 @@ def test_dryrun_writes_the_cells_json(tmp_path):
     assert r["params"] == 6_061_035_520 and r["chips"] == 256
     assert r["memory"]["argument_size_in_bytes"] > 0 and r["census"]["products"] > 0
     d = json.loads((out / "olmoe_1b_7b__decode_32k__16_16.json").read_text())
-    assert d["cost"]["flops"] > 0 and d["collectives"] is None and not d["collectives_counted"]
-    assert d["cost"]["coll_bytes"] == 0 and d["flops_basis"] == "whole step / chips"
+    # a serving cell is one rank's sharded decode step, counted as a train cell is
+    assert d["cost"]["flops"] > 0 and d["collectives_counted"]
+    assert d["cost"]["coll_bytes"] == d["collectives"]["total_bytes"] > 0
+    assert d["flops_basis"] == "per-rank step"
     assert sorted(p.name for p in out.iterdir()) == ["olmoe_1b_7b__decode_32k__16_16.json",
                                                      "yi_6b__train_4k__16_16.json"]
 
@@ -181,6 +183,28 @@ def test_every_family_train_cell_counts_its_collectives(arch):
     n_leaves = len(tree_leaves(specs._abstract_params(get_config(arch))))
     assert r["collectives"]["counts_by_kind"]["all-reduce"] > n_leaves + 4
     assert r["cost"]["coll_bytes"] == r["collectives"]["total_bytes"] > 0
+
+
+@pytest.mark.parametrize("arch,shape", [("yi_6b", "prefill_32k"), ("h2o_danube_3_4b", "long_500k"),
+                                        ("zamba2_7b", "long_500k"), ("rwkv6_3b", "long_500k"),
+                                        ("whisper_large_v3", "decode_32k"),
+                                        ("dbrx_132b", "decode_32k")])
+def test_serving_cells_count_their_collectives(arch, shape):
+    """Prefill, decode and long cells on 16x16 are one rank's sharded
+    serving step (``serve_step.make_prefill`` / ``make_decode`` with the
+    mesh), counted on meta tensors: every layer's row-parallel all-reduces
+    (and a decode's partial-softmax combine) over 'model'; dbrx's cells
+    serve 2-D, whose weights are all-gathered over 'data' layer by layer.
+    The per-rank FLOPs are under the whole step's over the model axis."""
+    cfg = get_config(arch)
+    r = dryrun.run_cell(arch, shape, multi_pod=False)
+    assert r["collectives_counted"] and r["flops_basis"] == "per-rank step"
+    assert r["cost"]["coll_bytes"] == r["collectives"]["total_bytes"] > 0
+    counts = r["collectives"]["counts_by_kind"]
+    assert counts["all-reduce"] >= 2 * cfg.n_layers
+    if arch == "dbrx_132b":
+        assert r["serve_mode"] == "2d" and counts["all-gather"] >= cfg.n_layers
+    assert 0 < r["cost"]["flops"] and r["useful_flops_fraction"] > 0
 
 
 def test_dryrun_pp_writes_its_json(tmp_path):
