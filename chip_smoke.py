@@ -220,13 +220,15 @@ printing its seconds; any failure ends the run with a non-zero exit:
    weights are released.  First one microbatch: every one of its 113
    unscaled calls bit-exact against the plain version, and its loss and
    every gradient leaf bit-equal to the same microbatch on the Horner
-   route.  Then ``trainer.train`` for 4 steps with checkpoints every 2
-   (into ``chip_scratch/train``): 452 unscaled launches per step (per
-   microbatch 56 block linears, 56 again in remat's recompute, the head),
-   0 scaled, finite losses, the master params moved; peak memory printed.
-   Then the restart: the run killed after its step-2 checkpoint (that step
-   directory, ``LATEST`` naming it), ``trainer.resume``, 2 more steps,
-   every final param bit-equal to the uninterrupted run's; beside it,
+   route.  Then ``trainer.train`` for 2 steps, its one checkpoint at step
+   2 (into ``chip_scratch/train``), and 2 more steps stepped as the
+   trainer steps them without its final save: 452 unscaled launches per
+   step (per microbatch 56 block linears, 56 again in remat's recompute,
+   the head), 0 scaled, finite losses, the master params moved; peak
+   memory printed.  Then the restart: the run killed after its step-2
+   checkpoint (that step directory, ``LATEST`` naming it),
+   ``trainer.resume``, the 2 more steps again, every final param
+   bit-equal to the uninterrupted run's; beside it,
    ``python -m repro_torch.launch.train --arch yi_6b --smoke --steps 4
    --ckpt-every 2 --resume`` once as a subprocess (exit 0).  Then one more
    step under ``torch.profiler`` (host wall, device busy, idle share, the
@@ -294,21 +296,27 @@ printing its seconds; any failure ends the run with a non-zero exit:
    ``moe.ep_slab`` with a gradient, 512-token slabs): loss and grad_norm
    within ``PAR_LOSS_REL`` / ``PAR_NORM_REL``, all-to-alls and no kernel
    launch, state bytes and collectives equal to the dry run's.
-   (c) The ssm, hybrid and encdec families at full width on the same ranks
-   and mesh (``PAR_FAMILIES``): RWKV6-3B at 2 of 32 layers, Zamba2-7B at 7
+   (c) The ssm, hybrid, encdec and vlm families at full width on the same
+   ranks (``PAR_FAMILIES``): RWKV6-3B at 2 of 32 layers, Zamba2-7B at 7
    of 81 (a group of 6 and a tail layer), Whisper-large-v3 at 2 encoder
-   and 2 decoder layers over 1500 frames, phase 15's settings with each
+   and 2 decoder layers over 1500 frames, on the (data 2, model 2) mesh;
+   InternVL2-76B at 1 of 80 layers with its 256 patch embeddings before
+   each sequence (``sharded_lm``'s vlm loss), on (data 1, model 4)
+   (``par_mesh_shape``: its replicated state would not fit at model 2),
+   8 sequences in its 8 microbatches; phase 15's settings with each
    config's microbatches.  For each, one unsharded step in the parent (the
    yardstick, ``yard_{arch}.pt``), the dry run's prediction, then one
    sharded step on each rank (``sharded_rwkv6``, ``sharded_zamba2``,
-   ``sharded_whisper``): microbatch 0's unscaled calls (33 / 62 / 64)
-   bit-exact against the plain version, its int32 products (17 / 34 / 32)
-   equal to the yardstick's, loss and grad_norm within ``PAR_LOSS_REL`` /
-   ``PAR_NORM_REL``, the launches per step per rank (66 / 248 / 128) and
-   per kernel shape equal to ``par_shapes``' layout, state bytes and
-   collectives equal to the dry run's; prints the host wall per step, the
-   collectives by kind and their share, and the kernel graph-timed at each
-   of the model's shapes against ``torch._int_mm`` and the bound.
+   ``sharded_whisper``, ``sharded_lm``; the ranks draw the whole tree one
+   at a time): microbatch 0's unscaled calls (33 / 62 / 64 / 15)
+   bit-exact against the plain version, its int32 products (17 / 34 / 32
+   / 8) equal to the yardstick's, loss and grad_norm within
+   ``PAR_LOSS_REL`` / ``PAR_NORM_REL``, the launches per step per rank (66
+   / 248 / 128 / 120) and per kernel shape equal to ``par_shapes``'
+   layout, state bytes and collectives equal to the dry run's; prints the
+   host wall per step, the collectives by kind and their share, and the
+   kernel graph-timed at each of the model's shapes against
+   ``torch._int_mm`` and the bound.
 17. Sharded serving (main path 12), in phase 16's four rank processes
    after their training state is freed: every LM family through
    ``serve_step.make_prefill`` / ``make_decode`` with the (data 2, model 2)
@@ -320,7 +328,23 @@ printing its seconds; any failure ends the run with a non-zero exit:
    (256 positions per rank); OLMoE-1B-7B, RWKV6-3B, Zamba2-7B and
    Whisper-large-v3 at phase 16's depth cuts, 4 rows, one writing prefill
    (Zamba2: the stateless prefill) and 4 greedy steps (Whisper's encoder
-   and cross K/V first, sharded, over 4 x 1500 frames).  Before the ranks
+   and cross K/V first, sharded, over 4 x 1500 frames).  Then
+   (``SERVE_MORE``): InternVL2-76B at 2 of 80 layers, a prefill of its 256
+   patch embeddings and the prompt (``sharded_lm.serve_prefill`` with
+   ``extras["patches"]``), then the writing prefill and 4 steps; Yi-6B at
+   2 layers in the 2-D mode (``serve_step.TWO_D_BYTES`` lowered to 0; each
+   rank holds a quarter of the weights and gathers them over 'data' every
+   call); OLMoE-1B-7B at 2 layers unquantized through ``moe_ffn_ep``'s
+   body (the writing prefill's (data, model) slabs, at decode each data
+   rank's rows whole on every model rank; every slab's routing held
+   against the plain route on the same float32 logits, ``RouteRecorder``;
+   the yardstick routes as ``moe_ep_plain``, each rank's slab its slab
+   there (layer 0's router logits within ``SLAB_ROUTER_REL``), the tokens
+   routed otherwise than the yardstick within ``ROUTE_DIFFER_SHARE``, and
+   the logits held against the yardstick run again with every slab routed
+   as the ranks routed it, ``ep_replay``); OLMoE-1B-7B on the kernel
+   route with a writing prefill of ``SERVE_LONG_PROMPT`` tokens into a
+   cache of ``SERVE_LONG_SEQ`` (two 1024-key attention chunks).  Before the ranks
    spawn, each model's unsharded steps in this process (the yardstick:
    logits, tokens, the first layer's int32 products) and the dry run's
    prediction (``serve_prediction``: state bytes, one prefill's and one
@@ -344,6 +368,7 @@ with its launches on its main path and its times; the last line is
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import itertools
 import json
@@ -354,6 +379,7 @@ import statistics
 import subprocess
 import sys
 import time
+import typing
 from pathlib import Path
 
 SRC = Path(__file__).resolve().parent / "src"
@@ -433,9 +459,12 @@ RECURRENT_BLOCK_REL = 5e-2
 # plane schedules are refused for it, as in the reference.
 WHISPER_PLANES = 5
 # Phase 15 trains Yi-6B at full width with its depth cut to 8 of 32 layers:
-# 1.908 G params, ~27 GB of bf16 params and float32 master, m and v (all 32
+# 1.92 G params, 26.7 GB of bf16 params and float32 master, m and v (all 32
 # layers would need ~121 GB of state alone); 8 sequences of 512 tokens in
-# Yi-6B's 4 microbatches, so every kernel call has 2 x 512 rows.
+# Yi-6B's 4 microbatches, so every kernel call has 2 x 512 rows.  The run
+# writes one checkpoint of that state (24.88 GiB), the one its restart
+# reads: with phase 16's gathered one that is most of what the smoke writes
+# to a disk that takes 45 GiB of writes per run, so a second could not be.
 TRAIN_LAYERS, TRAIN_SEQ, TRAIN_BATCH = 8, 512, 8
 TRAIN_STEPS, TRAIN_CKPT_EVERY = 4, 2
 F32_OPS_PER_S = 67e12  # the H100 SXM's float32 peak outside the tensor cores
@@ -463,11 +492,14 @@ PAR_MOE_LAYERS = 2
 # logits, two all-to-alls over 'model'): one more OLMoE step on the ranks
 # runs that path, against an unsharded step that routes the same slabs
 # alone (``moe_ep_plain``).
-# Phase 16(c): the ssm, hybrid and encdec families at full width on the same
-# ranks and mesh, depth cut: RWKV6-3B 2 of 32 layers, Zamba2-7B 7 of 81 (one
-# group of 6 and one tail layer, so both paths run), Whisper-large-v3 2
-# encoder and 2 decoder layers over 1500 frames.
-PAR_FAMILIES = (("rwkv6_3b", "RWKV6-3B", dict(n_layers=2)),
+# Phase 16(c): the ssm, hybrid, encdec and vlm families at full width on the
+# same ranks and mesh, depth cut: RWKV6-3B 2 of 32 layers, Zamba2-7B 7 of 81
+# (one group of 6 and one tail layer, so both paths run), Whisper-large-v3 2
+# encoder and 2 decoder layers over 1500 frames, InternVL2-76B 1 of 80 layers
+# (2.96 G params: 1.05 G each of embedding and head, 0.86 G in the layer)
+# with its 256 patch embeddings before each sequence.
+PAR_FAMILIES = (("internvl2_76b", "InternVL2-76B", dict(n_layers=1)),
+                ("rwkv6_3b", "RWKV6-3B", dict(n_layers=2)),
                 ("zamba2_7b", "Zamba2-7B", dict(n_layers=7)),
                 ("whisper_large_v3", "Whisper-large-v3", dict(n_layers=2, enc_layers=2)))
 # Phase 17 serves every LM family sharded on phase 16's 4 ranks, mesh (data
@@ -497,14 +529,46 @@ SERVE_MODELS = (("yi_6b", "Yi-6B", {}, 8, 8),
 # The ranks' own greedy tokens must equal the yardstick's, or part where
 # the yardstick's margin between the two is within twice the bound.
 SERVE_LOGIT_REL = 0.1
+# The unquantized moe_ffn_ep part: the ranks' float sums can flip a router
+# near tie, and a flip moves the capacity's drops of the expert it enters.
+# Its logits are held at SERVE_LOGIT_REL against the yardstick run again
+# with every slab routed as the ranks routed it (``ep_replay``), and the
+# tokens routed otherwise than the yardstick's own routing, summed over the
+# layers, at most ROUTE_DIFFER_SHARE of the slab's tokens times the layers
+# (20 of 512 at most seen on an H100).  Each rank's slab is the yardstick's
+# at its place in the (data, model) partition: layer 0's router logits
+# within SLAB_ROUTER_REL of the largest (other tokens part by about the
+# largest).
+ROUTE_DIFFER_SHARE, SLAB_ROUTER_REL = 0.1, 0.1
 # each family's quantized products in its first layer: a transformer
 # block's 7 (MoE: attention's 4), RWKV6's mix_lora_a, time mix 5 and channel
 # mix 3, a Mamba2 layer's 4, Whisper's decoder block 8 (its cross K/V
 # precomputed); and of them the ones before the first attention combine,
 # held bit for bit against the yardstick's (the rest is reported): q, k, v
 # (the recurrent layers have no attention)
-SERVE_LAYER0 = {"dense": 7, "moe": 4, "ssm": 9, "hybrid": 4, "encdec": 8}
-SERVE_PRE_ATTENTION = {"dense": 3, "moe": 3, "ssm": 9, "hybrid": 4, "encdec": 3}
+SERVE_LAYER0 = {"dense": 7, "moe": 4, "vlm": 7, "ssm": 9, "hybrid": 4, "encdec": 8}
+SERVE_PRE_ATTENTION = {"dense": 3, "moe": 3, "vlm": 3, "ssm": 9, "hybrid": 4, "encdec": 3}
+# Phase 17's further parts, on the same ranks and mesh: (tag, arch, label,
+# depth, rows, decode steps, options).  InternVL2-76B at 2 of 80 layers: a
+# prefill with its 256 patch embeddings before the prompt, then the writing
+# prefill and the decode steps.  Yi-6B at 2 of 32 layers in the 2-D serving
+# mode (``serve_step.TWO_D_BYTES`` lowered to 0 in the ranks and the
+# prediction: no full-width model that fits one card passes 10 GiB of
+# TP-split weights per chip at model 2, so the mode would not switch on by
+# itself).  OLMoE-1B-7B at 2 of 16 layers unquantized (the ``none`` route,
+# ``moe.ep`` on), where the reference takes ``moe_ffn_ep``'s body: the
+# writing prefill's (data, model) slabs, and at decode each data rank's
+# rows whole on every model rank.  OLMoE-1B-7B on the kernel route with a
+# writing prefill of ``SERVE_LONG_PROMPT`` tokens into a cache of
+# ``SERVE_LONG_SEQ``: two attention chunks of 1024 keys, one on each model
+# rank, so the sharded attention takes the unsharded pass's running max.
+SERVE_LONG_SEQ, SERVE_LONG_PROMPT = 2048, 1104
+SERVE_MORE = (("internvl2_76b", "internvl2_76b", "InternVL2-76B", dict(n_layers=2), 4, 4, {}),
+              ("yi_6b_2d", "yi_6b", "Yi-6B 2-D mode", dict(n_layers=2), 4, 4, dict(two_d=True)),
+              ("olmoe_1b_7b_ep", "olmoe_1b_7b", "OLMoE-1B-7B unquantized (moe_ffn_ep)",
+               dict(n_layers=2), 4, 4, dict(quant="none")),
+              ("olmoe_1b_7b_long", "olmoe_1b_7b", "OLMoE-1B-7B long prefill", dict(n_layers=2),
+               4, 4, dict(max_seq=SERVE_LONG_SEQ, prompt=SERVE_LONG_PROMPT)))
 # the keys of each kernel's entry in the kernels line; the rest of its
 # summary is printed on a [detail] line before it
 KERNEL_KEYS = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
@@ -2733,7 +2797,7 @@ def training(torch, np, dev, card):
     shapes = train_shapes(cfg)
     per_mb = sum(c for *_, c in shapes)
     per_step = cfg.microbatches * per_mb
-    check(per_mb == 2 * cfg.n_layers * 7 + 1 and per_step == 452,
+    check(per_mb == 2 * cfg.n_layers * 7 + 1 and per_step == 4 * (2 * 7 * TRAIN_LAYERS + 1),
           f"{per_step} unscaled calls per step")
     ckpt_root = SRC.parent / "chip_scratch" / "train"
     shutil.rmtree(ckpt_root, ignore_errors=True)
@@ -2747,7 +2811,10 @@ def training(torch, np, dev, card):
     n_params = sum(p.numel() for p in tree_leaves(params))
     sections["microbatch"] = time.perf_counter() - t_phase
 
-    # ---- 2. the main path: trainer.train, TRAIN_STEPS steps, checkpoints
+    # ---- 2. the main path: trainer.train to its one checkpoint (step
+    # TRAIN_CKPT_EVERY, the one the restart reads), then the rest of
+    # TRAIN_STEPS stepped as the trainer steps them (its batches, its step
+    # function) without the trainer's final save, which no gate would read
     step_s, step_launches = [], []
 
     def step_fn(st, b):
@@ -2766,10 +2833,20 @@ def training(torch, np, dev, card):
     def log(line):
         print(f"[train] {line}")
 
+    def rest(st, start):
+        losses = []
+        for step in range(start, TRAIN_STEPS):
+            st, met = step_fn(st, get_batch(dcfg, step))
+            losses.append(float(met["loss"]))
+        return st, losses
+
+    half = TRAIN_CKPT_EVERY
     state = {"params": params, "opt": adamw.init(params)}
     mk.launches = mk.scaled_launches = 0
     t0 = time.perf_counter()
-    state_a, m_a = trainer.train(state, step_fn, dcfg, tcfg("a", TRAIN_STEPS), log=log)
+    state_a, m_a = trainer.train(state, step_fn, dcfg, tcfg("a", half), log=log)
+    state_a, losses_a = rest(state_a, half)
+    m_a["losses"] += losses_a
     train_s = time.perf_counter() - t0
     host_s = list(step_s)  # the main run's steps (the restart's run beside the launcher)
     launches, scaled = mk.launches, mk.scaled_launches
@@ -2785,8 +2862,8 @@ def training(torch, np, dev, card):
     check(moved > 0, "the master params did not move")
     check(int(state_a["opt"].step) == TRAIN_STEPS, f"optimizer step {int(state_a['opt'].step)}")
     saved = sorted(p.name for p in (ckpt_root / "a").iterdir())
-    check(saved == ["LATEST"] + [f"step_{s:09d}" for s in range(TRAIN_CKPT_EVERY, TRAIN_STEPS + 1,
-                                                               TRAIN_CKPT_EVERY)],
+    check(saved == ["LATEST", f"step_{half:09d}"]
+          and (ckpt_root / "a" / "LATEST").read_text() == f"step_{half:09d}",
           f"checkpoints written: {saved}")
     state_bytes = sum(t.numel() * t.element_size() for t in tree_leaves(state_a))
     print(f"[train] {card} | trainer.train: {TRAIN_STEPS} steps of {TRAIN_BATCH} x {TRAIN_SEQ} "
@@ -2801,15 +2878,11 @@ def training(torch, np, dev, card):
     # ---- 3. restart: kill the run after its step-`half` checkpoint (what it
     # had committed then: that step directory, LATEST naming it), resume,
     # run the rest again; every final param bit-equal
-    half = TRAIN_CKPT_EVERY
     t0 = time.perf_counter()
     final_a = [p.clone() for p in tree_leaves(state_a["params"])]
     like = tree_unflatten(state_a, [t.new_empty(()).expand(t.shape) for t in tree_leaves(state_a)])
     del state_a, params
     torch.cuda.empty_cache()
-    for later in range(half + TRAIN_CKPT_EVERY, TRAIN_STEPS + 1, TRAIN_CKPT_EVERY):
-        shutil.rmtree(ckpt_root / "a" / f"step_{later:09d}")
-    (ckpt_root / "a" / "LATEST").write_text(f"step_{half:09d}")
     # beside the restart, the launcher once, as a user runs it: a process of
     # its own on the card (its smoke model is small), its own checkpoints
     launch_dir = ckpt_root / "launch"
@@ -2824,8 +2897,7 @@ def training(torch, np, dev, card):
         restore_s = time.perf_counter() - t1
         check(start == half and int(resumed["opt"].step) == half,
               f"resumed at step {start}, optimizer step {int(resumed['opt'].step)}")
-        state_b, m_b = trainer.train(resumed, step_fn, dcfg, tcfg("a", TRAIN_STEPS),
-                                     start_step=start, log=log)
+        state_b, losses_b = rest(resumed, start)
         del resumed
         out, err = proc.communicate(timeout=600)
     finally:
@@ -2838,8 +2910,8 @@ def training(torch, np, dev, card):
     check("final loss" in out and (launch_dir / "LATEST").read_text() == "step_000000004",
           f"the launcher's output: {out[-2000:]}")
     print(f"[train] {' '.join(cmd[1:])}: exit 0 | " + " | ".join(out.strip().splitlines()[-2:]))
-    check(m_b["losses"] == m_a["losses"][half:],
-          f"resumed losses {m_b['losses']} vs uninterrupted {m_a['losses'][half:]}")
+    check(losses_b == m_a["losses"][half:],
+          f"resumed losses {losses_b} vs uninterrupted {m_a['losses'][half:]}")
     for i, (a, b) in enumerate(zip(final_a, tree_leaves(state_b["params"]))):
         check(torch.equal(a, b), f"restart: final param leaf {i} differs from the uninterrupted "
               "run's")
@@ -2968,36 +3040,95 @@ def parallel_moe_ep_cfgs():
     return cfg.replace(quant=QuantConfig(mode="none")), dcfg
 
 
-def moe_ep_plain(torch, p: dict, x, cfg):
-    """The plain version of ``moe_ffn_ep`` over phase 16's (data 2, model
-    2) mesh, on one device with every expert: the microbatch's rows split
-    over 'data' and its sequence over 'model', each slab routed alone (its
-    own capacity, float32 router logits) through ``moe_ffn``'s dispatch,
-    experts and combine."""
+def replayed_dispatch(torch, xf, logits, chosen, n_experts: int, cap: int, dtype):
+    """``moe._local_dispatch`` with each token's experts given: ``chosen``
+    (T, k), as another run routed the slab.  The gate weights are this
+    run's softmax of ``logits`` over those experts (largest first, as
+    ``moe._top_k`` orders them), normalised; positions, drops and the
+    dispatch buffer follow from the experts as there."""
+    t, k = chosen.shape
+    d = xf.shape[1]
+    g = torch.softmax(logits, dim=-1).gather(1, chosen)
+    gate, order = torch.sort(g, dim=-1, descending=True, stable=True)
+    idx = chosen.gather(1, order)
+    gate = gate / torch.clamp(gate.sum(-1, keepdim=True), min=1e-9)
+    eid = idx.reshape(t * k)
+    tok = torch.arange(t * k, device=xf.device) // k
+    srt = torch.argsort(eid, stable=True)
+    eid_s, tok_s, gw_s = eid[srt], tok[srt], gate.reshape(t * k)[srt]
+    pos = torch.arange(t * k, device=xf.device) - torch.searchsorted(eid_s, eid_s, right=False)
+    keep = pos < cap
+    buf = torch.zeros((n_experts, cap + 1, d), dtype=dtype, device=xf.device)
+    buf[eid_s, torch.where(keep, pos, cap)] = xf[tok_s].to(dtype)
+    return buf[:, :cap], (eid_s, pos, tok_s, gw_s, keep)
+
+
+def moe_ep_plain(torch, p: dict, x, cfg, forced=None):
+    """The plain version of ``moe_ffn_ep`` over phases 16-17's (data 2,
+    model 2) mesh, on one device with every expert: the rows split over
+    'data' and the sequence over 'model' (whole where 'model' does not
+    divide it: a decode step, where each model rank routes the data rank's
+    rows whole), each slab routed alone (its own capacity, float32 router
+    logits) through ``moe_ffn``'s dispatch, experts and combine.
+    ``forced``: an iterator of each slab's experts (T, k) in this order,
+    routed as given (``replayed_dispatch``)."""
     from repro_torch.models import moe as moe_lib
 
     m = cfg.moe
     b, s, d = x.shape
-    bl, sl = b // 2, s // 2
+    n_seq = 2 if s % 2 == 0 else 1
+    bl, sl = b // 2, s // n_seq
     cap = moe_lib.capacity(bl * sl, m)
     rows = []
     for i in range(2):
         slabs = []
-        for j in range(2):
+        for j in range(n_seq):
             xf = x[i * bl:(i + 1) * bl, j * sl:(j + 1) * sl].reshape(bl * sl, d)
             logits = xf.to(torch.float32) @ p["router"]["w"].to(torch.float32)
-            xe, meta = moe_lib._local_dispatch(xf, logits, m.n_experts, m.top_k, cap, x.dtype)
+            if forced is None:
+                xe, meta = moe_lib._local_dispatch(xf, logits, m.n_experts, m.top_k, cap,
+                                                   x.dtype)
+            else:
+                xe, meta = replayed_dispatch(torch, xf, logits, next(forced).to(x.device),
+                                             m.n_experts, cap, x.dtype)
             y = moe_lib._local_combine(moe_lib.expert_ffn(p, xe), meta, bl * sl, cap, x.dtype)
             slabs.append(y.reshape(bl, sl, d))
         rows.append(torch.cat(slabs, dim=1))
     return torch.cat(rows, dim=0)
 
 
+def par_mesh_shape(cfg) -> tuple[int, int]:
+    """Phase 16's (data, model) mesh for ``cfg`` on the 4 ranks: (2, 2), but
+    (1, 4) for the vlm.  Data ranks hold replicas of the params and
+    optimizer state, so InternVL2-76B's one layer (2.96 G params, 41.4 GB
+    of bf16 params, float32 master, m and v) would hold 20.7 GB per rank at
+    model 2, 82.8 GB on the 80 GB card; at model 4, 10.35 GB."""
+    return (1, 4) if cfg.family == "vlm" else (2, 2)
+
+
+def par_global_batch(cfg) -> int:
+    """Phase 16's sequences per step for ``cfg``: ``TRAIN_BATCH``, or the
+    least multiple of the data axis x the config's microbatches above it,
+    so that both divide it (InternVL2-76B: 8 sequences, its 8 microbatches
+    of one row on its one data rank)."""
+    per = par_mesh_shape(cfg)[0] * cfg.microbatches
+    return max(TRAIN_BATCH, -(-TRAIN_BATCH // per) * per)
+
+
+def par_m(cfg) -> int:
+    """Decoder rows of each kernel call on one rank of the mesh: the rank's
+    rows of a microbatch times the sequence, the vlm's patches before it
+    included."""
+    data = par_mesh_shape(cfg)[0]
+    return par_global_batch(cfg) // cfg.microbatches // data * (TRAIN_SEQ + cfg.vlm_patches)
+
+
 def parallel_family_cfgs():
     """Phase 16(c)'s models: ``(tag, label, cfg, data config)`` for each of
     ``PAR_FAMILIES`` at full width, QAT through the unscaled kernel at 8
-    planes, each config's microbatches, full remat; 8 x 512 synthetic
-    decoder tokens per step (seed 0), Whisper's frames drawn beside them."""
+    planes, each config's microbatches, full remat; ``par_global_batch`` x
+    512 synthetic decoder tokens per step (seed 0), Whisper's frames and
+    the vlm's patches drawn beside them."""
     from repro_torch.configs import get_config
     from repro_torch.configs.base import QuantConfig
     from repro_torch.data.pipeline import DataConfig
@@ -3006,8 +3137,9 @@ def parallel_family_cfgs():
     for tag, label, depth in PAR_FAMILIES:
         cfg = get_config(tag).replace(
             **depth, quant=QuantConfig(mode="mma_int8", impl="kernel", planes=8))
-        extras = {"frames": (cfg.enc_seq, cfg.d_model)} if cfg.family == "encdec" else None
-        dcfg = DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH,
+        extras = ({"frames": (cfg.enc_seq, cfg.d_model)} if cfg.family == "encdec" else
+                  {"patches": (cfg.vlm_patches, cfg.d_model)} if cfg.family == "vlm" else None)
+        dcfg = DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ, global_batch=par_global_batch(cfg),
                           microbatches=cfg.microbatches, seed=0, extras=extras)
         out.append((tag, label, cfg, dcfg))
     return out
@@ -3052,36 +3184,41 @@ def par_launches(cfg) -> int:
 
 def par_batch(torch, cfg) -> dict:
     """Phase 16's batch as meta tensors: (microbatches, rows, 513) tokens
-    (and Whisper's float32 frames)."""
-    rows = TRAIN_BATCH // cfg.microbatches
+    (and Whisper's float32 frames, the vlm's float32 patches)."""
+    rows = par_global_batch(cfg) // cfg.microbatches
     out = {"tokens": torch.empty((cfg.microbatches, rows, TRAIN_SEQ + 1), dtype=torch.int32,
                                  device="meta")}
     if cfg.family == "encdec":
         out["frames"] = torch.empty((cfg.microbatches, rows, cfg.enc_seq, cfg.d_model),
                                     dtype=torch.float32, device="meta")
+    if cfg.family == "vlm":
+        out["patches"] = torch.empty((cfg.microbatches, rows, cfg.vlm_patches, cfg.d_model),
+                                     dtype=torch.float32, device="meta")
     return out
 
 
 def dry_prediction(torch, cfg) -> dict:
-    """What the dry run predicts for one rank of phase 16's (data 2, model
-    2) mesh: its state bytes (``specs.sharded_bytes``), the collectives of
-    one step (the counting mode on meta tensors) and the step's roofline
-    bound at the H100's data-sheet peaks (informative: the ranks share one
-    card and exchange over gloo and host memory)."""
+    """What the dry run predicts for one rank of phase 16's mesh
+    (``par_mesh_shape``): its state bytes (``specs.sharded_bytes``), the
+    collectives of one step (the counting mode on meta tensors) and the
+    step's roofline bound at the H100's data-sheet peaks (informative: the
+    ranks share one card and exchange over gloo and host memory)."""
     from repro_torch.launch import dryrun, hlo_analysis, specs
     from repro_torch.parallel.sharding import Mesh
     from repro_torch.train import train_step as ts
 
     t0 = time.perf_counter()
-    mesh = Mesh({"data": 2, "model": 2}, device="meta")
+    data, model = par_mesh_shape(cfg)
+    mesh = Mesh({"data": data, "model": model}, device="meta")
     ab = ts.abstract_state(cfg)
     st_sh = ts.state_shardings(ab, cfg, mesh)
     counted = dryrun.count_train_step(cfg, mesh, par_batch(torch, cfg))
     mem = hlo_analysis.analytic_hbm_bytes(
-        "train", **specs.train_mem_in(cfg, ab, st_sh, mesh, TRAIN_BATCH, TRAIN_SEQ))
+        "train", **specs.train_mem_in(cfg, ab, st_sh, mesh, par_global_batch(cfg), TRAIN_SEQ))
     coll = counted["collectives"]
     roof = hlo_analysis.roofline(counted["census"]["flops"], mem["total"], coll["total_bytes"])
     return dict(state_bytes=specs.sharded_bytes(ab, st_sh, mesh), collectives=coll,
+                mesh_shape=(data, model),
                 census=counted["census"], hbm_bytes=mem["total"], roofline=roof,
                 seconds=time.perf_counter() - t0)
 
@@ -3091,40 +3228,42 @@ def same_collectives(live: dict, predicted: dict) -> bool:
 
 
 def par_shapes(cfg, m: int) -> list:
-    """The unscaled kernel's shapes on one rank of the (2, 2) mesh at M =
-    ``m`` decoder rows: ``(name, M, K, N, calls per step)``, from the layout
-    (``sharded_lm`` and the family modules of ``repro_torch.parallel``)."""
+    """The unscaled kernel's shapes on one rank of the mesh
+    (``par_mesh_shape``) at M = ``m`` decoder rows: ``(name, M, K, N, calls
+    per step)``, from the layout (``sharded_lm`` and the family modules of
+    ``repro_torch.parallel``)."""
     d, ff, v, n, mb = cfg.d_model, cfg.d_ff, cfg.vocab, cfg.n_layers, cfg.microbatches
+    ms = par_mesh_shape(cfg)[1]  # the model axis
     if cfg.family == "ssm":  # 2 x: remat's recompute
-        return [("time-mix wr/wk/wv/wg, channel wr", m, d, d // 2, 2 * 5 * n * mb),
-                ("time-mix wo", m, d // 2, d, 2 * n * mb),
-                ("channel wk", m, d, ff // 2, 2 * n * mb),
-                ("channel wv", m, ff // 2, d, 2 * n * mb), ("head", m, d, v // 2, mb)]
+        return [("time-mix wr/wk/wv/wg, channel wr", m, d, d // ms, 2 * 5 * n * mb),
+                ("time-mix wo", m, d // ms, d, 2 * n * mb),
+                ("channel wk", m, d, ff // ms, 2 * n * mb),
+                ("channel wv", m, ff // ms, d, 2 * n * mb), ("head", m, d, v // ms, mb)]
     if cfg.family == "hybrid":
         di, groups = 2 * d, n // cfg.attn_every
         heads = di // cfg.ssm_head_dim
-        return [("z_proj", m, d // 2, di, 2 * n * mb),
-                ("xbc_proj", m, d // 2, di + 2 * cfg.ssm_state, 2 * n * mb),
-                ("dt_proj", m, d // 2, heads, 2 * n * mb),
-                ("out_proj, shared proj", m, di // 2, d, (2 * n + groups) * mb),
+        return [("z_proj", m, d // ms, di, 2 * n * mb),
+                ("xbc_proj", m, d // ms, di + 2 * cfg.ssm_state, 2 * n * mb),
+                ("dt_proj", m, d // ms, heads, 2 * n * mb),
+                ("out_proj, shared proj", m, di // ms, d, (2 * n + groups) * mb),
                 ("shared wq/wk/wv", m, 2 * d, d, 3 * groups * mb),
-                ("shared wo", m, d, 2 * d, groups * mb), ("head", m, d, v // 2, mb)]
+                ("shared wo", m, d, 2 * d, groups * mb), ("head", m, d, v // ms, mb)]
     if cfg.family == "encdec":
         me, le = m // TRAIN_SEQ * cfg.enc_seq, cfg.enc_layers
-        return [("encoder wq/wk/wv, cross wk/wv", me, d, d // 2, 2 * (3 * le + 2 * n) * mb),
-                ("encoder wo", me, d // 2, d, 2 * le * mb),
-                ("encoder w_up", me, d, ff // 2, 2 * le * mb),
-                ("encoder w_down", me, ff // 2, d, 2 * le * mb),
-                ("decoder wq/wk/wv, cross wq", m, d, d // 2, 2 * 4 * n * mb),
-                ("decoder wo, cross wo", m, d // 2, d, 2 * 2 * n * mb),
-                ("decoder w_up", m, d, ff // 2, 2 * n * mb),
-                ("decoder w_down", m, ff // 2, d, 2 * n * mb)]
+        return [("encoder wq/wk/wv, cross wk/wv", me, d, d // ms, 2 * (3 * le + 2 * n) * mb),
+                ("encoder wo", me, d // ms, d, 2 * le * mb),
+                ("encoder w_up", me, d, ff // ms, 2 * le * mb),
+                ("encoder w_down", me, ff // ms, d, 2 * le * mb),
+                ("decoder wq/wk/wv, cross wq", m, d, d // ms, 2 * 4 * n * mb),
+                ("decoder wo, cross wo", m, d // ms, d, 2 * 2 * n * mb),
+                ("decoder w_up", m, d, ff // ms, 2 * n * mb),
+                ("decoder w_down", m, ff // ms, d, 2 * n * mb)]
     kv = cfg.n_kv_heads * cfg.hd
-    shapes = [("wq", m, d, d // 2, 2 * n * mb), ("wk/wv", m, d, kv // 2, 4 * n * mb),
-              ("wo", m, d // 2, d, 2 * n * mb)]
+    shapes = [("wq", m, d, d // ms, 2 * n * mb), ("wk/wv", m, d, kv // ms, 4 * n * mb),
+              ("wo", m, d // ms, d, 2 * n * mb)]
     if not cfg.moe.n_experts:
-        shapes += [("w_gate/w_up", m, d, ff // 2, 4 * n * mb), ("w_down", m, ff // 2, d, 2 * n * mb)]
-    return shapes + [("head", m, d, v // 2, mb)]
+        shapes += [("w_gate/w_up", m, d, ff // ms, 4 * n * mb), ("w_down", m, ff // ms, d, 2 * n * mb)]
+    return shapes + [("head", m, d, v // ms, mb)]
 
 
 def parallel_rank(rank: int, world: int, root: str) -> None:
@@ -3188,12 +3327,25 @@ def _parallel_rank(torch, np, dist, root: Path) -> dict:
     rank = dist.get_rank()
     out, secs = {"rank": rank}, {}
     t_all = time.perf_counter()
-    t0 = time.perf_counter()
     lib, _ = mk.build()  # phase 1's library, found by its hash: not rebuilt
     out["library"] = lib.name
     cfg, dcfg = parallel_cfgs()
     mesh = make_host_mesh(model=2)  # (data 2, model 2)
+    mesh_b = Mesh.from_world((1, 4), ("data", "model"), device=dev)
     di, ri = mesh.index("data"), mesh.index("model")
+
+    # ---- (c) RWKV6-3B, Zamba2-7B, Whisper-large-v3 and InternVL2-76B (on the
+    # (1, 4) mesh): one sharded step each, first, while the ranks hold
+    # nothing else (InternVL2-76B's state is 10.35 GB of each rank)
+    family_shapes, out["families"] = {}, {}
+    for tag, _, fcfg, fdcfg in parallel_family_cfgs():
+        t0 = time.perf_counter()
+        fmesh = mesh if par_mesh_shape(fcfg) == (2, 2) else mesh_b
+        out["families"][tag], family_shapes[tag] = _model_rank(torch, root, fmesh, dev, fcfg, fdcfg,
+                                                               f"yard_{tag}.pt")
+        secs[tag] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
     ab = ts.abstract_state(cfg)
     st_sh = ts.state_shardings(ab, cfg, mesh)
     abatch = {"tokens": torch.empty((cfg.microbatches, TRAIN_BATCH // cfg.microbatches,
@@ -3271,7 +3423,6 @@ def _parallel_rank(torch, np, dist, root: Path) -> dict:
     # ---- the checkpoint: the state gathered to rank 0's host and saved; each
     # rank keeps the slices the (1, 4) mesh will hold, for the restore's check
     t0 = time.perf_counter()
-    mesh_b = Mesh.from_world((1, 4), ("data", "model"), device=dev)
     st_b = ts.state_shardings(ab, cfg, mesh_b)
     host, expect = [], []
     for t, sh, sh_b in zip(tree_leaves(state), tree_leaves(st_sh), tree_leaves(st_b)):
@@ -3427,14 +3578,6 @@ def _parallel_rank(torch, np, dist, root: Path) -> dict:
     _olmoe_ep_rank(torch, mesh, dev, out)
     secs["olmoe_ep"] = time.perf_counter() - t0
 
-    # ---- (c) RWKV6-3B, Zamba2-7B and Whisper-large-v3: one sharded step each
-    family_shapes, out["families"] = {}, {}
-    for tag, _, fcfg, fdcfg in parallel_family_cfgs():
-        t0 = time.perf_counter()
-        out["families"][tag], family_shapes[tag] = _model_rank(torch, root, mesh, dev, fcfg, fdcfg,
-                                                               f"yard_{tag}.pt")
-        secs[tag] = time.perf_counter() - t0
-
     # ---- the unscaled kernel at this rank's shapes (rank 0, the others wait)
     t0 = time.perf_counter()
     dist.barrier()
@@ -3445,8 +3588,7 @@ def _parallel_rank(torch, np, dist, root: Path) -> dict:
         out["moe_times"] = _par_times(torch, graph_ms, mk, par_shapes(mcfg, m_moe), moe_shapes)
         out["family_times"] = {}
         for tag, _, fcfg, _ in parallel_family_cfgs():
-            m_f = TRAIN_BATCH // fcfg.microbatches // mesh.size("data") * TRAIN_SEQ
-            out["family_times"][tag] = _par_times(torch, graph_ms, mk, par_shapes(fcfg, m_f),
+            out["family_times"][tag] = _par_times(torch, graph_ms, mk, par_shapes(fcfg, par_m(fcfg)),
                                                   family_shapes[tag])
     dist.barrier()
     secs["times"] = time.perf_counter() - t0
@@ -3476,6 +3618,22 @@ def _par_times(torch, graph_ms, mk, par_rows, shapes) -> list:
     return rows
 
 
+def one_rank_at_a_time(dist, fn):
+    """``fn()`` on each rank in turn, a barrier between: a rank's draw of a
+    whole tree, of which it keeps its slices.  Four whole trees and their
+    float32 draws do not fit on the one card beside each other
+    (InternVL2-76B's: 5.9 GB of bf16 and a 4.2 GB float32 head each)."""
+    import torch
+
+    out = None
+    for r in range(dist.get_world_size()):
+        if r == dist.get_rank():
+            out = fn()
+            torch.cuda.empty_cache()
+        dist.barrier()
+    return out
+
+
 def _model_rank(torch, root: Path, mesh, dev, cfg, dcfg, yard: str) -> tuple[dict, dict]:
     """One sharded step of ``cfg`` on this rank: microbatch 0's kernel calls
     against the plain version and its int32 products against the unsharded
@@ -3498,15 +3656,16 @@ def _model_rank(torch, root: Path, mesh, dev, cfg, dcfg, yard: str) -> tuple[dic
     from repro_torch.train import train_step as ts
 
     di, ri = mesh.index("data"), mesh.index("model")
+    allocated_before = torch.cuda.memory_allocated()
     ab = ts.abstract_state(cfg)
     st_sh = ts.state_shardings(ab, cfg, mesh)
     step = ts.build_jitted_train_step(cfg, mesh, ab, par_batch(torch, cfg))
-    params = models.build(cfg).init_params(0, cfg, device=dev)
-    local = shd.shard_tree(params, st_sh["params"])
-    del params
+    local = one_rank_at_a_time(dist, lambda: shd.shard_tree(
+        models.build(cfg).init_params(0, cfg, device=dev), st_sh["params"]))
     state = {"params": local, "opt": adamw.init(local)}
     torch.cuda.synchronize()
-    res = {"state_bytes": sum(t.numel() * t.element_size() for t in tree_leaves(state))}
+    res = {"state_bytes": sum(t.numel() * t.element_size() for t in tree_leaves(state)),
+           "allocated_before": allocated_before}
     if cfg.moe.n_experts:
         res["experts_local"] = int(local["blocks"]["moe"]["w_gate"].shape[1])
     yard_int32 = torch.load(root / yard, weights_only=True)["int32"]
@@ -3519,8 +3678,13 @@ def _model_rank(torch, root: Path, mesh, dev, cfg, dcfg, yard: str) -> tuple[dic
         x2 = x.reshape(-1, x.shape[-1])
         by_shape[(x2.shape[0], x2.shape[1], w.shape[1])] += 1
         if len(calls) < per_mb:
-            want = mk.mma_matmul_plain(x2, w, planes=kw["planes"])
-            calls.append(bool(torch.equal(o.reshape(want.shape), want)))
+            # the plain version (float64 products) in blocks of columns: its
+            # whole-head temporaries would not fit beside four ranks' state
+            o2 = o.reshape(x2.shape[0], -1)
+            calls.append(all(
+                torch.equal(o2[:, j:j + 4096], mk.mma_matmul_plain(x2, w[:, j:j + 4096],
+                                                                   planes=kw["planes"]))
+                for j in range(0, w.shape[1], 4096)))
             shapes.setdefault((x2.shape[0], x2.shape[1], w.shape[1]), (x2.clone(), w.clone()))
         return o
 
@@ -3546,7 +3710,7 @@ def _model_rank(torch, root: Path, mesh, dev, cfg, dcfg, yard: str) -> tuple[dic
     res["collectives"] = coll.collective_stats(mesh)
     res["collective_s"] = coll.collective_seconds(mesh)
     res["calls_exact"] = [sum(calls), len(calls)]
-    rows = TRAIN_BATCH // cfg.microbatches // mesh.size("data")
+    rows = par_global_batch(cfg) // cfg.microbatches // mesh.size("data")
     equal = []
     for got, want in zip(products, yard_int32):
         want = want[di * rows:(di + 1) * rows]  # microbatch 0's rows of this data rank
@@ -3703,7 +3867,7 @@ def parallel_training(torch, np, dev, card, phases=(16, 17)):
               f"{ye['wall']:.2f} s")
         del ye
 
-        # ---- (c) the ssm, hybrid and encdec models' yardsticks
+        # ---- (c) the ssm, hybrid, encdec and vlm models' yardsticks
         fams = {}
         for tag, label, fcfg, fdcfg in parallel_family_cfgs():
             yf = yardstick(fcfg, fdcfg)
@@ -3727,7 +3891,8 @@ def parallel_training(torch, np, dev, card, phases=(16, 17)):
         for label, p in (("Yi-6B", pred), ("OLMoE-1B-7B", pred_m),
                          ("OLMoE-1B-7B unquantized", pred_e),
                          *((f["label"], f["pred"]) for f in fams.values())):
-            print(f"[parallel] dry run, {label}, one rank of (data 2, model 2), counted on meta "
+            print(f"[parallel] dry run, {label}, one rank of (data {p['mesh_shape'][0]}, model "
+                  f"{p['mesh_shape'][1]}), counted on meta "
                   f"tensors in {p['seconds']:.1f} s: state {p['state_bytes']} bytes; per step "
                   f"{p['collectives']['counts_by_kind']} ({p['collectives']['total_bytes']} bytes), "
                   f"{p['census']['products']} products ({p['census']['int8_products']} int8), "
@@ -3740,18 +3905,24 @@ def parallel_training(torch, np, dev, card, phases=(16, 17)):
     yards, preds = {}, {}
     if 17 in phases:
         t17 = time.perf_counter()
-        for tag, label, scfg, rows, steps in serve_cfgs():
-            yards[tag] = serving_yardstick(torch, np, dev, scfg, rows, steps)
-            torch.save({k: yards[tag][k] for k in ("int32_prefill", "int32_decode0", "logits",
-                                                   "tokens")}, root / f"yard_serve_{tag}.pt")
-            for k in ("int32_prefill", "int32_decode0"):
+        for sm in serve_cfgs():
+            tag = sm.tag
+            yards[tag] = serving_yardstick(torch, np, dev, sm)
+            int32_keys = [k for k in yards[tag] if k.startswith("int32_")]
+            torch.save({k: yards[tag][k] for k in int32_keys + ["logits", "tokens", "prefix_logits",
+                                                               "routing", "router"]
+                        if k in yards[tag]}, root / f"yard_serve_{tag}.pt")
+            for k in int32_keys + ["routing", "router"]:
                 del yards[tag][k]
-            preds[tag] = p17 = serve_prediction(torch, scfg, rows)
-            print(f"[serving] {card} | {label}: the unsharded yardstick, {rows} rows: "
+            preds[tag] = p17 = serve_prediction(torch, sm)
+            prefix = (f"prefix prefill {p17['prefix']['counts_by_kind']} "
+                      f"({p17['prefix']['total_bytes']} bytes), " if "prefix" in p17 else "")
+            print(f"[serving] {card} | {sm.label}: the unsharded yardstick, {sm.rows} rows: "
                   f"{yards[tag]['launches']} (scaled, unscaled) launches per decode step; dry run, "
                   f"one rank of (data 2, model 2), {p17['mode']}, counted on meta tensors in "
                   f"{p17['seconds']:.1f} s: state {p17['param_bytes']} + {p17['cache_bytes']} + "
-                  f"{p17['extras_bytes']} bytes (params, cache, extras); prefill "
+                  f"{p17['extras_bytes']} bytes (params, cache, extras; the whole tree's params "
+                  f"{p17['tree_bytes']}); {prefix}prefill "
                   f"{p17['prefill']['counts_by_kind']} ({p17['prefill']['total_bytes']} bytes), "
                   f"decode step {p17['decode']['counts_by_kind']} "
                   f"({p17['decode']['total_bytes']} bytes)")
@@ -3779,7 +3950,7 @@ def parallel_training(torch, np, dev, card, phases=(16, 17)):
     check(not alive, f"ranks {alive} still running after {PAR_JOIN_S} s")
     check([p.exitcode for p in procs] == [0] * PAR_WORLD,
           f"rank exit codes {[p.exitcode for p in procs]}")
-    outs = [json.loads((root / f"rank{r}.json").read_text()) for r in range(PAR_WORLD)]
+    outs = rank_outputs(torch, root)
     shutil.rmtree(root, ignore_errors=True)
 
     result = {}
@@ -4000,7 +4171,7 @@ def parallel_family_gates(np, card, f: dict, outs: list, tag: str) -> dict:
     Returns its kernel entries."""
     c, pred, label = f["cfg"], f["pred"], f["label"]
     n_fwd, n_mb = mb_linears(c)[0], sum(mb_linears(c))
-    m = TRAIN_BATCH // c.microbatches // 2 * TRAIN_SEQ  # decoder rows per call
+    m = par_m(c)  # decoder rows per call
     layout = {}
     for _, mm, k, n, per_step in par_shapes(c, m):
         layout[(mm, k, n)] = layout.get((mm, k, n), 0) + per_step
@@ -4026,14 +4197,15 @@ def parallel_family_gates(np, card, f: dict, outs: list, tag: str) -> dict:
                   f"rank {r}: {label} {k} {fo[k]} against {f[k]} (rel tolerance {tol})")
     fo0 = outs[0]["families"][tag]
     cs = fo0["collectives"]
-    print(f"[parallel] {card} | {label} sharded step, mesh (data 2, model 2): loss "
+    print(f"[parallel] {card} | {label} sharded step, mesh (data, model) {par_mesh_shape(c)}: loss "
           f"{[o['families'][tag]['loss'] for o in outs]} vs {f['loss']} unsharded; grad_norm "
           f"{[o['families'][tag]['grad_norm'] for o in outs]} vs {f['grad_norm']}; "
           f"{fo0['launches']} unscaled launches per step per rank (as the layout gives, shape by "
           f"shape); microbatch 0's {fo0['calls_exact'][1]} kernel calls bit-exact, "
           f"{fo0['int32_equal'][1]} int32 products equal to the unsharded step's; state "
           f"{fo0['state_bytes']} bytes per rank (the dry run's), peak allocated "
-          f"{[round(o['families'][tag]['peak_bytes'] / 1e9, 2) for o in outs]} GB")
+          f"{[round(o['families'][tag]['peak_bytes'] / 1e9, 2) for o in outs]} GB (allocated "
+          f"before it {[round(o['families'][tag]['allocated_before'] / 1e9, 2) for o in outs]} GB)")
     print(f"[parallel] {card} | {label} host wall per sharded step "
           f"{[round(o['families'][tag]['step_s'], 3) for o in outs]} s; rank 0's collectives "
           f"(gloo over host memory, not NVLink: nothing is claimed from their times), the dry "
@@ -4061,15 +4233,60 @@ def parallel_family_gates(np, card, f: dict, outs: list, tag: str) -> dict:
 # ------------------------------------------------------- 17. sharded serving
 
 
-def serve_cfgs():
-    """Phase 17's models: ``(tag, label, cfg, rows, decode steps)``, each on
-    the kernel route at 8 planes with int8 weights and KV cache."""
+class ServeModel(typing.NamedTuple):
+    """One model of phase 17: its key (``tag``), label, config, rows, decode
+    steps, cache length, prompt length, and whether it serves in the 2-D
+    mode.  The vlm's prefill takes ``cfg.vlm_patches`` patch embeddings."""
+    tag: str
+    label: str
+    cfg: typing.Any
+    rows: int
+    steps: int
+    max_seq: int = SERVE_MAX_SEQ
+    prompt: int = SERVE_PROMPT
+    two_d: bool = False
+
+
+def serve_cfgs() -> list:
+    """Phase 17's models (``SERVE_MODELS``, then ``SERVE_MORE``), each on
+    the kernel route at 8 planes with int8 weights and KV cache, but the
+    unquantized ``moe_ffn_ep`` part (bf16 weights and cache)."""
     from repro_torch.configs import get_config
     from repro_torch.configs.base import QuantConfig
 
     q = QuantConfig(mode="mma_int8", impl="kernel", planes=8, weights_int8=True, kv_int8=True)
-    return [(tag, label, get_config(tag).replace(**depth, quant=q), rows, steps)
-            for tag, label, depth, rows, steps in SERVE_MODELS]
+    out = [ServeModel(tag, label, get_config(tag).replace(**depth, quant=q), rows, steps)
+           for tag, label, depth, rows, steps in SERVE_MODELS]
+    for tag, arch, label, depth, rows, steps, opt in SERVE_MORE:
+        cfg = get_config(arch).replace(**depth, quant=q)
+        if opt.get("quant") == "none":  # unquantized, moe_ffn_ep's body
+            cfg = cfg.replace(quant=QuantConfig(mode="none"),
+                              moe=dataclasses.replace(cfg.moe, ep=True))
+        out.append(ServeModel(tag, label, cfg, rows, steps,
+                              max_seq=opt.get("max_seq", SERVE_MAX_SEQ),
+                              prompt=opt.get("prompt", SERVE_PROMPT),
+                              two_d=opt.get("two_d", False)))
+    return out
+
+
+def serve_shardings(sm, abstract_params, mesh):
+    """``serve_step.param_shardings`` for ``sm``: in the 2-D mode with
+    ``TWO_D_BYTES`` lowered to 0 for the call."""
+    from repro_torch.serve import serve_step as ss
+
+    saved = ss.TWO_D_BYTES
+    if sm.two_d:
+        ss.TWO_D_BYTES = 0
+    try:
+        return ss.param_shardings(abstract_params, sm.cfg, mesh)
+    finally:
+        ss.TWO_D_BYTES = saved
+
+
+def serve_layer0(cfg) -> int:
+    """The first layer's quantized products of a serving call (none
+    unquantized)."""
+    return 0 if cfg.quant.mode == "none" else SERVE_LAYER0[cfg.family]
 
 
 def serve_launches(cfg) -> tuple[int, int]:
@@ -4078,17 +4295,20 @@ def serve_launches(cfg) -> tuple[int, int]:
     every linear 256 or more wide on both dims int8): a column-parallel
     int8 linear is one scaled launch, a row-parallel one one unscaled launch
     (its int32 partial all-reduced), a float linear under ``mma_int8`` one
-    unscaled launch.  Transformer block: wq/wk/wv column, wo row, the MLP's
-    w_gate/w_up column and w_down row (MoE: experts and router bf16); the
-    head column.  RWKV6 block: time mix wr/wk/wv/wg column and wo row
-    (``mix_lora_a`` on the Horner route, ``w_lora_a`` 64 wide, a float
-    product: no launch), channel mix wk/wr column and wv row.  Zamba2: every
-    Mamba2 layer's z_proj, xbc_proj, dt_proj (float, H wide) and out_proj
-    row-parallel; the shared block's wq/wk/wv column, wo and proj row, once
-    per group.  Whisper decoder block: self wq/wk/wv column and wo row,
-    cross wq column and wo row (its K/V precomputed), w_up column and
-    w_down row; its head is tied, bf16."""
+    unscaled launch.  Transformer block (dense, vlm): wq/wk/wv column, wo
+    row, the MLP's w_gate/w_up column and w_down row (MoE: experts and
+    router bf16); the head column.  RWKV6 block: time mix wr/wk/wv/wg
+    column and wo row (``mix_lora_a`` on the Horner route, ``w_lora_a`` 64
+    wide, a float product: no launch), channel mix wk/wr column and wv row.
+    Zamba2: every Mamba2 layer's z_proj, xbc_proj, dt_proj (float, H wide)
+    and out_proj row-parallel; the shared block's wq/wk/wv column, wo and
+    proj row, once per group.  Whisper decoder block: self wq/wk/wv column
+    and wo row, cross wq column and wo row (its K/V precomputed), w_up
+    column and w_down row; its head is tied, bf16.  The 2-D mode gathers
+    the weights and launches as TP does; unquantized, no launch."""
     n = cfg.n_layers
+    if cfg.quant.mode == "none":
+        return 0, 0
     if cfg.family == "ssm":
         return 6 * n + 1, 2 * n
     if cfg.family == "hybrid":
@@ -4101,14 +4321,20 @@ def serve_launches(cfg) -> tuple[int, int]:
     return 5 * n + 1, 2 * n
 
 
-def serve_tokens(np, cfg, rows: int):
-    """Phase 17's prompts (numpy seed 0): ``(rows, SERVE_PROMPT)`` tokens,
-    and Whisper's ``(rows, enc_seq, d_model)`` frames."""
+def serve_tokens(np, sm):
+    """Phase 17's prompts (numpy seed 0): ``(rows, sm.prompt)`` tokens, and
+    the extras drawn after them: Whisper's ``(rows, enc_seq, d_model)``
+    frames, the vlm's ``(rows, vlm_patches, d_model)`` patches (float32)."""
+    cfg = sm.cfg
     rng = np.random.default_rng(0)
-    tok = rng.integers(0, cfg.vocab, (rows, SERVE_PROMPT)).astype(np.int64)
-    frames = (rng.standard_normal((rows, cfg.enc_seq, cfg.d_model)).astype(np.float32)
-              if cfg.family == "encdec" else None)
-    return tok, frames
+    tok = rng.integers(0, cfg.vocab, (sm.rows, sm.prompt)).astype(np.int64)
+    ext = {}
+    if cfg.family == "encdec":
+        ext["frames"] = rng.standard_normal((sm.rows, cfg.enc_seq, cfg.d_model)).astype(np.float32)
+    if cfg.family == "vlm":
+        ext["patches"] = rng.standard_normal(
+            (sm.rows, cfg.vlm_patches, cfg.d_model)).astype(np.float32)
+    return tok, ext
 
 
 class ProductRecorder:
@@ -4192,35 +4418,71 @@ class ProductRecorder:
 def _serve_model(torch, cfg, dev):
     from repro_torch import models
 
-    return models.build(cfg).init_params(0, cfg, device=dev, int8_min_dim=256)
+    return models.build(cfg).init_params(0, cfg, device=dev,
+                                         int8_min_dim=256 if cfg.quant.weights_int8 else None)
 
 
-def serving_yardstick(torch, np, dev, cfg, rows: int, steps: int) -> dict:
-    """Phase 17's unsharded steps of one model in this process: the writing
-    prefill (Zamba2: the stateless prefill) of the prompts, then ``steps``
-    greedy decode steps.  Each call's last-position logits and greedy
-    tokens, the first layer's int32 products of the prefill and of decode
-    step 0 (on the host), the launches per decode step and the host wall."""
+@contextlib.contextmanager
+def ep_plain_route(torch, cfg, forced=None):
+    """The unsharded step's ``moe_ffn_ep`` as the (data 2, model 2) mesh
+    routes it (``moe_ep_plain``, ``forced`` its replayed routing), where the
+    reference takes its expert-parallel body (unquantized, ``moe.ep``);
+    else nothing."""
+    from repro_torch.models import moe as moe_lib
+
+    inner = moe_lib.moe_ffn_ep
+    if cfg.quant.mode == "none" and cfg.moe.ep:
+        moe_lib.moe_ffn_ep = lambda p, x, c: moe_ep_plain(torch, p, x, c, forced)
+    try:
+        yield
+    finally:
+        moe_lib.moe_ffn_ep = inner
+
+
+def serving_yardstick(torch, np, dev, sm, replay=None) -> dict:
+    """Phase 17's unsharded steps of one model in this process: the vlm's
+    prefill with its patches, the writing prefill (Zamba2: the stateless
+    prefill) of the prompts, then ``sm.steps`` greedy decode steps.  Each
+    call's last-position logits and greedy tokens, the first layer's int32
+    products of the prefills and of decode step 0 (on the host), the
+    launches per decode step and the host wall; where ``moe_ffn_ep`` routes,
+    each slab's routing (``RouteRecorder``).  ``replay``: the ranks' run
+    again, fed its ``tokens`` and each slab routed as ``chosen`` gives (one
+    (T, k) per slab, in the order ``moe_ep_plain`` visits them)."""
     from repro_torch.kernels import mma_matmul as mk
     from repro_torch.models import whisper
     from repro_torch.serve import serve_step as ss
 
+    cfg, rows = sm.cfg, sm.rows
     params = _serve_model(torch, cfg, dev)
-    tok, frames = serve_tokens(np, cfg, rows)
+    tok, ext = serve_tokens(np, sm)
     tok = torch.as_tensor(tok, device=dev)
-    dec, _ = ss.make_decode(cfg, rows, SERVE_MAX_SEQ, device=dev)
-    cache = ss.init_serving_cache(cfg, rows, SERVE_MAX_SEQ, device=dev,
+    dec, _ = ss.make_decode(cfg, rows, sm.max_seq, device=dev)
+    cache = ss.init_serving_cache(cfg, rows, sm.max_seq, device=dev,
                                   dtype=torch.int8 if cfg.quant.kv_int8 else torch.bfloat16)
     ex = {}
     if cfg.family == "encdec":
         with torch.no_grad():
-            memory = whisper.encode(params, torch.as_tensor(frames, device=dev), cfg, device=dev)
+            memory = whisper.encode(params, torch.as_tensor(ext["frames"], device=dev), cfg,
+                                    device=dev)
             ex = {"memory": memory,
                   "cross_kv": whisper.precompute_cross_kv(params, memory, cfg, device=dev)}
-    n0 = SERVE_LAYER0[cfg.family]
-    out = {"logits": [], "tokens": [], "wall": []}
+    n0 = serve_layer0(cfg)
+    out = {"logits": [], "tokens": [], "wall": [], "routing": []}
     idx = 0
-    with torch.no_grad():
+    ep = cfg.quant.mode == "none" and cfg.moe.ep
+    forced = iter(replay["chosen"]) if replay else None
+    with torch.no_grad(), ep_plain_route(torch, cfg, forced), RouteRecorder(ep) as route:
+        if "patches" in ext:  # the vlm: its patches before the prompt, no cache
+            patches = torch.as_tensor(ext["patches"], device=dev).to(torch.bfloat16)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with ProductRecorder(n0, False) as rec:
+                lg = ss.make_prefill(cfg, device=dev)(params, tok, {"patches": patches})
+                out["prefix_logits"] = lg[:, -1].float().cpu()
+            out["prefix_wall"] = time.perf_counter() - t0
+            out["int32_prefix"] = rec.calls
+            del lg
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         with ProductRecorder(n0, False) as rec:
@@ -4233,34 +4495,43 @@ def serving_yardstick(torch, np, dev, cfg, rows: int, steps: int) -> dict:
             torch.cuda.synchronize()
         out["wall"].append(time.perf_counter() - t0)
         out["int32_prefill"] = rec.calls
-        for i in range(steps):
-            nxt = lg.argmax(-1)
+        out["routing"].append(route.kept[:])
+        out["router"] = [route.logits[:]]
+        for i in range(sm.steps):
+            nxt = replay["tokens"][i].to(dev) if replay else lg.argmax(-1)
             out["logits"].append(lg.cpu())
             out["tokens"].append(nxt.cpu())
             before = (mk.scaled_launches, mk.launches)
+            n_kept = len(route.kept)
             t0 = time.perf_counter()
             with ProductRecorder(n0 if i == 0 else 0, False) as rec:
                 lg, cache = dec(params, nxt[:, None], cache, torch.tensor(idx, device=dev), ex)
                 lg = lg[:, -1].float()
                 torch.cuda.synchronize()
             out["wall"].append(time.perf_counter() - t0)
+            out["routing"].append(route.kept[n_kept:])
+            out["router"].append(route.logits[n_kept:])
             out["launches"] = (mk.scaled_launches - before[0], mk.launches - before[1])
             if i == 0:
                 out["int32_decode0"] = rec.calls
             idx += 1
         out["logits"].append(lg.cpu())
         out["tokens"].append(lg.argmax(-1).cpu())
+    check(forced is None or next(forced, None) is None, "the replay left slabs unrouted")
     del params, cache, ex
     torch.cuda.empty_cache()
     return out
 
 
-def serve_prediction(torch, cfg, rows: int) -> dict:
+def serve_prediction(torch, sm) -> dict:
     """What the dry run predicts for one rank of phase 17's (data 2, model
     2) mesh: its state bytes (params, cache and Whisper's extras:
-    ``specs.sharded_bytes``) and the collectives of one prefill and of one
-    decode step (the counting mode on meta tensors, the rank's step from
-    ``serve_step.make_prefill`` / ``make_decode`` with the mesh)."""
+    ``specs.sharded_bytes``), the whole params tree's bytes, and the
+    collectives of the vlm's prefill with its patches, of one writing
+    prefill and of one decode step (the counting mode on meta tensors, the
+    rank's step from ``serve_step.make_prefill`` / ``make_decode`` with the
+    mesh)."""
+    from repro_torch.checkpoint.ckpt import tree_leaves
     from repro_torch.launch import specs
     from repro_torch.parallel import collectives as coll
     from repro_torch.parallel import sharding as shd
@@ -4268,11 +4539,12 @@ def serve_prediction(torch, cfg, rows: int) -> dict:
     from repro_torch.serve import serve_step as ss
 
     t0 = time.perf_counter()
+    cfg, rows = sm.cfg, sm.rows
     mesh = Mesh({"data": 2, "model": 2}, device="meta")
     ab = specs._abstract_params(cfg)
-    p_sh, mode = ss.param_shardings(ab, cfg, mesh)
-    dec, spec = ss.make_decode(cfg, rows, SERVE_MAX_SEQ, mesh=mesh, device="meta", shardings=p_sh)
-    c_sh = ss.cache_shardings(spec, cfg, mesh, rows, SERVE_MAX_SEQ)
+    p_sh, mode = serve_shardings(sm, ab, mesh)
+    dec, spec = ss.make_decode(cfg, rows, sm.max_seq, mesh=mesh, device="meta", shardings=p_sh)
+    c_sh = ss.cache_shardings(spec, cfg, mesh, rows, sm.max_seq)
     params, cache = shd.shard_tree(ab, p_sh), shd.shard_tree(spec, c_sh)
     rl = rows // 2
 
@@ -4287,30 +4559,84 @@ def serve_prediction(torch, cfg, rows: int) -> dict:
                            "v": meta(l, rl, t, *kvd, dtype=torch.bfloat16)}}
         ex_bytes = sum(x.numel() * x.element_size() for x in
                        (ex["memory"], ex["cross_kv"]["k"], ex["cross_kv"]["v"]))
+    out = {}
     with torch.no_grad():
+        if cfg.family == "vlm":
+            coll.reset_stats(mesh)
+            ss.make_prefill(cfg, mesh=mesh, device="meta", shardings=p_sh)(
+                params, meta(rl, sm.prompt),
+                {"patches": meta(rl, cfg.vlm_patches, cfg.d_model, dtype=torch.bfloat16)})
+            out["prefix"] = coll.collective_stats(mesh)
         coll.reset_stats(mesh)
         if cfg.family == "hybrid":
             ss.make_prefill(cfg, mesh=mesh, device="meta", shardings=p_sh)(
-                params, meta(rl, SERVE_PROMPT), {})
+                params, meta(rl, sm.prompt), {})
         else:
-            dec(params, meta(rl, SERVE_PROMPT), cache, meta(), ex)
+            dec(params, meta(rl, sm.prompt), cache, meta(), ex)
         prefill = coll.collective_stats(mesh)
         coll.reset_stats(mesh)
         dec(params, meta(rl, 1), cache, meta(), ex)
         decode = coll.collective_stats(mesh)
-    return dict(param_bytes=specs.sharded_bytes(ab, p_sh, mesh),
+    return dict(out, param_bytes=specs.sharded_bytes(ab, p_sh, mesh),
                 cache_bytes=specs.sharded_bytes(spec, c_sh, mesh), extras_bytes=ex_bytes,
+                tree_bytes=sum(t.numel() * t.element_size() for t in tree_leaves(ab)),
                 prefill=prefill, decode=decode, mode=mode, seconds=time.perf_counter() - t0)
+
+
+class RouteRecorder:
+    """Each slab's routing of the unquantized ``moe_ffn_ep`` path
+    (``moe._local_dispatch`` under ``moe.ep_slab``, or ``moe_ep_plain``)
+    held against the plain route on the same float32 router logits, on the
+    host: expert ids, positions, token order and kept mask equal.
+    ``equal``: one bool per slab routed; on the host, as the run routed
+    each slab: ``kept``, its (tokens, experts) mask of the assignments it
+    kept, ``chosen``, each token's k experts (T, k) by expert id, and
+    ``logits``, its float32 router logits."""
+
+    def __init__(self, on: bool):
+        self.on, self.equal, self.kept, self.chosen, self.logits = on, [], [], [], []
+
+    def __enter__(self):
+        import torch
+
+        from repro_torch.models import moe as moe_lib
+
+        self.inner = inner = moe_lib._local_dispatch
+        if self.on:
+            def recording(xf, logits, n_experts, top_k, cap, dtype):
+                buf, meta = inner(xf, logits, n_experts, top_k, cap, dtype)
+                _, want = inner(xf.cpu(), logits.cpu(), n_experts, top_k, cap, dtype)
+                # every field but the gate weights (index 3, floats)
+                self.equal.append(all(torch.equal(a.cpu(), b) for i, (a, b) in
+                                      enumerate(zip(meta, want)) if i != 3))
+                eid_s, _, tok_s, _, keep = (a.cpu() for a in meta)
+                kept = torch.zeros((xf.shape[0], n_experts), dtype=torch.bool)
+                kept[tok_s[keep], eid_s[keep]] = True
+                self.kept.append(kept)
+                # a stable sort by token keeps each token's experts in id order
+                by_tok = torch.argsort(tok_s, stable=True)
+                self.chosen.append(eid_s[by_tok].reshape(xf.shape[0], top_k))
+                self.logits.append(logits.float().cpu())
+                return buf, meta
+
+            moe_lib._local_dispatch = recording
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import moe as moe_lib
+
+        moe_lib._local_dispatch = self.inner
 
 
 def _serving_rank(torch, np, dist, root: Path, mesh, dev) -> dict:
     """Phase 17 on this rank: every model of ``serve_cfgs`` served sharded
     (``serve_step.make_prefill`` / ``make_decode`` with the mesh): the
-    writing prefill of the rank's prompts, then greedy decode steps; the
-    live state bytes, collectives, launches, the kernel calls of one
-    recorded decode step against their plain versions, the first layer's
-    int32 products, each call's logits and tokens (the whole vocab,
-    gathered outside the step) and host walls."""
+    vlm's prefill with its patches, the writing prefill of the rank's
+    prompts, then greedy decode steps; the live state bytes, collectives,
+    launches, the kernel calls of one recorded decode step against their
+    plain versions, the first layer's int32 products, the unquantized
+    ``moe_ffn_ep`` path's routing, each call's logits and tokens (the whole
+    vocab, gathered outside the step) and host walls."""
     from repro_torch.checkpoint.ckpt import tree_leaves
     from repro_torch.kernels import mma_matmul as mk
     from repro_torch.parallel import collectives as coll
@@ -4321,40 +4647,55 @@ def _serving_rank(torch, np, dist, root: Path, mesh, dev) -> dict:
 
     di, ri = mesh.index("data"), mesh.index("model")
     res = {}
-    for tag, _, cfg, rows, steps in serve_cfgs():
+    for sm in serve_cfgs():
         t_model = time.perf_counter()
+        cfg, rows, tag = sm.cfg, sm.rows, sm.tag
         rl = rows // 2
         r0 = di * rl
-        full = _serve_model(torch, cfg, dev)
-        p_sh, _ = ss.param_shardings(specs._abstract_params(cfg), cfg, mesh)
-        params = shd.shard_tree(full, p_sh)
-        del full
-        torch.cuda.empty_cache()
-        dec, spec = ss.make_decode(cfg, rows, SERVE_MAX_SEQ, mesh=mesh, device=dev, shardings=p_sh)
-        c_sh = ss.cache_shardings(spec, cfg, mesh, rows, SERVE_MAX_SEQ)
+        p_sh, _ = serve_shardings(sm, specs._abstract_params(cfg), mesh)
+        params = one_rank_at_a_time(dist, lambda: shd.shard_tree(_serve_model(torch, cfg, dev),
+                                                                 p_sh))
+        dec, spec = ss.make_decode(cfg, rows, sm.max_seq, mesh=mesh, device=dev, shardings=p_sh)
+        c_sh = ss.cache_shardings(spec, cfg, mesh, rows, sm.max_seq)
         cache = shd.shard_tree(ss.init_serving_cache(
-            cfg, rows, SERVE_MAX_SEQ, device=dev,
+            cfg, rows, sm.max_seq, device=dev,
             dtype=torch.int8 if cfg.quant.kv_int8 else torch.bfloat16), c_sh)
-        tok, frames = serve_tokens(np, cfg, rows)
+        tok, ext = serve_tokens(np, sm)
         tok = torch.as_tensor(tok[r0:r0 + rl], device=dev)
         yard = torch.load(root / f"yard_serve_{tag}.pt", weights_only=False)
         ex = {}
         with torch.no_grad():
             if cfg.family == "encdec":
-                fr = torch.as_tensor(frames[r0:r0 + rl], device=dev)
+                fr = torch.as_tensor(ext["frames"][r0:r0 + rl], device=dev)
                 memory = sharded_whisper.encode(params, fr, cfg, mesh)
                 ex = {"memory": memory,
                       "cross_kv": sharded_whisper.precompute_cross_kv(params, memory, cfg, mesh)}
         out = {"state_bytes": [sum(t.numel() * t.element_size() for t in tree_leaves(x))
                                for x in (params, cache, ex)],
                "logits": [], "tokens": [], "wall": []}
-        n0 = SERVE_LAYER0[cfg.family]
+        n0 = serve_layer0(cfg)
         idx = 0
 
         def whole(lg):
             return sharded_lm.gathered_logits(lg, lg.shape[-1] != cfg.vocab, mesh)[:, -1].float()
 
-        with torch.no_grad():
+        ep = cfg.quant.mode == "none" and cfg.moe.ep
+        with torch.no_grad(), RouteRecorder(ep) as route:
+            if "patches" in ext:  # the vlm: its patches before the prompt, no cache
+                patches = torch.as_tensor(ext["patches"][r0:r0 + rl], device=dev).to(torch.bfloat16)
+                coll.reset_stats(mesh)
+                dist.barrier()
+                t0 = time.perf_counter()
+                with ProductRecorder(n0, True) as rec:
+                    lg = ss.make_prefill(cfg, mesh=mesh, device=dev, shardings=p_sh)(
+                        params, tok, {"patches": patches})
+                    torch.cuda.synchronize()
+                out["prefix_wall"] = time.perf_counter() - t0
+                out["prefix_stats"] = coll.collective_stats(mesh)
+                out["int32_prefix"] = rec.calls
+                want = yard["prefix_logits"][r0:r0 + rl]
+                out["prefix_rel"] = float((whole(lg).cpu() - want).abs().max() / want.abs().max())
+                del lg
             coll.reset_stats(mesh)
             dist.barrier()
             t0 = time.perf_counter()
@@ -4370,14 +4711,16 @@ def _serving_rank(torch, np, dist, root: Path, mesh, dev) -> dict:
             out["prefill_stats"] = coll.collective_stats(mesh)
             out["prefill_coll_s"] = sum(coll.collective_seconds(mesh).values())
             out["int32_prefill"] = rec.calls
+            routing, chosen, router = [route.kept[:]], [route.chosen[:]], [route.logits[:]]
             lg = whole(lg)
-            for i in range(steps):
+            for i in range(sm.steps):
                 # the yardstick's greedy token: every call on the same inputs
                 nxt = yard["tokens"][i][r0:r0 + rl].to(dev)
                 out["logits"].append(lg.cpu())
                 out["tokens"].append(lg.argmax(-1).cpu())
                 coll.reset_stats(mesh)
                 before = (mk.scaled_launches, mk.launches)
+                n_kept = len(route.kept)
                 dist.barrier()
                 t0 = time.perf_counter()
                 with ProductRecorder(n0 if i == 0 else 0, True) as rec:
@@ -4386,6 +4729,9 @@ def _serving_rank(torch, np, dist, root: Path, mesh, dev) -> dict:
                     lg, cache = dec(params, nxt[:, None], cache, torch.tensor(idx, device=dev), ex)
                     torch.cuda.synchronize()
                 out["wall"].append(time.perf_counter() - t0)
+                routing.append(route.kept[n_kept:])
+                chosen.append(route.chosen[n_kept:])
+                router.append(route.logits[n_kept:])
                 out.setdefault("launches", []).append(
                     (mk.scaled_launches - before[0], mk.launches - before[1]))
                 if i == 0:
@@ -4398,18 +4744,43 @@ def _serving_rank(torch, np, dist, root: Path, mesh, dev) -> dict:
                 lg = whole(lg)
             out["logits"].append(lg.cpu())
             out["tokens"].append(lg.argmax(-1).cpu())
+        out["routing_equal"] = [sum(route.equal), len(route.equal)]
+        # per call, the tokens whose kept experts differ from the yardstick's
+        # in the same slab (the ranks' float sums can flip a router near tie,
+        # and a flip moves the capacity's drops), and layer 0's router logits
+        # against those of the yardstick's slab at this rank's place in
+        # moe_ep_plain's (data, model) partition: the same tokens
+        out["route_differ"], out["slab_rel"], out["route_tokens"] = [], [], []
+        for got, want, lg_r, want_r in zip(routing, yard["routing"], router, yard["router"]) \
+                if ep else ():
+            n_slabs = len(want) // len(got)  # the yardstick routes every slab of a layer
+            slab = di * (n_slabs // 2) + (ri if n_slabs == 4 else 0)
+            out["route_differ"].append(sum(int((g != want[l * n_slabs + slab]).any(-1).sum())
+                                           if g.shape == want[l * n_slabs + slab].shape
+                                           else g.shape[0] for l, g in enumerate(got)))
+            out["route_tokens"].append(sum(g.shape[0] for g in got))
+            w0 = want_r[slab]
+            out["slab_rel"].append(float((lg_r[0] - w0).abs().max() / w0.abs().max())
+                                   if lg_r[0].shape == w0.shape else float("inf"))
+        if ep:  # for the parent's replay of this rank's routing
+            out["coord"] = [di, ri]
         eq, ndiff = [], []
-        for which in ("int32_prefill", "int32_decode0"):
+        groups = ("int32_prefix",) * ("int32_prefix" in out) + ("int32_prefill", "int32_decode0")
+        for which in groups:
             for got, want in zip(out.pop(which), yard[which]):
                 want = want[r0:r0 + rl]
                 if got.shape[-1] != want.shape[-1]:  # column-parallel: the rank's columns
                     want = want[..., ri * got.shape[-1]:(ri + 1) * got.shape[-1]]
                 eq.append(got.shape == want.shape and bool(torch.equal(got, want)))
                 ndiff.append(int((got != want).sum()) if got.shape == want.shape else -1)
+        out["int32_groups"] = len(groups)
         out["int32_ndiff"] = ndiff
-        out["int32_equal"] = [sum(eq), len(eq), len(yard["int32_prefill"]) + len(yard["int32_decode0"])]
+        out["int32_equal"] = [sum(eq), len(eq), sum(len(yard[w]) for w in groups)]
         out["int32_differ"] = [i for i, e in enumerate(eq) if not e]
         out["logit_rel"], out["tokens_equal"], out["margins"] = [], [], []
+        if ep:  # held by the parent against the yardstick replaying this routing
+            torch.save({"chosen": chosen, "logits": out["logits"]},
+                       root / f"ep_{tag}_{di}{ri}.pt")
         for got, want, gt, wt in zip(out.pop("logits"), yard["logits"], out.pop("tokens"),
                                      yard["tokens"]):
             want, wt = want[r0:r0 + rl], wt[r0:r0 + rl]
@@ -4427,20 +4798,73 @@ def _serving_rank(torch, np, dist, root: Path, mesh, dev) -> dict:
     return res
 
 
+def rank_outputs(torch, root: Path) -> list:
+    """The ranks' ``rank{r}.json``, each ``moe_ffn_ep`` serving part's
+    routing and logits (``ep_{tag}_{data}{model}.pt``) under its ``ep``
+    key, for ``ep_replay``."""
+    outs = [json.loads((root / f"rank{r}.json").read_text()) for r in range(PAR_WORLD)]
+    for o in outs:
+        for tag, so in o.get("serving", {}).items():
+            if "coord" in so:
+                so["ep"] = torch.load(root / f"ep_{tag}_{so['coord'][0]}{so['coord'][1]}.pt",
+                                      weights_only=False)
+    return outs
+
+
+def ep_replay(torch, np, dev, sm, yard: dict, outs: list) -> None:
+    """The unquantized ``moe_ffn_ep`` part's yardstick run again with every
+    slab routed as the rank that routed it did (``moe_ep_plain``'s
+    (data, model) partition: at a decode step the data rank's rows whole,
+    model rank 0's routing, which model rank 1's must equal), fed the
+    tokens the ranks were fed.  Adds to each rank's results ``replay_rel``,
+    its logits against the replay's per call, and ``decode_alike``."""
+    res = {tuple(o["serving"][sm.tag]["coord"]): o["serving"][sm.tag] for o in outs}
+    by = {c: so.pop("ep") for c, so in res.items()}
+    calls = [sm.prompt] + [1] * sm.steps
+    forced, alike = [], True
+    for c, s in enumerate(calls):
+        n_seq = 2 if s % 2 == 0 else 1
+        for l in range(sm.cfg.n_layers):
+            for i in range(2):
+                for j in range(n_seq):
+                    forced.append(by[(i, j)]["chosen"][c][l])
+                if n_seq == 1:
+                    alike &= bool(torch.equal(by[(i, 0)]["chosen"][c][l],
+                                              by[(i, 1)]["chosen"][c][l]))
+    rep = serving_yardstick(torch, np, dev, sm, replay=dict(tokens=yard["tokens"], chosen=forced))
+    rl = sm.rows // 2
+    for (i, j), so in res.items():
+        so["decode_alike"] = alike
+        so["replay_rel"] = []
+        for got, want in zip(by[(i, j)]["logits"], rep["logits"]):
+            want = want[i * rl:(i + 1) * rl]
+            so["replay_rel"].append(float((got - want).abs().max() / want.abs().max()))
+
+
 def serving_gates(torch, np, dev, card, outs: list, preds: dict, yards: dict) -> dict:
     """Phase 17's gates over the ranks' results, its prints, and the scaled
     kernel graph-timed at Yi-6B's sharded decode shapes.  Returns the
     scaled kernel's phase-17 entries."""
     g = torch.Generator(device=dev).manual_seed(17)
     entries = {}
-    for tag, label, cfg, rows, steps in serve_cfgs():
+    for sm in serve_cfgs():
+        if sm.cfg.quant.mode == "none" and sm.cfg.moe.ep:
+            ep_replay(torch, np, dev, sm, yards[sm.tag], outs)
+    for sm in serve_cfgs():
         for o in outs:  # every rank's numbers first, whatever gate fails below
-            so = o["serving"][tag]
-            print(f"[serving] {label} rank {o['rank']}: int32 equal {so['int32_equal']} (differ "
-                  f"{so['int32_differ']}, elements {so['int32_ndiff']}), logits rel {so['logit_rel']}, tokens equal "
-                  f"{so['tokens_equal']}, margins {so['margins']}, launches {so['launches'][:1]}, "
-                  f"calls exact {so['calls_exact']}")
-    for tag, label, cfg, rows, steps in serve_cfgs():
+            so = o["serving"][sm.tag]
+            print(f"[serving] {sm.label} rank {o['rank']}: int32 equal {so['int32_equal']} (differ "
+                  f"{so['int32_differ']}, elements {so['int32_ndiff']}), logits rel {so['logit_rel']}"
+                  f"{', prefix prefill ' + str(so['prefix_rel']) if 'prefix_rel' in so else ''}, "
+                  f"tokens equal {so['tokens_equal']}, margins {so['margins']}, launches "
+                  f"{so['launches'][:1]}, calls exact {so['calls_exact']}, slabs routed as the "
+                  f"plain route {so['routing_equal']}, tokens routed otherwise than the "
+                  f"yardstick per call {so['route_differ']} of {so['route_tokens']}, layer 0's "
+                  f"router logits against the yardstick's slab {so['slab_rel']}"
+                  + (f", logits against the yardstick replaying the ranks' routing "
+                     f"{so['replay_rel']}" if "replay_rel" in so else ""))
+    for sm in serve_cfgs():
+        tag, label, cfg, rows, steps = sm.tag, sm.label, sm.cfg, sm.rows, sm.steps
         pred, yard = preds[tag], yards[tag]
         want_launches = serve_launches(cfg)
         for o in outs:
@@ -4449,7 +4873,7 @@ def serving_gates(torch, np, dev, card, outs: list, preds: dict, yards: dict) ->
                                         pred["extras_bytes"]],
                   f"rank {r}: {label} state bytes {so['state_bytes']} against the dry run's "
                   f"{[pred['param_bytes'], pred['cache_bytes'], pred['extras_bytes']]}")
-            for which in ("prefill", "decode"):
+            for which in ("prefix", "prefill", "decode") if "prefix" in pred else ("prefill", "decode"):
                 check(same_collectives(so[f"{which}_stats"], pred[which]),
                       f"rank {r}: {label} {which} collectives {so[f'{which}_stats']} against the "
                       f"dry run's {pred[which]}")
@@ -4459,42 +4883,88 @@ def serving_gates(torch, np, dev, card, outs: list, preds: dict, yards: dict) ->
             check(so["calls_exact"][0] == so["calls_exact"][1] == sum(want_launches),
                   f"rank {r}: {label} recorded decode step's kernel calls bit-exact "
                   f"{so['calls_exact']}")
-            n0, npre = SERVE_LAYER0[cfg.family], SERVE_PRE_ATTENTION[cfg.family]
-            pre = [i for i in range(2 * n0) if i % n0 < npre]  # the prefill's, decode 0's
-            check(so["int32_equal"][1] == so["int32_equal"][2] == 2 * n0
+            n0, npre = serve_layer0(cfg), SERVE_PRE_ATTENTION[cfg.family]
+            n_all = so["int32_groups"] * n0
+            pre = [i for i in range(n_all) if i % n0 < npre]  # each prefill's and decode 0's
+            check(so["int32_equal"][1] == so["int32_equal"][2] == n_all
                   and not set(pre) & set(so["int32_differ"]),
                   f"rank {r}: {label} first layer's int32 products before the attention "
                   f"combine equal to the yardstick's: {so['int32_equal']}, differ "
                   f"{so['int32_differ']} (gated {pre})")
-            check(all(np.isfinite(x) and x <= SERVE_LOGIT_REL for x in so["logit_rel"]),
-                  f"rank {r}: {label} logits against the yardstick's {so['logit_rel']} "
+            # moe_ffn_ep: against the yardstick routed as the ranks routed
+            held = so.get("replay_rel", so["logit_rel"])
+            check(len(held) == steps + 1 and all(np.isfinite(x) and x <= SERVE_LOGIT_REL
+                                                 for x in held),
+                  f"rank {r}: {label} logits against the yardstick's {held} "
                   f"(SERVE_LOGIT_REL {SERVE_LOGIT_REL})")
+            if "prefix" in pred:
+                check(np.isfinite(so["prefix_rel"]) and so["prefix_rel"] <= SERVE_LOGIT_REL,
+                      f"rank {r}: {label} prefill with the patches: logits against the "
+                      f"yardstick's {so['prefix_rel']} (SERVE_LOGIT_REL {SERVE_LOGIT_REL})")
             check(all(m <= 2 * SERVE_LOGIT_REL for m in so["margins"]),
                   f"rank {r}: {label} greedy tokens part from the yardstick's at margins "
                   f"{so['margins']} of the largest logit")
+            if cfg.quant.mode == "none" and cfg.moe.ep:
+                # every layer's slab of the writing prefill and of each decode step
+                n_slabs = cfg.n_layers * (1 + steps)
+                check(len(so["route_differ"]) == len(so["slab_rel"]) == steps + 1
+                      and all(d <= ROUTE_DIFFER_SHARE * n for d, n in
+                              zip(so["route_differ"], so["route_tokens"]))
+                      and all(x <= SLAB_ROUTER_REL for x in so["slab_rel"])
+                      and so["decode_alike"],
+                      f"rank {r}: {label} tokens routed otherwise than the yardstick per call "
+                      f"{so['route_differ']} of {so['route_tokens']} (ROUTE_DIFFER_SHARE "
+                      f"{ROUTE_DIFFER_SHARE}), layer 0's router logits against the yardstick's "
+                      f"slab {so['slab_rel']} (SLAB_ROUTER_REL {SLAB_ROUTER_REL}), decode slabs "
+                      f"routed alike on both model ranks: {so['decode_alike']}")
+                check(so["routing_equal"][0] == so["routing_equal"][1] == n_slabs
+                      and so["decode_stats"]["counts_by_kind"].get("all-to-all", 0) > 0
+                      and so["prefill_stats"]["counts_by_kind"].get("all-to-all", 0) > 0,
+                      f"rank {r}: {label} slabs routed as the plain route "
+                      f"{so['routing_equal']} (expected {n_slabs}), all-to-alls in the prefill "
+                      f"{so['prefill_stats']['counts_by_kind']} and the decode step "
+                      f"{so['decode_stats']['counts_by_kind']}")
+        if sm.two_d:
+            share = pred["param_bytes"] / pred["tree_bytes"]
+            check(pred["mode"] == "2d" and share <= 0.26,
+                  f"{label}: mode {pred['mode']}, each rank holds {share:.4f} of the weights")
         s0 = outs[0]["serving"][tag]
         walls = [o["serving"][tag]["wall"] for o in outs]
         dec_s = [statistics.median(w[1:]) for w in walls]
         ps, ds = s0["prefill_stats"], s0["decode_stats"]
-        print(f"[serving] {card} | {label} sharded ({cfg.n_layers} layers, {rows} rows, "
+        patch = f"patch prefill of {cfg.vlm_patches} + {sm.prompt}, " if cfg.family == "vlm" else ""
+        print(f"[serving] {card} | {label} sharded ({cfg.n_layers} layers, {rows} rows, {patch}"
               f"{'stateless prefill' if cfg.family == 'hybrid' else 'writing prefill'} of "
-              f"{SERVE_PROMPT} tokens, {steps} greedy decode steps, cache {SERVE_MAX_SEQ}, "
-              f"{pred['mode']}): state per rank {s0['state_bytes']} bytes (params, cache, extras: "
-              f"the dry run's); {want_launches[0]} scaled + {want_launches[1]} unscaled launches "
+              f"{sm.prompt} tokens, {steps} greedy decode steps, cache {sm.max_seq}, "
+              f"{pred['mode']}, {cfg.quant.mode}): state per rank {s0['state_bytes']} bytes (params, "
+              f"cache, extras: the dry run's; {s0['state_bytes'][0] / pred['tree_bytes']:.4f} of the "
+              f"tree's params); {want_launches[0]} scaled + {want_launches[1]} unscaled launches "
               f"per decode step per rank (as the layout gives); the recorded step's "
               f"{s0['calls_exact'][1]} kernel calls bit-exact; {s0['int32_equal'][1]} first-layer "
-              f"int32 products equal to the yardstick's")
+              f"int32 products compared with the yardstick's")
+        prefix = (f"; prefill with the patches {max(o['serving'][tag]['prefix_rel'] for o in outs):.3e}"
+                  if "prefix" in pred else "")
+        route = (f"; every slab's routing ({s0['routing_equal'][1]} per rank) equal to the plain "
+                 f"route's on the same float32 logits; tokens routed otherwise than the "
+                 f"yardstick per rank and call {[o['serving'][tag]['route_differ'] for o in outs]}"
+                 f" of {s0['route_tokens']}; logits against the yardstick replaying the ranks' "
+                 f"routing, per call: worst "
+                 f"{max(max(o['serving'][tag]['replay_rel']) for o in outs):.3e} (gated; the "
+                 f"figure before is against its own routing, not gated)"
+                 if s0["routing_equal"][1] else "")
         print(f"[serving] {card} | {label} logits against the unsharded yardstick on its tokens, "
               f"per call: worst {max(max(o['serving'][tag]['logit_rel']) for o in outs):.3e} of "
-              f"the largest (SERVE_LOGIT_REL {SERVE_LOGIT_REL}); the ranks' greedy tokens equal "
-              f"the yardstick's at {sum(sum(o['serving'][tag]['tokens_equal']) for o in outs)} of "
-              f"{sum(len(o['serving'][tag]['tokens_equal']) for o in outs)} calls x ranks, partings "
-              f"at margins {[m for o in outs for m in o['serving'][tag]['margins']]}; first "
-              f"layer's int32 products equal: {s0['int32_equal'][0]} of {s0['int32_equal'][1]} "
-              f"(those before the attention combine gated)")
-        print(f"[serving] {card} | {label} host wall per rank: prefill "
-              f"{[round(w[0], 3) for w in walls]} s (unsharded {yard['wall'][0]:.3f} s), decode "
-              f"step (median) {[round(x, 4) for x in dec_s]} s (unsharded "
+              f"the largest (SERVE_LOGIT_REL {SERVE_LOGIT_REL}){prefix}; the ranks' greedy tokens "
+              f"equal the yardstick's at {sum(sum(o['serving'][tag]['tokens_equal']) for o in outs)} "
+              f"of {sum(len(o['serving'][tag]['tokens_equal']) for o in outs)} calls x ranks, "
+              f"partings at margins {[m for o in outs for m in o['serving'][tag]['margins']]}; "
+              f"first layer's int32 products equal: {s0['int32_equal'][0]} of "
+              f"{s0['int32_equal'][1]} (those before the attention combine gated){route}")
+        print(f"[serving] {card} | {label} host wall per rank: "
+              + (f"prefill with the patches {[round(o['serving'][tag]['prefix_wall'], 3) for o in outs]} s "
+                 f"(unsharded {yard['prefix_wall']:.3f} s), " if "prefix" in pred else "")
+              + f"prefill {[round(w[0], 3) for w in walls]} s (unsharded {yard['wall'][0]:.3f} s), "
+              f"decode step (median) {[round(x, 4) for x in dec_s]} s (unsharded "
               f"{statistics.median(yard['wall'][1:]):.4f} s); rank 0's collectives (gloo over "
               f"host memory, not NVLink: nothing is claimed from their times): prefill "
               f"{ps['counts_by_kind']} {ps['total_bytes']} bytes, {s0['prefill_coll_s'] / walls[0][0]:.3f} "
@@ -4505,10 +4975,11 @@ def serving_gates(torch, np, dev, card, outs: list, preds: dict, yards: dict) ->
                             unsharded_prefill_s=yard["wall"][0],
                             unsharded_decode_step_s=statistics.median(yard["wall"][1:]),
                             collectives_decode=ds, collectives_prefill=ps,
-                            logit_rel=max(max(o["serving"][tag]["logit_rel"]) for o in outs))
+                            logit_rel=max(max(o["serving"][tag]["logit_rel"]) for o in outs),
+                            mode=pred["mode"], max_seq=sm.max_seq, prompt=sm.prompt)
     # the scaled kernel at Yi-6B's sharded decode shapes: M = 4 rows per data
     # rank, the column-parallel linears' half of N
-    _, _, ycfg, yrows, _ = serve_cfgs()[0]
+    ycfg, yrows = serve_cfgs()[0].cfg, serve_cfgs()[0].rows
     d, kv = ycfg.d_model, ycfg.n_kv_heads * ycfg.hd
     m = yrows // 2
     rows_t = []

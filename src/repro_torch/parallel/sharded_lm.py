@@ -91,6 +91,10 @@ from .sharding import axis_tuple, current_mesh
 
 MODEL = "model"
 F32 = torch.float32
+# :func:`kv_seq_attention`'s float32 partials all-reduced at once: at most
+# this many bytes, or one chunk's where that is more (a long prompt's n
+# chunks would otherwise hold n times the output).
+KV_PART_BYTES = 1 << 28
 
 # the data axes a serving step's rows are split over: the mesh's data axes,
 # or none where the batch does not divide them (every data rank then holds
@@ -701,58 +705,104 @@ def kv_seq_attention(q, k, v, q_pos, k_pos, *, causal: bool, window: int, chunk:
                      ) -> torch.Tensor:
     """Softmax attention of ``q`` (B, S, H, D) over keys split over
     ``model`` by sequence: this rank's ``k``, ``v`` (B, T, KV, D) at
-    absolute positions ``k_pos`` (T,).  Two passes over the rank's keys (in
-    chunks of ``chunk``; one for a short query): the scores' max, max
-    all-reduced over ``model``, then ``p = exp(score - max)`` (each the
-    unsharded step's value, so its bf16 rounding for ``p @ v`` is too), the
-    rank's sum of ``p`` and float32 sum of ``p @ v``, one sum all-reduce of
-    both (O(B·H·D)), ``p @ v`` then rounded to q's dtype once, as the
-    unsharded product is.  Only the order of those float32 sums differs
-    from ``layers.flash_attention``'s one pass (its chunked path over more
-    than one chunk of keys rescales by a running max instead).  A query that sees no key gives 0.  Returns (B, S, H, D)
-    in q's dtype."""
+    absolute positions ``k_pos`` (T,), a contiguous slice of the whole
+    cache.  ``layers.flash_attention``'s pass over the whole cache, chunk by
+    chunk: ``n`` chunks of ``chunk`` keys (one chunk of every key for a
+    short query, ``s <= 8``; a chunk may span several ranks' slices, a slice
+    several chunks).
+
+    Each rank takes its keys' max in each chunk; one max all-reduce of the
+    (n, ...) maxima gives each chunk's max, and a running max over them the
+    unsharded pass's ``m_new`` of each chunk.  Each rank then sums its keys'
+    ``p = exp(score - m_new)`` and float32 ``p @ v`` per chunk (``p``
+    rounded to q's dtype as there; a chunk whole on the rank takes the
+    unsharded pass's own product); sum all-reduces of the partials, at most
+    ``KV_PART_BYTES`` of them at once, give every rank each chunk's ``l``
+    and ``p @ v``, rounded to q's dtype once as the unsharded product is,
+    and every rank runs the unsharded pass's rescaling over the chunks in
+    order.  Only the order of the float32 sums over a chunk's keys differs
+    from the unsharded step's.  Returns (B, S, H, D) in q's dtype; a query
+    that sees no key gives 0."""
     b, s, h, d = q.shape
     t, kvh = k.shape[1], k.shape[2]
     g = h // kvh
     scale = 1.0 / math.sqrt(d)
     dev = q.device
     qg = q.reshape(b, s, kvh, g, d)
-    if s <= 8:
-        chunk = max(t, 1)
+    whole = t * mesh.size(MODEL)
+    if s <= 8 or whole <= chunk:
+        chunk = whole
+    lo = mesh.index(MODEL) * t  # this rank's first position
+    n = -(-whole // chunk)
+    # this rank's keys of chunk j: [max(j*chunk, lo), min((j+1)*chunk, lo+t)) - lo
+    spans = [(max(j * chunk - lo, 0), min((j + 1) * chunk - lo, t)) for j in range(n)]
+    kept = {}  # one chunk: its scores, computed once
 
     def scores(j):
-        kp = k_pos[j:j + chunk]
-        sc = torch.einsum("bskgd,bckd->bkgsc", qg, k[:, j:j + chunk]).to(F32) * scale
-        if causal:
-            ok = kp[None, None, :] <= q_pos[..., None]
-        else:
-            ok = torch.ones((1, s, kp.shape[0]), dtype=torch.bool, device=dev)
-        if window:
-            ok = ok & (kp[None, None, :] > q_pos[..., None] - window)
-        return torch.where(ok[:, None, None], sc, -torch.inf)
+        if j in kept:
+            return kept[j]
+        a, e = spans[j]
+        sc = _masked_scores(qg, k[:, a:e], k_pos[a:e], q_pos, scale, causal=causal,
+                            window=window)
+        if n == 1:
+            kept[j] = sc
+        return sc
 
-    starts = range(0, t, chunk)
-    first = scores(0) if len(starts) == 1 else None
-    m = torch.full((b, kvh, g, s), -torch.inf, dtype=F32, device=dev)
-    for j in starts:
-        m = torch.maximum(m, (first if first is not None else scores(j)).amax(dim=-1))
-    m = coll.all_reduce(m, mesh, MODEL, "max")
+    m = torch.full((n, b, kvh, g, s), -torch.inf, dtype=F32, device=dev)
+    for j, (a, e) in enumerate(spans):
+        if e > a:
+            m[j] = scores(j).amax(dim=-1)
+    m = torch.cummax(coll.all_reduce(m, mesh, MODEL, "max"), dim=0).values
     m_safe = torch.where(torch.isfinite(m), m, 0.0)
-    l = torch.zeros((b, kvh, g, s), dtype=F32, device=dev)
-    acc = torch.zeros((b, s, kvh, g, d), dtype=F32, device=dev)
-    for j in starts:
-        sc = first if first is not None else scores(j)
-        p = torch.where(torch.isfinite(sc), torch.exp(sc - m_safe[..., None]), 0.0)
-        l = l + p.sum(dim=-1)
-        acc = acc + torch.einsum("bkgsc,bckd->bskgd", p.to(q.dtype).to(F32),
-                                 v[:, j:j + chunk].to(F32))
-    lt = l.permute(0, 3, 1, 2).reshape(b, s, kvh * g)
-    both = coll.all_reduce(torch.cat([acc.reshape(b, s, -1), lt], -1), mesh, MODEL)
-    # p @ v rounded once to q's dtype, as the unsharded product returns it
-    acc = both[..., :kvh * g * d].to(q.dtype).to(F32)
-    lt = both[..., kvh * g * d:]
-    out = acc.reshape(b, s, kvh, g, d) / torch.clamp(lt, min=1e-20).reshape(b, s, kvh, g)[..., None]
+    width = kvh * g * d
+    group = max(1, KV_PART_BYTES // (b * s * (width + kvh * g) * 4))
+    l_prev = acc = m_prev = None
+    for j0 in range(0, n, group):
+        part = torch.zeros((min(group, n - j0), b, s, width + kvh * g), dtype=F32, device=dev)
+        for j in range(j0, j0 + part.shape[0]):
+            a, e = spans[j]
+            if e <= a:
+                continue
+            sc = scores(j)
+            p = torch.where(torch.isfinite(sc), torch.exp(sc - m_safe[j][..., None]), 0.0)
+            if e - a == chunk:  # the whole chunk on this rank: the unsharded product itself
+                pv = torch.einsum("bkgsc,bckd->bskgd", p.to(q.dtype), v[:, a:e]).to(F32)
+            else:
+                pv = torch.einsum("bkgsc,bckd->bskgd", p.to(q.dtype).to(F32),
+                                  v[:, a:e].to(F32))
+            lt = p.sum(dim=-1).permute(0, 3, 1, 2).reshape(b, s, kvh * g)
+            part[j - j0] = torch.cat([pv.reshape(b, s, -1), lt], -1)
+        part = coll.all_reduce(part, mesh, MODEL)
+        for i, j in enumerate(range(j0, j0 + part.shape[0])):
+            lj = part[i, ..., width:].reshape(b, s, kvh, g)
+            # p @ v rounded once to q's dtype, as the unsharded product returns it
+            pv = part[i, ..., :width].to(q.dtype).to(F32).reshape(b, s, kvh, g, d)
+            if m_prev is None:
+                l_prev, acc = lj, pv
+            else:
+                corr = torch.exp(torch.where(torch.isfinite(m_prev), m_prev - m_safe[j],
+                                             -torch.inf))
+                corr = torch.where(torch.isfinite(corr), corr, 0.0).permute(0, 3, 1, 2)
+                l_prev = l_prev * corr + lj
+                acc = acc * corr[..., None] + pv
+            m_prev = m[j]
+    out = acc / torch.clamp(l_prev, min=1e-20)[..., None]
     return out.reshape(b, s, h, d).to(q.dtype)
+
+
+def _masked_scores(qg, kc, kp, q_pos, scale, *, causal: bool, window: int) -> torch.Tensor:
+    """The scaled float32 scores (B, KV, G, S, C) of ``qg`` (B, S, KV, G, D)
+    against keys ``kc`` (B, C, KV, D) at positions ``kp`` (C,), -inf where
+    masked."""
+    s = qg.shape[1]
+    sc = torch.einsum("bskgd,bckd->bkgsc", qg, kc).to(F32) * scale
+    if causal:
+        ok = kp[None, None, :] <= q_pos[..., None]
+    else:
+        ok = torch.ones((1, s, kp.shape[0]), dtype=torch.bool, device=qg.device)
+    if window:
+        ok = ok & (kp[None, None, :] > q_pos[..., None] - window)
+    return torch.where(ok[:, None, None], sc, -torch.inf)
 
 
 def cached_attention(p: dict, x: torch.Tensor, cfg, mesh, positions, cache, index

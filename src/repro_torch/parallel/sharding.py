@@ -264,14 +264,15 @@ def tree_specs(logical_tree, shape_tree):
 
 def shard(t: torch.Tensor, sharding: NamedSharding) -> torch.Tensor:
     """This rank's slice of the global tensor ``t`` (a contiguous copy where
-    any dim is split; ``t`` itself where none is)."""
+    any dim is split, so that it does not keep ``t``'s storage alive; ``t``
+    itself where none is)."""
     mesh, out = sharding.mesh, t
     for dim, entry in enumerate(sharding.spec):
         n = mesh.size(entry)
         if n > 1:
             size = out.shape[dim] // n
             out = out.narrow(dim, mesh.index(entry) * size, size)
-    return out if out is t else out.contiguous()
+    return out if out is t else out.clone(memory_format=torch.contiguous_format)
 
 
 def gather(t: torch.Tensor, sharding: NamedSharding) -> torch.Tensor:

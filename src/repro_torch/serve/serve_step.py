@@ -30,7 +30,10 @@ from repro_torch.device import resolve_device
 
 RECURRENT_FAMILIES = ("hybrid", "ssm")
 # the serving mode switches from TP to 2-D where the TP-split bf16 weights
-# would pass this many bytes per chip (the reference's 10 GiB)
+# would pass this many bytes per chip (the reference's 10 GiB).  No
+# full-width model small enough for one 80 GB card passes it at a model
+# axis of 2, so the card runs the 2-D mode with it lowered to 0
+# (chip_smoke.py's phase 17, as tests/test_torch_serve_sharded.py does)
 TWO_D_BYTES = 10 * (1 << 30)
 
 

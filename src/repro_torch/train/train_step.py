@@ -91,6 +91,7 @@ def train_step(state: dict, batch: dict, cfg, *, peak_lr=3e-4, warmup=100, total
             del grads  # before the next microbatch's backward allocates its own
             loss = loss + mb_loss
         grads = tree_unflatten(params, [a.div_(cfg.microbatches) for a in acc])
+        del acc  # held by ``grads`` alone, which the mesh's mean below replaces
         loss = loss / cfg.microbatches
     else:
         (loss, _), grads = value_and_grad(loss_fn, params, batch)

@@ -116,6 +116,7 @@ def family_steps(inp, mesh, families) -> dict:
 SERVE_ARCHS = {"dense": "yi_6b", "moe": "olmoe_1b_7b", "vlm": "internvl2_76b",
                "ssm": "rwkv6_3b", "hybrid": "zamba2_7b", "encdec": "whisper_large_v3"}
 SERVE_MAX_SEQ, SERVE_STEPS = 48, 3
+SERVE_LONG_SEQ = 192  # the writing prefill over several attention chunks (``FAMILY_long``)
 
 
 def serve_tree(inp, prefix):
@@ -135,14 +136,16 @@ def serve_tree(inp, prefix):
     return out
 
 
-def serve_family(inp, mesh, family, route, batch=4, key=None, whole=False) -> dict:
+def serve_family(inp, mesh, family, route, batch=4, key=None, whole=False,
+                 max_seq=SERVE_MAX_SEQ, prompt="serve/prompt", prefill=True) -> dict:
     """The reference's sharded prefill and decode steps of one family, as
     ``launch.specs._build_prefill`` / ``_build_decode`` lay them out (the
     params by ``param_specs``, the rows over 'data', the cache by
     ``serve_step.cache_shardings``), compiled with ``EXACT``: the logits of
     the prefill and of every decode call (a writing prefill of the prompt,
-    then single tokens; Zamba2 single tokens only).  ``whole``: the same
-    steps unsharded, on one device (under keys ``.../whole``)."""
+    then single tokens; Zamba2 single tokens only) against a cache of
+    ``max_seq``.  ``whole``: the same steps unsharded, on one device (under
+    keys ``.../whole``).  ``prefill`` False: the decode calls only."""
     from jax.sharding import NamedSharding, PartitionSpec as P
 
     from repro.launch import specs as rspecs
@@ -178,10 +181,11 @@ def serve_family(inp, mesh, family, route, batch=4, key=None, whole=False) -> di
         with shd.use_mesh(mesh, rules):
             return prefill(p_, t_, e_)
 
-    lg = exact(pre_fn, params, jax.device_put(tok, tok_sh),
-               {k: jax.device_put(v, ex_sh[k]) for k, v in extras.items()},
-               in_shardings=(p_sh, tok_sh, ex_sh))
-    out[f"{key}/prefill"] = np.asarray(jnp.asarray(lg, jnp.float32))
+    if prefill:
+        lg = exact(pre_fn, params, jax.device_put(tok, tok_sh),
+                   {k: jax.device_put(v, ex_sh[k]) for k, v in extras.items()},
+                   in_shardings=(p_sh, tok_sh, ex_sh))
+        out[f"{key}/prefill"] = np.asarray(jnp.asarray(lg, jnp.float32))
     if family == "hybrid" and route != "none" and not whole:
         # the same step under plain jax.jit, which skips some bf16 roundings:
         # the quantized stateless Zamba2 forward's spread between builds
@@ -189,8 +193,8 @@ def serve_family(inp, mesh, family, route, batch=4, key=None, whole=False) -> di
             params, jax.device_put(tok, tok_sh), {})
         out[f"{key}/prefill_plain"] = np.asarray(jnp.asarray(lg, jnp.float32))
 
-    decode, ab_cache = ss.make_decode(cfg, b, SERVE_MAX_SEQ)
-    c_sh = ss.cache_shardings(ab_cache, cfg, mesh, b, max_seq=SERVE_MAX_SEQ)
+    decode, ab_cache = ss.make_decode(cfg, b, max_seq)
+    c_sh = ss.cache_shardings(ab_cache, cfg, mesh, b, max_seq=max_seq)
     cache = jax.device_put(jax.tree.map(lambda a: jnp.zeros(a.shape, a.dtype), ab_cache), c_sh)
     dex = {}
     if family == "encdec":
@@ -214,7 +218,7 @@ def serve_family(inp, mesh, family, route, batch=4, key=None, whole=False) -> di
         with shd.use_mesh(mesh, rules):
             return decode(p_, t_, c_, i_, e_)
 
-    calls = [] if family == "hybrid" else [inp["serve/prompt"][:b]]
+    calls = [] if family == "hybrid" else [inp[prompt][:b]]
     calls += [inp["serve/steps"][i][:b] for i in range(SERVE_STEPS + (family == "hybrid"))]
     compiled, idx = {}, 0
     for i, t in enumerate(calls):
@@ -240,12 +244,19 @@ def main(d, part):
         mesh = auto_mesh((2, 4), ("data", "model"))
         out = {}
         for family in part[len("serve:"):].split(","):
+            if family.endswith("_long"):  # a writing prefill over several attention chunks
+                base = family[:-len("_long")]
+                for route in ("none", "int8"):
+                    # its prefill (no cache) is the base family's; moe, as
+                    # its other cases, against the unsharded step only
+                    out.update(serve_family(inp, mesh, base, route, key=f"{family}/{route}",
+                                            max_seq=SERVE_LONG_SEQ, prompt="serve/prompt_long",
+                                            prefill=False, whole=base == "moe"))
+                continue
             for route in ("none", "int8"):
-                out.update(serve_family(inp, mesh, family, route))
-                if family == "moe" or (family, route) == ("hybrid", "int8"):
-                    # GSPMD's partial sums move the router's near ties; the
-                    # quantized stateless Zamba2 forward is chaotic
-                    out.update(serve_family(inp, mesh, family, route, whole=True))
+                # moe against the unsharded step only: GSPMD's partial sums
+                # move the router's near ties
+                out.update(serve_family(inp, mesh, family, route, whole=family == "moe"))
             if family == "hybrid":  # the rule's first dim equal to the batch: the groups
                 out.update(serve_family(inp, mesh, family, "int8", batch=2, key="hybrid_b2/int8"))
         np.savez(os.path.join(d, f"ref_{part.replace(':', '_').replace(',', '_')}.npz"), **out)

@@ -5,8 +5,13 @@ here: each rank imports torch and the port only.
 :func:`rank_main` reads ``DIR/inputs.npz`` (the weights and data the
 reference subprocess reads too), runs every check's port side on the
 world's meshes and writes ``DIR/rank{r}.pt`` for the test to compare.
+
+:func:`rank_lock` is the lock the two 8-rank test modules take around
+their ranks and reference subprocesses, so that they never run at once.
 """
+import contextlib
 import dataclasses
+import fcntl
 import os
 import shutil
 from functools import partial
@@ -41,6 +46,28 @@ FAMILIES = {"moe": ("olmoe_1b_7b", False), "moe_ep": ("olmoe_1b_7b", True),
             "hybrid": ("zamba2_7b", None), "encdec": ("whisper_large_v3", None)}
 ROUTE_CAPACITY = 0.5  # the routing check's capacity factor: it drops assignments
 FLOAT32_LEAVES = ("w_base", "u", "a_log", "dt_bias", "d_skip")  # RWKV6's and Mamba2's
+LOCK_NAME = "torch_ranks.lock"
+
+
+@contextlib.contextmanager
+def rank_lock(directory):
+    """Hold an exclusive ``flock`` on ``directory/LOCK_NAME`` for the block.
+
+    ``tests/test_torch_distributed.py`` and ``tests/test_torch_serve_sharded.py``
+    each spawn 8 rank processes and 3 reference compiles, and each alone
+    keeps a machine's 8 cores busy; under ``pytest -n N --dist loadfile``
+    both may land on workers at once, and their deadlines were set for one
+    at a time.  Each takes this lock (``directory``: one every worker of the
+    run shares, the parent of ``tmp_path_factory.getbasetemp()``) before it
+    draws its inputs and releases it after its joins and kills.  The kernel
+    drops an ``flock`` when its holder dies, so a killed run leaves nothing
+    that blocks the next."""
+    with open(os.path.join(directory, LOCK_NAME), "a") as f:
+        fcntl.flock(f, fcntl.LOCK_EX)
+        try:
+            yield
+        finally:
+            fcntl.flock(f, fcntl.LOCK_UN)
 
 
 def tree(inp: dict, prefix: str) -> dict:
@@ -361,6 +388,12 @@ SERVE_ARCHS = {"dense": "yi_6b", "moe": "olmoe_1b_7b", "vlm": "internvl2_76b",
                "ssm": "rwkv6_3b", "hybrid": "zamba2_7b", "encdec": "whisper_large_v3"}
 SERVE_ROUTES = ("none", "int8", "kernel")
 SERVE_BATCH, SERVE_MAX_SEQ, SERVE_PROMPT, SERVE_STEPS = 4, 48, 20, 3
+# a writing prefill whose keys span several attention chunks: the test's
+# 100 tokens into a cache of 192 positions, three chunks of the smoke
+# configs' 64 keys (48 positions per rank at model 4: a chunk spans two
+# ranks' slices)
+SERVE_LONG_SEQ = 192
+SERVE_LONG = ("dense", "moe")
 SERVE_HYBRID_PREFILL = 256  # one SSD chunk (mamba2.CHUNK)
 INT8_MIN_DIM = 128  # the smoke models' linears of 128 and more are pre-quantized
 
@@ -475,10 +508,46 @@ def _serve_extras(inp: dict, family: str) -> dict:
     return extras
 
 
+NEAR_TIE_ULPS = 8  # a router near tie: top-k's last two within this many bf16 ulps
+
+
+@contextlib.contextmanager
+def router_ties(top_k: int, out: list):
+    """Appends to ``out`` a bool per token routed in the block: whether its
+    router logits' k-th and (k+1)-th largest lie within ``NEAR_TIE_ULPS``
+    bf16 ulps of the k-th in any layer, where a rounding elsewhere can swap
+    an expert (``moe.router_logits``' bf16 product, then float32)."""
+    inner, seen = moe_lib.router_logits, []
+
+    def recording(p, xf):
+        lg = inner(p, xf)
+        seen.append(lg)
+        return lg
+
+    moe_lib.router_logits = recording
+    try:
+        yield
+    finally:
+        moe_lib.router_logits = inner
+    tie = None
+    for lg in seen:
+        v = torch.sort(lg.float(), dim=-1, descending=True).values
+        ulp = torch.exp2(torch.floor(torch.log2(v[:, top_k - 1].abs().clamp(min=2.0 ** -126))) - 7)
+        t = v[:, top_k - 1] - v[:, top_k] <= NEAR_TIE_ULPS * ulp
+        tie = t if tie is None else tie | t
+    out.append(tie)
+
+
 def serve_family(inp, mesh, family: str, route: str, out: dict, *, batch=SERVE_BATCH,
-                 key=None, two_d=False) -> None:
-    """One family's prefill, writing prefill and decode steps on this rank
-    against the unsharded steps; results under ``out[key/...]``."""
+                 key=None, two_d=False, max_seq=SERVE_MAX_SEQ, prompt="serve/prompt",
+                 prefill_of=None, ties=False) -> None:
+    """One family's prefill, writing prefill (of ``inp[prompt]``) and decode
+    steps against a cache of ``max_seq`` on this rank, against the unsharded
+    steps; results under ``out[key/...]``.  ``prefill_of``: a case already
+    run whose prefill (no cache: the same weights, tokens and route) is this
+    one's, its results taken over.  ``ties``: each decode call's positions
+    at a router near tie in the unsharded step (``router_ties``), the
+    rank's rows."""
     from repro_torch.launch import specs as specs_lib
     from repro_torch.models import whisper
     from repro_torch.serve import serve_step as ss
@@ -516,36 +585,40 @@ def serve_family(inp, mesh, family: str, route: str, out: dict, *, batch=SERVE_B
         return torch.empty(t.shape, dtype=t.dtype, device="meta")
 
     # ---- the prefill (no cache)
-    s_pre = SERVE_HYBRID_PREFILL if family == "hybrid" else 16
-    tok = torch.tensor(inp[f"serve/prefill_{s_pre}"][:n])
-    pre_ex = {k: v for k, v in ex.items() if k in ("patches", "frames")}
-    pre = ss.make_prefill(cfg, mesh=mesh, device="cpu", shardings=p_sh)
-    pre1 = ss.make_prefill(cfg, device="cpu")
-    loc_ex = {k: _rows(v, mesh, n) for k, v in pre_ex.items()}
-    coll.reset_stats(mesh)
-    with torch.no_grad(), _Recorder(True) as rec:
-        lg = pre(local, _rows(tok, mesh, n), loc_ex)
-    res["prefill/stats"] = coll.collective_stats(mesh)
-    res["prefill/logits"] = sharded_lm.gathered_logits(lg, lg.shape[-1] != cfg.vocab, mesh).float()
-    with torch.no_grad(), _Recorder(False) as rec1:
-        lg1 = pre1(params, tok, pre_ex)
-    res["prefill/logits1"] = _rows(lg1, mesh, n).float()
-    res["prefill/int32"] = _equal_products(rec.calls, rec1.calls, mesh, n)
-    pre_m = ss.make_prefill(cfg, mesh=cmesh, device="meta", shardings=cp_sh)
-    with torch.no_grad():
-        res["prefill/count"] = counted(pre_m, local_m, meta(_rows(tok, mesh, n)),
-                                       {k: meta(v) for k, v in loc_ex.items()})
+    if prefill_of is not None:
+        res.update({k: v for k, v in out[prefill_of].items() if k.startswith("prefill/")})
+    else:
+        s_pre = SERVE_HYBRID_PREFILL if family == "hybrid" else 16
+        tok = torch.tensor(inp[f"serve/prefill_{s_pre}"][:n])
+        pre_ex = {k: v for k, v in ex.items() if k in ("patches", "frames")}
+        pre = ss.make_prefill(cfg, mesh=mesh, device="cpu", shardings=p_sh)
+        pre1 = ss.make_prefill(cfg, device="cpu")
+        loc_ex = {k: _rows(v, mesh, n) for k, v in pre_ex.items()}
+        coll.reset_stats(mesh)
+        with torch.no_grad(), _Recorder(True) as rec:
+            lg = pre(local, _rows(tok, mesh, n), loc_ex)
+        res["prefill/stats"] = coll.collective_stats(mesh)
+        res["prefill/logits"] = sharded_lm.gathered_logits(lg, lg.shape[-1] != cfg.vocab,
+                                                           mesh).float()
+        with torch.no_grad(), _Recorder(False) as rec1:
+            lg1 = pre1(params, tok, pre_ex)
+        res["prefill/logits1"] = _rows(lg1, mesh, n).float()
+        res["prefill/int32"] = _equal_products(rec.calls, rec1.calls, mesh, n)
+        pre_m = ss.make_prefill(cfg, mesh=cmesh, device="meta", shardings=cp_sh)
+        with torch.no_grad():
+            res["prefill/count"] = counted(pre_m, local_m, meta(_rows(tok, mesh, n)),
+                                           {k: meta(v) for k, v in loc_ex.items()})
 
     # ---- decode: a writing prefill (not for the hybrid: Mamba2 decodes one
     # token per call), then single-token steps
-    dec, spec = ss.make_decode(cfg, n, SERVE_MAX_SEQ, mesh=mesh, device="cpu", shardings=p_sh)
-    dec1, _ = ss.make_decode(cfg, n, SERVE_MAX_SEQ, device="cpu")
-    dec_m, _ = ss.make_decode(cfg, n, SERVE_MAX_SEQ, mesh=cmesh, device="meta", shardings=cp_sh)
-    c_sh = ss.cache_shardings(spec, cfg, mesh, n, SERVE_MAX_SEQ)
+    dec, spec = ss.make_decode(cfg, n, max_seq, mesh=mesh, device="cpu", shardings=p_sh)
+    dec1, _ = ss.make_decode(cfg, n, max_seq, device="cpu")
+    dec_m, _ = ss.make_decode(cfg, n, max_seq, mesh=cmesh, device="meta", shardings=cp_sh)
+    c_sh = ss.cache_shardings(spec, cfg, mesh, n, max_seq)
     cdtype = torch.int8 if cfg.quant.kv_int8 else torch.bfloat16
-    cache1 = ss.init_serving_cache(cfg, n, SERVE_MAX_SEQ, dtype=cdtype, device="cpu")
+    cache1 = ss.init_serving_cache(cfg, n, max_seq, dtype=cdtype, device="cpu")
     cache = shd.shard_tree(cache1, c_sh)
-    cache_m = shd.shard_tree(spec, ss.cache_shardings(spec, cfg, cmesh, n, SERVE_MAX_SEQ))
+    cache_m = shd.shard_tree(spec, ss.cache_shardings(spec, cfg, cmesh, n, max_seq))
     dex, dex1 = {}, {}
     if family == "encdec":
         with torch.no_grad():
@@ -557,7 +630,7 @@ def serve_family(inp, mesh, family: str, route: str, out: dict, *, batch=SERVE_B
                             [:, :n // mesh.size("data")] for k, v in ckv.items()}}
     calls = []
     if family != "hybrid":
-        calls.append(torch.tensor(inp["serve/prompt"][:n]))
+        calls.append(torch.tensor(inp[prompt][:n]))
     steps = SERVE_STEPS + (1 if family == "hybrid" else 0)
     calls += [torch.tensor(inp["serve/steps"][i][:n]) for i in range(steps)]
     idx = 0
@@ -567,7 +640,9 @@ def serve_family(inp, mesh, family: str, route: str, out: dict, *, batch=SERVE_B
         with torch.no_grad(), _Recorder(True) as rec:
             lg, cache = dec(local, _rows(t, mesh, n), cache, torch.tensor(idx), dex)
         stats = coll.collective_stats(mesh)
-        with torch.no_grad(), _Recorder(False) as rec1:
+        tie = []
+        with torch.no_grad(), _Recorder(False) as rec1, \
+                router_ties(cfg.moe.top_k, tie) if ties else contextlib.nullcontext():
             lg1, cache1 = dec1(params, t, cache1, torch.tensor(idx), dex1)
         with torch.no_grad():
             cnt = counted(dec_m, local_m, meta(_rows(t, mesh, n)), cache_m, meta(torch.tensor(idx)),
@@ -576,6 +651,8 @@ def serve_family(inp, mesh, family: str, route: str, out: dict, *, batch=SERVE_B
                 "logits": sharded_lm.gathered_logits(lg, lg.shape[-1] != cfg.vocab, mesh).float(),
                 "logits1": _rows(lg1, mesh, n).float(),
                 "int32": _equal_products(rec.calls, rec1.calls, mesh, n)}
+        if tie:
+            step["tie"] = _rows(tie[0].reshape(t.shape), mesh, n)
         if i == 0:  # layer 0's new cache or state, gathered, against the unsharded one's
             whole = shd.gather_tree(cache, c_sh)
             step["cache0"] = {k: bool(torch.equal(a[0], b[0])) for k, a, b in
@@ -611,6 +688,11 @@ def serve_main(rank: int, d: str) -> None:
             serve_family(inp, mesh, family, route, out)
         serve_family(inp, mesh, "hybrid", "int8", out, batch=2, key="hybrid_b2/int8")
         serve_family(inp, mesh, "dense", "int8", out, key="dense_2d/int8", two_d=True)
+        for family in SERVE_LONG:
+            for route in SERVE_ROUTES:
+                serve_family(inp, mesh, family, route, out, key=f"{family}_long/{route}",
+                             max_seq=SERVE_LONG_SEQ, prompt="serve/prompt_long",
+                             prefill_of=f"{family}/{route}", ties=family == "moe")
         torch.save(out, os.path.join(d, f"serve{rank}.pt"))
     finally:
         dist.destroy_process_group()

@@ -57,7 +57,11 @@ from repro_torch.models import transformer
 TESTS = Path(__file__).resolve().parent
 SRC = TESTS.parent / "src"
 WORLD = 8
-JOIN_S = 300  # every rank and reference subprocess: a guard against a hang
+# every rank and reference subprocess: a guard against a hang, counted from
+# when the fixture holds the 8-rank lock.  Alone the module's ranks and
+# references take ~170 s; under the suite's `-n 6 --dist loadfile` beside
+# four other workers they took 290-303 s, past the 300 s this was
+JOIN_S = 600
 # the reference's side in three concurrent subprocesses (its compiles are
 # the file's long pole: the hybrid step's about 50 s each)
 REF_PARTS = ("base", "ssm,encdec", "hybrid")
@@ -114,36 +118,41 @@ def _inputs(d: Path) -> None:
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
     d = tmp_path_factory.mktemp("parallel")
-    _inputs(d)
-    env = {"PYTHONPATH": str(SRC), "PATH": os.environ.get("PATH", "/usr/bin:/bin"),
-           "HOME": os.environ.get("HOME", str(d)), "JAX_PLATFORMS": "cpu"}
-    refs = [subprocess.Popen([sys.executable, str(TESTS / "_ref_parallel.py"), str(d), part],
-                             env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-            for part in REF_PARTS]
     sys.path.insert(0, str(TESTS))
     import _torch_ranks
 
-    ctx = mp.get_context("spawn")
-    procs = [ctx.Process(target=_torch_ranks.rank_main, args=(r, str(d))) for r in range(WORLD)]
-    for p in procs:
-        p.start()
-    deadline = time.monotonic() + JOIN_S
-    said = []
-    try:
+    # one 8-rank module at a time (_torch_ranks.rank_lock); the deadline
+    # starts once the lock is held
+    with _torch_ranks.rank_lock(tmp_path_factory.getbasetemp().parent):
+        _inputs(d)
+        env = {"PYTHONPATH": str(SRC), "PATH": os.environ.get("PATH", "/usr/bin:/bin"),
+               "HOME": os.environ.get("HOME", str(d)), "JAX_PLATFORMS": "cpu"}
+        refs = [subprocess.Popen([sys.executable, str(TESTS / "_ref_parallel.py"), str(d), part],
+                                 env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                 text=True)
+                for part in REF_PARTS]
+        ctx = mp.get_context("spawn")
+        procs = [ctx.Process(target=_torch_ranks.rank_main, args=(r, str(d)))
+                 for r in range(WORLD)]
         for p in procs:
-            p.join(max(0.0, deadline - time.monotonic()))
-        hung = [r for r, p in enumerate(procs) if p.is_alive()]
-        for ref in refs:
-            said.append(ref.communicate(timeout=max(1.0, deadline - time.monotonic())))
-    finally:
-        for p in procs:
-            if p.is_alive():
-                p.kill()
-                p.join(5)
-        for ref in refs:
-            if ref.poll() is None:
-                ref.kill()
-                ref.communicate()
+            p.start()
+        deadline = time.monotonic() + JOIN_S
+        said = []
+        try:
+            for p in procs:
+                p.join(max(0.0, deadline - time.monotonic()))
+            hung = [r for r, p in enumerate(procs) if p.is_alive()]
+            for ref in refs:
+                said.append(ref.communicate(timeout=max(1.0, deadline - time.monotonic())))
+        finally:
+            for p in procs:
+                if p.is_alive():
+                    p.kill()
+                    p.join(5)
+            for ref in refs:
+                if ref.poll() is None:
+                    ref.kill()
+                    ref.communicate()
     assert not hung, f"ranks {hung} still running after {JOIN_S} s"
     assert [p.exitcode for p in procs] == [0] * WORLD, [p.exitcode for p in procs]
     for part, (out, err) in zip(REF_PARTS, said):

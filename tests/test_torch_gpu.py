@@ -1168,3 +1168,51 @@ def test_gpu_trainer_restart_is_bit_deterministic(cuda, tmp_path):
     assert ma["losses"][2:] == mb["losses"]
     for a, b in zip(tree_leaves(final_a), tree_leaves(final_b)):
         assert torch.equal(a, b)
+
+
+# InternVL2-76B's unscaled-kernel shapes in phase 16 of chip_smoke.py: one
+# layer trained over (data 1, model 4), M = 768 rows (one row of 256 patches
+# and 512 tokens per microbatch): wq, wk/wv, wo, w_gate/w_up, w_down, head.
+INTERNVL2_TRAIN_SHAPES = [(768, 8192, 2048), (768, 8192, 256), (768, 2048, 8192),
+                          (768, 8192, 7168), (768, 7168, 8192), (768, 8192, 32064)]
+# Its column-parallel linears served over (data 2, model 2) in phase 17 (K, N):
+# wq, wk/wv, w_gate/w_up, the head, at M = 2 rows per data rank.
+INTERNVL2_DECODE_SHAPES = [(8192, 4096), (8192, 512), (8192, 14336), (8192, 64128)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,k,n", INTERNVL2_TRAIN_SHAPES)
+def test_gpu_kernel_vs_plain_internvl2_training_shapes(cuda, m, k, n):
+    _kernel_vs_plain(cuda, m, k, n, 8)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k,n", INTERNVL2_DECODE_SHAPES)
+def test_gpu_scaled_kernel_vs_plain_internvl2_decode_shapes(cuda, k, n):
+    _kernel_vs_plain(cuda, 2, k, n, 8, scaled=True)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("s,t,chunk", [(100, 192, 64), (1104, 2048, 1024)])
+def test_gpu_kv_seq_attention_over_several_chunks(cuda, s, t, chunk):
+    """The sharded writing prefill's attention where the keys span several
+    attention chunks (``sharded_lm.kv_seq_attention``), on one rank of a
+    one-rank mesh (no collective): the unsharded chunked pass's running max
+    and rescaling, each chunk's ``p @ v`` the unsharded product.  On the
+    card against ``layers.flash_attention``, within one bf16 rounding of the
+    largest output (cuBLAS may sum a chunk's view in another order)."""
+    from repro_torch.models import layers
+    from repro_torch.parallel import sharded_lm
+    from repro_torch.parallel.sharding import Mesh
+
+    g = torch.Generator(device=cuda).manual_seed(0)
+    q = torch.randn((2, s, 16, 128), generator=g, device=cuda).to(torch.bfloat16)
+    k = torch.randn((2, t, 16, 128), generator=g, device=cuda).to(torch.bfloat16)
+    v = torch.randn((2, t, 16, 128), generator=g, device=cuda).to(torch.bfloat16)
+    mesh = Mesh({"data": 1, "model": 1}, device=cuda)
+    got = sharded_lm.kv_seq_attention(q, k, v, torch.arange(s, device=cuda)[None],
+                                      torch.arange(t, device=cuda), causal=True, window=0,
+                                      chunk=chunk, mesh=mesh)
+    want = layers.flash_attention(q, k, v, causal=True, chunk=chunk)
+    assert got.shape == want.shape and bool(torch.isfinite(got.float()).all())
+    assert float((got.float() - want.float()).abs().max()) <= 2 ** -8 * float(want.float().abs().max())

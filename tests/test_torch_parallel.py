@@ -216,6 +216,34 @@ def test_collectives_over_size_one_axes_are_the_identity():
         coll.all_reduce(x, m, "model", "min")
 
 
+@pytest.mark.parametrize("s,t,chunk", [(4, 96, 32), (40, 64, 64), (40, 128, 32),
+                                         (12, 96, 16)])
+def test_kv_seq_attention_on_one_rank_equals_flash_attention(s, t, chunk, monkeypatch):
+    """``sharded_lm.kv_seq_attention`` on a one-rank mesh (every chunk whole
+    on the rank, no collective) against ``layers.flash_attention``, bit for
+    bit: the short-query pass, one chunk, and several chunks, these also with
+    the partials reduced one chunk at a time (``KV_PART_BYTES``)."""
+    from repro_torch.models import layers
+    from repro_torch.parallel import sharded_lm
+
+    g = torch.Generator().manual_seed(s * t + chunk)
+    q, k, v = (torch.randn((2, n, 4, 16), generator=g).to(torch.bfloat16)
+               for n in (s, t, t))
+    off = t - s
+    mesh = shd.Mesh({"data": 1, "model": 1})
+
+    def run():
+        return sharded_lm.kv_seq_attention(q, k, v, off + torch.arange(s)[None],
+                                           torch.arange(t), causal=True, window=0,
+                                           chunk=chunk, mesh=mesh)
+
+    want = layers.flash_attention(q, k, v, causal=True, chunk=chunk, q_offset=off)
+    got = run()
+    assert torch.equal(got, want)
+    monkeypatch.setattr(sharded_lm, "KV_PART_BYTES", 1)
+    assert torch.equal(run(), got)
+
+
 @pytest.mark.parametrize("s,m", [(2, 2), (2, 4), (4, 8), (16, 1), (1, 3)])
 def test_bubble_fraction_equals_the_reference(s, m):
     assert pipeline.bubble_fraction(s, m) == jpipeline.bubble_fraction(s, m)
@@ -245,3 +273,35 @@ def test_parallel_modules_import_no_jax():
     r = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, timeout=120,
                        env={**os.environ, "PYTHONPATH": str(SRC)})
     assert "NO_JAX" in r.stdout, r.stdout + r.stderr
+
+
+def test_rank_lock_is_held_by_one_process_at_a_time(tmp_path):
+    """``_torch_ranks.rank_lock``, which the two 8-rank modules take: a
+    second process blocks while this one holds it and gets it only after
+    the release; the lock file stays, unlocked."""
+    import time
+
+    import _torch_ranks
+
+    code = ("import sys, time\n"
+            f"sys.path.insert(0, {str(Path(__file__).resolve().parent)!r})\n"
+            "import _torch_ranks\n"
+            "print('waiting', flush=True)\n"
+            f"with _torch_ranks.rank_lock({str(tmp_path)!r}):\n"
+            "    print(time.monotonic(), flush=True)\n")
+    env = {**os.environ, "PYTHONPATH": str(SRC)}
+    with _torch_ranks.rank_lock(tmp_path):
+        child = subprocess.Popen([sys.executable, "-c", code], stdout=subprocess.PIPE,
+                                 stderr=subprocess.PIPE, text=True, env=env)
+        try:
+            assert child.stdout.readline().strip() == "waiting", child.stderr.read()
+            time.sleep(1.0)
+            assert child.poll() is None  # still blocked on the lock
+            released = time.monotonic()
+        except BaseException:
+            child.kill()
+            raise
+    out, err = child.communicate(timeout=60)
+    assert child.returncode == 0, err
+    assert float(out.strip()) >= released
+    assert (tmp_path / _torch_ranks.LOCK_NAME).exists()
