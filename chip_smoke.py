@@ -152,7 +152,15 @@ printing its seconds; any failure ends the run with a non-zero exit:
    bytes bound (every expert read: about 12.9 GB), the recorded call's 65
    linears, and the scaled kernel at OLMoE's decode shapes (M = 4; (2048,
    2048) and (2048, 50304), w cold) against ``torch._int_mm`` + scale and
-   the bound.
+   the bound.  Then the same weights served again at batch
+   ``MOE_DROP_BATCH`` (20 requests of one prompt token in 20 slots): a
+   decode call's 20 tokens
+   meet cap 4 of 160 assignments per block.  The recorded call's 65 scaled
+   linears bit-exact (its logits against the Horner route printed, not
+   gated at this batch), and each of its 16 MoE blocks held as above:
+   output equal to ``moe_ffn`` on its input, routing and dispatch buffer
+   card = CPU, output within ``MOE_REL``; at least one assignment dropped
+   over the 16, the drops per layer printed.
 12. Recurrent-state serving (main path 7): RWKV6-3B at full width and depth
    (32 layers, d 2560, 40 heads of 64, d_ff 8960, vocab 65,536; random
    weights from seed 0 drawn and quantized to int8 layer by layer on the
@@ -256,10 +264,20 @@ printing its seconds; any failure ends the run with a non-zero exit:
    yardstick's bit for bit; loss and grad_norm within ``PAR_LOSS_REL`` and
    ``PAR_NORM_REL``, the gathered params within one bf16 ulp of the
    yardstick's; ``par_launches`` unscaled launches per step per rank (116:
-   every linear split, one call each); the state gathered and saved under
+   every linear split, one call each); a third step with rank 0's under
+   ``torch.profiler`` (host wall, device busy, idle share, the share in
+   gloo); the state gathered and saved under
    (2, 2), restored under (1, 4) bit-equal and one step from it against the
-   (2, 2) run's second step; GPipe PP 2 x DP 2 (one layer per stage) against
-   the yardstick's loss; ``compressed_psum_shardmap`` over the two data
+   (2, 2) run's second step; GPipe PP 2 x DP 2 on Yi-6B at ``PP_LAYERS`` = 4
+   layers (two per stage), the loss and its gradient: the loss within
+   ``PAR_LOSS_REL`` of the port's unsharded ``loss_fn`` on the same params
+   and batch (each row alone, as the stages meet them:
+   ``pipeline_yardstick``), every leaf's gradient (the stage's two layers,
+   the replicated embed, head and ln_f) within ``PP_GRAD_REL`` of the
+   largest of the unsharded gradient's matching slice, both stages' block
+   gradients non-zero, the collective-permutes and all-reduces equal to the
+   dry run's count (``launch.dryrun_pp.count``), host wall and gloo share
+   printed; ``compressed_psum_shardmap`` over the two data
    ranks once on one microbatch's gradients (within the int8 step); one
    OLMoE-1B-7B MoE layer at full width through ``moe_ffn_ep`` over model = 4
    (16 experts per rank, T = ``MOE_T``, dropless): routing card = CPU,
@@ -342,9 +360,17 @@ printing its seconds; any failure ends the run with a non-zero exit:
    there (layer 0's router logits within ``SLAB_ROUTER_REL``), the tokens
    routed otherwise than the yardstick within ``ROUTE_DIFFER_SHARE``, and
    the logits held against the yardstick run again with every slab routed
-   as the ranks routed it, ``ep_replay``); OLMoE-1B-7B on the kernel
+   as the ranks routed it, ``ep_replay``); the same at ``SERVE_DROP_ROWS``
+   = 40 rows (a prompt of ``SERVE_DROP_PROMPT``), so that each data rank's
+   decode slab of 20 tokens meets cap 4 and drops (at least one drop at
+   decode, per rank and layer printed); OLMoE-1B-7B on the kernel
    route with a writing prefill of ``SERVE_LONG_PROMPT`` tokens into a
-   cache of ``SERVE_LONG_SEQ`` (two 1024-key attention chunks).  Before the ranks
+   cache of ``SERVE_LONG_SEQ`` (two 1024-key attention chunks); Zamba2-7B
+   at 13 of 81 layers (two groups of 6 and a tail layer) and 2 rows, where
+   ``cache_shardings`` splits the stacked group dim over 'data' and the
+   step reshards the states to rows around each call (the layout gated,
+   and the decode step's all-gathers above the same model's at 4 rows).
+   Before the ranks
    spawn, each model's unsharded steps in this process (the yardstick:
    logits, tokens, the first layer's int32 products) and the dry run's
    prediction (``serve_prediction``: state bytes, one prefill's and one
@@ -357,9 +383,12 @@ printing its seconds; any failure ends the run with a non-zero exit:
    int32 products equal the yardstick's; (e) every call's logits within
    ``SERVE_LOGIT_REL`` of the yardstick's, greedy tokens equal up to the
    first near tie.  Prints the host wall per prefill and decode step per
-   rank, the collectives and their share, and the scaled kernel at Yi-6B's
+   rank, the collectives and their share, the scaled kernel at Yi-6B's
    sharded decode shapes (w cold) against ``torch._int_mm`` + scale and
-   the bound.
+   the bound, and the unscaled kernel at its row-parallel linears (wo, K
+   2048, and w_down, K 5504, N 4096) at a decode step's M = 4 and the
+   writing prefill's M = 1024 (w cold) against ``torch._int_mm``, the bound
+   and the plane-work floor, and summed over the 64 calls of a step.
 
 The lines before the last three print each kernel's detail (per shape and
 per path); the line before the last is a JSON object naming every kernel
@@ -443,6 +472,11 @@ LM_LOGIT_REL = 0.6
 # summation order on the two devices and one bf16 rounding of each product.
 MOE_REL = 1e-2
 MOE_T = 64  # phase 11's wide MoE check: T = 64 tokens, cap 10 of 512 assignments
+# Phase 11 serves OLMoE-1B-7B again at this batch: a decode call's 20 tokens
+# meet cap max(int(20 * 8 / 64 * 1.25), 4) = 4 of 160 assignments per block,
+# the batch from which its capacity drops (quirk 3: a token's drops depend
+# on its batch mates)
+MOE_DROP_BATCH, MOE_DROP_CAP = 20, 4
 BF16_OPS_PER_S = 989e12  # the H100 SXM's dense bf16 tensor-core peak
 # Phases 12-13 (the recurrent families) serve at the global plane knob:
 # plane schedules are refused for them, as in the reference.
@@ -481,6 +515,14 @@ PAR_STATE_LIMIT = 60e9  # bytes of state of the four ranks together
 # gradient's size, so a gradient near 0 whose sign the rounding flips moves
 # it the other way), and at most PAR_PARAM_DIFFER of them differing at all.
 PAR_LOSS_REL, PAR_NORM_REL, PAR_PARAM_DIFFER = 1e-3, 5e-3, 0.01
+# GPipe PP 2 x DP 2 on the same ranks: Yi-6B at full width, PP_LAYERS of 32
+# layers (two per stage), the loss and its gradient.  Each leaf's gradient
+# (a stage's blocks, the replicated embed, head and ln_f) against the
+# unsharded loss_fn's matching slice, relative to its largest element: the
+# bound tests/test_torch_distributed.py holds the pipeline's gradients to
+# and the reference holds its pipeline's loss to (tests/test_pipeline.py);
+# autograd sums a leaf's bf16 gradient over the ticks in bf16.
+PP_LAYERS, PP_GRAD_REL = 4, 2e-2
 # Phase 16's second model: OLMoE-1B-7B at full width, 2 of 16 layers (1.045 G
 # params, 14.6 GB of state), on the same 4 ranks and mesh: experts over
 # 'model' (32 per rank).  Under mma_int8 the reference's moe_ffn_ep falls
@@ -563,12 +605,27 @@ SERVE_PRE_ATTENTION = {"dense": 3, "moe": 3, "vlm": 3, "ssm": 9, "hybrid": 4, "e
 # ``SERVE_LONG_SEQ``: two attention chunks of 1024 keys, one on each model
 # rank, so the sharded attention takes the unsharded pass's running max.
 SERVE_LONG_SEQ, SERVE_LONG_PROMPT = 2048, 1104
+# OLMoE-1B-7B unquantized through moe_ffn_ep at SERVE_DROP_ROWS rows: a data
+# rank's decode slab is its 20 rows whole on every model rank, cap 4 of 160
+# assignments (MOE_DROP_CAP), so the decode steps drop; a short prompt
+# (SERVE_DROP_PROMPT into SERVE_DROP_SEQ positions) keeps its prefill small.
+# Zamba2-7B at 13 of 81 layers (two groups of 6 and one tail layer) and 2
+# rows: cache_shardings' rule marks the first dim equal to the batch, the
+# stacked group dim, so the group states split over 'data' and
+# sharded_lm.reshard gathers them to rows around each call.
+SERVE_DROP_ROWS, SERVE_DROP_PROMPT, SERVE_DROP_SEQ = 40, 16, 64
 SERVE_MORE = (("internvl2_76b", "internvl2_76b", "InternVL2-76B", dict(n_layers=2), 4, 4, {}),
               ("yi_6b_2d", "yi_6b", "Yi-6B 2-D mode", dict(n_layers=2), 4, 4, dict(two_d=True)),
               ("olmoe_1b_7b_ep", "olmoe_1b_7b", "OLMoE-1B-7B unquantized (moe_ffn_ep)",
                dict(n_layers=2), 4, 4, dict(quant="none")),
+              ("olmoe_1b_7b_ep_drops", "olmoe_1b_7b",
+               f"OLMoE-1B-7B unquantized (moe_ffn_ep) at {SERVE_DROP_ROWS} rows",
+               dict(n_layers=2), SERVE_DROP_ROWS, 4,
+               dict(quant="none", drops=True, prompt=SERVE_DROP_PROMPT, max_seq=SERVE_DROP_SEQ)),
               ("olmoe_1b_7b_long", "olmoe_1b_7b", "OLMoE-1B-7B long prefill", dict(n_layers=2),
-               4, 4, dict(max_seq=SERVE_LONG_SEQ, prompt=SERVE_LONG_PROMPT)))
+               4, 4, dict(max_seq=SERVE_LONG_SEQ, prompt=SERVE_LONG_PROMPT)),
+              ("zamba2_7b_b2", "zamba2_7b", "Zamba2-7B at 2 rows (groups over data)",
+               dict(n_layers=13), 2, 4, dict(groups_over_data=True)))
 # the keys of each kernel's entry in the kernels line; the rest of its
 # summary is printed on a [detail] line before it
 KERNEL_KEYS = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
@@ -603,9 +660,10 @@ def time_ms(torch, fn, reps: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
-def imma_count(lib: Path, kernel: str):
-    """IMMA instructions in each instantiation of ``kernel`` in the built
-    library's SASS, or None where the toolkit has no ``cuobjdump``."""
+def imma_counts(lib: Path, kernels):
+    """IMMA instructions in each instantiation of each of ``kernels`` in the
+    built library's SASS (one ``cuobjdump`` pass): {kernel: {name: count}},
+    or None where the toolkit has no ``cuobjdump``."""
     from repro_torch.kernels import mma_matmul as mk
 
     tool = Path(mk._nvcc()).parent / "cuobjdump"
@@ -613,14 +671,17 @@ def imma_count(lib: Path, kernel: str):
         return None
     sass = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True, text=True,
                           check=True, timeout=300).stdout
-    counts, name = {}, None
+    counts, name = {k: {} for k in kernels}, None
     for line in sass.splitlines():
         if "Function :" in line:
             name = line.split("Function :")[1].strip()
-            if kernel in name:
-                counts[name] = 0
-        elif name in counts and "IMMA" in line:
-            counts[name] += 1
+            for k in kernels:
+                if k in name:
+                    counts[k][name] = 0
+        elif "IMMA" in line:
+            for k in kernels:
+                if name in counts[k]:
+                    counts[k][name] += 1
     return counts
 
 
@@ -1671,9 +1732,16 @@ def lm_decode_shapes(cfg):
     return distinct_shapes(lin + [("head", d, cfg.vocab)])
 
 
-def lm_serving(torch, np, dev, cfg, *, tag="lm", label="Yi-6B", expect=225):
+def lm_serving(torch, np, dev, cfg, *, tag="lm", label="Yi-6B", expect=225, batch=LM_BATCH,
+               params=None, prompt_len=(4, 9)):
     """An LM at full width served through ``Engine.run``: main path 2
-    (Yi-6B) and, for the moe family, main path 6 (OLMoE-1B-7B).
+    (Yi-6B) and, for the moe family, main path 6 (OLMoE-1B-7B).  ``batch``
+    requests of ``prompt_len`` (low, high: numpy's ``integers``) prompt
+    tokens (numpy seed 0) in as many slots; ``params``: the model's weights
+    already on the card (else drawn).  The
+    recorded call's logits are held to the Horner route's at ``LM_BATCH``
+    (quirk 1: one activation scale per tensor against one per row, a gap
+    that grows with the rows one scale spans) and printed at other batches.
 
     Returns what the times and phase 11 need: the recorded decode call's
     scaled-kernel calls (and, for MoE, each layer's MoE block input and
@@ -1689,8 +1757,9 @@ def lm_serving(torch, np, dev, cfg, *, tag="lm", label="Yi-6B", expect=225):
     from repro_torch.serve.engine import lm_schedule_from_params
 
     t0 = time.perf_counter()
-    params = transformer.init_params(0, cfg, device=dev, int8_min_dim=256)
-    torch.cuda.synchronize()
+    if params is None:
+        params = transformer.init_params(0, cfg, device=dev, int8_min_dim=256)
+        torch.cuda.synchronize()
     blocks = params["blocks"]
     linears = [blocks["attn"][n] for n in ("wq", "wk", "wv", "wo")] + \
         [blocks["mlp"][n] for n in ("w_gate", "w_up", "w_down") if "mlp" in blocks] + \
@@ -1714,8 +1783,8 @@ def lm_serving(torch, np, dev, cfg, *, tag="lm", label="Yi-6B", expect=225):
                                          plane_schedule=sched.planes))
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, cfg.vocab, int(n)).astype(np.int32)
-               for n in rng.integers(4, 9, LM_BATCH)]
-    engine = Engine(kcfg, params, batch=LM_BATCH, max_seq=LM_MAX_SEQ, device=dev)
+               for n in rng.integers(*prompt_len, batch)]
+    engine = Engine(kcfg, params, batch=batch, max_seq=LM_MAX_SEQ, device=dev)
     engine.obs = RecordingSink()
 
     # Record the first decode step (every slot active, all prompts in the
@@ -1764,7 +1833,7 @@ def lm_serving(torch, np, dev, cfg, *, tag="lm", label="Yi-6B", expect=225):
     check(launches == per_call * calls,
           f"{launches} scaled-kernel launches for {calls} decode calls, expected {per_call} each")
     check(unscaled == 0, f"{unscaled} unscaled-kernel launches: a linear missed quantization")
-    check(len(done) == LM_BATCH and all(r.done and len(r.out) == LM_MAX_NEW for r in done),
+    check(len(done) == batch and all(r.done and len(r.out) == LM_MAX_NEW for r in done),
           "not every request finished with its token budget")
     check(all(0 <= t < cfg.vocab for r in done for t in r.out), "a token outside the vocabulary")
     steps = sum(1 for e in engine.obs.events if e.etype == "lm-step")
@@ -1795,15 +1864,17 @@ def lm_serving(torch, np, dev, cfg, *, tag="lm", label="Yi-6B", expect=225):
     hcfg = kcfg.replace(quant=dataclasses.replace(kcfg.quant, impl="horner"))
     lh, _ = transformer.decode_step(params, toks, cache, idx, hcfg, device=dev)
     lk = rec["logits"]
-    check(lk.shape == (LM_BATCH, 1, cfg.vocab) and bool(torch.isfinite(lk).all()),
+    check(lk.shape == (batch, 1, cfg.vocab) and bool(torch.isfinite(lk).all()),
           f"recorded call: logits {tuple(lk.shape)} not finite or of the wrong shape")
     lkf, lhf = lk.to(torch.float32), lh.to(torch.float32)
     rel = float((lkf - lhf).abs().max() / lhf.abs().max())
     agree = float((lkf.argmax(-1) == lhf.argmax(-1)).to(torch.float32).mean())
-    check(rel <= LM_LOGIT_REL, f"recorded call: logits kernel vs Horner differ by {rel} (rel)")
+    check(batch != LM_BATCH or rel <= LM_LOGIT_REL,
+          f"recorded call: logits kernel vs Horner differ by {rel} (rel)")
     print(f"[{tag}] recorded decode call: {per_call} scaled linears bit-exact against the plain "
           f"version, epilogue vs Horner order max rel {epi:.3g}; logits vs Horner path max rel "
-          f"{rel:.4f} (limit {LM_LOGIT_REL}), top-1 agreement {agree:.2f}, "
+          f"{rel:.4f} ({f'limit {LM_LOGIT_REL}' if batch == LM_BATCH else 'not gated'} at batch "
+          f"{batch}), top-1 agreement {agree:.2f}, "
           f"max |logit| {float(lhf.abs().max()):.3f}")
     return dict(calls=rec["calls"], moe=rec["moe"], params=params, launches=launches,
                 unscaled=unscaled, wall_s=wall_s, decode_calls=calls, logits_rel=rel)
@@ -1833,6 +1904,12 @@ def scaled_bound(shapes):
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations", nbytes, nops
 
 
+def rotating(fns):
+    """One call per graph slot, cycling through ``fns``."""
+    it = itertools.cycle(fns)
+    return lambda: next(it)()
+
+
 def cold_shape_times(torch, dev, g, m, k, n, planes):
     """The scaled kernel on one (m, k) @ (k, n) shape with w cold in L2, from
     CUDA-graph replays: a graph of calls cycling through enough copies of w
@@ -1842,11 +1919,6 @@ def cold_shape_times(torch, dev, g, m, k, n, planes):
     copies and calls per graph."""
     from repro_torch.bench.table1 import graph_ms
     from repro_torch.kernels import mma_matmul as mk
-
-    def rotating(fns):
-        """One call per graph slot, cycling through ``fns``."""
-        it = itertools.cycle(fns)
-        return lambda: next(it)()
 
     copies = -(-2 * L2_BYTES // (k * n))
     calls = max(20, copies)
@@ -1867,6 +1939,36 @@ def cold_shape_times(torch, dev, g, m, k, n, planes):
                                                                  planes=planes[0]),
                        reps=3, warmup=1)
     return ms_planes, lib_ms, plain_ms, copies, calls
+
+
+def cold_unscaled_times(torch, dev, g, m, k, n, planes=8) -> dict:
+    """The unscaled kernel on one (m, k) @ (k, n) shape with w cold in L2, as
+    ``cold_shape_times`` times the scaled kernel, against ``torch._int_mm``
+    on the same operands (``_int_mm`` wants M > 16: up to 16 rows x is
+    padded to 32, those rows computed and dropped), the bound (x and w read
+    once, the int32 out written once; 2MKN int8 operations) and the
+    plane-work floor (``planes`` x the operations)."""
+    from repro_torch.bench.table1 import graph_ms
+    from repro_torch.kernels import mma_matmul as mk
+
+    copies = -(-2 * L2_BYTES // (k * n))
+    calls = max(20, copies)
+    x = torch.randint(-128, 128, (m, k), dtype=torch.int8, device=dev, generator=g)
+    ws_ = [torch.randint(-128, 128, (k, n), dtype=torch.int8, device=dev, generator=g)
+           for _ in range(copies)]
+    xp = torch.zeros((m if m > 16 else 32, k), dtype=torch.int8, device=dev)
+    xp[:m] = x
+    check(torch.equal(torch._int_mm(xp, ws_[0])[:m], mk.mma_matmul_kernel(x, ws_[0], planes=8)),
+          f"M={m} K={k} N={n}: library yardstick disagrees with the unscaled kernel")
+    ms = graph_ms(torch, rotating([lambda w=w: mk.mma_matmul_kernel(x, w, planes=planes)
+                                   for w in ws_]), calls=calls)
+    lib_ms = graph_ms(torch, rotating([lambda w=w: torch._int_mm(xp, w)[:m] for w in ws_]),
+                      calls=calls)
+    nbytes, nops = m * k + k * n + 4 * m * n, 2 * m * k * n
+    t_b, t_o = nbytes / HBM_BYTES_PER_S * 1e3, nops / INT8_OPS_PER_S * 1e3
+    return dict(M=m, K=k, N=n, planes=planes, ms=ms, library_ms=lib_ms, bound_ms=max(t_b, t_o),
+                bound_by="bytes" if t_b >= t_o else "operations", plane_floor_ms=planes * t_o,
+                w_copies=copies, calls=calls)
 
 
 def lm_times(torch, dev, card, lm, decode_shapes, label="Yi-6B"):
@@ -2007,6 +2109,31 @@ def moe_serving(torch, np, dev, card, cfg):
           f"({'bytes' if t_bytes >= t_ops else 'operations'}: {nbytes / 1e9:.3f} GB at "
           f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s), {nbytes / ms / 1e6:.0f} GB/s")
     times = lm_times(torch, dev, card, lm, lm_decode_shapes(cfg), label="OLMoE-1B-7B")
+
+    # the same weights at batch MOE_DROP_BATCH: the recorded decode call's 16
+    # blocks route 20 tokens each at cap MOE_DROP_CAP, and drop.  Prompts of
+    # one token: the engine prefills token by token, one call each
+    drop_lm = lm_serving(torch, np, dev, cfg, tag="moe",
+                         label=f"OLMoE-1B-7B at batch {MOE_DROP_BATCH}", expect=65,
+                         batch=MOE_DROP_BATCH, params=lm["params"], prompt_len=(1, 2))
+    drop_blocks = [moe_card_vs_cpu(torch, p, x, cfg, y)
+                   for p, (x, y) in zip(moe_p, drop_lm["moe"])]
+    per_layer = [r["dropped"] for r in drop_blocks]
+    check(all(r["t"] == MOE_DROP_BATCH and r["cap"] == MOE_DROP_CAP
+              and r["assignments"] == MOE_DROP_BATCH * m.top_k for r in drop_blocks)
+          and sum(per_layer) >= 1,
+          f"MoE at batch {MOE_DROP_BATCH}: blocks of T {[r['t'] for r in drop_blocks]}, cap "
+          f"{[r['cap'] for r in drop_blocks]}, dropped per layer {per_layer} (expected T "
+          f"{MOE_DROP_BATCH}, cap {MOE_DROP_CAP} and at least one drop)")
+    print(f"[moe] {card} | OLMoE-1B-7B at batch {MOE_DROP_BATCH}, the recorded decode call's "
+          f"{cfg.n_layers} MoE blocks (T={MOE_DROP_BATCH}, cap {MOE_DROP_CAP} of "
+          f"{MOE_DROP_BATCH * m.top_k} assignments each): dropped per layer {per_layer}, "
+          f"{sum(per_layer)} in all; every block's output equal to moe_ffn on its input bit for "
+          f"bit; routing and dispatch buffer card = CPU on the card's router logits; output max "
+          f"rel {max(r['rel'] for r in drop_blocks):.3g} (limit {MOE_REL}); the CPU's own router "
+          f"product differs from the card's in "
+          f"{sum(r['router_logits_differ'] for r in drop_blocks)} of "
+          f"{cfg.n_layers * MOE_DROP_BATCH * m.n_experts} logits (not gated)")
     phase_s = time.perf_counter() - t_phase
     print(f"[moe] phase 11 took {phase_s:.1f} s")
     return dict(
@@ -2016,6 +2143,9 @@ def moe_serving(torch, np, dev, card, cfg):
         moe_call_bound_ms=times["bound_ms"], moe_per_shape=times["per_shape"],
         moe_blocks_ms=ms, moe_blocks_bound_ms=b_ms, moe_blocks_bytes=nbytes,
         moe_recorded=rec, moe_wide=wide, phase11_s=phase_s,
+        launches_moe_drops=drop_lm["launches"], moe_drops_wall_s=drop_lm["wall_s"],
+        moe_drops_decode_calls=drop_lm["decode_calls"], moe_drops_logits_rel=drop_lm["logits_rel"],
+        moe_drops_per_layer=per_layer,
     )
 
 
@@ -3040,6 +3170,71 @@ def parallel_moe_ep_cfgs():
     return cfg.replace(quant=QuantConfig(mode="none")), dcfg
 
 
+def pipeline_cfgs():
+    """Phase 16's GPipe model: ``parallel_cfgs``' Yi-6B at ``PP_LAYERS``
+    layers, two per stage of PP 2, and its data."""
+    cfg, dcfg = parallel_cfgs()
+    return cfg.replace(n_layers=PP_LAYERS), dcfg
+
+
+def pp_launches(cfg, n_stages: int = 2) -> int:
+    """Unscaled launches of one rank's GPipe loss and gradient: every stage
+    applies its layers at each of the n_micro + S - 1 ticks (7 linears
+    each), again in remat's recompute, and the head at the n_micro ticks
+    that emit a microbatch."""
+    ticks = cfg.microbatches + n_stages - 1
+    return 2 * ticks * (cfg.n_layers // n_stages) * block_mma_linears(cfg) + cfg.microbatches
+
+
+def pipeline_yardstick(torch, dev, path: Path) -> tuple[float, float]:
+    """The port's unsharded ``loss_fn`` and its gradient on GPipe's params
+    (``pipeline_cfgs``, seed 0) and batch (step 0's 8 x 512 tokens), each
+    row alone: PP 2 x DP 2 over Yi-6B's 4 microbatches gives each stage one
+    row per call, so each row alone meets the same activation scales.  The
+    loss is the rows' mean, as the pipeline's is; the gradient the rows'
+    float32 mean, saved to ``path`` as bf16 leaves by top-level key.
+    Returns the loss and the host wall."""
+    from repro_torch.checkpoint.ckpt import tree_leaves
+    from repro_torch.data.pipeline import get_batch
+    from repro_torch.models import transformer
+
+    cfg, dcfg = pipeline_cfgs()
+    params = transformer.init_params(0, cfg, device=dev)
+    named = [(k, t.requires_grad_()) for k in params for t in tree_leaves(params[k])]
+    acc = [torch.zeros(t.shape, dtype=torch.float32, device=dev) for _, t in named]
+    tokens = torch.as_tensor(get_batch(dcfg, 0)["tokens"]).reshape(TRAIN_BATCH, TRAIN_SEQ + 1)
+    t0 = time.perf_counter()
+    loss = 0.0
+    for row in tokens:
+        lr, _ = transformer.loss_fn(params, {"tokens": row[None]}, cfg, device=dev)
+        for a, gr in zip(acc, torch.autograd.grad(lr, [t for _, t in named])):
+            a += gr.float()
+        loss += float(lr.detach())
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    out = {k: [] for k in params}
+    for (k, _), a in zip(named, acc):
+        out[k].append((a / TRAIN_BATCH).to(torch.bfloat16).cpu())
+    torch.save(out, path)
+    del params, named, acc
+    torch.cuda.empty_cache()
+    return loss / TRAIN_BATCH, wall
+
+
+def pipeline_prediction(torch) -> dict:
+    """The dry run's count of one rank's GPipe loss and gradient on meta
+    tensors over the shape-only (data 2, model 2) mesh
+    (``launch.dryrun_pp.count``): its products and collectives."""
+    from repro_torch.launch import dryrun_pp
+    from repro_torch.parallel.sharding import Mesh
+
+    cfg, _ = pipeline_cfgs()
+    batch = {"tokens": torch.empty((TRAIN_BATCH, TRAIN_SEQ + 1), dtype=torch.int32,
+                                   device="meta")}
+    return dryrun_pp.count(cfg, Mesh({"data": 2, "model": 2}, device="meta"), batch,
+                           cfg.microbatches)
+
+
 def replayed_dispatch(torch, xf, logits, chosen, n_experts: int, cap: int, dtype):
     """``moe._local_dispatch`` with each token's experts given: ``chosen``
     (T, k), as another run routed the slab.  The gate weights are this
@@ -3311,6 +3506,7 @@ def _parallel_rank(torch, np, dist, root: Path) -> dict:
     from repro_torch.kernels import mma_matmul as mk
     from repro_torch.kernels import ops
     from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import layers
     from repro_torch.models import moe as moe_lib
     from repro_torch.models import transformer
     from repro_torch.optim import adamw
@@ -3452,6 +3648,30 @@ def _parallel_rank(torch, np, dist, root: Path) -> dict:
     out["collective_s"] = coll.collective_seconds(mesh)
     out["loss2"], out["grad_norm2"] = float(m2["loss"]), float(m2["grad_norm"])
 
+    # ---- step 3, rank 0's under torch.profiler (the others run it plainly):
+    # host wall, device busy (rank 0's kernels and copies), idle share, and
+    # the share of the wall in the gloo transport
+    box = {}
+
+    def step3():
+        box["state"], _ = step(state, get_batch(dcfg, 2))
+
+    coll.reset_stats(mesh)
+    dist.barrier()
+    if rank == 0:
+        wall_ms, busy_ms, idle, by_name = device_idle(torch, step3)
+        mma_ms = sum(v[1] for name, v in by_name.items() if "mma_tc_horner_kernel" in name)
+        gemm_ms = sum(v[1] for name, v in by_name.items()
+                      if any(x in name.lower() for x in GEMM_NAMES))
+        out["profiled"] = dict(wall_ms=wall_ms, busy_ms=busy_ms, idle=idle, kernel_ms=mma_ms,
+                               gemm_ms=gemm_ms,
+                               gloo_share=sum(coll.collective_seconds(mesh).values()) * 1e3
+                               / wall_ms)
+    else:
+        step3()
+        torch.cuda.synchronize()
+    state = box.pop("state")
+
     # ---- compressed gradient sync across the two data ranks, once, on one
     # microbatch's gradients of this rank
     t0 = time.perf_counter()
@@ -3493,17 +3713,47 @@ def _parallel_rank(torch, np, dist, root: Path) -> dict:
     torch.cuda.empty_cache()
     secs["restore"] = time.perf_counter() - t0
 
-    # ---- GPipe: PP 2 (one layer per stage) x DP 2, the forward on step 1's batch
+    # ---- GPipe: PP 2 (two layers per stage) x DP 2, the loss and its gradient
+    # on step 1's batch, against the unsharded loss_fn's (``yard_pp.pt``)
     t0 = time.perf_counter()
-    params = transformer.init_params(0, cfg, device=dev)
+    pcfg, _ = pipeline_cfgs()
+    params = transformer.init_params(0, pcfg, device=dev)
     stage = shd.shard_tree(params, pp.stage_shardings(params, mesh))
     del params
+    stage = layers.tree_map(lambda t: t.detach().requires_grad_(), stage)
+    named = [(k, t) for k in stage for t in tree_leaves(stage[k])]
     tokens = get_batch(dcfg, 0)["tokens"].reshape(TRAIN_BATCH, TRAIN_SEQ + 1)
-    with torch.no_grad(), shd.use_mesh(mesh):
-        loss_pp, _ = pp.pipelined_loss_fn(stage, {"tokens": tokens}, cfg,
-                                          n_micro=cfg.microbatches, device=dev)
-    out["loss_pp"] = float(loss_pp)
-    del stage
+    coll.reset_stats(mesh)
+    mk.launches = 0
+    dist.barrier()
+    t1 = time.perf_counter()
+    with shd.use_mesh(mesh):
+        loss_pp, _ = pp.pipelined_loss_fn(stage, {"tokens": tokens}, pcfg,
+                                          n_micro=pcfg.microbatches, device=dev)
+    grads = torch.autograd.grad(loss_pp, [t for _, t in named])
+    torch.cuda.synchronize()
+    out["pp_s"] = time.perf_counter() - t1
+    out["pp_launches"] = mk.launches
+    out["pp_collectives"] = coll.collective_stats(mesh)
+    out["pp_collective_s"] = coll.collective_seconds(mesh)
+    out["loss_pp"] = float(loss_pp.detach())
+    out["pp_stage"] = stage_i = mesh.index("model")
+    per = pcfg.n_layers // mesh.size("model")
+    yard_pp = torch.load(root / "yard_pp.pt", mmap=True, weights_only=True)
+    seen = {k: 0 for k in stage}
+    rel, block_max = {}, []
+    for (k, _), gr in zip(named, grads):
+        want = yard_pp[k][seen[k]]
+        seen[k] += 1
+        if k == "blocks":  # this stage's layers of the stacked leaf
+            want = want[stage_i * per:(stage_i + 1) * per]
+            block_max.append(float(gr.abs().max()))
+        want = want.to(dev).float()
+        diff, scale = float((gr.float() - want).abs().max()), float(want.abs().max())
+        rel[k] = max(rel.get(k, 0.0), diff / scale if scale > 0 else (0.0 if diff == 0 else
+                                                                      float("inf")))
+    out["pp_grad_rel"], out["pp_block_grad_max"] = rel, block_max
+    del stage, named, grads, yard_pp
     torch.cuda.empty_cache()
     secs["pipeline"] = time.perf_counter() - t0
 
@@ -3883,6 +4133,19 @@ def parallel_training(torch, np, dev, card, phases=(16, 17)):
                   f"{par_launches(fcfg)} unscaled launches, host wall {yf['wall']:.2f} s")
             del yf
 
+        # ---- GPipe's yardstick (the unsharded loss_fn and its gradient at
+        # PP_LAYERS layers) and the dry run's count of one rank's pipeline step
+        loss_pp1, pp_wall = pipeline_yardstick(torch, dev, root / "yard_pp.pt")
+        pred_pp = pipeline_prediction(torch)
+        pcfg, _ = pipeline_cfgs()
+        print(f"[parallel] {card} | GPipe's yardstick: Yi-6B at full width, {pcfg.n_layers} of "
+              f"32 layers, the unsharded loss_fn and its gradient, each of the {TRAIN_BATCH} rows "
+              f"alone (as PP 2 x DP 2 over {pcfg.microbatches} microbatches meets them): loss "
+              f"{loss_pp1:.6f}, host wall {pp_wall:.2f} s; dry run, one rank of PP 2 x DP 2 "
+              f"(launch.dryrun_pp.count on meta tensors): the loss and its gradient make "
+              f"{pred_pp['collectives']['counts_by_kind']} "
+              f"({pred_pp['collectives']['total_bytes']} bytes)")
+
         # ---- the dry run's prediction of one rank of the (2, 2) mesh, each model
         pred, pred_m = dry_prediction(torch, cfg), dry_prediction(torch, mcfg)
         pred_e = dry_prediction(torch, ecfg)
@@ -4010,12 +4273,22 @@ def parallel_training(torch, np, dev, card, phases=(16, 17)):
                   f"rank {r}: launches per step {o['launches_step1']}, {o['launches_step2']}, "
                   f"expected {per_step}")
             for k, want, tol in (("loss1", loss1, PAR_LOSS_REL), ("grad_norm1", norm1, PAR_NORM_REL),
-                                 ("loss_pp", loss1, PAR_LOSS_REL),
+                                 ("loss_pp", loss_pp1, PAR_LOSS_REL),
                                  ("loss2_b", o["loss2"], PAR_LOSS_REL),
                                  ("grad_norm2_b", o["grad_norm2"], PAR_NORM_REL)):
                 check(np.isfinite(o[k]) and abs(o[k] - want) <= tol * abs(want),
                       f"rank {r}: {k} {o[k]} against {want} (rel tolerance {tol})")
             check(o["restored_equal"], f"rank {r}: the (1, 4) restore differs from the saved state")
+            check(sorted(o["pp_grad_rel"]) == ["blocks", "embed", "head", "ln_f"]
+                  and max(o["pp_grad_rel"].values()) <= PP_GRAD_REL
+                  and min(o["pp_block_grad_max"]) > 0 and o["pp_launches"] == pp_launches(pcfg),
+                  f"rank {r}: GPipe's gradient against the unsharded one's matching slice "
+                  f"{o['pp_grad_rel']} (PP_GRAD_REL {PP_GRAD_REL}), its block leaves' largest "
+                  f"{o['pp_block_grad_max']} (none may be 0), {o['pp_launches']} kernel launches "
+                  f"(expected {pp_launches(pcfg)})")
+            check(same_collectives(o["pp_collectives"], pred_pp["collectives"]),
+                  f"rank {r}: GPipe's collectives {o['pp_collectives']} against the dry run's "
+                  f"{pred_pp['collectives']}")
             check(o["gc"]["ratio"] <= 1.01, f"rank {r}: compressed sync error {o['gc']['ratio']} of "
                   "the int8 step")
             check(o["moe"]["routing_equal"] and o["moe"]["rel"] <= MOE_REL
@@ -4050,8 +4323,29 @@ def parallel_training(torch, np, dev, card, phases=(16, 17)):
               f"step from it: loss {o0['loss2_b']} vs {o0['loss2']} under (2, 2), grad_norm "
               f"{o0['grad_norm2_b']} vs {o0['grad_norm2']}; state per rank under (1, 4) "
               f"{[o['state_bytes_b'] for o in outs]}")
-        print(f"[parallel] GPipe PP 2 x DP 2 (one layer per stage, {cfg.microbatches} microbatches): "
-              f"loss {[o['loss_pp'] for o in outs]} vs {loss1} unsharded")
+        pp_rel = {k: max(o["pp_grad_rel"][k] for o in outs) for k in o0["pp_grad_rel"]}
+        print(f"[parallel] GPipe PP 2 x DP 2 ({pcfg.n_layers // 2} layers per stage, "
+              f"{pcfg.microbatches} microbatches), the loss and its gradient: loss "
+              f"{[o['loss_pp'] for o in outs]} vs {loss_pp1} unsharded (PAR_LOSS_REL "
+              f"{PAR_LOSS_REL}); each leaf's gradient against the unsharded one's matching slice, "
+              f"worst over the ranks by key: "
+              + ", ".join(f"{k} {v:.3e}" for k, v in pp_rel.items())
+              + f" of the slice's largest (PP_GRAD_REL {PP_GRAD_REL}); stage "
+              f"{[o['pp_stage'] for o in outs]} blocks' largest gradient "
+              f"{[max(o['pp_block_grad_max']) for o in outs]}; {o0['pp_launches']} unscaled "
+              f"launches per rank (as the schedule gives); collectives equal the dry run's on "
+              f"every rank: "
+              f"{o0['pp_collectives']['counts_by_kind']} "
+              f"({o0['pp_collectives']['total_bytes'] / 1e9:.3f} GB)")
+        print(f"[parallel] {card} | GPipe host wall per rank {[round(o['pp_s'], 3) for o in outs]} "
+              f"s, in the gloo transport "
+              f"{[round(sum(o['pp_collective_s'].values()) / o['pp_s'], 3) for o in outs]} of it")
+        pf = o0["profiled"]
+        print(f"[parallel] {card} | Yi-6B sharded step 3, rank 0 under torch.profiler: host wall "
+              f"{pf['wall_ms']:.1f} ms, device busy {pf['busy_ms']:.1f} ms (rank 0's kernels and "
+              f"copies), idle share {pf['idle']:.3f}, in the gloo transport "
+              f"{pf['gloo_share']:.3f} of the wall; the unscaled kernel {pf['kernel_ms']:.1f} ms, "
+              f"stock matmuls {pf['gemm_ms']:.1f} ms of device time")
         print(f"[parallel] compressed_psum_shardmap over 'data', {o0['gc']['leaves']} gradient "
               f"leaves: error at most {max(o['gc']['ratio'] for o in outs):.3f} of the int8 step; "
               f"{o0['gc']['stats']['counts_by_kind']}, {o0['gc']['stats']['total_bytes'] / 1e6:.1f} "
@@ -4149,7 +4443,14 @@ def parallel_training(torch, np, dev, card, phases=(16, 17)):
                                    bound_ms=moe_bound_ms,
                                    host_s=[o["olmoe"]["step_s"] for o in outs],
                                    collectives=ocs, collective_s=om0["collective_s"]),
-            parallel_families=families, phase16_s=phase_s)
+            parallel_families=families, phase16_s=phase_s,
+            launches_parallel_pipeline=sum(o["pp_launches"] for o in outs),
+            parallel_pipeline=dict(layers=pcfg.n_layers, loss=[o["loss_pp"] for o in outs],
+                                   loss_unsharded=loss_pp1, grad_rel=pp_rel,
+                                   host_s=[o["pp_s"] for o in outs],
+                                   collectives=o0["pp_collectives"],
+                                   collective_s=o0["pp_collective_s"]),
+            parallel_profiled=pf)
     if 17 in phases:
         t17 = time.perf_counter()
         got = serving_gates(torch, np, dev, card, outs, preds, yards)
@@ -4235,8 +4536,10 @@ def parallel_family_gates(np, card, f: dict, outs: list, tag: str) -> dict:
 
 class ServeModel(typing.NamedTuple):
     """One model of phase 17: its key (``tag``), label, config, rows, decode
-    steps, cache length, prompt length, and whether it serves in the 2-D
-    mode.  The vlm's prefill takes ``cfg.vlm_patches`` patch embeddings."""
+    steps, cache length, prompt length, whether it serves in the 2-D mode,
+    whether its decode steps must drop MoE assignments at capacity, and
+    whether its layout must split Zamba2's group states over 'data'.  The
+    vlm's prefill takes ``cfg.vlm_patches`` patch embeddings."""
     tag: str
     label: str
     cfg: typing.Any
@@ -4245,6 +4548,8 @@ class ServeModel(typing.NamedTuple):
     max_seq: int = SERVE_MAX_SEQ
     prompt: int = SERVE_PROMPT
     two_d: bool = False
+    drops: bool = False
+    groups_over_data: bool = False
 
 
 def serve_cfgs() -> list:
@@ -4265,7 +4570,8 @@ def serve_cfgs() -> list:
         out.append(ServeModel(tag, label, cfg, rows, steps,
                               max_seq=opt.get("max_seq", SERVE_MAX_SEQ),
                               prompt=opt.get("prompt", SERVE_PROMPT),
-                              two_d=opt.get("two_d", False)))
+                              two_d=opt.get("two_d", False), drops=opt.get("drops", False),
+                              groups_over_data=opt.get("groups_over_data", False)))
     return out
 
 
@@ -4577,7 +4883,11 @@ def serve_prediction(torch, sm) -> dict:
         coll.reset_stats(mesh)
         dec(params, meta(rl, 1), cache, meta(), ex)
         decode = coll.collective_stats(mesh)
-    return dict(out, param_bytes=specs.sharded_bytes(ab, p_sh, mesh),
+    # the mesh axis on the leading dim of Zamba2's stacked group states and
+    # shared KV cache (the group dim): 'data' where the rule marks it
+    lead = {k: sorted({str(tuple(sh.spec)[0]) for sh in tree_leaves(c_sh[k])})
+            for k in ("groups", "attn_k", "attn_v") if k in c_sh}
+    return dict(out, param_bytes=specs.sharded_bytes(ab, p_sh, mesh), lead=lead,
                 cache_bytes=specs.sharded_bytes(spec, c_sh, mesh), extras_bytes=ex_bytes,
                 tree_bytes=sum(t.numel() * t.element_size() for t in tree_leaves(ab)),
                 prefill=prefill, decode=decode, mode=mode, seconds=time.perf_counter() - t0)
@@ -4745,6 +5055,9 @@ def _serving_rank(torch, np, dist, root: Path, mesh, dev) -> dict:
             out["logits"].append(lg.cpu())
             out["tokens"].append(lg.argmax(-1).cpu())
         out["routing_equal"] = [sum(route.equal), len(route.equal)]
+        # each call's assignments dropped at capacity on this rank, per layer
+        out["drops"] = [[g.shape[0] * cfg.moe.top_k - int(g.sum()) for g in call]
+                        for call in routing] if ep else []
         # per call, the tokens whose kept experts differ from the yardstick's
         # in the same slab (the ranks' float sums can flip a router near tie,
         # and a flip moves the capacity's drops), and layer 0's router logits
@@ -4842,9 +5155,12 @@ def ep_replay(torch, np, dev, sm, yard: dict, outs: list) -> None:
 
 
 def serving_gates(torch, np, dev, card, outs: list, preds: dict, yards: dict) -> dict:
-    """Phase 17's gates over the ranks' results, its prints, and the scaled
-    kernel graph-timed at Yi-6B's sharded decode shapes.  Returns the
-    scaled kernel's phase-17 entries."""
+    """Phase 17's gates over the ranks' results, its prints, and both
+    kernels graph-timed at Yi-6B's sharded shapes (the scaled one at the
+    column-parallel decode shapes, the unscaled one at the row-parallel
+    ones).  Returns their phase-17 entries."""
+    from repro_torch.models import moe as moe_lib
+
     g = torch.Generator(device=dev).manual_seed(17)
     entries = {}
     for sm in serve_cfgs():
@@ -4924,6 +5240,40 @@ def serving_gates(torch, np, dev, card, outs: list, preds: dict, yards: dict) ->
                       f"{so['routing_equal']} (expected {n_slabs}), all-to-alls in the prefill "
                       f"{so['prefill_stats']['counts_by_kind']} and the decode step "
                       f"{so['decode_stats']['counts_by_kind']}")
+        if sm.drops:
+            # each data rank's decode slab: its rows whole, SERVE_DROP_ROWS / 2
+            # tokens at cap MOE_DROP_CAP; the drops per rank and layer, summed
+            # over the decode steps
+            slab = rows // 2
+            dec = [[sum(call[l] for call in o["serving"][tag]["drops"][1:])
+                    for l in range(cfg.n_layers)] for o in outs]
+            pre = [o["serving"][tag]["drops"][0] for o in outs]
+            check(all(o["serving"][tag]["route_tokens"][1:] == [cfg.n_layers * slab] * steps
+                      for o in outs) and moe_lib.capacity(slab, cfg.moe) == MOE_DROP_CAP
+                  and sum(map(sum, dec)) >= 1,
+                  f"{label}: decode slabs of {[o['serving'][tag]['route_tokens'] for o in outs]} "
+                  f"tokens (expected {slab} per layer at cap {MOE_DROP_CAP}), assignments dropped "
+                  f"at decode per rank and layer {dec} (expected at least one)")
+            print(f"[serving] {card} | {label}: each decode step routes a data rank's {slab} rows "
+                  f"whole on every model rank at cap {MOE_DROP_CAP} of {slab * cfg.moe.top_k} "
+                  f"assignments per layer: dropped at decode (the {steps} steps summed) per rank "
+                  f"and layer {dec}; at the writing prefill per rank and layer {pre}")
+        if sm.groups_over_data:
+            # the rule's first dim equal to the batch is the stacked group dim:
+            # the step reshards the group states to rows and back (all-gathers
+            # over 'data' that the same model at 4 rows does not make)
+            wide = serve_prediction(torch, sm._replace(rows=4))
+            gathers = [p_["decode"]["counts_by_kind"].get("all-gather", 0) for p_ in (pred, wide)]
+            check(pred["lead"] == {k: ["data"] for k in ("groups", "attn_k", "attn_v")}
+                  and wide["lead"] == {k: ["None"] for k in ("groups", "attn_k", "attn_v")}
+                  and gathers[0] > gathers[1],
+                  f"{label}: the group states' leading axes {pred['lead']} (at 4 rows "
+                  f"{wide['lead']}), decode all-gathers {gathers[0]} against {gathers[1]} at 4 rows")
+            print(f"[serving] {card} | {label}: cache_shardings splits the stacked group dim of "
+                  f"the group states and the shared KV cache over 'data' ({pred['lead']}); a "
+                  f"decode step's all-gathers {gathers[0]} against {gathers[1]} for the same model "
+                  f"at 4 rows (dry run): {gathers[0] - gathers[1]} of them the reshard's, counted "
+                  f"and equal to the ranks' live ones")
         if sm.two_d:
             share = pred["param_bytes"] / pred["tree_bytes"]
             check(pred["mode"] == "2d" and share <= 0.26,
@@ -5000,7 +5350,35 @@ def serving_gates(torch, np, dev, card, outs: list, preds: dict, yards: dict) ->
     print(f"[serving] {card} | Yi-6B one sharded decode step's 161 scaled calls per rank "
           f"(graph-timed shapes x calls): kernel {step['ms']:.3f} ms, torch._int_mm+scale "
           f"{step['library_ms']:.3f} ms, bound {step['bound_ms']:.3f} ms")
-    return dict(serving=entries, serving_per_shape=rows_t, serving_step=step)
+    # the unscaled kernel at the row-parallel linears (wo, w_down: the rank's
+    # half of K, every column; ``sharded_lm.wq_product``, its int32 partial
+    # all-reduced), at a decode step's M = 4 rows per data rank and the
+    # writing prefill's 4 x 256, 8 planes, w cold
+    rows_u = []
+    for mm in (m, m * SERVE_PROMPT):
+        for name, k, n in (("wo", d // 2, d), ("w_down", ycfg.d_ff // 2, d)):
+            r = dict(name=name, **cold_unscaled_times(torch, dev, g, mm, k, n))
+            rows_u.append(r)
+            print(f"[serving] {card} | mma_matmul Yi-6B sharded row-parallel {name} M={mm} K={k} "
+                  f"N={n} (w cold: {r['w_copies']} copies, graph of {r['calls']} calls) planes 8: "
+                  f"kernel {r['ms']:.5f} ms, torch._int_mm {r['library_ms']:.5f} ms"
+                  f"{' (x padded to 32 rows)' if mm <= 16 else ''}, bound {r['bound_ms']:.5f} ms "
+                  f"({r['bound_by']}), "
+                  f"plane-work floor {r['plane_floor_ms']:.5f} ms")
+    by_m = {}
+    for r in rows_u:  # 32 layers x (wo, w_down): 64 calls per call per rank
+        tot = by_m.setdefault(r["M"], {"calls": 0})
+        tot["calls"] += ycfg.n_layers
+        for key in ("ms", "library_ms", "bound_ms", "plane_floor_ms"):
+            tot[key] = tot.get(key, 0.0) + ycfg.n_layers * r[key]
+    for mm, tot in by_m.items():
+        print(f"[serving] {card} | Yi-6B {'one sharded decode step' if mm == m else 'the writing prefill'}"
+              f"'s {tot['calls']} row-parallel unscaled calls per rank at M={mm} (graph-timed "
+              f"shapes x calls): kernel {tot['ms']:.3f} ms, torch._int_mm {tot['library_ms']:.3f} "
+              f"ms, bound {tot['bound_ms']:.4f} ms, plane-work floor {tot['plane_floor_ms']:.4f} ms")
+    return dict(serving=entries, serving_per_shape=rows_t, serving_step=step,
+                serving_unscaled=dict(per_shape=rows_u, decode_step=by_m[m],
+                                      prefill=by_m[m * SERVE_PROMPT]))
 
 
 def main() -> int:
@@ -5052,11 +5430,12 @@ def main() -> int:
     imma = {}
     # (kernel, instantiations): the unscaled kernel's (planes, signed, block
     # rows) and the scaled kernel's (planes, signed, NF 1-4)
-    for kernel, n_inst in (("mma_tc_horner_kernel", 32), ("mma_tc_scaled_kernel", 64)):
-        counts = imma_count(lib, kernel)
-        if counts is None:
-            print("[sass] no cuobjdump in the toolkit: IMMA count not taken")
-            break
+    instantiations = {"mma_tc_horner_kernel": 32, "mma_tc_scaled_kernel": 64}
+    all_counts = imma_counts(lib, instantiations)
+    if all_counts is None:
+        print("[sass] no cuobjdump in the toolkit: IMMA count not taken")
+    for kernel, n_inst in instantiations.items() if all_counts is not None else ():
+        counts = all_counts[kernel]
         check(len(counts) == n_inst and min(counts.values()) > 0,
               f"{kernel}: IMMA instructions per instantiation: {sorted(counts.values())}")
         imma[kernel] = sum(counts.values())

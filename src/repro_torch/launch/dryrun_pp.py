@@ -6,7 +6,7 @@ a dense arch (the PP alternative to the TP-collective-bound train cells).
 As ``launch.dryrun`` does, this runs one rank's ``pipelined_loss_fn`` and
 its gradient on ``meta`` tensors over the shape-only 16x16 mesh (stage 0,
 data rank 0), the stages over ``model``, and counts its products and
-collectives.  Keys as the reference's ``dryrun_pp.py`` writes them; those
+collectives (:func:`count`, on any mesh).  Keys as the reference's ``dryrun_pp.py`` writes them; those
 a compiler gives there (``compile_s``, ``temp_bytes``) are null here.
 
 The global batch is ``n_micro`` x |data| sequences of 4096 tokens (512 at
@@ -32,22 +32,30 @@ from repro_torch.parallel import sharding as shd
 from repro_torch.parallel.pipeline import bubble_fraction, pipelined_loss_fn, stage_shardings
 
 
-def run(arch: str = "yi_6b", n_micro: int = 32) -> dict:
-    cfg = get_config(arch).replace(seq_shard=False, microbatches=1)
-    mesh = make_production_mesh(device="meta")
+def count(cfg, mesh, batch: dict, n_micro: int) -> dict:
+    """One rank's ``pipelined_loss_fn`` and its gradient on ``meta``
+    tensors over the shape-only ``mesh`` (stages over ``model``), at the
+    rank's coordinates: ``launch.dryrun.count_run``'s products and
+    collectives.  ``batch``: the global ``{"tokens": (B, S+1)}``, meta."""
     params = transformer.init_params(0, cfg, device="meta")
     local = layers.tree_map(lambda t: t.requires_grad_(),
                             shd.shard_tree(params, stage_shardings(params, mesh)))
-    rows = n_micro * mesh.shape["data"]
-    batch = {"tokens": torch.empty((rows, 4097), dtype=torch.int32, device="meta")}
 
     def loss_and_grad(local, batch):
         with shd.use_mesh(mesh):
             loss, _ = pipelined_loss_fn(local, batch, cfg, n_micro=n_micro, device="meta")
         return torch.autograd.grad(loss, tree_leaves(local))
 
+    return count_run(loss_and_grad, (local, batch), mesh)
+
+
+def run(arch: str = "yi_6b", n_micro: int = 32) -> dict:
+    cfg = get_config(arch).replace(seq_shard=False, microbatches=1)
+    mesh = make_production_mesh(device="meta")
+    rows = n_micro * mesh.shape["data"]
+    batch = {"tokens": torch.empty((rows, 4097), dtype=torch.int32, device="meta")}
     t0 = time.time()
-    counted = count_run(loss_and_grad, (local, batch), mesh)
+    counted = count(cfg, mesh, batch, n_micro)
     coll = counted["collectives"]
     return dict(
         arch=arch, mode="pipeline", mesh="16x16",

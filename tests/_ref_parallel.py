@@ -234,6 +234,38 @@ def serve_family(inp, mesh, family, route, batch=4, key=None, whole=False,
     return out
 
 
+SERVE_EP_ROWS = 24  # ``moe_ep_decode``: tests/_torch_ranks.py's
+
+
+def moe_ep_decode(inp, mesh) -> dict:
+    """``moe_ffn_ep`` at a decode step that drops: the smoke OLMoE's layer-0
+    MoE with ``moe.ep`` on (unquantized) on ``inp["serve/moe_x"]`` (rows of
+    one token) on ``mesh``: each data rank's rows routed whole on every
+    model rank (``spec_for`` drops the ``seq`` split that 1 token does not
+    divide), at the rows' capacity.  The output, and each data rank's slab
+    routed as the body routes it (float32 router logits), outside jit."""
+    cfg = get_smoke_config("olmoe_1b_7b")
+    cfg = cfg.replace(moe=dc.replace(cfg.moe, ep=True))
+    p = jax.tree.map(lambda a: a[0], serve_tree(inp, "moe/f/")["blocks"]["moe"])
+    x = jnp.asarray(inp["serve/moe_x"], jnp.bfloat16)
+    out = {}
+    with shd.use_mesh(mesh):
+        out["moe_ep_decode/y"] = np.asarray(jax.jit(
+            lambda p_, x_: moe_lib.moe_ffn_ep(p_, x_, cfg))(p, x).astype(jnp.float32))
+    m, n_data = cfg.moe, mesh.shape["data"]
+    bl, dm = SERVE_EP_ROWS // n_data, x.shape[-1]
+    cap = min(bl * m.top_k, max(int(bl * m.top_k / m.n_experts * m.capacity_factor), 4))
+    for di in range(n_data):
+        xf = x[di * bl:(di + 1) * bl].reshape(bl, dm)
+        logits = xf @ p["router"]["w"].astype(jnp.float32)
+        _, (eid_s, pos, tok_s, _, keep) = moe_lib._local_dispatch(
+            xf, logits, m.n_experts, m.top_k, cap, xf.dtype)
+        for k, v in (("eid", eid_s), ("pos", pos), ("tok", tok_s), ("keep", keep)):
+            out[f"moe_ep_decode/{di}/{k}"] = np.asarray(v)
+    out["moe_ep_decode/cap"] = np.asarray(cap)
+    return out
+
+
 def main(d, part):
     """``part``: ``base`` (every check but the ssm, hybrid and encdec
     steps), a comma-separated list of those families, or ``serve:`` and a
@@ -257,6 +289,8 @@ def main(d, part):
                 # moe against the unsharded step only: GSPMD's partial sums
                 # move the router's near ties
                 out.update(serve_family(inp, mesh, family, route, whole=family == "moe"))
+            if family == "moe":  # moe_ffn_ep at a decode step that drops
+                out.update(moe_ep_decode(inp, mesh))
             if family == "hybrid":  # the rule's first dim equal to the batch: the groups
                 out.update(serve_family(inp, mesh, family, "int8", batch=2, key="hybrid_b2/int8"))
         np.savez(os.path.join(d, f"ref_{part.replace(':', '_').replace(',', '_')}.npz"), **out)
@@ -356,6 +390,11 @@ def main(d, part):
     with shd.use_mesh(mesh):
         out["pp/loss"] = np.asarray(jax.jit(
             lambda p_, b_: pipelined_loss_fn(p_, b_, pcfg, n_micro=2)[0])(params, batch))
+    # the same at 4 layers: two per stage
+    pcfg4, params4 = pcfg.replace(n_layers=4), tree(inp, "pp4/")
+    with shd.use_mesh(mesh):
+        out["pp4/loss"] = np.asarray(jax.jit(
+            lambda p_, b_: pipelined_loss_fn(p_, b_, pcfg4, n_micro=2)[0])(params4, batch))
     np.savez(os.path.join(d, "ref_base.npz"), **out)
     print("REF_OK")
 

@@ -315,9 +315,13 @@ def _moe(inp, mesh, out):
     out["moe/route"] = {"eid": eid_s, "pos": pos, "tok": tok_s, "keep": keep}
 
 
-def _pipeline(inp, mesh, out):
-    cfg = get_smoke_config("yi_6b").replace(seq_shard=False)
-    params = tree(inp, "p/")
+def _pipeline(inp, mesh, out, key="pp", n_layers=2):
+    """GPipe PP 2 x DP 4 on the smoke Yi-6B at ``n_layers`` layers (its
+    weights ``inp[key/...]``, the 2-layer ones under ``p/``): the loss and
+    its gradient, the unsharded ``loss_fn``'s, and the collectives live and
+    counted, under ``out[key/...]``."""
+    cfg = get_smoke_config("yi_6b").replace(seq_shard=False, n_layers=n_layers)
+    params = tree(inp, "p/" if key == "pp" else f"{key}/")
     local = shd.shard_tree(params, pp.stage_shardings(params, mesh))
     local = layers.tree_map(lambda t: t.detach().requires_grad_(), local)
     coll.reset_stats(mesh)
@@ -325,15 +329,15 @@ def _pipeline(inp, mesh, out):
         loss, _ = pp.pipelined_loss_fn(local, {"tokens": inp["tokens"]}, cfg, n_micro=2,
                                        device="cpu")
     grads = torch.autograd.grad(loss, tree_leaves(local))
-    out["pp/stats"] = coll.collective_stats(mesh)
-    out["pp/loss"] = float(loss)
-    out["pp/grads"] = tree_unflatten(local, list(grads))
+    out[f"{key}/stats"] = coll.collective_stats(mesh)
+    out[f"{key}/loss"] = float(loss)
+    out[f"{key}/grads"] = tree_unflatten(local, list(grads))
     from repro_torch.models import transformer
     full = layers.tree_map(lambda t: t.detach().requires_grad_(), params)
     loss1, _ = transformer.loss_fn(full, {"tokens": inp["tokens"]}, cfg, device="cpu")
-    out["pp/loss1"] = float(loss1)
-    out["pp/grads1"] = tree_unflatten(full, list(torch.autograd.grad(loss1, tree_leaves(full))))
-    out["pp/stage"] = mesh.index("model")
+    out[f"{key}/loss1"] = float(loss1)
+    out[f"{key}/grads1"] = tree_unflatten(full, list(torch.autograd.grad(loss1, tree_leaves(full))))
+    out[f"{key}/stage"] = mesh.index("model")
     cmesh = counting_mesh(mesh)
     ab = {k: layers.tree_map(lambda t: torch.empty(t.shape, dtype=t.dtype, device="meta"), v)
           for k, v in params.items()}
@@ -343,7 +347,7 @@ def _pipeline(inp, mesh, out):
         loss_m, _ = pp.pipelined_loss_fn(local_m, _meta({"tokens": inp["tokens"]}), cfg,
                                          n_micro=2, device="meta")
     torch.autograd.grad(loss_m, tree_leaves(local_m))
-    out["pp/count"] = coll.collective_stats(cmesh)
+    out[f"{key}/count"] = coll.collective_stats(cmesh)
 
 
 def rank_main(rank: int, d: str) -> None:
@@ -370,6 +374,7 @@ def rank_main(rank: int, d: str) -> None:
         _compressed(inp, out)
         _moe(inp, mesh, out)
         _pipeline(inp, mesh, out)
+        _pipeline(inp, mesh, out, key="pp4", n_layers=4)  # two layers per stage
         torch.save(out, os.path.join(d, f"rank{rank}.pt"))
         dist.barrier()
         if rank == 0:
@@ -674,6 +679,39 @@ def _leaf_names(tree, prefix=""):
 
 
 SERVE_CASES = [(f, r) for f in SERVE_ARCHS for r in SERVE_ROUTES]
+# moe_ffn_ep's body at a decode step that drops: the test's SERVE_EP_ROWS
+# rows of one token, each data rank's half routed whole on every model rank
+# at cap 4 (the smoke OLMoE's 8 experts, top-2)
+SERVE_EP_ROWS = 24
+
+
+def _moe_ep_decode(inp, mesh, out) -> None:
+    """The smoke OLMoE's layer-0 MoE with ``moe.ep`` on, unquantized (its
+    experts split over 'model'), through ``sharded_lm.moe_serve`` on this
+    rank's rows of ``inp["serve/moe_x"]`` (a decode step's (rows, 1, D)):
+    the rank's output rows and its slab's routing, under ``moe_ep_decode/``."""
+    cfg = get_smoke_config("olmoe_1b_7b")
+    cfg = cfg.replace(moe=dataclasses.replace(cfg.moe, ep=True))
+    p = layers.layer_params(serve_tree(inp, "moe/f/")["blocks"], 0)["moe"]
+    ex = NamedSharding(mesh, P("model", None, None))
+    local = {**p, **{k: shd.shard(p[k], ex) for k in ("w_gate", "w_up", "w_down")}}
+    x = _rows(torch.tensor(inp["serve/moe_x"]).to(torch.bfloat16), mesh, SERVE_EP_ROWS)
+    routes, inner = [], moe_lib._local_dispatch
+
+    def recording(xf, logits, n_experts, top_k, cap, dtype):
+        buf, meta = inner(xf, logits, n_experts, top_k, cap, dtype)
+        routes.append({"eid": meta[0], "pos": meta[1], "tok": meta[2], "keep": meta[4],
+                       "cap": cap})
+        return buf, meta
+
+    moe_lib._local_dispatch = recording
+    try:
+        with torch.no_grad():
+            y = sharded_lm.moe_serve(local, x, cfg, mesh)
+    finally:
+        moe_lib._local_dispatch = inner
+    out["moe_ep_decode/y"] = y.float()
+    out["moe_ep_decode/routes"] = routes
 
 
 def serve_main(rank: int, d: str) -> None:
@@ -688,6 +726,7 @@ def serve_main(rank: int, d: str) -> None:
             serve_family(inp, mesh, family, route, out)
         serve_family(inp, mesh, "hybrid", "int8", out, batch=2, key="hybrid_b2/int8")
         serve_family(inp, mesh, "dense", "int8", out, key="dense_2d/int8", two_d=True)
+        _moe_ep_decode(inp, mesh, out)
         for family in SERVE_LONG:
             for route in SERVE_ROUTES:
                 serve_family(inp, mesh, family, route, out, key=f"{family}_long/{route}",

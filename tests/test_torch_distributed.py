@@ -25,8 +25,10 @@ Tolerances, each against what it compares:
 - elastic restore (4, 2) -> (2, 4): bit-equal;
 - ``moe_ffn_ep``: routing exact per slab, output within ``MOE_REL`` of the
   reference's ``moe_ffn_ep`` and the port's ``moe_ffn``;
-- the pipeline (PP 2 x DP 4): loss within ``LOSS_REL`` of the reference's
-  ``pipelined_loss_fn`` and of the port's unsharded ``loss_fn``;
+- the pipeline (PP 2 x DP 4), at one and at two layers per stage: loss
+  within ``LOSS_REL`` of the reference's ``pipelined_loss_fn`` and of the
+  port's unsharded ``loss_fn``; its gradients within 2e-2 of the unsharded
+  ones (the reference's own pipeline bound);
 - the moe (``moe.ep`` off and on) and vlm smoke steps: loss within
   ``LOSS_REL``, grad_norm within ``NORM_REL`` (see
   ``test_sharded_family_step_equals_the_reference`` for which step each is
@@ -112,6 +114,9 @@ def _inputs(d: Path) -> None:
     wcfg = get_smoke_config("whisper_large_v3")
     frames = torch.tensor(rng.standard_normal((8, wcfg.enc_seq, wcfg.d_model)), dtype=torch.float32)
     inp["frames"] = frames.to(torch.bfloat16).float().numpy()
+    # the pipeline at two layers per stage: the smoke Yi-6B at 4 layers
+    cfg4 = cfg.replace(n_layers=4)
+    inp.update({f"pp4/{k}": v for k, v in _flat(transformer.init_params(0, cfg4, device="cpu")).items()})
     np.savez(d / "inputs.npz", **inp)
 
 
@@ -312,6 +317,34 @@ def test_pipeline_gradients_reach_both_stages(runs):
     assert abs(bubble_fraction(2, 2) - 1 / 3) < 1e-9
 
 
+def test_pipeline_two_layers_per_stage(runs):
+    """GPipe PP 2 x DP 4 on the smoke Yi-6B at 4 layers, two per stage: the
+    loss within ``LOSS_REL`` of the reference's ``pipelined_loss_fn`` and of
+    the port's unsharded ``loss_fn``; every leaf's gradient (the stage's two
+    layers of each stacked block leaf, the replicated embed, head and ln_f
+    whole) within 2e-2 of the largest of the unsharded gradient's matching
+    slice, both stages' blocks non-zero; 5 collective-permutes, as at one
+    layer per stage (the ring moves a microbatch's activations once per
+    tick, whatever a stage holds): 3 ticks forward, the transposes of the
+    first 2."""
+    ref, ranks, _ = runs
+    by_stage = {}
+    for out in ranks:
+        assert _rel(out["pp4/loss"], ref["pp4/loss"]) < LOSS_REL
+        assert _rel(out["pp4/loss"], out["pp4/loss1"]) < LOSS_REL
+        assert out["pp4/stats"]["counts_by_kind"]["collective-permute"] == 5
+        stage = out["pp4/stage"]
+        by_stage.setdefault(stage, out)
+        for name in out["pp4/grads"]:
+            got, want = tree_leaves(out["pp4/grads"][name]), tree_leaves(out["pp4/grads1"][name])
+            for a, b in zip(got, want):
+                if name == "blocks":
+                    b = b[2 * stage:2 * stage + 2]
+                    assert a.shape[0] == 2 and float(a.abs().max()) > 0
+                assert float((a.float() - b.float()).abs().max()) <= 2e-2 * float(b.abs().max())
+    assert sorted(by_stage) == [0, 1]
+
+
 FAMILY_CASES = [(f, q) for f in ("moe", "moe_ep", "vlm", "ssm", "hybrid", "encdec")
                 for q in ("none", "horner")]
 
@@ -403,7 +436,7 @@ def test_sharded_float32_gradients_equal_unsharded(runs, family):
         assert out[f"{family}/f32_grad_rel"] < F32_GRAD_REL, out[f"{family}/f32_grad_rel"]
 
 
-@pytest.mark.parametrize("key", ["none", "horner", "pp"] + [f"{f}/{q}" for f, q in FAMILY_CASES])
+@pytest.mark.parametrize("key", ["none", "horner", "pp", "pp4"] + [f"{f}/{q}" for f, q in FAMILY_CASES])
 def test_counting_mode_equals_the_live_collectives(runs, key):
     """Each rank's step run again on meta tensors over a shape-only mesh at
     the rank's coordinates issues the live step's collectives exactly."""

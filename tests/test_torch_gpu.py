@@ -853,6 +853,96 @@ def test_gpu_moe_ffn_equals_the_cpu(cuda, case):
 
 
 @pytest.mark.gpu
+def test_gpu_moe_engine_with_drops_equals_cpu_engine(cuda):
+    """OLMoE's smoke model (2 layers, 8 experts top-2; the attention linears
+    and the head int8 on the kernel route, router and experts bf16) served
+    by ``Engine`` at batch 8: every decode call routes the batch's 8 tokens
+    at cap 4 of 16 assignments per block, and the steps drop (quirk 3: a
+    token's drops depend on its batch mates).  Every block the card routes,
+    the CPU routes alike on the card's router logits (kept mask, token x
+    expert, equal).  Against the CPU engine, call by call: while every
+    block chooses each token's experts as the CPU engine's does, its kept
+    mask equals the CPU's and the logits are within ``LM_LOGIT_REL``; at
+    the first block whose choice parts, its router logits on the card are
+    within ``LM_LOGIT_REL`` of the largest of the CPU's (a choice that
+    parts on nearly equal logits parts at a near tie), and the comparison
+    stops there (a parting moves the drops of the expert it enters, and
+    after it the engines see different caches).
+    At least one step drops on the card and on the CPU."""
+    from repro_torch.models import moe
+
+    cfg = get_smoke_config("olmoe_1b_7b").replace(
+        quant=QuantConfig(mode="mma_int8", impl="kernel"))
+    params = quant.quantize_params_int8(transformer.init_params(0, cfg, device="cpu"),
+                                        min_dim=128)
+    batch, m = 8, cfg.moe
+    runs = []
+    for dev in (cuda, "cpu"):
+        rng = np.random.default_rng(0)
+        reqs = [Request(i, rng.integers(0, cfg.vocab, n).astype(np.int32), max_new=4)
+                for i, n in enumerate(rng.integers(3, 7, batch))]
+        eng = Engine(cfg, params, batch=batch, max_seq=32, device=dev)
+        logits, blocks, inner, dispatch = [], [], eng.decode_fn, moe._local_dispatch
+
+        def decode(*a, inner=inner, logits=logits):
+            out = inner(*a)
+            logits.append(out[0][:, -1].to(torch.float32).cpu())
+            return out
+
+        def recording(xf, lg, n_experts, top_k, cap, dtype, blocks=blocks):
+            buf, meta = dispatch(xf, lg, n_experts, top_k, cap, dtype)
+            eid_s, _, tok_s, _, keep = (t.cpu() for t in meta)
+            chosen = torch.zeros((xf.shape[0], n_experts), dtype=torch.bool)
+            chosen[tok_s, eid_s] = True
+            kept = torch.zeros_like(chosen)
+            kept[tok_s[keep], eid_s[keep]] = True
+            blocks.append(dict(cap=cap, chosen=chosen, kept=kept, logits=lg.float().cpu()))
+            return buf, meta
+
+        eng.decode_fn, moe._local_dispatch = decode, recording
+        try:
+            done = eng.run(reqs)
+            torch.cuda.synchronize()
+        finally:
+            moe._local_dispatch = dispatch
+        steps = len(logits) - sum(len(r.prompt) for r in reqs)
+        runs.append(([r.out for r in done], logits, blocks, steps))
+    (tok_g, lg_g, blk_g, steps), (tok_c, lg_c, blk_c, steps_c) = runs
+    n_layers = cfg.n_layers
+    assert len(lg_g) == len(lg_c) and len(blk_g) == len(blk_c) == n_layers * len(lg_g)
+    assert steps == steps_c > 0
+    assert all(b["cap"] == 4 for b in blk_g)
+    for blk in (blk_g, blk_c):  # drops at the steps: fewer than 16 kept in some block
+        assert any(int(b["kept"].sum()) < batch * m.top_k for b in blk[-n_layers * steps:])
+    for b in blk_g:  # the card's routing, as the CPU routes the card's logits
+        _, meta = moe._local_dispatch(torch.zeros((batch, 1)), b["logits"], m.n_experts,
+                                      m.top_k, b["cap"], torch.float32)
+        kept = torch.zeros_like(b["kept"])
+        kept[meta[2][meta[4]], meta[0][meta[4]]] = True
+        assert torch.equal(kept, b["kept"])
+    parted = False
+    for i, (a, b) in enumerate(zip(lg_g, lg_c)):
+        for bg, bc in zip(blk_g[i * n_layers:(i + 1) * n_layers],
+                          blk_c[i * n_layers:(i + 1) * n_layers]):
+            if not torch.equal(bg["chosen"], bc["chosen"]):
+                # a choice that parts on nearly equal logits: the gap it
+                # flips across is at most twice their difference
+                gap = float((bg["logits"] - bc["logits"]).abs().max() / bc["logits"].abs().max())
+                assert gap <= LM_LOGIT_REL, (i, gap)
+                parted = True
+                break
+            assert torch.equal(bg["kept"], bc["kept"])  # equal expert sets drop alike
+        if parted:
+            break
+        rel = float((a - b).abs().max() / b.abs().max())
+        assert rel <= LM_LOGIT_REL, f"decode call {i}: logits differ by {rel} of the largest"
+        if not torch.equal(a.argmax(-1), b.argmax(-1)):
+            break
+    else:
+        assert tok_g == tok_c
+
+
+@pytest.mark.gpu
 def test_gpu_checkpointer_keeps_cuda_tensors(cuda, tmp_path):
     """``save_async`` of CUDA tensors, then ``restore`` into CUDA ``like``
     leaves: every leaf back on the card, bit-equal, bf16 kept."""

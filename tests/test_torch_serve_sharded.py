@@ -41,6 +41,13 @@ steps:
 - (f) each rank's parameter and cache bytes equal ``specs.sharded_bytes``
   of their shardings (the dry run's ``argument_size_in_bytes``).
 
+``moe_ffn_ep``'s body at a decode step that drops (the smoke OLMoE's
+layer-0 MoE, ``EP_ROWS`` rows of one token) through the serving path's
+``sharded_lm.moe_serve``, against the reference's ``moe_ffn_ep`` on the same
+input: the routing exactly, the output within ``MOE_REL``.  (Served whole
+with a writing prefill of its own, a router near tie that the two packages'
+float sums break apart moves the capacity's drops, and the logits part.)
+
 Extra cases: Zamba2 at batch 2, where ``cache_shardings``' rule splits the
 group dim of its states over 'data' (the first dim equal to the batch), (a)
 and (c); and the 2-D serving mode on the smoke Yi-6B, with
@@ -79,6 +86,10 @@ ARCHS = {"dense": "yi_6b", "moe": "olmoe_1b_7b", "vlm": "internvl2_76b", "ssm": 
          "hybrid": "zamba2_7b", "encdec": "whisper_large_v3"}
 BATCH, PROMPT, STEPS = 4, 20, 4
 LONG_PROMPT = 100  # the writing prefill over several attention chunks (``_torch_ranks.SERVE_LONG_SEQ``)
+# moe_ffn_ep at a decode step: this many rows of one token
+# (``_torch_ranks.SERVE_EP_ROWS``), each data rank's 12 routed whole at cap 4
+EP_ROWS = 24
+MOE_REL = 1e-2  # test_torch_distributed.py's: bf16 expert sums in other orders
 
 
 def _flat(t, prefix=""):
@@ -109,6 +120,9 @@ def _inputs(d: Path) -> None:
         t = torch.tensor(rng.standard_normal(shape), dtype=torch.float32)
         inp[f"serve/{name}"] = t.to(torch.bfloat16).float().numpy()
     inp["serve/prompt_long"] = rng.integers(0, vocab, (BATCH, LONG_PROMPT)).astype(np.int32)
+    mcfg = get_smoke_config("olmoe_1b_7b")
+    x = torch.tensor(rng.standard_normal((EP_ROWS, 1, mcfg.d_model)), dtype=torch.float32)
+    inp["serve/moe_x"] = x.to(torch.bfloat16).float().numpy()
     np.savez(d / "inputs.npz", **inp)
 
 
@@ -360,6 +374,31 @@ def test_zamba2_batch_2_splits_the_groups_over_data(runs):
     b2 = ranks[0]["hybrid_b2/int8"]["decode"][0]["stats"]["counts_by_kind"]
     b4 = ranks[0]["hybrid/int8"]["decode"][0]["stats"]["counts_by_kind"]
     assert b2["all-gather"] > b4["all-gather"]
+
+
+def test_moe_ep_decode_with_drops_equals_the_reference(runs):
+    """``moe_ffn_ep``'s body at a decode step (the smoke OLMoE's layer 0,
+    ``moe.ep`` on, unquantized, ``EP_ROWS`` rows of one token) through the
+    serving path's ``sharded_lm.moe_serve`` on the (data 2, model 4) mesh,
+    against the reference's ``moe_ffn_ep`` on the same mesh and input: each
+    data rank's 12 rows are one slab on every model rank (1 token does not
+    split over 'model'), at cap 4 of 24 assignments, and the slabs drop.
+    Each rank's routing (expert ids, positions, token order, kept mask,
+    ``cap``) equals the reference's for its slab, and its output rows are
+    within ``MOE_REL`` of the reference's."""
+    ref, ranks = runs
+    assert int(ref["moe_ep_decode/cap"]) == 4
+    assert not all(ref[f"moe_ep_decode/{di}/keep"].all() for di in range(2))  # drops
+    want = ref["moe_ep_decode/y"]
+    for out in ranks:
+        di = out["mesh"][1]
+        (rt,) = out["moe_ep_decode/routes"]
+        assert rt["cap"] == 4
+        for k in ("eid", "pos", "tok", "keep"):
+            assert np.array_equal(rt[k].numpy(), ref[f"moe_ep_decode/{di}/{k}"]), k
+        got = out["moe_ep_decode/y"].numpy()
+        assert got.shape == (EP_ROWS // 2, 1, want.shape[-1])
+        assert _rel(got, _rank_rows(want, out, EP_ROWS)) <= MOE_REL
 
 
 def test_serving_modules_import_no_jax():
