@@ -18,7 +18,9 @@ printing its seconds; any failure ends the run with a non-zero exit:
    main paths' shapes (the U-Net's conv layers, Yi-6B's and OLMoE-1B-7B's
    decode linears; RWKV6-3B's and Zamba2-7B's at M 1-8 and 5 planes, and
    at M = 4 and 8 planes; the unscaled kernel at Zamba2's ``dt_proj``,
-   M 1-8, K 3584, N 112, at 8 and 5 planes);
+   M 1-8, K 3584, N 112, at 8 and 5 planes; the scaled kernel at phase
+   18's decode shapes: Granite-20B's, H2O-Danube3-4B's and DBRX-132B's, M 1,
+   4 and 8);
    for the unscaled kernel also its three staging paths (16-byte, 4-byte
    and byte copies, by K and N), operands whose base pointer is 1 or 4
    bytes off alignment, and ragged M on both block heights with every
@@ -114,7 +116,9 @@ printing its seconds; any failure ends the run with a non-zero exit:
    requests, each with a deadline: 35 interactive LM of 4+8 tokens, 11 batch
    of 24+4, 5 seg of 96x80) replayed open-loop through a ``Fabric`` of two
    phase-8 gateways (``deficit`` routing, work stealing, seed 0), the shards
-   sharing phase 8's minitron_4b weights and phase 7's plan; the trace's
+   sharing phase 8's minitron_4b weights cut to their first
+   ``FABRIC_LAYERS`` = 8 of 32 layers (views; its schedule cut alike, the
+   clock scale k taken on the cut model) and phase 7's plan; the trace's
    stamps, deadlines and round budget, the interactive SLO's latency
    target and the monitor's burn windows all scaled by phase 8's k.  Armed:
    a ``RecordingSink``, an ``SloMonitor`` (the capacity bench's specs), an
@@ -125,9 +129,9 @@ printing its seconds; any failure ends the run with a non-zero exit:
    equal the span-derived ones and ``stats()``'s; the meter's pJ ledger
    holds to the picojoule; every shard's ``stats()`` carries ``slo`` and
    ``energy`` blocks; the captured trace's requests equal the replayed
-   trace's; 225 scaled launches per decode call and 7 unscaled per seg
+   trace's; 57 scaled launches per decode call and 7 unscaled per seg
    micro-batch; each shard's first decode-step call bit-exact against the
-   plain version on all 225 linears; every seg request's logits equal its
+   plain version on all 57 linears; every seg request's logits equal its
    image served alone.  Prints the replay's host wall, decode calls and
    micro-batches per shard, routes and steals, per-class modeled
    latencies and misses, and metered and analytic GOPS/W (the FPGA model).
@@ -389,6 +393,45 @@ printing its seconds; any failure ends the run with a non-zero exit:
    2048, and w_down, K 5504, N 4096) at a decode step's M = 4 and the
    writing prefill's M = 1024 (w cold) against ``torch._int_mm``, the bound
    and the plane-work floor, and summed over the 64 calls of a step.
+18. The last LM configs and the long_500k cell (main path 13), after phases
+   16-17's ranks have ended.  (a) Granite-20B at full width and depth (52
+   layers, d 6144, 48 heads, one KV head, d_ff 24,576, the GELU MLP with
+   biases, vocab 49,152; every linear int8: quantized at a min_dim of 128,
+   so the MQA's 6144 x 128 wk/wv too) and (b) H2O-Danube3-4B at full width
+   and depth (24 layers, d 3840, head_dim 120, 8 KV heads, window 4,096)
+   serve phase 5's traffic through ``Engine.run`` with phase 5's checks
+   (``lm_serving``): 313 and 169 scaled launches per decode call, the
+   recorded call bit-exact, its logits within ``LM_LOGIT_REL`` of the
+   Horner route; times as phase 6 (each decode shape with w cold, the
+   recorded call as one graph, ``torch._int_mm`` + scale, the bound).  (c)
+   DBRX-132B at full width, ``DBRX_LAYERS`` = 8 of its 40 layers (16
+   experts top-4 of d_ff 10,752: 6.342 GB of bf16 experts per layer; the
+   attention and the head of N = 100,352 int8; ``moe.ep`` falls back to
+   ``moe_ffn`` on one card under ``mma_int8``, as in the reference), served
+   as phase 11 serves OLMoE-1B-7B: 33 scaled launches per decode call, the
+   recorded call bit-exact and its logits vs the Horner route, its last
+   MoE block card vs CPU (``moe_card_vs_cpu``: routing exact, output within
+   ``MOE_REL``), the decode call's 8 MoE blocks graph-timed against their
+   bytes bound (50.7 GB), the times of (a).  (d) The long_500k cell on
+   Danube at full depth: ``serve_step.init_serving_cache(cfg, 1, 524288)``
+   (48.32 GB of bf16 K/V), a writing prefill of a ``LONG_PROMPT`` = 4,096
+   token prompt through ``serve_step.make_decode``'s step at 524,288 - 4,096
+   - 16 (the chunked attention walks the chunks its window reaches), then
+   ``LONG_STEPS`` = 16 greedy decode steps, the last at position 524,287:
+   169 scaled launches per call; the last step's linears bit-exact, the step
+   repeated at its index bit-equal, its logits within ``LM_LOGIT_REL`` of
+   the Horner route, and, after every cache position its query masks (k <=
+   524,287 - 4,096) is overwritten with seeded noise in place, its logits
+   bit-equal again.  (e) The long_500k cell on Zamba2-7B at
+   ``LONG_ZAMBA_LAYERS`` = 18 of 81 layers (3 of 13 shared-attention
+   groups, each K/V cache (1, 524,288, 32, 224) bf16: 45.1 GB), 5 planes,
+   its whole state drawn from a seed (``seeded_state``), ``LONG_ZAMBA_STEPS``
+   = 8 decode steps ending at 524,287: 70 scaled and 18 unscaled
+   (``dt_proj``) launches per step, the last step's kernel calls bit-exact,
+   and the last group's shared attention over all 524,288 keys on the CPU
+   (q, K and V copied to the host) within ``LONG_ATTN_REL`` of the card's.
+   (d) and (e) print the host wall per step and the device time of a step's
+   attention calls against the cache's bytes bound.
 
 The lines before the last three print each kernel's detail (per shape and
 per path); the line before the last is a JSON object naming every kernel
@@ -626,6 +669,32 @@ SERVE_MORE = (("internvl2_76b", "internvl2_76b", "InternVL2-76B", dict(n_layers=
                4, 4, dict(max_seq=SERVE_LONG_SEQ, prompt=SERVE_LONG_PROMPT)),
               ("zamba2_7b_b2", "zamba2_7b", "Zamba2-7B at 2 rows (groups over data)",
                dict(n_layers=13), 2, 4, dict(groups_over_data=True)))
+# Phase 18: the last three LM configs at full width, phase 5's traffic each:
+# Granite-20B (MQA, the GELU MLP with biases) and H2O-Danube3-4B at full
+# depth; DBRX-132B (16 experts top-4, 6.342 GB of bf16 experts per layer)
+# with its depth cut to 8 of 40 layers: 50.7 GB of experts (all 40 would be
+# 254 GB), about 53 GB with the int8 attention, head and bf16 embedding.
+DBRX_LAYERS = 8
+# The long_500k cell (configs.base.SHAPES: 524,288 positions, batch 1,
+# decode).  H2O-Danube3-4B at full depth: a cache of 524,288 positions (48.32
+# GB of bf16 K/V), a writing prefill of one window of prompt (4,096 tokens)
+# and LONG_STEPS decode steps, the last at position 524,287.  Zamba2-7B at
+# 18 of 81 layers: 3 of its 13 shared-attention groups, each group's K/V
+# cache (1, 524,288, 32, 224) bf16 x2, 15.03 GB (45.1 GB for 3; all 13 would
+# be 195 GB), the state drawn from a seed (prefilling 524,288 tokens through
+# the Mamba2 layers is not run), LONG_ZAMBA_STEPS decode steps.
+LONG_SEQ, LONG_PROMPT, LONG_STEPS = 524_288, 4096, 16
+LONG_ZAMBA_LAYERS, LONG_ZAMBA_STEPS = 18, 8
+# One shared-attention call over 524,288 keys, card against CPU, relative to
+# the largest output: the same function on the same bf16 q, K and V, rounded
+# to bf16 four times on the way (the scores' einsum, p, the p @ v einsum,
+# the output), each rounding free to land the other way where the card and
+# the CPU sum in other orders: about four bf16 ulps (2**-8 each).
+LONG_ATTN_REL = 2e-2
+# Phase 10 replays the fabric on minitron_4b cut to its first 8 of 32 layers
+# (views of phase 8's weights): a decode call's 57 scaled launches take
+# about a quarter of the full depth's host and device time.
+FABRIC_LAYERS = 8
 # the keys of each kernel's entry in the kernels line; the rest of its
 # summary is printed on a [detail] line before it
 KERNEL_KEYS = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
@@ -1703,10 +1772,13 @@ def spec_decoding(torch, np, dev, card, cfg, params):
 
 def block_linears(cfg) -> int:
     """Scaled-kernel linears per block: the four attention projections and,
-    in the dense family, the three MLP ones.  MoE experts and the router
-    stay bf16: ``quantize_params_int8`` rewrites only ``{"w"}`` linears
-    whose last two dims are both >= 256."""
-    return 4 if cfg.moe.n_experts else 7
+    in the dense family, the MLP's three (SwiGLU) or two (Granite's GELU
+    MLP: up and down, with biases).  MoE experts and the router stay bf16:
+    ``quantize_params_int8`` rewrites only ``{"w"}`` linears whose last two
+    dims are both >= 256."""
+    if cfg.moe.n_experts:
+        return 4
+    return 7 if cfg.act == "swiglu" else 6
 
 
 def scaled_linears(cfg) -> int:
@@ -1728,17 +1800,19 @@ def lm_decode_shapes(cfg):
     d, q, kv = cfg.d_model, cfg.n_heads * cfg.hd, cfg.n_kv_heads * cfg.hd
     lin = [("wq", d, q), ("wo", q, d), ("wk", d, kv), ("wv", d, kv)]
     if not cfg.moe.n_experts:
-        lin += [("w_gate", d, cfg.d_ff), ("w_up", d, cfg.d_ff), ("w_down", cfg.d_ff, d)]
+        lin += [("w_gate", d, cfg.d_ff)] if cfg.act == "swiglu" else []
+        lin += [("w_up", d, cfg.d_ff), ("w_down", cfg.d_ff, d)]
     return distinct_shapes(lin + [("head", d, cfg.vocab)])
 
 
 def lm_serving(torch, np, dev, cfg, *, tag="lm", label="Yi-6B", expect=225, batch=LM_BATCH,
-               params=None, prompt_len=(4, 9)):
+               params=None, prompt_len=(4, 9), int8_min_dim=256):
     """An LM at full width served through ``Engine.run``: main path 2
     (Yi-6B) and, for the moe family, main path 6 (OLMoE-1B-7B).  ``batch``
     requests of ``prompt_len`` (low, high: numpy's ``integers``) prompt
     tokens (numpy seed 0) in as many slots; ``params``: the model's weights
-    already on the card (else drawn).  The
+    already on the card (else drawn, every linear whose last two dims are
+    both at least ``int8_min_dim`` quantized to int8).  The
     recorded call's logits are held to the Horner route's at ``LM_BATCH``
     (quirk 1: one activation scale per tensor against one per row, a gap
     that grows with the rows one scale spans) and printed at other batches.
@@ -1749,7 +1823,6 @@ def lm_serving(torch, np, dev, cfg, *, tag="lm", label="Yi-6B", expect=225, batc
     from repro_torch.configs.base import QuantConfig
     from repro_torch.core import bitplane
     from repro_torch.kernels import mma_matmul as mk
-    from repro_torch.kernels import ops
     from repro_torch.models import moe as moe_lib
     from repro_torch.models import transformer
     from repro_torch.obs.events import RecordingSink
@@ -1758,11 +1831,11 @@ def lm_serving(torch, np, dev, cfg, *, tag="lm", label="Yi-6B", expect=225, batc
 
     t0 = time.perf_counter()
     if params is None:
-        params = transformer.init_params(0, cfg, device=dev, int8_min_dim=256)
+        params = transformer.init_params(0, cfg, device=dev, int8_min_dim=int8_min_dim)
         torch.cuda.synchronize()
     blocks = params["blocks"]
     linears = [blocks["attn"][n] for n in ("wq", "wk", "wv", "wo")] + \
-        [blocks["mlp"][n] for n in ("w_gate", "w_up", "w_down") if "mlp" in blocks] + \
+        [blocks["mlp"][n] for n in ("w_gate", "w_up", "w_down") if n in blocks.get("mlp", {})] + \
         [params["head"]]
     check(all("w_q" in p and "w" not in p for p in linears),
           f"a {label} linear stayed in float after quantize_params_int8")
@@ -1792,13 +1865,8 @@ def lm_serving(torch, np, dev, cfg, *, tag="lm", label="Yi-6B", expect=225, batc
     # call it makes and every MoE block's input and output.  Recording adds
     # no launch.
     record_at = sum(len(p) for p in prompts)
-    rec = {"calls": [], "moe": []}
-    decode, scaled, moe_ffn = engine.decode_fn, ops.mma_matmul_scaled, moe_lib.moe_ffn
-
-    def recording_scaled(x, w, xs, ws, **kw):
-        out = scaled(x, w, xs, ws, **kw)
-        rec["calls"].append((x, w, xs, ws, kw["planes"], out))
-        return out
+    rec = {"moe": []}
+    decode, moe_ffn = engine.decode_fn, moe_lib.moe_ffn
 
     def recording_moe(p, x, c):
         out = moe_ffn(p, x, c)
@@ -1811,11 +1879,12 @@ def lm_serving(torch, np, dev, cfg, *, tag="lm", label="Yi-6B", expect=225, batc
         if n != record_at:
             return decode(p, toks, cache, idx, extras)
         rec["args"] = (toks.copy(), {k: v.clone() for k, v in cache.items()}, idx.copy())
-        ops.mma_matmul_scaled, moe_lib.moe_ffn = recording_scaled, recording_moe
+        moe_lib.moe_ffn = recording_moe
         try:
-            logits, cache = decode(p, toks, cache, idx, extras)
+            with recorded_calls(rec):
+                logits, cache = decode(p, toks, cache, idx, extras)
         finally:
-            ops.mma_matmul_scaled, moe_lib.moe_ffn = scaled, moe_ffn
+            moe_lib.moe_ffn = moe_ffn
         rec["logits"] = logits.clone()
         return logits, cache
 
@@ -1847,11 +1916,11 @@ def lm_serving(torch, np, dev, cfg, *, tag="lm", label="Yi-6B", expect=225, batc
 
     # the recorded call: every scaled linear bit for bit against the plain
     # version, and within a few ulp of the Horner path's epilogue
-    check(len(rec["calls"]) == per_call, f"{len(rec['calls'])} scaled calls recorded")
+    check(len(rec["scaled"]) == per_call, f"{len(rec['scaled'])} scaled calls recorded")
     check(len(rec["moe"]) == (cfg.n_layers if cfg.moe.n_experts else 0),
           f"{len(rec['moe'])} MoE blocks recorded")
     epi = 0.0
-    for x, w, xs, ws, planes, out in rec["calls"]:
+    for x, w, xs, ws, planes, out in rec["scaled"]:
         k, n = w.shape
         x2, o2 = x.reshape(-1, k), out.reshape(-1, n)
         want = mk.mma_matmul_scaled_plain(x2, w, xs, ws, planes=planes)
@@ -1876,7 +1945,7 @@ def lm_serving(torch, np, dev, cfg, *, tag="lm", label="Yi-6B", expect=225, batc
           f"{rel:.4f} ({f'limit {LM_LOGIT_REL}' if batch == LM_BATCH else 'not gated'} at batch "
           f"{batch}), top-1 agreement {agree:.2f}, "
           f"max |logit| {float(lhf.abs().max()):.3f}")
-    return dict(calls=rec["calls"], moe=rec["moe"], params=params, launches=launches,
+    return dict(calls=rec["scaled"], moe=rec["moe"], params=params, launches=launches,
                 unscaled=unscaled, wall_s=wall_s, decode_calls=calls, logits_rel=rel)
 
 
@@ -2063,15 +2132,37 @@ def moe_card_vs_cpu(torch, p, x, cfg, y=None):
                 router_logits_differ=int((own != logits.cpu()).sum()))
 
 
+def moe_blocks_time(torch, card, cfg, moe_p, recorded, label):
+    """Device time of one decode call's MoE blocks: the recorded call's
+    blocks (``recorded``: each layer's (input, output)) replayed as one CUDA
+    graph, against their bound: each block reads every expert's weights.
+    Returns (ms, bound ms, bytes)."""
+    from repro_torch.bench.table1 import graph_ms
+    from repro_torch.models import moe as moe_lib
+
+    m, d, f = cfg.moe, cfg.d_model, cfg.moe.expert_ff
+    ms = graph_ms(torch, lambda: [moe_lib.moe_ffn(p, x, cfg) for p, (x, _) in
+                                  zip(moe_p, recorded)], calls=1)
+    t = recorded[0][0].numel() // d
+    nbytes = cfg.n_layers * (3 * m.n_experts * d * f * 2 + d * m.n_experts * 2 + 2 * t * d * 2)
+    nops = cfg.n_layers * (2 * t * d * m.n_experts + 3 * 2 * t * m.top_k * d * f)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, nops / BF16_OPS_PER_S * 1e3
+    b_ms = max(t_bytes, t_ops)
+    print(f"[time] {card} | {label} MoE blocks of one decode call ({cfg.n_layers} blocks at "
+          f"T={t}, one CUDA graph; stock PyTorch): {ms:.4f} ms, bound {b_ms:.4f} ms "
+          f"({'bytes' if t_bytes >= t_ops else 'operations'}: {nbytes / 1e9:.3f} GB at "
+          f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s), {nbytes / ms / 1e6:.0f} GB/s")
+    return ms, b_ms, nbytes
+
+
 def moe_serving(torch, np, dev, card, cfg):
     """Phase 11, MoE serving (main path 6): OLMoE-1B-7B at full width and
     depth through ``Engine.run``, its MoE blocks on the card against the
     CPU, and its times."""
-    from repro_torch.bench.table1 import graph_ms
-    from repro_torch.models import moe as moe_lib
     from repro_torch.models import transformer
 
     t_phase = time.perf_counter()
+    m = cfg.moe
     lm = lm_serving(torch, np, dev, cfg, tag="moe", label="OLMoE-1B-7B", expect=65)
     blocks = lm["params"]["blocks"]
     moe_p = [transformer.layer_params(blocks, l)["moe"] for l in range(cfg.n_layers)]
@@ -2094,20 +2185,7 @@ def moe_serving(torch, np, dev, card, cfg):
               f"the card's in {r['router_logits_differ']} of {r['t'] * cfg.moe.n_experts} logits "
               f"(not gated)")
 
-    # device time of one decode call's MoE blocks: the recorded call's 16
-    # blocks replayed as one CUDA graph; each reads every expert's weights
-    m, d, f = cfg.moe, cfg.d_model, cfg.moe.expert_ff
-    ms = graph_ms(torch, lambda: [moe_lib.moe_ffn(p, x, cfg) for p, (x, _) in
-                                  zip(moe_p, lm["moe"])], calls=1)
-    t = LM_BATCH
-    nbytes = cfg.n_layers * (3 * m.n_experts * d * f * 2 + d * m.n_experts * 2 + 2 * t * d * 2)
-    nops = cfg.n_layers * (2 * t * d * m.n_experts + 3 * 2 * t * m.top_k * d * f)
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, nops / BF16_OPS_PER_S * 1e3
-    b_ms = max(t_bytes, t_ops)
-    print(f"[time] {card} | OLMoE-1B-7B MoE blocks of one decode call ({cfg.n_layers} blocks at "
-          f"T={t}, one CUDA graph; stock PyTorch): {ms:.4f} ms, bound {b_ms:.4f} ms "
-          f"({'bytes' if t_bytes >= t_ops else 'operations'}: {nbytes / 1e9:.3f} GB at "
-          f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s), {nbytes / ms / 1e6:.0f} GB/s")
+    ms, b_ms, nbytes = moe_blocks_time(torch, card, cfg, moe_p, lm["moe"], "OLMoE-1B-7B")
     times = lm_times(torch, dev, card, lm, lm_decode_shapes(cfg), label="OLMoE-1B-7B")
 
     # the same weights at batch MOE_DROP_BATCH: the recorded decode call's 16
@@ -2265,7 +2343,6 @@ def recurrent_serving(torch, np, dev, card, cfg, *, tag, label, phase):
     from repro_torch.configs.base import QuantConfig
     from repro_torch.core import mma
     from repro_torch.kernels import mma_matmul as mk
-    from repro_torch.kernels import ops
     from repro_torch.models import layers, mamba2, rwkv6
     from repro_torch.obs.events import RecordingSink
     from repro_torch.serve import Engine, Request
@@ -2293,20 +2370,10 @@ def recurrent_serving(torch, np, dev, card, cfg, *, tag, label, phase):
     # its inputs, a copy of the state before it, every kernel call it makes
     # and its last block's inputs and outputs.  Recording adds no launch.
     record_at = sum(len(p) for p in prompts)
-    rec = {"scaled": [], "unscaled": [], "n": 0}
-    decode, scaled, unscaled = engine.decode_fn, ops.mma_matmul_scaled, ops.mma_matmul
+    rec = {"n": 0}
+    decode = engine.decode_fn
     block_fn = (rwkv6, "block") if mod is rwkv6 else (mamba2, "mamba_forward")
     inner_block = getattr(*block_fn)
-
-    def recording_scaled(x, w, xs, ws, **kw):
-        out = scaled(x, w, xs, ws, **kw)
-        rec["scaled"].append((x, w, xs, ws, kw["planes"], out))
-        return out
-
-    def recording_unscaled(x, w, **kw):
-        out = unscaled(x, w, **kw)
-        rec["unscaled"].append((x.reshape(-1, w.shape[0]), w, kw["planes"], out))
-        return out
 
     def recording_block(p, x, c, *, state=None):
         out, new = inner_block(p, x, c, state=state)
@@ -2319,12 +2386,11 @@ def recurrent_serving(torch, np, dev, card, cfg, *, tag, label, phase):
         if n != record_at:
             return decode(p, toks, cache, idx, extras)
         rec["args"] = (toks.copy(), layers.tree_map(torch.clone, cache), idx)
-        ops.mma_matmul_scaled, ops.mma_matmul = recording_scaled, recording_unscaled
         setattr(*block_fn, recording_block)
         try:
-            logits, cache = decode(p, toks, cache, idx, extras)
+            with recorded_calls(rec):
+                logits, cache = decode(p, toks, cache, idx, extras)
         finally:
-            ops.mma_matmul_scaled, ops.mma_matmul = scaled, unscaled
             setattr(*block_fn, inner_block)
         rec["logits"] = logits.clone()
         return logits, cache
@@ -2369,14 +2435,7 @@ def recurrent_serving(torch, np, dev, card, cfg, *, tag, label, phase):
     # version; its logits against the same call on the Horner route
     check(len(rec["scaled"]) == per_s and len(rec["unscaled"]) == per_u,
           f"{len(rec['scaled'])} scaled and {len(rec['unscaled'])} unscaled calls recorded")
-    for x, w, xs, ws, planes, out in rec["scaled"]:
-        k, n = w.shape
-        want = mk.mma_matmul_scaled_plain(x.reshape(-1, k), w, xs, ws, planes=planes)
-        check(torch.equal(out.reshape(-1, n), want),
-              f"recorded call: scaled linear K={k} N={n} != plain")
-    for x, w, planes, out in rec["unscaled"]:
-        check(torch.equal(out.reshape(x.shape[0], -1), mk.mma_matmul_plain(x, w, planes=planes)),
-              f"recorded call: unscaled linear K={w.shape[0]} N={w.shape[1]} != plain")
+    recorded_kernels_exact(torch, rec, "recorded call")
     # The recorded call's logits, kernel route vs Horner route from the same
     # state: at the served planes measured, not gated; at 8 planes gated
     # (quirk 1: the kernel route's one activation scale per tensor and the
@@ -5381,6 +5440,339 @@ def serving_gates(torch, np, dev, card, outs: list, preds: dict, yards: dict) ->
                                       prefill=by_m[m * SERVE_PROMPT]))
 
 
+def served_config(torch, np, dev, card, cfg, tag, label, int8_min_dim=256):
+    """Phase 18(a)-(c): one LM config at full width served through
+    ``Engine.run`` at phase 5's traffic with the recorded call's checks
+    (``lm_serving``); for the moe family the recorded call's last MoE block
+    card vs CPU and the decode call's MoE blocks graph-timed; the scaled
+    kernel's times at its decode shapes and over the recorded call.
+    Returns the scaled kernel's entries for this path, keyed by ``tag``."""
+    from repro_torch.models import transformer
+
+    t_part = time.perf_counter()
+    lm = lm_serving(torch, np, dev, cfg, tag=tag, label=label, expect=scaled_linears(cfg),
+                    int8_min_dim=int8_min_dim)
+    out = {f"launches_{tag}": lm["launches"], f"{tag}_decode_calls": lm["decode_calls"],
+           f"{tag}_wall_s": lm["wall_s"], f"{tag}_logits_rel": lm["logits_rel"]}
+    if cfg.moe.n_experts:
+        blocks = lm["params"]["blocks"]
+        moe_p = [transformer.layer_params(blocks, l)["moe"] for l in range(cfg.n_layers)]
+        x_rec, y_rec = lm["moe"][-1]
+        rec = moe_card_vs_cpu(torch, moe_p[-1], x_rec, cfg, y_rec)
+        print(f"[{tag}] MoE block card vs CPU (recorded call, last layer): T={rec['t']} cap "
+              f"{rec['cap']}, {rec['assignments']} assignments, {rec['dropped']} dropped; "
+              f"routing and dispatch buffer equal, gate weights max diff "
+              f"{rec['gate_max_diff']:.3g}; output max rel {rec['rel']:.3g} (limit {MOE_REL}); "
+              f"the CPU's own router product differs from the card's in "
+              f"{rec['router_logits_differ']} of {rec['t'] * cfg.moe.n_experts} logits (not gated)")
+        ms, b_ms, nbytes = moe_blocks_time(torch, card, cfg, moe_p, lm["moe"], label)
+        out.update({f"{tag}_moe_recorded": rec, f"{tag}_moe_blocks_ms": ms,
+                    f"{tag}_moe_blocks_bound_ms": b_ms, f"{tag}_moe_blocks_bytes": nbytes})
+        del moe_p, blocks
+    times = lm_times(torch, dev, card, lm, lm_decode_shapes(cfg), label=label)
+    out.update({f"{tag}_call_{k}": times[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms")})
+    out[f"{tag}_per_shape"] = times["per_shape"]
+    del lm
+    torch.cuda.empty_cache()
+    out[f"{tag}_s"] = time.perf_counter() - t_part
+    print(f"[{tag}] {label} took {out[f'{tag}_s']:.1f} s")
+    return out
+
+
+@contextlib.contextmanager
+def recorded_calls(rec: dict):
+    """While open, every scaled- and unscaled-kernel call and every
+    ``layers.flash_attention`` call is appended to ``rec`` (``scaled``: (x,
+    w, xs, ws, planes, out); ``unscaled``: (x as 2-D, w, planes, out);
+    ``attn``: (q, k, v, keywords, out)).  Recording adds no launch."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import layers
+
+    scaled, unscaled, flash = ops.mma_matmul_scaled, ops.mma_matmul, layers.flash_attention
+    for key in ("scaled", "unscaled", "attn"):
+        rec.setdefault(key, [])
+
+    def rec_scaled(x, w, xs, ws, **kw):
+        out = scaled(x, w, xs, ws, **kw)
+        rec["scaled"].append((x, w, xs, ws, kw["planes"], out))
+        return out
+
+    def rec_unscaled(x, w, **kw):
+        out = unscaled(x, w, **kw)
+        rec["unscaled"].append((x.reshape(-1, w.shape[0]), w, kw["planes"], out))
+        return out
+
+    def rec_flash(q, k, v, **kw):
+        out = flash(q, k, v, **kw)
+        rec["attn"].append((q, k, v, kw, out))
+        return out
+
+    ops.mma_matmul_scaled, ops.mma_matmul = rec_scaled, rec_unscaled
+    layers.flash_attention = rec_flash
+    try:
+        yield rec
+    finally:
+        ops.mma_matmul_scaled, ops.mma_matmul = scaled, unscaled
+        layers.flash_attention = flash
+
+
+def recorded_kernels_exact(torch, rec: dict, what: str) -> None:
+    """Every recorded scaled and unscaled kernel call bit for bit against
+    its plain version."""
+    from repro_torch.kernels import mma_matmul as mk
+
+    for x, w, xs, ws, planes, out in rec["scaled"]:
+        k, n = w.shape
+        want = mk.mma_matmul_scaled_plain(x.reshape(-1, k), w, xs, ws, planes=planes)
+        check(torch.equal(out.reshape(-1, n), want), f"{what}: scaled linear K={k} N={n} != plain")
+    for x, w, planes, out in rec["unscaled"]:
+        check(torch.equal(out.reshape(x.shape[0], -1), mk.mma_matmul_plain(x, w, planes=planes)),
+              f"{what}: unscaled linear K={w.shape[0]} N={w.shape[1]} != plain")
+
+
+def attention_times(torch, rec: dict, nbytes: int) -> tuple[float, float]:
+    """Device time of a recorded step's attention calls over their caches,
+    by CUDA events around the calls (each reads gigabytes, so the host's
+    issue time is not what is timed), and their bytes bound: every cached
+    key and value read once."""
+    from repro_torch.models import layers
+
+    calls = [(q, k, v, kw) for q, k, v, kw, _ in rec["attn"]]
+    ms = time_ms(torch, lambda: [layers.flash_attention(q, k, v, **kw) for q, k, v, kw in calls],
+                 reps=3, warmup=1)
+    return ms, nbytes / HBM_BYTES_PER_S * 1e3
+
+
+def long_danube(torch, np, dev, card) -> dict:
+    """Phase 18(d): the long_500k cell on H2O-Danube3-4B at full width and
+    depth (the module's docstring says what runs and what is gated).
+    Returns the scaled kernel's entries for this path."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import QuantConfig
+    from repro_torch.kernels import mma_matmul as mk
+    from repro_torch.models import transformer
+    from repro_torch.serve import serve_step
+    from repro_torch.serve.engine import lm_schedule_from_params
+
+    t_part = time.perf_counter()
+    cfg = get_config("h2o_danube_3_4b")
+    win = cfg.swa_window
+    params = transformer.init_params(0, cfg, device=dev, int8_min_dim=256)
+    sched = lm_schedule_from_params(params, cfg, 0.05)
+    kcfg = cfg.replace(quant=QuantConfig(mode="mma_int8", impl="kernel",
+                                         plane_schedule=sched.planes))
+    decode, spec = serve_step.make_decode(kcfg, 1, LONG_SEQ, device=dev)
+    cache = serve_step.init_serving_cache(kcfg, 1, LONG_SEQ, device=dev)
+    check({k: tuple(t.shape) for k, t in cache.items()}
+          == {k: tuple(t.shape) for k, t in spec.items()}, "the cache is not make_decode's layout")
+    cache_bytes = sum(t.numel() * t.element_size() for t in cache.values())
+    torch.cuda.synchronize()
+    print(f"[long] H2O-Danube3-4B long_500k: {cfg.n_layers} layers, window {win}, cache "
+          f"{tuple(cache['k'].shape)} x2 bf16, {cache_bytes / 1e9:.2f} GB; "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated; {sched.describe()}")
+    rng = np.random.default_rng(LONG_SEQ)
+    start = LONG_SEQ - LONG_PROMPT - LONG_STEPS
+    prompt = rng.integers(0, cfg.vocab, (1, LONG_PROMPT)).astype(np.int32)
+    mk.launches = mk.scaled_launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    logits, cache = decode(params, prompt, cache, start, {})
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    prefill_peak = torch.cuda.max_memory_allocated()
+    check(logits.shape == (1, LONG_PROMPT, cfg.vocab) and bool(torch.isfinite(logits).all()),
+          f"long prefill: logits {tuple(logits.shape)} not finite or of the wrong shape")
+    tok = int(logits[0, -1].float().argmax())
+    del logits
+    rec, step_s = {}, []
+    for i in range(LONG_STEPS):
+        idx, last = start + LONG_PROMPT + i, i == LONG_STEPS - 1
+        x = np.array([[tok]], np.int32)
+        if last:
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with recorded_calls(rec) if last else contextlib.nullcontext():
+            lg, cache = decode(params, x, cache, idx, {})
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        tok = int(lg[0, -1].float().argmax())
+    step_peak = torch.cuda.max_memory_allocated()
+    launches, unscaled = mk.scaled_launches, mk.launches
+    per_call = scaled_linears(cfg)
+    check(idx == LONG_SEQ - 1, f"the last step at {idx}, not {LONG_SEQ - 1}")
+    check(launches == per_call * (1 + LONG_STEPS) and unscaled == 0,
+          f"{launches} scaled and {unscaled} unscaled launches for a prefill and {LONG_STEPS} "
+          f"steps, expected {per_call} scaled per call")
+    check(lg.shape == (1, 1, cfg.vocab) and bool(torch.isfinite(lg).all()),
+          f"long decode: logits {tuple(lg.shape)} not finite or of the wrong shape")
+    check(len(rec["scaled"]) == per_call and len(rec["attn"]) == cfg.n_layers,
+          f"{len(rec['scaled'])} scaled and {len(rec['attn'])} attention calls recorded")
+    recorded_kernels_exact(torch, rec, "long_500k recorded step")
+    # the step again at its index (it rewrites its own position before it
+    # reads the cache), on the Horner route, and with the positions its
+    # query masks (k <= idx - window) overwritten by seeded noise in place
+    again, _ = decode(params, x, cache, idx, {})
+    check(torch.equal(again, lg), "the recorded step repeated at its index differs")
+    hcfg = kcfg.replace(quant=dataclasses.replace(kcfg.quant, impl="horner"))
+    lh, _ = transformer.decode_step(params, x, cache, idx, hcfg, device=dev)
+    rel = _rel(lg, lh)
+    check(rel <= LM_LOGIT_REL, f"long_500k recorded step: logits kernel vs Horner differ by {rel}")
+    masked = idx - win + 1
+    g = torch.Generator(device=dev).manual_seed(LONG_SEQ)
+    for t in cache.values():
+        t[:, :, :masked].normal_(generator=g)
+    check(bool((cache["k"][:, :, 0] != 0).any()), "no noise written")
+    noisy, _ = decode(params, x, cache, idx, {})
+    check(torch.equal(noisy, lg), "logits moved when the positions outside the window changed")
+    attn_ms, attn_bound = attention_times(torch, rec, cache_bytes)
+    print(f"[long] {card} | H2O-Danube3-4B long_500k: prefill of {LONG_PROMPT} tokens at "
+          f"{start} in {prefill_s:.2f} s host wall (peak {prefill_peak / 2**30:.2f} GiB), "
+          f"{LONG_STEPS} decode steps at {start + LONG_PROMPT}..{idx}: host wall per step "
+          f"{statistics.mean(step_s) * 1e3:.1f} ms (min {min(step_s) * 1e3:.1f}, max "
+          f"{max(step_s) * 1e3:.1f}; the last step's peak {step_peak / 2**30:.2f} GiB), "
+          f"{launches} scaled launches ({per_call} per call); the recorded step at {idx}: "
+          f"{per_call} linears bit-exact against the plain version, repeated bit-equal, logits "
+          f"vs Horner route max rel {rel:.4f} (limit {LM_LOGIT_REL}); positions 0..{masked - 1} "
+          f"(outside the window) overwritten with noise: logits bit-equal; its "
+          f"{len(rec['attn'])} attention calls over the cache {attn_ms:.3f} ms, bound "
+          f"{attn_bound:.3f} ms (bytes: {cache_bytes / 1e9:.2f} GB at "
+          f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s)")
+    del rec, cache, params, again, lh, noisy, lg
+    torch.cuda.empty_cache()
+    part_s = time.perf_counter() - t_part
+    print(f"[long] H2O-Danube3-4B long_500k took {part_s:.1f} s")
+    return dict(launches_long_danube=launches, long_danube_prefill_s=prefill_s,
+                long_danube_step_ms=[s * 1e3 for s in step_s], long_danube_logits_rel=rel,
+                long_danube_attn_ms=attn_ms, long_danube_attn_bound_ms=attn_bound,
+                long_danube_cache_bytes=cache_bytes, long_danube_peak_bytes=step_peak,
+                long_danube_prefill_peak_bytes=prefill_peak, long_danube_s=part_s)
+
+
+def seeded_state(state: dict, g) -> None:
+    """A Zamba2 decode state filled in place from ``g``: the shared block's
+    K/V caches and the conv windows standard normal, the float32 SSM states
+    at 0.1 of it (the scales tests/test_torch_zamba2.py draws)."""
+    for name, node in state.items():
+        if isinstance(node, dict):
+            seeded_state(node, g)
+        else:
+            node.normal_(0.0, 0.1 if name == "ssm" else 1.0, generator=g)
+
+
+def long_zamba2(torch, np, dev, card) -> tuple[dict, dict]:
+    """Phase 18(e): the long_500k cell on Zamba2-7B at full width, its depth
+    cut (the module's docstring says what runs and what is gated).  Returns
+    the scaled and unscaled kernels' entries for this path."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import QuantConfig
+    from repro_torch.kernels import mma_matmul as mk
+    from repro_torch.models import layers, zamba2
+    from repro_torch.serve import serve_step
+
+    t_part = time.perf_counter()
+    cfg = get_config("zamba2_7b").replace(n_layers=LONG_ZAMBA_LAYERS)
+    params = zamba2.init_params(0, cfg, device=dev, int8_min_dim=256)
+    kcfg = cfg.replace(quant=QuantConfig(mode="mma_int8", impl="kernel", planes=RECURRENT_PLANES))
+    decode, _ = serve_step.make_decode(kcfg, 1, LONG_SEQ, device=dev)
+    state = serve_step.init_serving_cache(kcfg, 1, LONG_SEQ, device=dev)
+    seeded_state(state, torch.Generator(device=dev).manual_seed(LONG_SEQ))
+    kv_bytes = sum(state[k].numel() * state[k].element_size() for k in ("attn_k", "attn_v"))
+    torch.cuda.synchronize()
+    groups = state["attn_k"].shape[0]
+    print(f"[long] Zamba2-7B long_500k at {cfg.n_layers} of 81 layers ({groups} shared-attention "
+          f"groups): KV caches {tuple(state['attn_k'].shape)} x2 bf16, {kv_bytes / 1e9:.2f} GB, "
+          f"the state drawn from seed {LONG_SEQ}; {torch.cuda.memory_allocated() / 2**30:.2f} "
+          f"GiB allocated")
+    tok = int(np.random.default_rng(LONG_SEQ).integers(0, cfg.vocab))
+    rec, step_s = {}, []
+    mk.launches = mk.scaled_launches = 0
+    for i in range(LONG_ZAMBA_STEPS):
+        idx, last = LONG_SEQ - LONG_ZAMBA_STEPS + i, i == LONG_ZAMBA_STEPS - 1
+        if last:
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with recorded_calls(rec) if last else contextlib.nullcontext():
+            lg, state = decode(params, np.array([[tok]], np.int32), state, idx, {})
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        tok = int(lg[0, -1].float().argmax())
+    peak = torch.cuda.max_memory_allocated()
+    launches, unscaled = mk.scaled_launches, mk.launches
+    per_s, per_u, _ = recurrent_launches(cfg)
+    check(idx == LONG_SEQ - 1, f"the last step at {idx}, not {LONG_SEQ - 1}")
+    check(launches == per_s * LONG_ZAMBA_STEPS and unscaled == per_u * LONG_ZAMBA_STEPS,
+          f"{launches} scaled and {unscaled} unscaled launches for {LONG_ZAMBA_STEPS} steps, "
+          f"expected {per_s} and {per_u} per step")
+    check(lg.shape == (1, 1, cfg.vocab) and bool(torch.isfinite(lg).all()),
+          f"long decode: logits {tuple(lg.shape)} not finite or of the wrong shape")
+    check(len(rec["scaled"]) == per_s and len(rec["unscaled"]) == per_u
+          and len(rec["attn"]) == groups,
+          f"{len(rec['scaled'])} scaled, {len(rec['unscaled'])} unscaled and "
+          f"{len(rec['attn'])} attention calls recorded")
+    recorded_kernels_exact(torch, rec, "Zamba2 long_500k recorded step")
+    attn_ms, attn_bound = attention_times(torch, rec, kv_bytes)
+    # the last group's shared attention over all 524,288 keys on the CPU:
+    # the same function on the same values, its keys and values copied
+    # head-major (the CPU's einsum is ~20x faster on that layout)
+    q, k, v, kw, out = rec["attn"][-1]
+    check(k.shape[1] == LONG_SEQ, f"the attention call read {k.shape[1]} keys")
+    t0 = time.perf_counter()
+    kc, vc = (t.transpose(1, 2).contiguous().cpu().transpose(1, 2) for t in (k, v))
+    copy_s = time.perf_counter() - t0
+    kw_c = {a: (b.cpu() if torch.is_tensor(b) else b) for a, b in kw.items()}
+    t0 = time.perf_counter()
+    out_c = layers.flash_attention(q.cpu(), kc, vc, **kw_c)
+    cpu_s = time.perf_counter() - t0
+    attn_rel = _rel(out.cpu(), out_c)
+    check(bool(torch.isfinite(out).all()) and attn_rel <= LONG_ATTN_REL,
+          f"Zamba2 shared attention over {LONG_SEQ} keys, card vs CPU: max rel {attn_rel} "
+          f"(limit {LONG_ATTN_REL})")
+    print(f"[long] {card} | Zamba2-7B long_500k ({cfg.n_layers} layers): {LONG_ZAMBA_STEPS} "
+          f"decode steps at {LONG_SEQ - LONG_ZAMBA_STEPS}..{idx}: host wall per step "
+          f"{statistics.mean(step_s) * 1e3:.1f} ms (min {min(step_s) * 1e3:.1f}, max "
+          f"{max(step_s) * 1e3:.1f}; the last step's peak {peak / 2**30:.2f} GiB), {launches} "
+          f"scaled and {unscaled} unscaled launches ({per_s} and {per_u} per step); the "
+          f"recorded step's {per_s} scaled and {per_u} unscaled calls bit-exact against the "
+          f"plain version; its {groups} shared-attention calls over {LONG_SEQ} keys "
+          f"{attn_ms:.3f} ms, bound {attn_bound:.3f} ms (bytes: {kv_bytes / 1e9:.2f} GB at "
+          f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s); the last group's call on the CPU (K/V copied "
+          f"in {copy_s:.1f} s, {cpu_s:.1f} s there): max rel {attn_rel:.3g} of the largest "
+          f"output (limit {LONG_ATTN_REL})")
+    del rec, state, params, q, k, v, out, kc, vc, out_c, lg
+    torch.cuda.empty_cache()
+    part_s = time.perf_counter() - t_part
+    print(f"[long] Zamba2-7B long_500k took {part_s:.1f} s")
+    return (dict(launches_long_zamba2=launches, long_zamba2_step_ms=[s * 1e3 for s in step_s],
+                 long_zamba2_attn_ms=attn_ms, long_zamba2_attn_bound_ms=attn_bound,
+                 long_zamba2_attn_rel=attn_rel, long_zamba2_kv_bytes=kv_bytes,
+                 long_zamba2_peak_bytes=peak, long_zamba2_s=part_s),
+            dict(launches_long_zamba2=unscaled))
+
+
+def last_configs(torch, np, dev, card) -> tuple[dict, dict]:
+    """Phase 18: Granite-20B, H2O-Danube3-4B and DBRX-132B served at full
+    width, then the long_500k cell on Danube and on Zamba2-7B.  Returns the
+    scaled and unscaled kernels' entries for these paths."""
+    from repro_torch.configs import get_config
+
+    t_phase = time.perf_counter()
+    scaled = {}
+    # Granite's MQA projections wk/wv are 6144 x 128: quantized at a
+    # min_dim of 128, so every linear of the model is int8
+    for arch, tag, label, over, min_dim in (
+            ("granite_20b", "granite", "Granite-20B", {}, 128),
+            ("h2o_danube_3_4b", "danube", "H2O-Danube3-4B", {}, 256),
+            ("dbrx_132b", "dbrx", f"DBRX-132B ({DBRX_LAYERS} of 40 layers)",
+             dict(n_layers=DBRX_LAYERS), 256)):
+        scaled.update(served_config(torch, np, dev, card, get_config(arch).replace(**over), tag,
+                                    label, min_dim))
+    scaled.update(long_danube(torch, np, dev, card))
+    s_z, unscaled = long_zamba2(torch, np, dev, card)
+    scaled.update(s_z)
+    scaled["phase18_s"] = time.perf_counter() - t_phase
+    return scaled, unscaled
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -5553,6 +5945,27 @@ def main() -> int:
     for m in range(1, 9):
         for planes in (8, RECURRENT_PLANES):
             compare(m, dt_k, dt_n, planes)
+    # phase 18's shapes: Granite-20B's (MQA: wk/wv at N = 128; w_down at K =
+    # 24,576), H2O-Danube3-4B's (head_dim 120: K = 3840, wk/wv at N = 960)
+    # and DBRX-132B's (wk/wv at N = 1024, the head at N = 100,352) decode
+    # linears at M = 1, 4 and 8, 8 planes (and 5 at M = 4)
+    last_shapes = sorted({(k, n) for arch in ("granite_20b", "h2o_danube_3_4b", "dbrx_132b")
+                          for _, k, n in lm_decode_shapes(get_config(arch))})
+    for k, n in last_shapes:
+        w = torch.randint(-128, 128, (k, n), dtype=torch.int8, device=dev, generator=gd)
+        ws = torch.rand(n, device=dev, generator=gd) * 0.01 + 1e-4
+        for m, planes in ((1, 8), (4, 8), (8, 8), (4, 5)):
+            x = torch.randint(-128, 128, (m, k), dtype=torch.int8, device=dev, generator=gd)
+            xs = torch.rand(1, device=dev, generator=gd) * 0.1 + 1e-3
+            got = mk.mma_matmul_scaled_kernel(x, w, xs, ws, planes=planes)
+            want = mk.mma_matmul_scaled_plain(x, w, xs, ws, planes=planes)
+            scaled_err = max(scaled_err, float((got - want).abs().max()))
+            n_scaled += 1
+            check(torch.equal(got, want),
+                  f"scaled kernel != plain at M={m} K={k} N={n} planes={planes}")
+    del w
+    print(f"[kernel] mma_matmul_scaled at phase 18's {len(last_shapes)} decode shapes "
+          f"{last_shapes}, M 1, 4 and 8: bit-exact against the plain version")
     n_decode, n_wide = decode_cases(torch, dev)
     print(f"[kernel] mma_matmul: {n_cases} cases bit-exact against the plain version, "
           f"max_abs_err {max_err}")
@@ -5744,11 +6157,14 @@ def main() -> int:
     lap(9)
 
     # -------------------------------------------- 10. the serving fabric
-    scaled_fab, unscaled_fab = fabric_replay(torch, np, dev, card, cfg, params, plan, lm_cfg,
-                                             lm_params)
+    fab_cfg = lm_cfg.replace(n_layers=FABRIC_LAYERS, quant=dataclasses.replace(
+        lm_cfg.quant, plane_schedule=tuple(lm_cfg.quant.plane_schedule[:FABRIC_LAYERS])))
+    fab_params = dict(lm_params, blocks=_first_layers(lm_params["blocks"], FABRIC_LAYERS))
+    scaled_fab, unscaled_fab = fabric_replay(torch, np, dev, card, cfg, params, plan, fab_cfg,
+                                             fab_params)
     scaled_summary.update(scaled_fab)
     summary.update(unscaled_fab)
-    del lm_params  # minitron_4b's weights: phase 11 serves OLMoE-1B-7B
+    del lm_params, fab_params  # minitron_4b's weights: phase 11 serves OLMoE-1B-7B
     torch.cuda.empty_cache()
 
     lap(10)
@@ -5793,6 +6209,13 @@ def main() -> int:
     check(summary["launches_serving"] > 0 and scaled_summary["launches_serving"] > 0,
           f"phase 17 launched the kernels {summary['launches_serving']} (unscaled), "
           f"{scaled_summary['launches_serving']} (scaled) times")
+
+    # --------- 18. the last LM configs at full width and the long_500k cell
+    scaled_last, unscaled_last = last_configs(torch, np, dev, card)
+    scaled_summary.update(scaled_last)
+    summary.update(unscaled_last)
+    torch.cuda.empty_cache()
+    lap(18)
     # the per-shape and per-path detail first, so that the total, the kernels
     # line (one entry per kernel) and the last line land in the tail
     for k in (summary, scaled_summary):

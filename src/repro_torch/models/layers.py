@@ -43,6 +43,29 @@ def stack_trees(trees: list[dict]) -> dict:
     return torch.stack(trees)
 
 
+def stack_drawn(make, n: int) -> dict:
+    """``stack_trees([make() for _ in range(n)])`` without holding the ``n``
+    trees at once: each tree is drawn in turn and copied into its slot of
+    the stacked leaves, so the peak is the stack and one tree (a DBRX-132B
+    layer holds 6.3 GB of bf16 experts)."""
+    first = make()
+    out = tree_map(lambda t: torch.empty((n,) + tuple(t.shape), dtype=t.dtype,
+                                         device=t.device), first)
+
+    def put(dst, src, i):
+        if isinstance(dst, dict):
+            for k in dst:
+                put(dst[k], src[k], i)
+        else:
+            dst[i].copy_(src)
+
+    put(out, first, 0)
+    del first
+    for i in range(1, n):
+        put(out, make(), i)
+    return out
+
+
 def layer_params(blocks: dict, l: int) -> dict:
     """Layer ``l``'s parameters: views ``leaf[l]`` of a stacked tree."""
     return tree_map(lambda t: t[l], blocks)
@@ -221,6 +244,40 @@ def _as_index(idx, device) -> torch.Tensor:
     return torch.as_tensor(idx, dtype=torch.int64, device=device)
 
 
+def _live_chunks(q_offset, s: int, t: int, chunk: int, causal: bool, window: int) -> range:
+    """The key chunks of the chunked pass that some query row may see.
+
+    A chunk that every query row masks leaves the running max, sum and
+    accumulator as they were, bit for bit (the max keeps ``m_prev``, the
+    correction is exactly 1, or 0 on a sum and accumulator that are still
+    0, and every ``p`` is 0, so ``p @ v`` adds zeros for finite v), so the
+    pass over the live chunks alone equals the reference's pass over them
+    all.  Row ``r`` sees keys ``[q - window + 1, q]`` (causal, windowed) for
+    its positions ``q``; the chunks outside the union over the rows are
+    skipped, which a long cache with a short query or a window needs (a
+    4,096-token prompt against 524,288 positions and a window of 4,096 walks
+    9 chunks of 1,024, not 512).  ``q_offset`` as given to
+    :func:`flash_attention`: an int or an array is read as it is (a
+    training forward's 0 costs no device sync), a device tensor is read
+    back to the host; on the ``meta`` device (the dry run's counting mode)
+    every chunk is walked."""
+    n_chunks = (t + chunk - 1) // chunk
+    if not (causal or window):
+        return range(n_chunks)
+    if torch.is_tensor(q_offset):
+        if q_offset.device.type == "meta":
+            return range(n_chunks)
+        offs = q_offset.reshape(-1).tolist()
+    else:
+        offs = np.asarray(q_offset).reshape(-1).tolist()
+    lo_q, hi_q = min(offs), max(offs) + s - 1
+    hi = min(hi_q if causal else t - 1, t - 1)
+    lo = max(lo_q - window + 1 if window else 0, 0)
+    if hi < lo:
+        return range(0)
+    return range(lo // chunk, hi // chunk + 1)
+
+
 def flash_attention(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -270,17 +327,16 @@ def flash_attention(
         out = out / torch.clamp(p.sum(-1), min=1e-20).permute(0, 3, 1, 2)[..., None]
         return out.reshape(b, s, h, d).to(q.dtype)
 
-    n_chunks = (t + chunk - 1) // chunk
-    tc = n_chunks * chunk
-    k = F.pad(k, (0, 0, 0, 0, 0, tc - t))
-    v = F.pad(v, (0, 0, 0, 0, 0, tc - t))
-
     m_prev = torch.full((b, kv, groups, s), -torch.inf, dtype=torch.float32, device=dev)
     l_prev = torch.zeros((b, kv, groups, s), dtype=torch.float32, device=dev)
     acc = torch.zeros((b, s, kv, groups, d), dtype=torch.float32, device=dev)
-    for j in range(n_chunks):
+    for j in _live_chunks(q_offset, s, t, chunk, causal, window):
+        # the last chunk padded with zero keys, as the reference pads k and v
         kj = k[:, j * chunk : (j + 1) * chunk]
         vj = v[:, j * chunk : (j + 1) * chunk]
+        if kj.shape[1] < chunk:
+            kj = F.pad(kj, (0, 0, 0, 0, 0, chunk - kj.shape[1]))
+            vj = F.pad(vj, (0, 0, 0, 0, 0, chunk - vj.shape[1]))
         k_pos = (j * chunk + torch.arange(chunk, device=dev))[:, None]  # (chunk, 1)
         scores = torch.einsum("bskgd,bckd->bkgsc", qg, kj).to(torch.float32) * scale
         if causal:

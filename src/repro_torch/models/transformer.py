@@ -69,8 +69,8 @@ def init_params(seed: int, cfg, *, device=None, int8_min_dim: int | None = None)
         return quant.quantize_params_int8(tree, min_dim=int8_min_dim)
 
     p = {"embed": layers.init_embedding(g, cfg.vocab, cfg.d_model, device=dev)}
-    p["blocks"] = layers.stack_trees([made(init_block(g, cfg, device=dev))
-                                      for _ in range(cfg.n_layers)])
+    p["blocks"] = layers.stack_drawn(lambda: made(init_block(g, cfg, device=dev)),
+                                     cfg.n_layers)
     p["ln_f"] = layers.init_norm(cfg.d_model, device=dev)
     if not cfg.tie_embeddings:
         p["head"] = made(layers.init_linear(g, cfg.d_model, cfg.vocab, device=dev))

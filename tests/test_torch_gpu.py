@@ -1306,3 +1306,43 @@ def test_gpu_kv_seq_attention_over_several_chunks(cuda, s, t, chunk):
     want = layers.flash_attention(q, k, v, causal=True, chunk=chunk)
     assert got.shape == want.shape and bool(torch.isfinite(got.float()).all())
     assert float((got.float() - want.float()).abs().max()) <= 2 ** -8 * float(want.float().abs().max())
+
+
+# Granite-20B's decode linears (K, N): wq/wo, wk/wv (MQA: one KV head of
+# 128), w_up, w_down (K = 24,576), the head; H2O-Danube3-4B's (head_dim 120:
+# K = 3840, wk/wv at N = 960); DBRX-132B's wk/wv and head (N = 100,352).
+LAST_CONFIG_SHAPES = [(6144, 6144), (6144, 128), (6144, 24576), (24576, 6144), (6144, 49152),
+                      (3840, 3840), (3840, 960), (3840, 10240), (10240, 3840), (3840, 32000),
+                      (6144, 1024), (6144, 100352)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", [1, 4, 8])
+@pytest.mark.parametrize("k,n", LAST_CONFIG_SHAPES)
+def test_gpu_scaled_kernel_vs_plain_last_config_shapes(cuda, m, k, n):
+    """The scaled kernel at Granite-20B's, H2O-Danube3-4B's and DBRX-132B's
+    decode shapes, bit for bit against the plain version (tolerance 0)."""
+    _kernel_vs_plain(cuda, m, k, n, 8, scaled=True, seed=m)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("q_offset,window", [(16_000, 1024), (700, 0), ([16_000, 9_000], 512)])
+def test_gpu_chunked_attention_skips_masked_chunks_bit_exactly(cuda, q_offset, window,
+                                                               monkeypatch):
+    """The chunked pass over the live chunks alone (``layers._live_chunks``)
+    against the pass over every chunk, on the card in bf16: bit-equal (a
+    chunk every row masks leaves the running max, sum and accumulator as
+    they were)."""
+    from repro_torch.models import layers
+
+    b = len(q_offset) if isinstance(q_offset, list) else 1
+    g = torch.Generator(device=cuda).manual_seed(3)
+    q = torch.randn((b, 100, 8, 128), generator=g, device=cuda).to(torch.bfloat16)
+    k = torch.randn((b, 16_500, 2, 128), generator=g, device=cuda).to(torch.bfloat16)
+    v = torch.randn((b, 16_500, 2, 128), generator=g, device=cuda).to(torch.bfloat16)
+    off = torch.tensor(q_offset, device=cuda)
+    kw = dict(causal=True, window=window, chunk=1024, q_offset=off)
+    got = layers.flash_attention(q, k, v, **kw)
+    monkeypatch.setattr(layers, "_live_chunks", lambda off, s, t, chunk, *_: range(-(-t // chunk)))
+    want = layers.flash_attention(q, k, v, **kw)
+    assert bool(torch.isfinite(got.float()).all()) and torch.equal(got, want)
