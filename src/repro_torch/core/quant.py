@@ -13,6 +13,8 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch.obs import timeline
+
 INT8_MAX = 127.0
 
 
@@ -34,8 +36,9 @@ def quantize_amax(x: torch.Tensor, amax: torch.Tensor) -> QTensor:
 
 def quantize_weights(w: torch.Tensor, *, channel_axis: int = -1) -> QTensor:
     """Symmetric per-channel int8 quantization (channel = output features)."""
-    reduce_axes = tuple(a for a in range(w.ndim) if a != channel_axis % w.ndim)
-    return quantize_amax(w, torch.amax(torch.abs(w), dim=reduce_axes, keepdim=True))
+    with timeline.span("quant.weights"):
+        reduce_axes = tuple(a for a in range(w.ndim) if a != channel_axis % w.ndim)
+        return quantize_amax(w, torch.amax(torch.abs(w), dim=reduce_axes, keepdim=True))
 
 
 def quantize_acts(x: torch.Tensor, *, batch_axis: int | None = None) -> QTensor:
@@ -45,12 +48,13 @@ def quantize_acts(x: torch.Tensor, *, batch_axis: int | None = None) -> QTensor:
     per index along that axis (every other axis reduced), so one batch row's
     magnitudes never move another row's quantization grid.
     """
-    if batch_axis is None:
-        amax = torch.amax(torch.abs(x))
-    else:
-        reduce_axes = tuple(a for a in range(x.ndim) if a != batch_axis % x.ndim)
-        amax = torch.amax(torch.abs(x), dim=reduce_axes, keepdim=True)
-    return quantize_amax(x, amax)
+    with timeline.span("quant.acts"):
+        if batch_axis is None:
+            amax = torch.amax(torch.abs(x))
+        else:
+            reduce_axes = tuple(a for a in range(x.ndim) if a != batch_axis % x.ndim)
+            amax = torch.amax(torch.abs(x), dim=reduce_axes, keepdim=True)
+        return quantize_amax(x, amax)
 
 
 def dequantize(q: QTensor) -> torch.Tensor:

@@ -43,6 +43,7 @@ from pathlib import Path
 import torch
 
 from repro_torch.core import bitplane
+from repro_torch.obs import timeline
 
 N_BITS = 8
 
@@ -256,7 +257,7 @@ def _launch(
     out = torch.empty((m, n), dtype=torch.int32, device=x.device)
     if m == 0 or n == 0:
         return out
-    with torch.cuda.device(x.device):
+    with timeline.span("mma.launch"), torch.cuda.device(x.device):
         if bm is None:
             bm = tile_rows(m, n, _sm_count(torch.cuda.current_device()))
         err = _library().mma_matmul_launch(
@@ -288,7 +289,7 @@ def _launch_scaled(
     out = torch.empty((m, n), dtype=torch.float32, device=x.device)
     if m == 0 or n == 0:
         return out
-    with torch.cuda.device(x.device):
+    with timeline.span("mma.launch"), torch.cuda.device(x.device):
         if splits is None:
             splits = split_k(m, k, n, _sm_count(torch.cuda.current_device()))
         # split sums and one arrival counter per (row tile, column block),

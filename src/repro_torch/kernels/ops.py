@@ -13,6 +13,7 @@ import torch
 
 from repro_torch.core import bitplane
 from repro_torch.device import resolve_device
+from repro_torch.obs import timeline
 
 from .mma_matmul import N_BITS, mma_matmul_kernel, mma_matmul_scaled_kernel
 
@@ -136,18 +137,19 @@ def mma_conv2d(
     kh, kw, cin, cout = w.shape
     if c != cin:
         raise ValueError(f"input has {c} channels, weight expects {cin}")
-    xp = pad_nhwc(x, pad, pad_mode)
     oh = (h + 2 * pad - kh) // stride + 1
     ow = (w_ + 2 * pad - kw) // stride + 1
-    patches = torch.cat(
-        [
-            xp[:, i : i + oh * stride : stride, j : j + ow * stride : stride, :]
-            for i in range(kh)
-            for j in range(kw)
-        ],
-        dim=-1,
-    )
-    pm = patches.reshape(-1, kh * kw * cin)
+    with timeline.span("conv.im2col"):
+        xp = pad_nhwc(x, pad, pad_mode)
+        patches = torch.cat(
+            [
+                xp[:, i : i + oh * stride : stride, j : j + ow * stride : stride, :]
+                for i in range(kh)
+                for j in range(kw)
+            ],
+            dim=-1,
+        )
+        pm = patches.reshape(-1, kh * kw * cin)
     wm = w.reshape(kh * kw * cin, cout)
     if impl == "kernel":
         out = mma_matmul(pm, wm, planes=planes, signed=signed, device=dev)

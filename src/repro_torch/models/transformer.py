@@ -20,6 +20,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.core import quant
 from repro_torch.core.plane_schedule import PlaneSchedule
 from repro_torch.device import resolve_device
+from repro_torch.obs import timeline
 
 from . import layers
 from . import moe as moe_lib
@@ -203,7 +204,8 @@ def loss_fn(params, batch, cfg, *, device=None):
     (B, P, D) for vlm: the prefix's logits are dropped).  Returns (loss,
     metrics); differentiable in ``params`` (``train.train_step`` takes its
     gradient)."""
-    tok = torch.as_tensor(batch["tokens"], dtype=torch.int64)
+    with timeline.span("lm.tokens"):  # from host memory, the copy waits for the card
+        tok = torch.as_tensor(batch["tokens"], dtype=torch.int64, device=resolve_device(device))
     prefix = batch.get("patches")
     logits, aux = forward(params, tok[:, :-1], cfg, prefix_embeds=prefix, return_aux=True,
                           device=device)

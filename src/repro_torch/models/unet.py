@@ -26,6 +26,7 @@ from repro_torch.core.cycle_model import CALIBRATED_UNET, ConvLayerSpec, unet_co
 from repro_torch.core.plane_schedule import PlaneSchedule
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
+from repro_torch.obs import timeline
 
 
 @dataclass(frozen=True)
@@ -175,27 +176,28 @@ def init_params(seed: int, cfg: UNetConfig, *, device=None) -> dict:
 def conv3x3(
     p, x: torch.Tensor, cfg: UNetConfig, *, planes=None, per_sample_scale: bool = False
 ) -> torch.Tensor:
-    """3x3 conv through the selected datapath (float or MMA int8), on
-    ``x``'s device.  ``planes`` overrides ``cfg.planes`` for this layer —
-    the hook the per-layer :class:`PlaneSchedule` drives.
+    """3x3 conv, bias and ReLU through the selected datapath (float or MMA
+    int8), on ``x``'s device.  ``planes`` overrides ``cfg.planes`` for this
+    layer — the hook the per-layer :class:`PlaneSchedule` drives.
     ``per_sample_scale`` quantizes the activations with one int8 scale per
     sample (batch row) instead of one for the whole tensor, so a sample's
     numerics never depend on its batch mates."""
     if planes is None:
         planes = cfg.planes
-    if cfg.quant_mode == "mma_int8":
-        xq = quant.quantize_acts(x, batch_axis=0 if per_sample_scale else None)
-        wq = quant.quantize_weights(p["w"], channel_axis=-1)
-        out = ops.mma_conv2d(
-            xq.values, wq.values, planes=planes, impl=cfg.impl,
-            pad_mode=cfg.pad_mode, device=x.device,
-        )
-        out = out.to(torch.float32) * quant.quantized_matmul_scale(xq.scale, wq.scale)
-    else:
+    with timeline.span("unet.conv"):
+        if cfg.quant_mode == "mma_int8":
+            xq = quant.quantize_acts(x, batch_axis=0 if per_sample_scale else None)
+            wq = quant.quantize_weights(p["w"], channel_axis=-1)
+            out = ops.mma_conv2d(
+                xq.values, wq.values, planes=planes, impl=cfg.impl,
+                pad_mode=cfg.pad_mode, device=x.device,
+            )
+            with timeline.span("conv.epilogue"):
+                out = out.to(torch.float32) * quant.quantized_matmul_scale(xq.scale, wq.scale)
+                return torch.relu(out + p["b"])
         xp = ops.pad_nhwc(x, 1, cfg.pad_mode)
         out = F.conv2d(xp.permute(0, 3, 1, 2), p["w"].permute(3, 2, 0, 1))
-        out = out.permute(0, 2, 3, 1)
-    return out + p["b"]
+        return torch.relu(out.permute(0, 2, 3, 1) + p["b"])
 
 
 def _maxpool2(h: torch.Tensor) -> torch.Tensor:
@@ -243,43 +245,47 @@ def forward(
     computes what a forward of each sample alone computes (the per-tile
     quantization a tuned plan is served with).
     """
-    params, x = _prepare(params, x, device)
-    mult = 2**cfg.depth
-    if x.shape[1] % mult or x.shape[2] % mult:
-        raise ValueError(
-            f"spatial dims {x.shape[1]}x{x.shape[2]} not divisible by "
-            f"2**depth = {mult}; pad the input (segserve.tiling.plan_tiles "
-            f"does this for arbitrary images)"
-        )
-    sched = cfg.schedule() if cfg.quant_mode == "mma_int8" else None
-    li = 0
+    with timeline.span("unet.forward"):
+        params, x = _prepare(params, x, device)
+        mult = 2**cfg.depth
+        if x.shape[1] % mult or x.shape[2] % mult:
+            raise ValueError(
+                f"spatial dims {x.shape[1]}x{x.shape[2]} not divisible by "
+                f"2**depth = {mult}; pad the input (segserve.tiling.plan_tiles "
+                f"does this for arbitrary images)"
+            )
+        sched = cfg.schedule() if cfg.quant_mode == "mma_int8" else None
+        li = 0
 
-    def qconv(conv, h):
-        nonlocal li
-        if planes_arr is not None and cfg.quant_mode == "mma_int8":
-            pl = planes_arr[li]
-        else:
-            pl = sched.planes_for(li) if sched is not None else None
-        li += 1
-        out = torch.relu(conv3x3(conv, h, cfg, planes=pl, per_sample_scale=per_sample_scale))
-        if taps is not None:
-            taps.append(out)
-        return out
+        def qconv(conv, h):
+            nonlocal li
+            if planes_arr is not None and cfg.quant_mode == "mma_int8":
+                pl = planes_arr[li]
+            else:
+                pl = sched.planes_for(li) if sched is not None else None
+            li += 1
+            out = conv3x3(conv, h, cfg, planes=pl, per_sample_scale=per_sample_scale)
+            if taps is not None:
+                taps.append(out)
+            return out
 
-    skips = []
-    h = x
-    for stage in params["enc"]:
-        for conv in stage:
+        skips = []
+        h = x
+        for stage in params["enc"]:
+            for conv in stage:
+                h = qconv(conv, h)
+            skips.append(h)
+            with timeline.span("unet.resample"):
+                h = _maxpool2(h)
+        for conv in params["bottleneck"]:
             h = qconv(conv, h)
-        skips.append(h)
-        h = _maxpool2(h)
-    for conv in params["bottleneck"]:
-        h = qconv(conv, h)
-    for d, stage in enumerate(params["dec"]):
-        h = torch.cat([skips[-(d + 1)], _upsample2(h)], dim=-1)
-        for conv in stage:
-            h = qconv(conv, h)
-    return _head(params, h)
+        for d, stage in enumerate(params["dec"]):
+            with timeline.span("unet.resample"):
+                h = torch.cat([skips[-(d + 1)], _upsample2(h)], dim=-1)
+            for conv in stage:
+                h = qconv(conv, h)
+        with timeline.span("unet.head"):
+            return _head(params, h)
 
 
 def forward_with_error_bound(params, x, cfg: UNetConfig, *, device=None):
@@ -330,19 +336,19 @@ def forward_with_error_bound(params, x, cfg: UNetConfig, *, device=None):
     for stage in params["enc"]:
         for conv in stage:
             err = conv_err(conv, h, err)
-            h = torch.relu(conv3x3(conv, h, full_cfg))
+            h = conv3x3(conv, h, full_cfg)
         skips.append(h)
         skip_errs.append(err)
         h = _maxpool2(h)
     for conv in params["bottleneck"]:
         err = conv_err(conv, h, err)
-        h = torch.relu(conv3x3(conv, h, full_cfg))
+        h = conv3x3(conv, h, full_cfg)
     for d, stage in enumerate(params["dec"]):
         h = torch.cat([skips[-(d + 1)], _upsample2(h)], dim=-1)
         err = max(err, skip_errs[-(d + 1)])
         for conv in stage:
             err = conv_err(conv, h, err)
-            h = torch.relu(conv3x3(conv, h, full_cfg))
+            h = conv3x3(conv, h, full_cfg)
     w_head = params["head"]["w"].reshape(-1, params["head"]["w"].shape[-1])
     err = err * float(torch.max(torch.abs(w_head).sum(dim=0)))
 

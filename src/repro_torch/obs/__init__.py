@@ -1,7 +1,8 @@
-"""Cycle-exact telemetry of the port (copies of the reference's ``obs``
-modules: host code on Python ints, no tensors).
+"""Telemetry of the port.
 
-Everything here rides the *modeled* cycle clock (relation-(2) cycles of
+Everything but :mod:`~repro_torch.obs.timeline` is a copy of the
+reference's ``obs`` modules: host code on Python ints, no tensors, riding
+the *modeled* cycle clock (relation-(2) cycles of
 :mod:`repro_torch.core.cycle_model`), never wall time, so a telemetry stream
 is exactly reproducible from the same seed and trace, and equal to the
 reference's on the same run:
@@ -17,11 +18,15 @@ reference's on the same run:
   span segment;
 * :mod:`~repro_torch.obs.energy` — the integer-picojoule
   :class:`~repro_torch.obs.energy.EnergyMeter` (the paper's FPGA energy
-  model, not a card reading) and rolling power caps;
-* :mod:`~repro_torch.obs.report` — trend and breakdown tables from the
-  committed ledger and ``BENCH_*.json`` artifacts.
+  model, not a card reading) and rolling power caps.
+
+:mod:`~repro_torch.obs.timeline` is the port's own and runs on the wall
+clock: spans and counters at the program's layer boundaries (the serving
+loop, the U-Net forward, the MMA kernel's launch, the training step), off
+unless a ``torch.profiler`` records or ``timeline.recording()`` is open,
+and stamped on the profiler's clock.
 """
-from . import attrib, capture, energy, events, report, slo, spans  # noqa: F401
+from . import attrib, capture, energy, events, slo, spans, timeline  # noqa: F401
 from .attrib import (  # noqa: F401
     ATTRIB_CLASSES,
     attribute,

@@ -17,6 +17,7 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.checkpoint.ckpt import tree_leaves, tree_unflatten
+from repro_torch.obs import timeline
 
 
 class AdamWState(NamedTuple):
@@ -64,26 +65,28 @@ def update(
     updated in place (see the module's docstring).  ``grad_norm``: the
     global gradient norm where ``grads`` are one rank's shards (the sharded
     train step computes it across them); else :func:`global_norm`."""
-    gnorm = global_norm(grads) if grad_norm is None else grad_norm
-    # a tensor numerator: ``number / tensor`` would be a reciprocal times the number
-    scale = torch.clamp(gnorm.new_tensor(clip_norm) / torch.clamp(gnorm, min=1e-9), max=1.0)
-    step = state.step + 1
-    t = step.to(torch.float32)
-    bc1 = 1.0 - torch.pow(b1, t)
-    bc2 = 1.0 - torch.pow(b2, t)
-    lr_t = torch.as_tensor(lr, dtype=torch.float32, device=t.device)
+    with timeline.span("adamw.update"):
+        gnorm = global_norm(grads) if grad_norm is None else grad_norm
+        # a tensor numerator: ``number / tensor`` would be a reciprocal times the number
+        scale = torch.clamp(gnorm.new_tensor(clip_norm) / torch.clamp(gnorm, min=1e-9), max=1.0)
+        step = state.step + 1
+        t = step.to(torch.float32)
+        bc1 = 1.0 - torch.pow(b1, t)
+        bc2 = 1.0 - torch.pow(b2, t)
+        lr_t = torch.as_tensor(lr, dtype=torch.float32, device=t.device)
 
-    p_leaves = tree_leaves(params)
-    new_params = []
-    for p, g, mast, m, v in zip(p_leaves, tree_leaves(grads), tree_leaves(state.master),
-                                tree_leaves(state.m), tree_leaves(state.v)):
-        g = g.to(torch.float32) * scale
-        m.mul_(b1).add_(g * (1 - b1))  # m = b1 * m + (1 - b1) * g
-        v.mul_(b2).add_(g.square_().mul_(1 - b2))  # v = b2 * v + (1 - b2) * g**2
-        delta = m / bc1  # mh
-        delta.div_(torch.div(v, bc2, out=g).sqrt_().add_(eps))  # mh / (sqrt(vh) + eps)
-        delta.add_(torch.mul(mast, weight_decay, out=g))  # + weight_decay * master
-        mast.sub_(delta.mul_(lr_t))  # master - lr * delta
-        new_params.append(mast.to(p.dtype))
-    new_state = AdamWState(step, state.master, state.m, state.v)
-    return tree_unflatten(params, new_params), new_state, {"grad_norm": gnorm, "lr": lr_t}
+        p_leaves = tree_leaves(params)
+        new_params = []
+        for p, g, mast, m, v in zip(p_leaves, tree_leaves(grads), tree_leaves(state.master),
+                                    tree_leaves(state.m), tree_leaves(state.v)):
+            g = g.to(torch.float32) * scale
+            m.mul_(b1).add_(g * (1 - b1))  # m = b1 * m + (1 - b1) * g
+            v.mul_(b2).add_(g.square_().mul_(1 - b2))  # v = b2 * v + (1 - b2) * g**2
+            delta = m / bc1  # mh
+            delta.div_(torch.div(v, bc2, out=g).sqrt_().add_(eps))  # mh / (sqrt(vh) + eps)
+            delta.add_(torch.mul(mast, weight_decay, out=g))  # + weight_decay * master
+            mast.sub_(delta.mul_(lr_t))  # master - lr * delta
+            new_params.append(mast.to(p.dtype))
+        new_state = AdamWState(step, state.master, state.m, state.v)
+        metrics = {"grad_norm": gnorm, "lr": lr_t}
+        return tree_unflatten(params, new_params), new_state, metrics

@@ -33,6 +33,7 @@ from repro_torch.core import energy_model as em
 from repro_torch.core.plane_schedule import PlaneSchedule
 from repro_torch.device import resolve_device
 from repro_torch.models import unet
+from repro_torch.obs import timeline
 from repro_torch.obs.events import NULL_SINK, Event
 from repro_torch.serve.queue import FifoQueue, SlotTable
 
@@ -116,6 +117,7 @@ class SegRequest:
     ops: int = 0
     class_counts: dict[int, int] = field(default_factory=dict)
     emitted: list[int] = field(default_factory=list)  # tile emission order
+    batches: int = 0  # micro-batches that carried at least one of its tiles
     result: SegResult | None = None
 
     @property
@@ -285,50 +287,51 @@ class SegEngine:
         return req
 
     def _admit(self, req: SegRequest) -> bool:
-        # Plan before occupying: a planning error must not leak the slot.
-        req.plan = tiling.plan_tiles(
-            req.image.shape[0], req.image.shape[1], depth=self.cfg.depth,
-            convs_per_stage=self.cfg.convs_per_stage, tile=self.tile,
-            halo=self.halo,
-        )
-        slot = self.slots.occupy(req)
-        if slot is None:
-            return False
-        req.slot = slot
-        canvas = tiling.pad_canvas(req.image.astype(np.float32), req.plan)
-        req.canvas_in = canvas
-        req.canvas_out = np.zeros(
-            (req.plan.pad_h, req.plan.pad_w, self.cfg.n_classes), np.float32
-        )
-        req.remaining = req.plan.n_tiles
-        req.ops = cm.model_ops(
-            cm.unet_conv_layers(
-                (req.plan.pad_h, req.plan.pad_w), self.cfg.in_ch,
-                self.cfg.base, self.cfg.depth, self.cfg.convs_per_stage,
+        with timeline.span("segserve.admit", rid=req.rid):
+            # Plan before occupying: a planning error must not leak the slot.
+            req.plan = tiling.plan_tiles(
+                req.image.shape[0], req.image.shape[1], depth=self.cfg.depth,
+                convs_per_stage=self.cfg.convs_per_stage, tile=self.tile,
+                halo=self.halo,
             )
-        )
-        amax = float(np.max(np.abs(canvas)))
-        if self.adaptive:
-            classes = adaptive.classify_tiles(
-                canvas, req.plan, max_class=self.max_class, amax=amax,
-                thresholds=(
-                    None if self.plan is None else self.plan.class_thresholds
-                ),
+            slot = self.slots.occupy(req)
+            if slot is None:
+                return False
+            req.slot = slot
+            canvas = tiling.pad_canvas(req.image.astype(np.float32), req.plan)
+            req.canvas_in = canvas
+            req.canvas_out = np.zeros(
+                (req.plan.pad_h, req.plan.pad_w, self.cfg.n_classes), np.float32
             )
-        else:
-            classes = [0] * req.plan.n_tiles
-        # The octave key keeps batch-shared dynamic scales compatible; under
-        # a plan every tile has its own scale, so it would only fragment
-        # the packing — collapse it.
-        if self.plan is not None:
-            octave = 0
-        else:
-            octave = int(math.floor(math.log2(amax))) if amax > 0 else 0
-        for ti, (spec, k) in enumerate(zip(req.plan.tiles, classes)):
-            key = (spec.in_h, spec.in_w, k, octave, req.group)
-            self._tasks.setdefault(key, []).append((req, ti))
-            req.class_counts[k] = req.class_counts.get(k, 0) + 1
-        return True
+            req.remaining = req.plan.n_tiles
+            req.ops = cm.model_ops(
+                cm.unet_conv_layers(
+                    (req.plan.pad_h, req.plan.pad_w), self.cfg.in_ch,
+                    self.cfg.base, self.cfg.depth, self.cfg.convs_per_stage,
+                )
+            )
+            amax = float(np.max(np.abs(canvas)))
+            if self.adaptive:
+                classes = adaptive.classify_tiles(
+                    canvas, req.plan, max_class=self.max_class, amax=amax,
+                    thresholds=(
+                        None if self.plan is None else self.plan.class_thresholds
+                    ),
+                )
+            else:
+                classes = [0] * req.plan.n_tiles
+            # The octave key keeps batch-shared dynamic scales compatible; under
+            # a plan every tile has its own scale, so it would only fragment
+            # the packing — collapse it.
+            if self.plan is not None:
+                octave = 0
+            else:
+                octave = int(math.floor(math.log2(amax))) if amax > 0 else 0
+            for ti, (spec, k) in enumerate(zip(req.plan.tiles, classes)):
+                key = (spec.in_h, spec.in_w, k, octave, req.group)
+                self._tasks.setdefault(key, []).append((req, ti))
+                req.class_counts[k] = req.class_counts.get(k, 0) + 1
+            return True
 
     # ------------------------------------------------------------- stepping
 
@@ -371,21 +374,33 @@ class SegEngine:
         class first (FIFO among equals) under ``priority=True``, admission
         order otherwise; group membership and packing are fixed at
         admission."""
-        key = self._next_key(group)
-        if key is None:
-            return []
-        task_group = self._tasks[key]
-        taken, self._tasks[key] = task_group[: self.batch], task_group[self.batch :]
-        if not self._tasks[key]:
-            del self._tasks[key]
-        in_h, in_w, k = key[0], key[1], key[2]
-        x = np.zeros((self.batch, in_h, in_w, self.cfg.in_ch), np.float32)
-        for b, (req, ti) in enumerate(taken):
-            spec = req.plan.tiles[ti]
-            x[b] = req.canvas_in[spec.y0 : spec.y1, spec.x0 : spec.x1]
-        out = unet.forward(self.params, x, self.class_cfg(k),
-                           per_sample_scale=self.per_tile_quant, device=self.device)
-        out = out.cpu().numpy()
+        with timeline.span("segserve.step"):
+            key = self._next_key(group)
+            if key is None:
+                return []
+            task_group = self._tasks[key]
+            taken, self._tasks[key] = task_group[: self.batch], task_group[self.batch :]
+            if not self._tasks[key]:
+                del self._tasks[key]
+            in_h, in_w, k = key[0], key[1], key[2]
+            with timeline.span("segserve.pack"):
+                x = np.zeros((self.batch, in_h, in_w, self.cfg.in_ch), np.float32)
+                for b, (req, ti) in enumerate(taken):
+                    spec = req.plan.tiles[ti]
+                    x[b] = req.canvas_in[spec.y0 : spec.y1, spec.x0 : spec.x1]
+            out = unet.forward(self.params, x, self.class_cfg(k),
+                               per_sample_scale=self.per_tile_quant, device=self.device)
+            with timeline.span("segserve.fetch"):
+                out = out.cpu().numpy()
+            with timeline.span("segserve.stitch"):
+                return self._stitch(taken, out, in_h, in_w, k)
+
+    def _stitch(self, taken: list, out: np.ndarray, in_h: int, in_w: int,
+                k: int) -> list[TileEvent]:
+        """Write a micro-batch's cores into their canvases, account them,
+        finish the requests it completes and emit their tile events."""
+        for req in {id(r): r for r, _ in taken}.values():
+            req.batches += 1
         events: list[TileEvent] = []
         cyc = self._tile_cycles(in_h, in_w, k)  # one price, both accounts
         pj = self._tile_pj(in_h, in_w, k)
@@ -428,6 +443,8 @@ class SegEngine:
         self.slots.release(req.slot)
         req.canvas_in = None
         req.canvas_out = None
+        timeline.count("segserve.requests")
+        timeline.count("segserve.request_batches", req.batches)
 
     # ------------------------------------------------------------ the loop
 

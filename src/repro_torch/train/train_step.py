@@ -27,6 +27,7 @@ import torch
 from repro_torch import models
 from repro_torch.checkpoint.ckpt import tree_leaves, tree_unflatten
 from repro_torch.device import resolve_device
+from repro_torch.obs import timeline
 from repro_torch.optim import adamw, schedule
 from repro_torch.parallel import collectives as coll
 from repro_torch.parallel import param_specs as pspecs
@@ -49,8 +50,10 @@ def value_and_grad(loss_fn: Callable, params, batch):
     leaves = tree_leaves(params)
     live = [p.detach().requires_grad_() for p in leaves]
     with torch.enable_grad():
-        loss, metrics = loss_fn(tree_unflatten(params, live), batch)
-        grads = torch.autograd.grad(loss, live, allow_unused=True)
+        with timeline.span("train_step.forward"):
+            loss, metrics = loss_fn(tree_unflatten(params, live), batch)
+        with timeline.span("train_step.backward"):
+            grads = torch.autograd.grad(loss, live, allow_unused=True)
     grads = [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads)]
     metrics = {k: v.detach() for k, v in metrics.items()}
     return (loss.detach(), metrics), tree_unflatten(params, grads)
@@ -72,44 +75,49 @@ def train_step(state: dict, batch: dict, cfg, *, peak_lr=3e-4, warmup=100, total
     state is this rank's shards and the batch its rows; see the module's
     docstring.
     """
-    dev = resolve_device(device)
-    mesh = None if shardings is None else tree_leaves(shardings)[0].mesh
-    if mesh is None:
-        loss_fn = make_loss_fn(cfg, device=dev)
-    else:
-        loss_fn = partial(sharded_lm.loss_fn, cfg=cfg, mesh=mesh, device=dev)
-    params = state["params"]
-    if cfg.microbatches > 1:
-        acc = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-               for p in tree_leaves(params)]
-        loss = 0.0
-        for i in range(cfg.microbatches):
-            mb = {k: v[i] for k, v in batch.items()}
-            (mb_loss, _), grads = value_and_grad(loss_fn, params, mb)
-            for a, g in zip(acc, tree_leaves(grads)):
-                a.add_(g)
-            del grads  # before the next microbatch's backward allocates its own
-            loss = loss + mb_loss
-        grads = tree_unflatten(params, [a.div_(cfg.microbatches) for a in acc])
-        del acc  # held by ``grads`` alone, which the mesh's mean below replaces
-        loss = loss / cfg.microbatches
-    else:
-        (loss, _), grads = value_and_grad(loss_fn, params, batch)
+    with timeline.span("train_step"):
+        dev = resolve_device(device)
+        mesh = None if shardings is None else tree_leaves(shardings)[0].mesh
+        if mesh is None:
+            loss_fn = make_loss_fn(cfg, device=dev)
+        else:
+            loss_fn = partial(sharded_lm.loss_fn, cfg=cfg, mesh=mesh, device=dev)
+        params = state["params"]
+        if cfg.microbatches > 1:
+            acc = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+                   for p in tree_leaves(params)]
+            loss = 0.0
+            for i in range(cfg.microbatches):
+                with timeline.span("train_step.microbatch", rid=i):
+                    mb = {k: v[i] for k, v in batch.items()}
+                    (mb_loss, _), grads = value_and_grad(loss_fn, params, mb)
+                    with timeline.span("train_step.accumulate"):
+                        for a, g in zip(acc, tree_leaves(grads)):
+                            a.add_(g)
+                    del grads  # before the next microbatch's backward allocates its own
+                    loss = loss + mb_loss
+            grads = tree_unflatten(params, [a.div_(cfg.microbatches) for a in acc])
+            del acc  # held by ``grads`` alone, which the mesh's mean below replaces
+            loss = loss / cfg.microbatches
+        else:
+            with timeline.span("train_step.microbatch", rid=0):
+                (loss, _), grads = value_and_grad(loss_fn, params, batch)
 
-    gnorm = None
-    if mesh is not None:
-        dp = sharded_lm.dp_axes(mesh)
-        n_dp = mesh.size(dp)
-        grads = tree_unflatten(params, [
-            (coll.all_reduce(g.to(torch.float32), mesh, dp) / n_dp).to(g.dtype)
-            for g in tree_leaves(grads)])
-        loss = coll.all_reduce(torch.as_tensor(loss, dtype=torch.float32, device=dev), mesh,
-                               dp) / n_dp
-        gnorm = global_norm(grads, shardings)
-    lr = schedule.warmup_cosine(state["opt"].step + 1, peak_lr=peak_lr, warmup=warmup,
-                                total=total)
-    new_params, new_opt, om = adamw.update(params, grads, state["opt"], lr=lr, grad_norm=gnorm)
-    return {"params": new_params, "opt": new_opt}, {"loss": loss, **om}
+        gnorm = None
+        if mesh is not None:
+            dp = sharded_lm.dp_axes(mesh)
+            n_dp = mesh.size(dp)
+            grads = tree_unflatten(params, [
+                (coll.all_reduce(g.to(torch.float32), mesh, dp) / n_dp).to(g.dtype)
+                for g in tree_leaves(grads)])
+            loss = coll.all_reduce(torch.as_tensor(loss, dtype=torch.float32, device=dev), mesh,
+                                   dp) / n_dp
+            gnorm = global_norm(grads, shardings)
+        lr = schedule.warmup_cosine(state["opt"].step + 1, peak_lr=peak_lr, warmup=warmup,
+                                    total=total)
+        new_params, new_opt, om = adamw.update(params, grads, state["opt"], lr=lr,
+                                               grad_norm=gnorm)
+        return {"params": new_params, "opt": new_opt}, {"loss": loss, **om}
 
 
 def global_norm(grads, shardings) -> torch.Tensor:

@@ -273,7 +273,7 @@ def test_port_imports_neither_jax_nor_the_reference():
         "bad = [m for m in sys.modules if m == 'repro' or m.startswith('repro.')]\n"
         "assert not bad, bad\n"
         "assert len(names) >= 67, names\n"
-        "need = ['obs.attrib', 'obs.slo', 'obs.energy', 'obs.capture', 'obs.report',\n"
+        "need = ['obs.attrib', 'obs.slo', 'obs.energy', 'obs.capture', 'obs.timeline',\n"
         "        'serve.modeled', 'serve.fabric', 'bench.fabric', 'bench.capacity',\n"
         "        'bench.energy', 'models.moe', 'checkpoint.ckpt', 'configs.olmoe_1b_7b',\n"
         "        'configs.dbrx_132b']\n"

@@ -1,6 +1,6 @@
 """The port's telemetry layer against the JAX reference's: SLO monitoring,
-deadline-miss attribution, integer-picojoule energy metering, trace capture,
-the ledger report and the three fleet bench twins.
+deadline-miss attribution, integer-picojoule energy metering, trace capture
+and the three fleet bench twins.
 
 None of these modules touches a tensor: the port's are copies of the
 reference's, so everything is compared exactly.
@@ -15,9 +15,6 @@ reference's, so everything is compared exactly.
   ``stats()`` carries equal ``slo`` and ``energy`` blocks.
 - Capture: ``CaptureSink.to_trace`` gives the reference's trace, and
   replaying it gives the captured run's event stream again.
-- Report: ``build_report`` over the committed ``BENCH_LEDGER.jsonl`` and
-  ``BENCH_*.json`` gives the reference's markdown and JSON string for
-  string.
 - Bench twins: ``repro_torch.bench.{fabric,capacity,energy}.run`` return the
   payload the reference benches write, on their full grids and on the cut
   grids the reference's own tests use.  (The committed ``BENCH_fabric.json``
@@ -25,7 +22,6 @@ reference's, so everything is compared exactly.
   reference bench's run, not to that file.)
 """
 import dataclasses
-import glob
 import json
 import types
 
@@ -40,7 +36,6 @@ from repro.obs import attrib as jattrib
 from repro.obs import capture as jcapture
 from repro.obs import energy as jenergy
 from repro.obs import events as jevents
-from repro.obs import report as jreport
 from repro.obs import slo as jslo
 from repro.obs import spans as jspans
 from repro.serve import fabric as jfabric
@@ -53,7 +48,7 @@ from repro_torch.bench import energy as tenergy_bench
 from repro_torch.bench import fabric as tfabric_bench
 from repro_torch.configs import get_smoke_config
 from repro_torch.core import energy_model as tem
-from repro_torch.obs import attrib, capture, energy, events, report, slo, spans
+from repro_torch.obs import attrib, capture, energy, events, slo, spans
 from repro_torch.serve import fabric, gateway, modeled
 from repro_torch.workload import Trace
 from repro_torch.workload import replay
@@ -329,40 +324,6 @@ def test_capture_relative_deadlines_and_defaults_equal_the_reference():
             cap.emit(p.events.Event(cyc, "admit", d))
         out[name] = cap.to_trace("t", seed=5, description="", meta={"x": 1}).to_json()
     assert out["port"] == out["ref"]
-
-
-# ----------------------------------------------------------------- report
-
-
-def test_build_report_equals_the_reference():
-    """The committed ledger and bench payloads: markdown and JSON equal,
-    string for string (and the trend series)."""
-    benches = sorted(glob.glob("BENCH_*.json"))
-    assert len(benches) >= 7
-    tmd, tpayload = report.build_report("BENCH_LEDGER.jsonl", benches)
-    jmd, jpayload = jreport.build_report("BENCH_LEDGER.jsonl", benches)
-    assert tmd == jmd
-    assert json.dumps(tpayload, sort_keys=True) == json.dumps(jpayload, sort_keys=True)
-    assert tpayload["schema"] == "repro.obs.report"
-    ledger = report.read_ledger("BENCH_LEDGER.jsonl")
-    assert ledger == jreport.read_ledger("BENCH_LEDGER.jsonl") and ledger
-    assert report.trend(ledger) == jreport.trend(ledger)
-    assert report.read_benches(benches) == jreport.read_benches(benches)
-
-
-def test_build_report_on_fresh_bench_payloads_equals_the_reference(tmp_path):
-    """The report over the twins' payloads (written by this run) and a
-    missing ledger: equal output, and every table section present."""
-    paths = []
-    for name, mod in (("fabric", tfabric_bench), ("energy", tenergy_bench)):
-        path = tmp_path / f"BENCH_{name}.json"
-        path.write_text(json.dumps(mod.run(), indent=2) + "\n")
-        paths.append(str(path))
-    missing = str(tmp_path / "no_ledger.jsonl")
-    tmd, tpayload = report.build_report(missing, paths)
-    jmd, jpayload = jreport.build_report(missing, paths)
-    assert tmd == jmd and tpayload == jpayload
-    assert set(tpayload["benches"]) == {"fabric", "energy"}
 
 
 # ------------------------------------------------------------ bench twins
