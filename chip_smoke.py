@@ -951,6 +951,7 @@ def certified_tuning(torch, np, card, cfg, params, images):
 
         def rec_forward(p, x, fcfg, **kw):
             seen.clear()
+            kw.pop("graphs", None)  # eager, so every conv is seen; replays equal it
             out = forward(p, x, fcfg, **kw)
             keys = []
             for b in range(x.shape[0]):

@@ -13,18 +13,22 @@ layout: ``{"enc": [[{"w", "b"}]], "bottleneck": [...], "dec": [...],
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
 from dataclasses import dataclass
+from typing import NamedTuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch.checkpoint.ckpt import tree_leaves
 from repro_torch.core import quant
 from repro_torch.core.bitplane import N_BITS
 from repro_torch.core.cycle_model import CALIBRATED_UNET, ConvLayerSpec, unet_conv_layers
 from repro_torch.core.plane_schedule import PlaneSchedule
 from repro_torch.device import resolve_device
+from repro_torch.kernels import mma_matmul as mk
 from repro_torch.kernels import ops
 from repro_torch.obs import timeline
 
@@ -227,7 +231,7 @@ def _prepare(params, x, device) -> tuple[dict, torch.Tensor]:
 
 def forward(
     params, x, cfg: UNetConfig, *, planes_arr=None, taps=None, per_sample_scale: bool = False,
-    device=None,
+    device=None, graphs: ForwardGraphs | None = None,
 ):
     """x: (N, H, W, Cin) -> logits (N, H, W, n_classes), on ``device``
     (the CUDA card unless ``device='cpu'``).
@@ -244,6 +248,15 @@ def forward(
     every conv's activations with one scale per sample, so one batched call
     computes what a forward of each sample alone computes (the per-tile
     quantization a tuned plan is served with).
+
+    ``graphs``: a :class:`ForwardGraphs` cache, bound to ``params``.  On a
+    CUDA input of the int8 kernel datapath (``quant_mode='mma_int8'``,
+    ``impl='kernel'``) with neither ``planes_arr`` nor ``taps``, the forward
+    is replayed from the cache's CUDA graph of its signature, with the same
+    kernels and the same values, and the logits returned are that graph's
+    static output: valid until the next call on the same cache, so copy
+    them out before it.  Anywhere else the forward runs eagerly, as it does
+    without a cache.
     """
     with timeline.span("unet.forward"):
         params, x = _prepare(params, x, device)
@@ -254,38 +267,152 @@ def forward(
                 f"2**depth = {mult}; pad the input (segserve.tiling.plan_tiles "
                 f"does this for arbitrary images)"
             )
-        sched = cfg.schedule() if cfg.quant_mode == "mma_int8" else None
-        li = 0
+        if graphs is not None:
+            graphs.bind(params)
+            timeline.count("unet.graph_forwards")
+            if (x.is_cuda and cfg.quant_mode == "mma_int8" and cfg.impl == "kernel"
+                    and planes_arr is None and taps is None):
+                return graphs.run(params, x, cfg, per_sample_scale)
+        return _layers(params, x, cfg, planes_arr, taps, per_sample_scale)
 
-        def qconv(conv, h):
-            nonlocal li
-            if planes_arr is not None and cfg.quant_mode == "mma_int8":
-                pl = planes_arr[li]
-            else:
-                pl = sched.planes_for(li) if sched is not None else None
-            li += 1
-            out = conv3x3(conv, h, cfg, planes=pl, per_sample_scale=per_sample_scale)
-            if taps is not None:
-                taps.append(out)
-            return out
 
-        skips = []
-        h = x
-        for stage in params["enc"]:
-            for conv in stage:
-                h = qconv(conv, h)
-            skips.append(h)
-            with timeline.span("unet.resample"):
-                h = _maxpool2(h)
-        for conv in params["bottleneck"]:
+def _layers(params, x, cfg: UNetConfig, planes_arr, taps, per_sample_scale: bool):
+    """The forward's layers on prepared ``params`` and ``x``: the one
+    definition that both the eager forward and a captured graph run."""
+    sched = cfg.schedule() if cfg.quant_mode == "mma_int8" else None
+    li = 0
+
+    def qconv(conv, h):
+        nonlocal li
+        if planes_arr is not None and cfg.quant_mode == "mma_int8":
+            pl = planes_arr[li]
+        else:
+            pl = sched.planes_for(li) if sched is not None else None
+        li += 1
+        out = conv3x3(conv, h, cfg, planes=pl, per_sample_scale=per_sample_scale)
+        if taps is not None:
+            taps.append(out)
+        return out
+
+    skips = []
+    h = x
+    for stage in params["enc"]:
+        for conv in stage:
             h = qconv(conv, h)
-        for d, stage in enumerate(params["dec"]):
-            with timeline.span("unet.resample"):
-                h = torch.cat([skips[-(d + 1)], _upsample2(h)], dim=-1)
-            for conv in stage:
-                h = qconv(conv, h)
-        with timeline.span("unet.head"):
-            return _head(params, h)
+        skips.append(h)
+        with timeline.span("unet.resample"):
+            h = _maxpool2(h)
+    for conv in params["bottleneck"]:
+        h = qconv(conv, h)
+    for d, stage in enumerate(params["dec"]):
+        with timeline.span("unet.resample"):
+            h = torch.cat([skips[-(d + 1)], _upsample2(h)], dim=-1)
+        for conv in stage:
+            h = qconv(conv, h)
+    with timeline.span("unet.head"):
+        return _head(params, h)
+
+
+class _Graph(NamedTuple):
+    """One captured forward: its graph, static input and output, and the
+    MMA kernel launches it holds (in all and by variant)."""
+
+    graph: torch.cuda.CUDAGraph
+    x: torch.Tensor
+    out: torch.Tensor
+    launches: int
+    variants: collections.Counter
+
+
+class ForwardGraphs:
+    """CUDA graphs of the int8 U-Net forward, one per signature, for
+    :func:`forward`'s ``graphs=``.
+
+    A signature (:meth:`key`) is the input's shape, the per-layer plane
+    schedule, the border fill and the activation-scale mode: what fixes
+    every kernel and every shape the forward launches.  The first forward
+    of a signature runs eagerly (it also warms up the libraries the forward
+    calls); the second captures the forward into a graph and replays it;
+    every later one copies its input into the graph's static input and
+    replays.  A replay runs the captured kernels in their order on the
+    same values, so its logits equal the eager forward's bit for bit.
+
+    All graphs of one cache share one memory pool: they replay one at a
+    time on one stream, so a graph's scratch may be another's, and the
+    pool holds about one forward's working set plus each graph's static
+    output.  The cache is bound to the first parameter tree it sees (its
+    graphs hold the tensors' addresses) and refuses any other.
+
+    The kernel's launch counters (``mma_matmul.launches``,
+    ``variant_launches``) stay true: a capture launches nothing, and each
+    replay adds the launches its graph holds.  While the program's
+    recorder is on, ``unet.graph_forwards`` counts the forwards given this
+    cache, ``unet.graph_replays`` those a replay served (a capture's
+    included) and ``unet.graph_captures`` the captures.
+    """
+
+    def __init__(self):
+        self._leaves: list | None = None
+        self._seen: set = set()  # signatures run once eagerly
+        self._graphs: dict[tuple, _Graph] = {}
+        self._pool = None
+
+    @staticmethod
+    def key(shape, cfg: UNetConfig, per_sample_scale: bool) -> tuple:
+        """The signature of a forward: classes whose schedules coincide
+        share it."""
+        return (tuple(shape), cfg.schedule().planes, cfg.pad_mode, bool(per_sample_scale))
+
+    def __len__(self) -> int:
+        return len(self._graphs)
+
+    def bind(self, params) -> None:
+        """Bind the cache to ``params``' tensors on its first call; raise
+        ``ValueError`` for a tree with any other tensor after that."""
+        leaves = tree_leaves(params)
+        if self._leaves is None:
+            self._leaves = leaves
+        elif len(leaves) != len(self._leaves) or any(
+                a is not b for a, b in zip(leaves, self._leaves)):
+            raise ValueError(
+                "this ForwardGraphs is bound to another parameter tree (its graphs hold "
+                "that tree's tensors): give each tree, on the forward's device, its own cache"
+            )
+
+    def run(self, params, x: torch.Tensor, cfg: UNetConfig, per_sample_scale: bool):
+        """The forward of prepared ``params`` and ``x`` on the card: eager
+        the first time its signature is seen, else from its graph."""
+        key = self.key(x.shape, cfg, per_sample_scale)
+        g = self._graphs.get(key)
+        if g is None:
+            if key not in self._seen:
+                self._seen.add(key)
+                return _layers(params, x, cfg, None, None, per_sample_scale)
+            g = self._graphs[key] = self._capture(params, x, cfg, per_sample_scale)
+        else:
+            g.x.copy_(x)
+        g.graph.replay()
+        mk.launches += g.launches
+        mk.variant_launches.update(g.variants)
+        timeline.count("unet.graph_replays")
+        return g.out
+
+    def _capture(self, params, x, cfg, per_sample_scale) -> _Graph:
+        static_x = x.clone()
+        graph = torch.cuda.CUDAGraph()
+        launches, variants = mk.launches, collections.Counter(mk.variant_launches)
+        try:
+            with torch.cuda.graph(graph, pool=self._pool):
+                out = _layers(params, static_x, cfg, None, None, per_sample_scale)
+        finally:  # a capture launches nothing: take its counts back out
+            held, held_variants = mk.launches - launches, mk.variant_launches - variants
+            mk.launches = launches
+            mk.variant_launches.clear()
+            mk.variant_launches.update(variants)
+        if self._pool is None:
+            self._pool = graph.pool()
+        timeline.count("unet.graph_captures")
+        return _Graph(graph, static_x, out, held, held_variants)
 
 
 def forward_with_error_bound(params, x, cfg: UNetConfig, *, device=None):

@@ -158,7 +158,10 @@ class SegEngine:
         transfers to the batched path exactly.
       priority: pick the pending group with the lowest budget class first
         (structure before background); scheduling order only.
-      device: where the forward runs — the CUDA card unless ``'cpu'``.
+      device: where the forward runs — the CUDA card unless ``'cpu'``.  On
+        the card the engine owns a :class:`~repro_torch.models.unet.ForwardGraphs`
+        (``self.graphs``), so each micro-batch signature's forward is
+        captured once and then replayed as one CUDA graph.
     """
 
     def __init__(
@@ -203,6 +206,7 @@ class SegEngine:
         self.cfg = cfg
         self.plan = plan
         self.params = unet.params_to(params, self.device)
+        self.graphs = unet.ForwardGraphs() if self.device.type == "cuda" else None
         self.tile = tile
         self.halo = halo
         self.batch = batch
@@ -389,9 +393,10 @@ class SegEngine:
                     spec = req.plan.tiles[ti]
                     x[b] = req.canvas_in[spec.y0 : spec.y1, spec.x0 : spec.x1]
             out = unet.forward(self.params, x, self.class_cfg(k),
-                               per_sample_scale=self.per_tile_quant, device=self.device)
+                               per_sample_scale=self.per_tile_quant, device=self.device,
+                               graphs=self.graphs)
             with timeline.span("segserve.fetch"):
-                out = out.cpu().numpy()
+                out = out.cpu().numpy()  # on the card, a graph's output: copy it now
             with timeline.span("segserve.stitch"):
                 return self._stitch(taken, out, in_h, in_w, k)
 

@@ -9,6 +9,7 @@ no jax (the machine with the card has none), so it runs there with
 (``--noconftest``: the suite's shared conftest imports jax).
 """
 
+import collections
 import dataclasses
 
 import numpy as np
@@ -22,6 +23,7 @@ from repro_torch.core import quant
 from repro_torch.kernels import mma_matmul as mk
 from repro_torch.kernels import ops
 from repro_torch.models import transformer, unet
+from repro_torch.obs import timeline
 from repro_torch.obs.events import RecordingSink
 from repro_torch.segserve import SegEngine
 from repro_torch.serve import Engine, Gateway, LMAdapter, Request, SegAdapter
@@ -583,6 +585,115 @@ def test_gpu_per_tile_conv_outputs_independent_of_batch_mates(cuda, monkeypatch)
     for b in range(x.shape[0]):
         for l, (alone, mate) in enumerate(zip(convs(x[b : b + 1]), batched)):
             assert torch.equal(alone[0], mate[b]), (b, l)
+
+
+# ------------------------------------------- the U-Net forward's graphs
+
+# Window shapes of the calibrated U-Net (depth 3: multiples of 8) and two
+# plane schedules of its 7 convs.
+GRAPH_WINDOWS = [(80, 80), (56, 80), (40, 40)]
+GRAPH_SCHEDULES = [(8,) * 7, (6, 5, 4, 3, 4, 5, 6)]
+
+
+def _graph_net(cuda, schedule=GRAPH_SCHEDULES[1]):
+    cfg = unet.UNetConfig(quant_mode="mma_int8", plane_schedule=schedule)
+    return cfg, unet.init_params(0, cfg, device=cuda)
+
+
+def _windows(shape, seed, n=8):
+    """``n`` windows of ``shape`` whose amplitude moves with the seed, so
+    the activation scales differ from call to call."""
+    rng = np.random.default_rng(seed)
+    return (rng.normal(size=(n, *shape, 4)) * (1 + seed % 5)).astype(np.float32)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("per_sample_scale", [False, True])
+@pytest.mark.parametrize("schedule", GRAPH_SCHEDULES)
+def test_gpu_graphed_forward_equals_eager(cuda, schedule, per_sample_scale):
+    """Each window shape's forwards (eager, capture, replays) through a
+    cache equal the eager forward bit for bit."""
+    cfg, params = _graph_net(cuda, schedule)
+    graphs = unet.ForwardGraphs()
+    for i, shape in enumerate(GRAPH_WINDOWS):
+        for j in range(4):
+            x = _windows(shape, 10 * i + j)
+            want = unet.forward(params, x, cfg, per_sample_scale=per_sample_scale, device=cuda)
+            got = unet.forward(params, x, cfg, per_sample_scale=per_sample_scale, device=cuda,
+                               graphs=graphs)
+            assert torch.equal(got, want), (shape, j)
+    assert len(graphs) == len(GRAPH_WINDOWS)
+
+
+@pytest.mark.gpu
+def test_gpu_graph_replays_interleaved_across_signatures(cuda):
+    """Replays of one signature between another's, all on the cache's one
+    pool: every output equals the eager forward's."""
+    cfg, params = _graph_net(cuda)
+    other = dataclasses.replace(cfg, plane_schedule=GRAPH_SCHEDULES[0])
+    sigs = [((80, 80), cfg, False), ((40, 40), other, True), ((56, 80), cfg, True),
+            ((80, 80), other, False)]
+    graphs = unet.ForwardGraphs()
+    order = [0, 1, 2, 3] * 2 + [0, 1, 0, 2, 3, 3, 1, 0, 2, 1]
+    for n, s in enumerate(order):
+        shape, scfg, pss = sigs[s]
+        x = _windows(shape, 100 + n)
+        want = unet.forward(params, x, scfg, per_sample_scale=pss, device=cuda)
+        got = unet.forward(params, x, scfg, per_sample_scale=pss, device=cuda, graphs=graphs)
+        assert torch.equal(got, want), (n, s)
+    assert len(graphs) == len(sigs)
+
+
+@pytest.mark.gpu
+def test_gpu_graph_launch_counts_equal_eager(cuda):
+    """An eager forward, a capture and two more replays count the kernel
+    launches of four eager forwards, by variant; the capture itself none."""
+    cfg, params = _graph_net(cuda)
+    x = _windows((56, 80), 7)
+    mk.launches = 0
+    mk.variant_launches.clear()
+    for _ in range(4):
+        unet.forward(params, x, cfg, device=cuda)
+    eager = (mk.launches, collections.Counter(mk.variant_launches))
+    assert eager[0] == 4 * len(cfg.conv_layers())
+    mk.launches = 0
+    mk.variant_launches.clear()
+    graphs = unet.ForwardGraphs()
+    with timeline.recording() as rec:
+        for n in range(4):
+            unet.forward(params, x, cfg, device=cuda, graphs=graphs)
+            assert mk.launches == (n + 1) * len(cfg.conv_layers())
+    torch.cuda.synchronize()
+    assert (mk.launches, mk.variant_launches) == eager
+    assert set(mk.variant_launches) == set(eager[1])
+    assert rec.counts == {"unet.graph_forwards": 4, "unet.graph_replays": 3,
+                          "unet.graph_captures": 1}
+
+
+@pytest.mark.gpu
+def test_gpu_engine_graphs_serve_the_eager_engines_logits(cuda):
+    """A ``SegEngine`` on the card (its graph cache) serves four 240x240x4
+    slices twice with the logits of an engine without a cache, bit for
+    bit, the second time mostly from replays."""
+    base = unet.UNetConfig(quant_mode="mma_int8")
+    params = unet.init_params(0, base, device=cuda)
+    cfg = dataclasses.replace(base, plane_schedule=unet.schedule_from_params(params, 0.05).planes)
+    images = [phantom_image(240, 240, 4, seed=s) for s in range(4)]
+    kw = dict(tile=32, batch=32, max_active=8, device=cuda)
+    eager = SegEngine(cfg, params, **kw)
+    eager.graphs = None
+    want = eager.run(images)
+    eng = SegEngine(cfg, params, **kw)
+    assert isinstance(eng.graphs, unet.ForwardGraphs)
+    first = eng.run(images)
+    with timeline.recording() as rec:
+        second = eng.run(images)
+    for runs in (first, second):
+        for a, b in zip(runs, want):
+            assert np.array_equal(a.logits, b.logits)
+            assert (a.cycles, a.pj, a.class_counts) == (b.cycles, b.pj, b.class_counts)
+    assert len(eng.graphs) > 0
+    assert rec.counts["unet.graph_replays"] > rec.counts["unet.graph_forwards"] // 2
 
 
 # ------------------------------------------------ speculative decoding

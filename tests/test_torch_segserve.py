@@ -20,6 +20,7 @@ from repro.segserve import SegEngine as JEngine
 from repro.segserve import adaptive as jadaptive
 from repro.segserve import tiling as jtiling
 from repro_torch.models import unet
+from repro_torch.obs import timeline
 from repro_torch.obs.events import RecordingSink
 from repro_torch.segserve import SegEngine, adaptive, tiling
 from repro_torch.segserve.synth import phantom_image
@@ -144,3 +145,34 @@ def test_engine_without_device_raises_without_a_card(net):
     _, _, tcfg, tparams = net
     with pytest.raises(RuntimeError, match="CUDA card"):
         SegEngine(tcfg, tparams)
+
+
+def test_engine_passes_its_graph_cache_to_the_forward(net):
+    """The engine holds a graph cache on the card only and hands it to
+    ``unet.forward``; given one on the CPU, every micro-batch still runs
+    eagerly (counted, never replayed) with the same logits."""
+    _, _, tcfg, tparams = net
+    assert SegEngine(tcfg, tparams, tile=16, device="cpu").graphs is None
+    want = SegEngine(tcfg, tparams, tile=16, device="cpu").run(IMAGES[:2])
+    eng = SegEngine(tcfg, tparams, tile=16, device="cpu")
+    eng.graphs = unet.ForwardGraphs()
+    eng.obs = RecordingSink(["seg-batch"])
+    with timeline.recording() as rec:
+        got = eng.run(IMAGES[:2])
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a.logits, b.logits)
+    graph_counts = {k: v for k, v in rec.counts.items() if k.startswith("unet.graph")}
+    assert graph_counts == {"unet.graph_forwards": len(eng.obs)} and len(eng.obs) > 0
+    assert len(eng.graphs) == 0
+
+
+def test_classes_with_equal_schedules_share_a_graph_signature(net):
+    """The signature is the class's refined schedule, not the class: the
+    engine's classes give as many signatures as distinct schedules, and
+    here some classes coincide."""
+    _, _, tcfg, tparams = net
+    eng = SegEngine(tcfg, tparams, tile=16, device="cpu")
+    classes = range(adaptive.MAX_CLASS + 1)
+    keys = {unet.ForwardGraphs.key((4, 40, 40, 3), eng.class_cfg(k), False) for k in classes}
+    schedules = {eng.class_cfg(k).schedule().planes for k in classes}
+    assert len(keys) == len(schedules) < len(classes)

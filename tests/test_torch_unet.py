@@ -18,6 +18,7 @@ from repro.core import quant as jq
 from repro.models import unet as junet
 from repro_torch.core import quant
 from repro_torch.models import unet
+from repro_torch.obs import timeline
 
 # Float 1x1 head over <= 8 channels of O(1) activations, summed in another
 # order than XLA's: a few float32 ulps.  Float-mode convs add the same kind
@@ -173,3 +174,49 @@ def test_forward_without_device_raises_without_a_card(net):
         unet.forward(tparams, x, tcfg)
     with pytest.raises(RuntimeError, match="CUDA card"):
         unet.init_params(0, tcfg)
+
+
+# ------------------------------------------------------- the graph cache
+
+
+@pytest.mark.parametrize("per_sample_scale", [False, True])
+def test_a_graph_cache_off_the_card_leaves_the_forward_eager(net, per_sample_scale):
+    """On the CPU a cache changes nothing: every forward runs eagerly, equal
+    to one without it; only ``unet.graph_forwards`` counts."""
+    _, _, tcfg, tparams, x = net
+    cfg = _with(tcfg, plane_schedule=SCHEDULES[1])
+    want = unet.forward(tparams, x, cfg, per_sample_scale=per_sample_scale, device="cpu")
+    graphs = unet.ForwardGraphs()
+    with timeline.recording() as rec:
+        for _ in range(3):
+            got = unet.forward(tparams, x, cfg, per_sample_scale=per_sample_scale, device="cpu",
+                               graphs=graphs)
+            assert torch.equal(got, want)
+    assert rec.counts == {"unet.graph_forwards": 3}
+    assert len(graphs) == 0
+
+
+def test_the_graph_key_separates_signatures_and_merges_equal_schedules(net):
+    _, _, tcfg, _, _ = net
+    key, shape = unet.ForwardGraphs.key, (2, 16, 16, 3)
+    n = len(tcfg.conv_layers())
+    base = key(shape, tcfg, False)
+    # one schedule spelled two ways, or at another nominal size: one graph
+    assert key(shape, _with(tcfg, plane_schedule=(8,) * n), False) == base
+    assert key(shape, _with(tcfg, hw=32), False) == base
+    others = [key((2, 16, 8, 3), tcfg, False), key((4, 16, 16, 3), tcfg, False),
+              key(shape, _with(tcfg, plane_schedule=SCHEDULES[1]), False),
+              key(shape, _with(tcfg, planes=5), False), key(shape, tcfg, True),
+              key(shape, _with(tcfg, pad_mode="edge"), False)]
+    assert len({base, *others}) == 1 + len(others)
+
+
+def test_a_graph_cache_refuses_another_parameter_tree(net):
+    _, _, tcfg, tparams, x = net
+    graphs = unet.ForwardGraphs()
+    unet.forward(tparams, x, tcfg, device="cpu", graphs=graphs)
+    # the same tensors in another dict are the same parameters
+    unet.forward(unet.params_to(tparams, "cpu"), x, tcfg, device="cpu", graphs=graphs)
+    other = unet.init_params(1, tcfg, device="cpu")
+    with pytest.raises(ValueError, match="another parameter tree"):
+        unet.forward(other, x, tcfg, device="cpu", graphs=graphs)
