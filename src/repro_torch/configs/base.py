@@ -5,7 +5,11 @@ A framework-free copy of the reference's schema.  Families: 'dense'
 mixture-of-experts FFN), 'hybrid' (Mamba2 backbone with a shared attention
 block — Zamba2), 'ssm' (attention-free RWKV6), 'encdec' (Whisper), 'vlm'
 (dense LM + stub patch-embedding prefix), 'unet' (the paper's target
-application).  The port serves every family.
+application).  The port serves every family.  The moe family's
+DeepSeek-V3 block (Moonlight-16B-A3B) adds latent attention
+(``kv_lora_rank`` > 0) and the held-expert layer (``MoEConfig.held`` > 0:
+shared experts, sigmoid scores with a selection bias, leading dense
+layers); it trains, and is not served.
 """
 from __future__ import annotations
 
@@ -43,6 +47,17 @@ class MoEConfig:
     expert_ff: int = 0  # per-expert FFN width
     capacity_factor: float = 1.25
     ep: bool = False  # expert parallelism
+    # The held-expert layer (DeepSeek-V3's, models.moe.moe_held), taken only
+    # where ``held`` > 0: this rank holds routed experts ``held_first`` ..
+    # ``held_first + held - 1`` of ``n_experts``, routes over all of them and
+    # computes its own experts' part, every assignment to them (dropless).
+    held: int = 0
+    held_first: int = 0
+    n_shared: int = 0  # shared experts, one SwiGLU of width n_shared * expert_ff
+    routed_scale: float = 1.0  # top-k weights normalised, then times this
+    first_dense: int = 0  # leading dense layers (MLP of width d_ff) before the MoE ones
+    aux_coef: float = 0.01  # the balance loss's coefficient in the training loss
+    bias_rate: float = 0.0  # the selection bias's update speed (0: no bias)
 
 
 @dataclass(frozen=True)
@@ -56,6 +71,12 @@ class ArchConfig:
     d_ff: int
     vocab: int
     head_dim: int = 0  # 0 -> d_model // n_heads
+    # multi-head latent attention (DeepSeek-V2), taken where kv_lora_rank > 0:
+    # per-head query and key dims qk_nope_dim + qk_rope_dim, values v_head_dim
+    kv_lora_rank: int = 0
+    qk_nope_dim: int = 0
+    qk_rope_dim: int = 0
+    v_head_dim: int = 0
     rope_theta: float = 10_000.0
     swa_window: int = 0  # 0 = full attention; >0 = sliding window
     norm_eps: float = 1e-5
@@ -114,8 +135,15 @@ SHAPES = {
 LONG_CONTEXT_OK = {"h2o_danube_3_4b", "zamba2_7b", "rwkv6_3b"}
 
 
+# Archs with no sharded step: Moonlight-16B-A3B's latent attention and
+# held-expert layer train on one card (its rank's share), and are not served.
+ONE_CARD_ONLY = {"moonlight_16b_a3b"}
+
+
 def cells(arch_name: str) -> list[str]:
-    """The shape cells that are runnable for this arch."""
+    """The shape cells that are runnable for this arch (on a mesh)."""
+    if arch_name.replace("-", "_") in ONE_CARD_ONLY:
+        return []
     out = ["train_4k", "prefill_32k", "decode_32k"]
     if arch_name.replace("-", "_") in LONG_CONTEXT_OK:
         out.append("long_500k")

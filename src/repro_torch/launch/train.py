@@ -46,6 +46,8 @@ def main(argv=None):
     params = (mod.init_params(0, cfg, device=dev, max_dec_pos=args.seq + 1)
               if cfg.family == "encdec" else mod.init_params(0, cfg, device=dev))
     state = {"params": params, "opt": adamw.init(params)}
+    if cfg.family == "moe" and cfg.moe.held and cfg.moe.bias_rate:
+        state["router_bias"] = mod.init_router_bias(cfg, device=dev)
 
     extras = {}
     if cfg.family == "vlm":

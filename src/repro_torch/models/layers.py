@@ -21,6 +21,7 @@ from repro_torch.checkpoint.ckpt import tree_leaves
 from repro_torch.core import mma
 from repro_torch.core import quant as quant_lib
 from repro_torch.kernels import ops
+from repro_torch.obs import timeline
 
 # Static scale for the int8 KV cache (post-RMSNorm K/V magnitudes are
 # ~O(1); 0.05 gives +-6.35 of dynamic range).
@@ -290,7 +291,8 @@ def flash_attention(
 ) -> torch.Tensor:
     """Chunked online-softmax attention (plain PyTorch, O(S*chunk) memory).
 
-    q: (B, S, H, D); k, v: (B, T, KV, D) with H % KV == 0 (GQA).
+    q: (B, S, H, D); k: (B, T, KV, D), v: (B, T, KV, Dv) with H % KV == 0
+    (GQA); the scale is 1/sqrt(D), and the output (B, S, H, Dv).
     ``window`` > 0 limits attention to the last ``window`` keys (SWA).
     ``q_offset``: absolute position of q[0] (decode: T_cache) — an int, a
     0-d tensor, or a (B,) vector of per-row offsets (slot-isolated decode).
@@ -299,6 +301,7 @@ def flash_attention(
     """
     b, s, h, d = q.shape
     _, t, kv, _ = k.shape
+    dv = v.shape[-1]
     groups = h // kv
     scale = 1.0 / math.sqrt(d)
     dev = q.device
@@ -325,11 +328,11 @@ def flash_attention(
         p = torch.exp(scores - m.detach())  # the reference's stop_gradient
         out = torch.einsum("bkgst,btkd->bskgd", p.to(q.dtype), v).to(torch.float32)
         out = out / torch.clamp(p.sum(-1), min=1e-20).permute(0, 3, 1, 2)[..., None]
-        return out.reshape(b, s, h, d).to(q.dtype)
+        return out.reshape(b, s, h, dv).to(q.dtype)
 
     m_prev = torch.full((b, kv, groups, s), -torch.inf, dtype=torch.float32, device=dev)
     l_prev = torch.zeros((b, kv, groups, s), dtype=torch.float32, device=dev)
-    acc = torch.zeros((b, s, kv, groups, d), dtype=torch.float32, device=dev)
+    acc = torch.zeros((b, s, kv, groups, dv), dtype=torch.float32, device=dev)
     for j in _live_chunks(q_offset, s, t, chunk, causal, window):
         # the last chunk padded with zero keys, as the reference pads k and v
         kj = k[:, j * chunk : (j + 1) * chunk]
@@ -359,7 +362,7 @@ def flash_attention(
         m_prev = m_new
     l = torch.clamp(l_prev, min=1e-20)
     out = acc / l.permute(0, 3, 1, 2)[..., None]
-    return out.reshape(b, s, h, d).to(q.dtype)
+    return out.reshape(b, s, h, dv).to(q.dtype)
 
 
 # -------------------------------------------------------------------- blocks
@@ -445,6 +448,43 @@ def attention(
     )
     out = linear(p["wo"], out.reshape(b, s, cfg.n_heads * hd), cfg.quant)
     return out, new_cache
+
+
+def init_mla(g: torch.Generator, cfg, *, device) -> dict:
+    """Multi-head latent attention's weights (``q_lora_rank`` null): the
+    query, the latent KV's down-projection with the shared RoPE key, the
+    latent's norm, its up-projection to per-head keys and values, and the
+    output."""
+    h, dn, dr, dv, r = (cfg.n_heads, cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim,
+                        cfg.kv_lora_rank)
+    return {
+        "wq": init_linear(g, cfg.d_model, h * (dn + dr), device=device),
+        "wkv_a": init_linear(g, cfg.d_model, r + dr, device=device),
+        "kv_norm": init_norm(r, device=device),
+        "wkv_b": init_linear(g, r, h * (dn + dv), device=device),
+        "wo": init_linear(g, h * dv, cfg.d_model, device=device),
+    }
+
+
+def mla_attention(p: dict, x: torch.Tensor, cfg, *, positions: torch.Tensor) -> torch.Tensor:
+    """Causal multi-head latent attention (DeepSeek-V2), no cache: per head
+    q = [q_nope | RoPE(q_pe)] = wq x; [c_kv | k_pe] = wkv_a x with c_kv
+    RMS-normed and k_pe = RoPE(k_pe) one head shared by all; per head
+    [k_nope | v] = wkv_b c_kv, k = [k_nope | k_pe]; softmax at 1/sqrt(qk
+    dim); out = wo concat(o).  x: (B, S, D) -> (B, S, D)."""
+    b, s, _ = x.shape
+    h, dn, dr, dv, r = (cfg.n_heads, cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim,
+                        cfg.kv_lora_rank)
+    with timeline.span("mla.attention"):
+        q = linear(p["wq"], x, cfg.quant).reshape(b, s, h, dn + dr)
+        q = torch.cat([q[..., :dn], rope(q[..., dn:], positions, cfg.rope_theta)], dim=-1)
+        kva = linear(p["wkv_a"], x, cfg.quant)
+        c_kv = rmsnorm(p["kv_norm"], kva[..., :r], cfg.norm_eps)
+        k_pe = rope(kva[..., r:].reshape(b, s, 1, dr), positions, cfg.rope_theta)
+        kv = linear(p["wkv_b"], c_kv, cfg.quant).reshape(b, s, h, dn + dv)
+        k = torch.cat([kv[..., :dn], k_pe.expand(b, s, h, dr)], dim=-1)
+        out = flash_attention(q, k, kv[..., dn:], causal=True, chunk=cfg.attn_chunk)
+        return linear(p["wo"], out.reshape(b, s, h * dv), cfg.quant)
 
 
 def init_mlp(g: torch.Generator, cfg, *, device, d_ff: int | None = None) -> dict:

@@ -28,6 +28,17 @@ Kept from the reference, as it computes them:
 Expert parallelism (``moe_ffn_ep``): the reference's explicit all-to-all
 over the mesh's ``model`` axis, on ``torch.distributed`` ranks; without a
 mesh it is ``moe_ffn``.
+
+The held-expert layer (``moe_held``, DeepSeek-V3's, taken only where
+``cfg.moe.held`` > 0; the layers above are untouched by it): sigmoid scores
+of the float32 router product over all ``n_experts``; the top-k chosen by
+score plus a selection bias (ties to the lower index), weighted by the
+scores normalised over the chosen and scaled; every assignment to an
+expert this rank holds computed (dropless), each held expert's three
+products at its real row count through ``core.mma.mma_linear`` (one
+activation scale per row, so a token's output does not depend on the
+tokens routed with it); the shared experts on every token; DeepSeek-V3's
+sequence-wise balance loss.  One read of the expert counts per call.
 """
 from __future__ import annotations
 
@@ -36,25 +47,33 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core import mma
+from repro_torch.obs import timeline
+
 from . import layers
 
 
 def init_moe(g: torch.Generator, cfg, *, device) -> dict:
     """The router (a ``{"w"}`` linear) and the stacked expert weights, bf16,
-    each expert tensor normal / sqrt(fan_in)."""
+    each expert tensor normal / sqrt(fan_in); the held-expert layer's
+    router spans every expert, its stacks the held ones, and it adds the
+    shared experts (an MLP of width ``n_shared * expert_ff``)."""
     m = cfg.moe
-    e, d, f = m.n_experts, cfg.d_model, m.expert_ff
+    e, d, f = m.held or m.n_experts, cfg.d_model, m.expert_ff
 
     def ex(shape, fan_in):
         t = torch.randn(shape, generator=g, dtype=torch.float32, device=device)
         return (t / math.sqrt(fan_in)).to(torch.bfloat16)
 
-    return {
-        "router": layers.init_linear(g, d, e, device=device),
+    p = {
+        "router": layers.init_linear(g, d, m.n_experts, device=device),
         "w_gate": ex((e, d, f), d),
         "w_up": ex((e, d, f), d),
         "w_down": ex((e, f, d), f),
     }
+    if m.n_shared:
+        p["shared"] = layers.init_mlp(g, cfg, device=device, d_ff=m.n_shared * f)
+    return p
 
 
 def capacity(t: int, m) -> int:
@@ -234,3 +253,104 @@ def load_balance_loss(p: dict, x: torch.Tensor, cfg) -> torch.Tensor:
     f = F.one_hot(top1, m.n_experts).to(torch.float32).mean(0)
     pmean = probs.mean(0)
     return m.n_experts * torch.sum(f * pmean)
+
+
+# ------------------------------------------------------ the held-expert layer
+
+
+def route_sigmoid(logits: torch.Tensor, bias: torch.Tensor | None, m):
+    """DeepSeek-V3's routing of float32 router logits (T, E): scores
+    ``s = sigmoid(logits)``; the top-k by ``s + bias`` (the bias selects
+    and weighs nothing; ties to the lower index); each chosen expert's
+    weight ``s_i / (sum of the chosen s + 1e-20) * routed_scale``.  Returns
+    ``(scores, idx, gates)``, idx and gates (T, k)."""
+    scores = torch.sigmoid(logits)
+    sel = scores.detach() if bias is None else scores.detach() + bias
+    _, idx = _top_k(sel, m.top_k)
+    top = torch.gather(scores, 1, idx)
+    return scores, idx, top / (top.sum(-1, keepdim=True) + 1e-20) * m.routed_scale
+
+
+def seq_balance(scores: torch.Tensor, idx: torch.Tensor, b: int, m) -> torch.Tensor:
+    """DeepSeek-V3's sequence-wise balance term, the mean over the ``b``
+    sequences of ``sum_i f_i P_i``: ``f_i = E / (k T)`` times the tokens
+    that chose expert ``i``, ``P_i`` the mean over the sequence's T tokens
+    of ``s_i / sum_j s_j`` (without the coefficient)."""
+    e = scores.shape[1]
+    sc = scores.reshape(b, -1, e)
+    t = sc.shape[1]
+    p_mean = (sc / sc.sum(-1, keepdim=True)).mean(1)
+    picks = idx.reshape(b, -1)
+    chosen = torch.zeros((b, e), dtype=torch.float32, device=scores.device).scatter_add_(
+        1, picks, torch.ones(picks.shape, dtype=torch.float32, device=scores.device))
+    f = chosen * (e / (m.top_k * t))
+    return (f * p_mean).sum(-1).mean()
+
+
+def _expert_linear(x: torch.Tensor, w: torch.Tensor, quant) -> torch.Tensor:
+    """(M, K) @ (K, N) -> bf16: under ``mma_int8`` the MMA product with one
+    activation scale per row (the STE's float32 gradient), else bf16."""
+    if quant.mode == "mma_int8":
+        return mma.mma_linear(x.to(torch.float32), w.to(torch.float32), planes=quant.planes,
+                              impl=quant.impl, batch_axis=0).to(torch.bfloat16)
+    return torch.matmul(x.to(torch.bfloat16), w.to(torch.bfloat16))
+
+
+def held_expert(p: dict, e: int, x: torch.Tensor, quant) -> torch.Tensor:
+    """Held expert ``e``'s SwiGLU on its rows x (M, D) -> (M, D) bf16."""
+    gate = _expert_linear(x, p["w_gate"][e], quant)
+    up = _expert_linear(x, p["w_up"][e], quant)
+    h = F.silu(gate.to(torch.float32)).to(torch.bfloat16) * up
+    return _expert_linear(h, p["w_down"][e], quant)
+
+
+def moe_held(p: dict, x: torch.Tensor, cfg, bias: torch.Tensor | None = None):
+    """The held-expert layer on x (B, S, D): ``y = sum over the chosen
+    experts this rank holds of g_i E_i(x)``, summed in float64, plus the
+    shared experts ``S(x)``.  ``bias`` (E,) float32: the selection bias, or
+    none.  Returns ``(y, balance, counts)``: ``counts`` (E,) int64 the
+    assignments per expert over every expert, ``balance`` the
+    :func:`seq_balance` term."""
+    m = cfg.moe
+    b, s, d = x.shape
+    t, k, lo = b * s, m.top_k, m.held_first
+    xf = x.reshape(t, d)
+    timeline.count("moe.calls")
+    with timeline.span("moe.route"):
+        logits = xf.to(torch.float32) @ p["router"]["w"].to(torch.float32)
+        scores, idx, gates = route_sigmoid(logits, bias, m)
+        eid = idx.reshape(t * k)
+        order = torch.argsort(eid, stable=True)  # assignments by expert, token order within
+        counts = torch.bincount(eid, minlength=m.n_experts)
+        n = counts.tolist()  # the layer's one read of the counts
+        timeline.count("moe.count_reads")
+    balance = seq_balance(scores, idx, b, m)
+    with timeline.span("moe.dispatch"):
+        start = sum(n[:lo])
+        held_n = n[lo:lo + m.held]
+        rows = order[start:start + sum(held_n)]  # flat (token, slot) ids, by expert
+        tok = rows // k
+        xg = xf.to(torch.float32)[tok]
+        gw = gates.reshape(t * k)[rows]
+    timeline.count("moe.assignments", t * k)
+    timeline.count("moe.held_assignments", sum(held_n))
+    with timeline.span("moe.experts"):
+        outs, a = [], 0
+        for e, rows_e in enumerate(held_n):
+            if rows_e:
+                outs.append(held_expert(p, e, xg[a:a + rows_e], cfg.quant))
+                timeline.count("moe.expert_calls")
+                timeline.count("moe.expert_rows", rows_e)
+            a += rows_e
+    timeline.count("moe.dropped", sum(held_n) - a)
+    with timeline.span("moe.shared"):
+        shared = layers.mlp(p["shared"], x, cfg) if m.n_shared else None
+    with timeline.span("moe.combine"):
+        y = torch.zeros((t, d), dtype=torch.float64, device=x.device)
+        if outs:
+            contrib = torch.cat(outs).to(torch.float32) * gw[:, None]
+            y = y.index_add(0, tok, contrib.to(torch.float64))
+        y = y.to(torch.float32).reshape(b, s, d)
+        if shared is not None:
+            y = y + shared.to(torch.float32)
+    return y.to(x.dtype), balance, counts

@@ -13,6 +13,7 @@ the bit-mask identity makes bit-identical.
 from __future__ import annotations
 
 import dataclasses
+from functools import partial
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -36,17 +37,31 @@ layer_params = layers.layer_params
 params_to = layers.params_to
 
 
-def init_block(g: torch.Generator, cfg, *, device) -> dict:
+def init_block(g: torch.Generator, cfg, *, device, dense: bool = False) -> dict:
+    """One block's weights; ``dense``: a leading dense layer of an MoE
+    config (an MLP of width ``d_ff``)."""
+    init_attn = layers.init_mla if cfg.kv_lora_rank else layers.init_attention
     p = {
         "ln1": layers.init_norm(cfg.d_model, device=device),
-        "attn": layers.init_attention(g, cfg, device=device),
+        "attn": init_attn(g, cfg, device=device),
         "ln2": layers.init_norm(cfg.d_model, device=device),
     }
-    if cfg.moe.n_experts:
+    if cfg.moe.n_experts and not dense:
         p["moe"] = moe_lib.init_moe(g, cfg, device=device)
     else:
         p["mlp"] = layers.init_mlp(g, cfg, device=device)
     return p
+
+
+def init_router_bias(cfg, *, device=None) -> torch.Tensor | None:
+    """The held-expert layers' selection biases, zeros (MoE layers,
+    experts) float32: training state outside the parameters
+    (``train.train_step``); None where the config has none."""
+    m = cfg.moe
+    if not (m.held and m.bias_rate):
+        return None
+    return torch.zeros((cfg.n_layers - m.first_dense, m.n_experts), dtype=torch.float32,
+                       device=resolve_device(device))
 
 
 def init_params(seed: int, cfg, *, device=None, int8_min_dim: int | None = None) -> dict:
@@ -70,8 +85,12 @@ def init_params(seed: int, cfg, *, device=None, int8_min_dim: int | None = None)
         return quant.quantize_params_int8(tree, min_dim=int8_min_dim)
 
     p = {"embed": layers.init_embedding(g, cfg.vocab, cfg.d_model, device=dev)}
+    nd = cfg.moe.first_dense
+    if nd:  # leading dense layers: a tree of their own beside the MoE stack
+        p["dense_blocks"] = layers.stack_drawn(
+            lambda: made(init_block(g, cfg, device=dev, dense=True)), nd)
     p["blocks"] = layers.stack_drawn(lambda: made(init_block(g, cfg, device=dev)),
-                                     cfg.n_layers)
+                                     cfg.n_layers - nd)
     p["ln_f"] = layers.init_norm(cfg.d_model, device=dev)
     if not cfg.tie_embeddings:
         p["head"] = made(layers.init_linear(g, cfg.d_model, cfg.vocab, device=dev))
@@ -92,14 +111,23 @@ def params_from_jax(tree, *, device=None) -> dict:
 # ----------------------------------------------------------------- forward
 
 
+def _attend(p, x, cfg, *, positions, cache=None, cache_index=None):
+    """The block's attention on ``rmsnorm(ln1, x)``: ``(out, new_cache)``."""
+    h = layers.rmsnorm(p["ln1"], x, cfg.norm_eps)
+    if not cfg.kv_lora_rank:
+        return layers.attention(p["attn"], h, cfg, positions=positions, cache=cache,
+                                cache_index=cache_index)
+    if cache is not None:
+        raise NotImplementedError("latent attention has no KV cache in the port: "
+                                  f"{cfg.name} trains, and is not served")
+    return layers.mla_attention(p["attn"], h, cfg, positions=positions), None
+
+
 def _block(p, x, cfg, *, positions, cache=None, cache_index=None):
-    h, new_cache = layers.attention(
-        p["attn"], layers.rmsnorm(p["ln1"], x, cfg.norm_eps), cfg,
-        positions=positions, cache=cache, cache_index=cache_index,
-    )
+    h, new_cache = _attend(p, x, cfg, positions=positions, cache=cache, cache_index=cache_index)
     x = x + h
     h2 = layers.rmsnorm(p["ln2"], x, cfg.norm_eps)
-    if cfg.moe.n_experts:
+    if "moe" in p:
         ffn = moe_lib.moe_ffn_ep if cfg.moe.ep else moe_lib.moe_ffn
         h2 = ffn(p["moe"], h2, cfg)
     else:
@@ -115,6 +143,16 @@ def _layer(blk, x, aux, cfg, positions, moe_aux: bool):
             blk["moe"], layers.rmsnorm(blk["ln2"], x, cfg.norm_eps), cfg)
     x, _ = _block(blk, x, cfg, positions=positions)
     return x, aux
+
+
+def _held_layer(blk, x, aux, cfg, positions, bias):
+    """One held-expert MoE layer of the cacheless forward: attention, then
+    ``moe.moe_held``, whose balance term adds to ``aux``.  Also returns the
+    layer's assignments per expert."""
+    x = x + _attend(blk, x, cfg, positions=positions)[0]
+    y, bal, counts = moe_lib.moe_held(blk["moe"], layers.rmsnorm(blk["ln2"], x, cfg.norm_eps),
+                                      cfg, bias)
+    return x + y, aux + bal, counts
 
 
 def _layer_cfgs(cfg) -> list:
@@ -139,6 +177,8 @@ def forward(
     cache: dict | None = None,
     cache_index=None,
     return_aux: bool = False,
+    router_bias=None,
+    expert_counts: list | None = None,
     device=None,
 ):
     """tokens: (B, S) int -> logits (B, P + S, vocab), on ``device`` (the
@@ -152,6 +192,12 @@ def forward(
     positions.  ``return_aux`` (no cache): also the MoE load-balance loss
     summed over layers (zero for 'dense'), each layer's taken, as the
     reference takes it, on ``rmsnorm(ln2, h)`` of the block's input ``h``.
+
+    Held-expert configs (``cfg.moe.held``): the leading dense layers
+    (``params["dense_blocks"]``) run first; each MoE layer ``l`` selects
+    with ``router_bias[l]`` (zeros if None), its balance term adds to the
+    aux, and its assignments per expert are appended to ``expert_counts``
+    if a list is given.
     """
     _check_family(cfg)
     dev = resolve_device(device)
@@ -172,14 +218,30 @@ def forward(
     aux = torch.zeros((), dtype=torch.float32, device=dev) if return_aux else None
     moe_aux = return_aux and bool(cfg.moe.n_experts)
     remat = cache is None and layers.remat_on(cfg, params["blocks"])
+    nd, held = cfg.moe.first_dense, bool(cfg.moe.held)
+    if held:
+        if cache is not None:
+            raise NotImplementedError(f"{cfg.name} trains, and is not served")
+        if aux is None:
+            aux = torch.zeros((), dtype=torch.float32, device=dev)
     for l, lcfg in enumerate(_layer_cfgs(cfg)):
-        blk = layer_params(params["blocks"], l)
-        if cache is None:
+        if l < nd:
+            blk = layer_params(params["dense_blocks"], l)
+        else:
+            blk = layer_params(params["blocks"], l - nd)
+        if held and l >= nd:
+            bias = None if router_bias is None else router_bias[l - nd]
+            fn = partial(checkpoint, _held_layer, use_reentrant=False) if remat else _held_layer
+            x, aux, counts = fn(blk, x, aux, lcfg, positions, bias)
+            if expert_counts is not None:
+                expert_counts.append(counts)
+        elif cache is None:
+            layer_aux = moe_aux and not held  # a held config's dense layers take none
             if remat:
-                x, aux = checkpoint(_layer, blk, x, aux, lcfg, positions, moe_aux,
+                x, aux = checkpoint(_layer, blk, x, aux, lcfg, positions, layer_aux,
                                     use_reentrant=False)
             else:
-                x, aux = _layer(blk, x, aux, lcfg, positions, moe_aux)
+                x, aux = _layer(blk, x, aux, lcfg, positions, layer_aux)
         else:
             x, _ = _block(blk, x, lcfg, positions=positions,
                           cache=(cache["k"][l], cache["v"][l]), cache_index=base)
@@ -199,21 +261,27 @@ def forward(
 # --------------------------------------------------------------------- loss
 
 
-def loss_fn(params, batch, cfg, *, device=None):
-    """Next-token cross-entropy; batch = {"tokens": (B, S+1)} (+ "patches"
-    (B, P, D) for vlm: the prefix's logits are dropped).  Returns (loss,
-    metrics); differentiable in ``params`` (``train.train_step`` takes its
-    gradient)."""
+def loss_fn(params, batch, cfg, *, router_bias=None, device=None):
+    """Next-token cross-entropy plus ``cfg.moe.aux_coef`` times the MoE aux;
+    batch = {"tokens": (B, S+1)} (+ "patches" (B, P, D) for vlm: the
+    prefix's logits are dropped).  Returns (loss, metrics); differentiable
+    in ``params`` (``train.train_step`` takes its gradient).  Held-expert
+    configs select with ``router_bias`` and add ``metrics["expert_counts"]``
+    (MoE layers, experts): the forward's assignments per expert."""
     with timeline.span("lm.tokens"):  # from host memory, the copy waits for the card
         tok = torch.as_tensor(batch["tokens"], dtype=torch.int64, device=resolve_device(device))
     prefix = batch.get("patches")
+    counts = [] if cfg.moe.held else None
     logits, aux = forward(params, tok[:, :-1], cfg, prefix_embeds=prefix, return_aux=True,
-                          device=device)
+                          router_bias=router_bias, expert_counts=counts, device=device)
     if prefix is not None:
         logits = logits[:, prefix.shape[1]:, :]
     nll = layers.next_token_nll(logits, tok[:, 1:])
-    loss = nll + 0.01 * aux
-    return loss, {"nll": nll, "aux": aux}
+    loss = nll + cfg.moe.aux_coef * aux
+    metrics = {"nll": nll, "aux": aux}
+    if counts:
+        metrics["expert_counts"] = torch.stack(counts)
+    return loss, metrics
 
 
 # ------------------------------------------------------------------- decode

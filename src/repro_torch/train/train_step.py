@@ -35,11 +35,20 @@ from repro_torch.parallel import sharded_lm
 from repro_torch.parallel import sharding as shd
 
 
-def make_loss_fn(cfg, *, device=None) -> Callable:
+def make_loss_fn(cfg, *, device=None, **kw) -> Callable:
     """``loss_fn(params, batch) -> (loss, metrics)`` of the config's family,
-    on ``device``."""
+    on ``device`` (``kw``: the family's further options, such as
+    ``router_bias``)."""
     mod = models.build(cfg)
-    return partial(mod.loss_fn, cfg=cfg, device=device)
+    return partial(mod.loss_fn, cfg=cfg, device=device, **kw)
+
+
+def update_router_bias(bias: torch.Tensor, counts: torch.Tensor, rate: float) -> torch.Tensor:
+    """DeepSeek-V3's selection-bias update after a step: each layer's
+    ``b_i + rate * sign(mean_j c_j - c_i)``, ``c`` the step's assignments
+    per expert (MoE layers, experts)."""
+    c = counts.to(torch.float32)
+    return bias + rate * torch.sign(c.mean(-1, keepdim=True) - c)
 
 
 def value_and_grad(loss_fn: Callable, params, batch):
@@ -74,11 +83,21 @@ def train_step(state: dict, batch: dict, cfg, *, peak_lr=3e-4, warmup=100, total
     ``shardings`` (the params' NamedShardings on a mesh with ranks): the
     state is this rank's shards and the batch its rows; see the module's
     docstring.
+
+    A held-expert config's state also holds ``"router_bias"``
+    (``transformer.init_router_bias``): the forward selects with it, and it
+    takes no gradient and no decay; after the update it moves by
+    :func:`update_router_bias` on the step's assignments per expert, which
+    the metrics give as ``"expert_counts"``.
     """
     with timeline.span("train_step"):
         dev = resolve_device(device)
         mesh = None if shardings is None else tree_leaves(shardings)[0].mesh
-        if mesh is None:
+        bias = state.get("router_bias")
+        counts = None
+        if bias is not None:
+            loss_fn = make_loss_fn(cfg, device=dev, router_bias=bias)
+        elif mesh is None:
             loss_fn = make_loss_fn(cfg, device=dev)
         else:
             loss_fn = partial(sharded_lm.loss_fn, cfg=cfg, mesh=mesh, device=dev)
@@ -90,7 +109,10 @@ def train_step(state: dict, batch: dict, cfg, *, peak_lr=3e-4, warmup=100, total
             for i in range(cfg.microbatches):
                 with timeline.span("train_step.microbatch", rid=i):
                     mb = {k: v[i] for k, v in batch.items()}
-                    (mb_loss, _), grads = value_and_grad(loss_fn, params, mb)
+                    (mb_loss, mbm), grads = value_and_grad(loss_fn, params, mb)
+                    if bias is not None:
+                        c = mbm["expert_counts"]
+                        counts = c if counts is None else counts + c
                     with timeline.span("train_step.accumulate"):
                         for a, g in zip(acc, tree_leaves(grads)):
                             a.add_(g)
@@ -101,7 +123,8 @@ def train_step(state: dict, batch: dict, cfg, *, peak_lr=3e-4, warmup=100, total
             loss = loss / cfg.microbatches
         else:
             with timeline.span("train_step.microbatch", rid=0):
-                (loss, _), grads = value_and_grad(loss_fn, params, batch)
+                (loss, mbm), grads = value_and_grad(loss_fn, params, batch)
+            counts = mbm.get("expert_counts")
 
         gnorm = None
         if mesh is not None:
@@ -117,7 +140,11 @@ def train_step(state: dict, batch: dict, cfg, *, peak_lr=3e-4, warmup=100, total
                                     total=total)
         new_params, new_opt, om = adamw.update(params, grads, state["opt"], lr=lr,
                                                grad_norm=gnorm)
-        return {"params": new_params, "opt": new_opt}, {"loss": loss, **om}
+        new_state, metrics = {"params": new_params, "opt": new_opt}, {"loss": loss, **om}
+        if bias is not None:
+            new_state["router_bias"] = update_router_bias(bias, counts, cfg.moe.bias_rate)
+            metrics["expert_counts"] = counts
+        return new_state, metrics
 
 
 def global_norm(grads, shardings) -> torch.Tensor:

@@ -15,9 +15,10 @@ from pathlib import Path
 import pytest
 import torch
 
+from repro.configs import ARCH_IDS as REF_ARCH_IDS
 from repro.launch import hlo_analysis as ref_ha
 from repro_torch.checkpoint.ckpt import tree_leaves
-from repro_torch.configs import ARCH_IDS, get_config, get_smoke_config
+from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.configs.base import SHAPES, ShapeConfig, cells
 from repro_torch.launch import dryrun, dryrun_pp, hlo_analysis, specs
 from repro_torch.launch.mesh import make_production_mesh
@@ -85,7 +86,9 @@ def test_no_tpu_figure_in_the_port():
 
 
 def _cells():
-    return [(a, s, tag, mp) for tag, mp in MESHES for a in ARCH_IDS for s in cells(a)]
+    """The reference's cells: its architectures (the port's training-only
+    Moonlight-16B-A3B has no counterpart there) at each shape and mesh."""
+    return [(a, s, tag, mp) for tag, mp in MESHES for a in REF_ARCH_IDS for s in cells(a)]
 
 
 def test_every_cells_bookkeeping_equals_the_reference(ref):

@@ -50,6 +50,8 @@ from repro_torch.serve import Engine, Request
 from repro_torch.serve import engine as tengine
 from repro_torch.serve import serve_step
 
+from _config_fields import reference_view
+
 # The reference's decode tolerance (tests/test_system.py), for bf16 logits.
 LOGIT_TOL = 1e-2
 # Float32 attention on identical inputs: the two packages sum in another order.
@@ -124,7 +126,7 @@ def test_config_copies_match_the_reference():
             ((get_config(n), jget_config(n)), (get_smoke_config(n), jget_smoke_config(n)))
             for n in ("yi_6b", "minitron_4b", "olmoe_1b_7b", "dbrx_132b", "h2o_danube_3_4b",
                       "granite_20b", "internvl2_76b")):
-        td, jd = dataclasses.asdict(t), dataclasses.asdict(j)
+        td, jd = reference_view(t, j), dataclasses.asdict(j)
         assert td.pop("quant")["impl"] == "horner" and jd.pop("quant")["impl"] == "xla"
         assert td == jd
         assert t.hd == j.hd

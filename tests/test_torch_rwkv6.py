@@ -50,6 +50,8 @@ from repro_torch.serve import Engine, Request, SpecEngine
 from repro_torch.serve import engine as tengine
 from repro_torch.serve import serve_step
 
+from _config_fields import reference_view
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 LOGIT_TOL = 1e-2  # the reference's decode tolerance (tests/test_system.py)
 STATE_TOL = 1e-5  # float32 state: the same products summed in another order
@@ -142,7 +144,7 @@ def _state(cfg, b, seed):
 def test_config_copies_match_the_reference():
     for t, j in ((get_config("rwkv6_3b"), jget_config("rwkv6_3b")),
                  (get_smoke_config("rwkv6_3b"), jget_smoke_config("rwkv6_3b"))):
-        td, jd = dataclasses.asdict(t), dataclasses.asdict(j)
+        td, jd = reference_view(t, j), dataclasses.asdict(j)
         assert td.pop("quant")["impl"] == "horner" and jd.pop("quant")["impl"] == "xla"
         assert td == jd
         assert rwkv6.dims(t) == jrwkv6.dims(j)

@@ -49,6 +49,8 @@ from repro_torch.obs.events import RecordingSink
 from repro_torch.serve import Engine, Request
 from repro_torch.serve import serve_step
 
+from _config_fields import reference_view
+
 SSD_REL = 1e-5  # the chunked SSD's float32 output, relative to its largest value
 CARRY_REL = 2**-8  # ... past the first chunk: one bf16 rounding of the carried state
 CUT = dict(d_model=256)  # z/xbc/out_proj, the shared block and the head int8
@@ -107,7 +109,7 @@ def _mamba_state(cfg, b, seed):
 def test_config_copies_match_the_reference():
     for t, j in ((get_config("zamba2_7b"), jget_config("zamba2_7b")),
                  (get_smoke_config("zamba2_7b"), jget_smoke_config("zamba2_7b"))):
-        td, jd = dataclasses.asdict(t), dataclasses.asdict(j)
+        td, jd = reference_view(t, j), dataclasses.asdict(j)
         assert td.pop("quant")["impl"] == "horner" and jd.pop("quant")["impl"] == "xla"
         assert td == jd
         assert mamba2.dims(t) == jmamba2.dims(j)
